@@ -1,0 +1,178 @@
+"""Devices, the build of the CUDA kernels, and their launch counts.
+
+Every kernel of the port is one CUDA C++ source under ``csrc/`` with a
+plain C entry point. :func:`kernel` compiles the source with ``nvcc`` for
+``sm_90a`` into ``build/gsplat_tpu_torch/`` beside the package (one shared
+library per source, named by a hash of the source and the flags, so an
+edited source rebuilds and an unchanged one is reused), loads it with
+``ctypes`` and returns the entry point. Nothing is compiled or loaded when a
+module is imported: the first launch builds, or :func:`build_all` builds
+every source at once, one ``nvcc`` process per source.
+
+Each kernel wrapper adds one to ``LAUNCHES[name]`` where it launches its
+kernel and nowhere else, so a run can show that its path went through the
+kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Optional, Sequence
+
+import torch
+
+_PKG = os.path.dirname(os.path.abspath(__file__))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "gsplat_tpu_torch")
+
+_COMMON_FLAGS = [
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+    "-Xptxas",
+    "-v",
+]
+
+# source name -> extra nvcc flags
+KERNELS: Dict[str, Sequence[str]] = {
+    # the exact ellipse-vs-tile cull must keep and drop the same entries as
+    # the plain torch version, so no multiply-add contraction
+    "emit": ("-fmad=false",),
+    "rasterize_fwd": (),
+}
+
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+# nvcc's stderr per built source (the -Xptxas -v register/spill report)
+BUILD_LOG: Dict[str, str] = {}
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+_LOCK = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    return dict(LAUNCHES)
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device; a CUDA device must exist."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available: pass device='cpu' to run the "
+            "plain PyTorch path"
+        )
+    return device
+
+
+def common_device(*tensors: Optional[torch.Tensor]) -> torch.device:
+    """The one device all given tensors lie on (None entries are skipped)."""
+    devices = {t.device for t in tensors if t is not None}
+    if len(devices) != 1:
+        raise ValueError(
+            f"inputs must lie on one device, got {sorted(map(str, devices))}"
+        )
+    return devices.pop()
+
+
+def use_kernel(device: torch.device) -> bool:
+    """True for CUDA tensors (launch the kernel), False for CPU tensors (the
+    plain version); any other device raises."""
+    if device.type == "cuda":
+        return True
+    if device.type == "cpu":
+        return False
+    raise NotImplementedError(f"no kernels for device type {device.type!r}")
+
+
+def stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for root in (home, "/usr/local/cuda"):
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found: set CUDA_HOME to the CUDA toolkit to build the "
+            "port's kernels"
+        )
+    return found
+
+
+def _library_path(name: str) -> str:
+    src = os.path.join(CSRC, name + ".cu")
+    flags = list(_COMMON_FLAGS) + list(KERNELS[name])
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(flags).encode())
+    return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+
+
+def _build(name: str) -> str:
+    """Compile csrc/<name>.cu unless its library is already built."""
+    out = _library_path(name)
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    src = os.path.join(CSRC, name + ".cu")
+    tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+    cmd = [_nvcc()] + list(_COMMON_FLAGS) + list(KERNELS[name]) + ["-o", tmp, src]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_LOG[name] = proc.stderr
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def _load(name: str, path: str) -> ctypes.CDLL:
+    with _LOCK:
+        if name not in _LIBS:
+            _LIBS[name] = ctypes.CDLL(path)
+        return _LIBS[name]
+
+
+def build_all() -> None:
+    """Build every kernel source at once (one nvcc process each) and load
+    the libraries."""
+    names = [n for n in KERNELS if n not in _LIBS]
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        paths = list(pool.map(_build, names))
+    for name, path in zip(names, paths):
+        _load(name, path)
+
+
+def kernel(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+    """The C entry point ``symbol`` of csrc/<name>.cu, built on first use.
+    It returns the launch's cudaError_t as an int."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        lib = _load(name, _build(name))
+    fn = getattr(lib, symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def check_launch(code: int, name: str) -> None:
+    if code != 0:
+        raise RuntimeError(f"{name} kernel launch failed with CUDA error {code}")

@@ -1,0 +1,33 @@
+from .binning import Binned, bin_gaussians
+from .projection import (
+    fisheye_proj,
+    fully_fused_projection,
+    fully_fused_projection_soa,
+    ortho_proj,
+    persp_proj,
+    quat_scale_to_covar_preci,
+    quat_to_rotmat,
+    world_to_cam,
+)
+from .rasterize import rasterize_to_pixels
+from .rasterize_binned import rasterize_to_pixels_binned
+from .rasterize_ref import rasterize_to_pixels_ref
+from .sh import eval_sh_bases, spherical_harmonics
+
+__all__ = [
+    "Binned",
+    "bin_gaussians",
+    "fully_fused_projection",
+    "fully_fused_projection_soa",
+    "quat_scale_to_covar_preci",
+    "quat_to_rotmat",
+    "world_to_cam",
+    "persp_proj",
+    "ortho_proj",
+    "fisheye_proj",
+    "rasterize_to_pixels",
+    "rasterize_to_pixels_binned",
+    "rasterize_to_pixels_ref",
+    "spherical_harmonics",
+    "eval_sh_bases",
+]

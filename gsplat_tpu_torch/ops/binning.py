@@ -1,0 +1,346 @@
+"""Binning engine: per-entry emission, one key sort, per-tile offsets (port
+of gsplat_tpu/ops/binning.py).
+
+The stream it builds is the JAX package's: every (camera, Gaussian, tile)
+entry of a Gaussian's tile rectangle, tight-culled against the exact
+ellipse, sorted by (tile, depth, gid), with the payload rows the
+rasterizer reads carried along.
+
+  1. Rectangles, per-Gaussian entry counts and the block rule (GB Gaussians
+     per block, SB-rounded slabs) are plain torch, as in the JAX package
+     where they sit outside the Pallas call. The rule fixes `slab_required`
+     and which whole blocks a too-small capacity truncates, so both match
+     the JAX package; the port itself sizes its buffers exactly.
+  2. The emit kernel (csrc/emit.cu; `_emit_plain` is its plain version)
+     writes each entry at an exclusive prefix sum of the counts, so the
+     emission order is ascending flat gid.
+  3. `torch.sort` of the 64-bit key `tile << 32 | depth bits` (stable), one
+     permutation of the gid and payload rows, and `torch.searchsorted` for
+     the tile offsets. A stable sort over gid-ordered emission gives the
+     JAX package's (tile, depth, gid) order exactly.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple, Sequence
+
+import torch
+
+from .. import _backend
+
+GB = 1024  # gaussians per emit block (the JAX package's block rule)
+SB = 512  # slab alignment quantum of that rule
+ALPHA_CULL = 1.0 / 255.0
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+class Binned(NamedTuple):
+    """Sorted per-entry stream.
+
+    entries: [NF, M] f32 - per-entry features in (cam, tile, depth, gid)
+        order: rows = gx, gy, conic_a, conic_b, conic_c, opacity, colors[D];
+        zero past n_isects.
+    gids: [M] i32 - flattened cam*N + gaussian index per entry; C*N past
+        n_isects (culled entries).
+    offs: [T] i32 - start of each (cam, tile) range in the stream.
+    cnts: [T] i32 - entries per (cam, tile).
+    n_isects: [] i64 tensor - true (culled) entry count.
+    slab_required: int - the JAX package's slab capacity to emit without
+        truncation (feed back into `capacity`).
+    """
+
+    entries: torch.Tensor
+    gids: torch.Tensor
+    offs: torch.Tensor
+    cnts: torch.Tensor
+    n_isects: torch.Tensor
+    slab_required: int
+
+
+class EmitPlan(NamedTuple):
+    """What the emit kernel and its plain version take: per flattened
+    (camera, Gaussian) id, its tile rectangle, entry count and write
+    position, plus the sanitised payload."""
+
+    tminx: torch.Tensor  # [CN] i32
+    tminy: torch.Tensor  # [CN] i32
+    rw: torch.Tensor  # [CN] i32 rectangle width in tiles
+    counts: torch.Tensor  # [CN] i32 entries to emit (0 if dead or truncated)
+    woff: torch.Tensor  # [CN] i64 exclusive prefix sum of counts
+    n_emit: int  # total entries emitted (culled ones included)
+    depth: torch.Tensor  # [CN] f32
+    payload: torch.Tensor  # [NF, CN] f32
+    N: int
+    tile_size: int
+    tile_width: int
+    n_tiles: int  # tiles per camera
+    sentinel: int  # key of a culled entry: (C * n_tiles) << 32, sorts last
+    cull: bool
+
+
+def _fin(x: torch.Tensor) -> torch.Tensor:
+    return torch.nan_to_num(x.detach(), nan=0.0, posinf=0.0, neginf=0.0)
+
+
+def plan_emit(
+    mean_x, mean_y,  # [C, N] f32
+    con_a, con_b, con_c,  # [C, N]
+    opacities,  # [C, N]
+    colors,  # [C, N, D]
+    radii,  # [C, N] i32
+    depths,  # [C, N] f32
+    tile_size: int,
+    tile_width: int,
+    tile_height: int,
+    capacity: int,
+    cull: bool = True,
+):
+    """Rectangles, counts, block rule and write positions. Returns
+    ``(plan, slab_required)``."""
+    _backend.common_device(
+        mean_x, mean_y, con_a, con_b, con_c, opacities, colors, radii, depths
+    )
+    C, N = mean_x.shape
+    CN = C * N
+    capA = _round_up(max(capacity, SB), SB)
+
+    mx, my = _fin(mean_x), _fin(mean_y)
+    if cull:
+        # Tight per-axis extent: the ellipse {0.5 x^T conic x <= tau},
+        # tau = ln(255 * op), bounds the alpha >= 1/255 region exactly; its
+        # AABB half-widths are sqrt(2 tau Sigma_xx/yy) with Sigma = conic^-1.
+        cca, ccb, ccc = _fin(con_a), _fin(con_b), _fin(con_c)
+        det = cca * ccc - ccb * ccb
+        tau = torch.log(torch.clamp_min(_fin(opacities), 1e-12) * 255.0)
+        ok = (det > 1e-24) & (cca > 0) & (ccc > 0)
+        sdet = torch.where(ok, det, 1.0)
+        ext_x = torch.sqrt(torch.clamp_min(2.0 * tau * ccc / sdet, 0.0)) + 0.5
+        ext_y = torch.sqrt(torch.clamp_min(2.0 * tau * cca / sdet, 0.0)) + 0.5
+        rad = radii.to(torch.float32)
+        ext_x = torch.where(ok, torch.minimum(ext_x, rad), rad)
+        ext_y = torch.where(ok, torch.minimum(ext_y, rad), rad)
+        alive = (radii > 0) & (tau > 0.0)
+    else:
+        ext_x = ext_y = radii.to(torch.float32)
+        alive = radii > 0
+    # the `m/ts - r/ts` form, so cull=False emits exactly the rect that the
+    # oracle's tile test and the JAX package's isect_tiles use
+    rx, ry = ext_x / tile_size, ext_y / tile_size
+    tminx = torch.clamp(torch.floor(mx / tile_size - rx), 0, tile_width)
+    tmaxx = torch.clamp(torch.ceil(mx / tile_size + rx), 0, tile_width)
+    tminy = torch.clamp(torch.floor(my / tile_size - ry), 0, tile_height)
+    tmaxy = torch.clamp(torch.ceil(my / tile_size + ry), 0, tile_height)
+    rw = (tmaxx - tminx).to(torch.int32)
+    rh = (tmaxy - tminy).to(torch.int32)
+    tpg = torch.where(alive, rw * rh, 0).reshape(-1)  # [CN] i32
+
+    # the JAX package's block rule: blocks of GB ids, each block's entries
+    # in an SB-rounded slab; a block is emitted iff its slab ends within capA
+    NB = -(-CN // GB)
+    per_block = torch.nn.functional.pad(tpg.to(torch.int64), (0, NB * GB - CN))
+    block_tot = per_block.reshape(NB, GB).sum(dim=1)
+    slab_end = torch.cumsum((block_tot + SB - 1) // SB * SB, dim=0)
+    fits = slab_end <= capA
+    counts = torch.where(fits.repeat_interleave(GB)[:CN], tpg, 0)
+    woff = torch.cumsum(counts.to(torch.int64), dim=0) - counts
+    n_emit, slab_required = (
+        torch.stack([counts.sum(dtype=torch.int64), slab_end[-1] if NB else slab_end.new_zeros(())])
+        .tolist()
+    )
+
+    D = colors.shape[-1]
+    rows = [mean_x, mean_y, con_a, con_b, con_c, opacities] + [
+        colors[..., d] for d in range(D)
+    ]
+    payload = torch.stack([_fin(r).reshape(-1) for r in rows]).to(torch.float32)
+    plan = EmitPlan(
+        tminx=tminx.reshape(-1).to(torch.int32),
+        tminy=tminy.reshape(-1).to(torch.int32),
+        rw=rw.reshape(-1),
+        counts=counts.to(torch.int32),
+        woff=woff,
+        n_emit=int(n_emit),
+        depth=_fin(depths).reshape(-1).to(torch.float32),
+        payload=payload.contiguous(),
+        N=N,
+        tile_size=tile_size,
+        tile_width=tile_width,
+        n_tiles=tile_width * tile_height,
+        sentinel=(C * tile_width * tile_height) << 32,
+        cull=cull,
+    )
+    return plan, int(slab_required)
+
+
+def _emit_plain(plan: EmitPlan):
+    """Plain torch version of the emit kernel: repeat_interleave + the same
+    cull. Returns (keys [M] i64, gids [M] i32, feats [NF, M] f32)."""
+    dev = plan.counts.device
+    CN = plan.counts.shape[0]
+    M = plan.n_emit
+    src = torch.repeat_interleave(
+        torch.arange(CN, device=dev), plan.counts.to(torch.int64), output_size=M
+    )
+    local = torch.arange(M, device=dev) - plan.woff[src]
+    rwi = plan.rw.to(torch.int64)[src].clamp_min(1)
+    tx = plan.tminx.to(torch.int64)[src] + local % rwi
+    ty = plan.tminy.to(torch.int64)[src] + local // rwi
+    tile_key = (src // plan.N) * plan.n_tiles + ty * plan.tile_width + tx
+
+    valid = torch.ones(M, dtype=torch.bool, device=dev)
+    if plan.cull:
+        # exact min of the conic quadratic over the tile's pixel-centre box;
+        # drop entries whose best-case alpha stays below 1/255 (the
+        # rasterizer's per-pixel test would reject them anyway)
+        ts = plan.tile_size
+        gx, gy, ca, cb, cc, op = (plan.payload[r][src] for r in range(6))
+        x0 = tx.to(torch.float32) * ts + 0.5 - gx
+        x1 = x0 + (ts - 1)
+        y0 = ty.to(torch.float32) * ts + 0.5 - gy
+        y1 = y0 + (ts - 1)
+
+        def q(dx, dy):
+            return 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+
+        safe_cc = torch.where(torch.abs(cc) > 1e-12, cc, 1.0)
+        safe_ca = torch.where(torch.abs(ca) > 1e-12, ca, 1.0)
+        ye0 = torch.clamp(-cb * x0 / safe_cc, min=y0, max=y1)
+        ye1 = torch.clamp(-cb * x1 / safe_cc, min=y0, max=y1)
+        xe0 = torch.clamp(-cb * y0 / safe_ca, min=x0, max=x1)
+        xe1 = torch.clamp(-cb * y1 / safe_ca, min=x0, max=x1)
+        minq = torch.minimum(
+            torch.minimum(q(x0, ye0), q(x1, ye1)),
+            torch.minimum(q(xe0, y0), q(xe1, y1)),
+        )
+        inside = (x0 <= 0) & (0 <= x1) & (y0 <= 0) & (0 <= y1)
+        minq = torch.where(inside, 0.0, minq)
+        valid = op * torch.exp(-minq) >= torch.tensor(ALPHA_CULL, dtype=torch.float32)
+
+    # depth bits in signed int32 order, shifted to [0, 2^32)
+    dlow = plan.depth.view(torch.int32).to(torch.int64)[src] + (1 << 31)
+    keys = torch.where(valid, (tile_key << 32) | dlow, plan.sentinel)
+    gids = torch.where(valid, src, CN).to(torch.int32)
+    feats = plan.payload[:, src]
+    return keys, gids, feats
+
+
+_EMIT_ARGS = (
+    [ctypes.c_void_p] * 7  # tminx, tminy, rw, counts, woff, depth, payload
+    + [ctypes.c_int] * 7  # CN, N, NF, n_tiles, tile_width, tile_size, cull
+    + [ctypes.c_longlong] * 2  # M, sentinel key
+    + [ctypes.c_void_p] * 4  # keys, gids, feats, stream
+)
+
+
+def _emit_cuda(plan: EmitPlan):
+    """Launch csrc/emit.cu: one thread per (camera, Gaussian). Same outputs
+    as `_emit_plain`."""
+    dev = plan.counts.device
+    if dev.type != "cuda":
+        raise ValueError(f"the emit kernel takes CUDA tensors, got {dev}")
+    CN = plan.counts.shape[0]
+    NF = plan.payload.shape[0]
+    M = plan.n_emit
+    keys = torch.empty(M, dtype=torch.int64, device=dev)
+    gids = torch.empty(M, dtype=torch.int32, device=dev)
+    feats = torch.empty((NF, M), dtype=torch.float32, device=dev)
+    if CN == 0:
+        return keys, gids, feats
+    ins = [plan.tminx, plan.tminy, plan.rw, plan.counts, plan.woff, plan.depth, plan.payload]
+    for t, dt in zip(ins, (torch.int32,) * 4 + (torch.int64, torch.float32, torch.float32)):
+        if t.dtype != dt or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"emit input of dtype {t.dtype} on {t.device}: expected contiguous {dt} on {dev}")
+    fn = _backend.kernel("emit", "emit_launch", _EMIT_ARGS)
+    code = fn(
+        *[t.data_ptr() for t in ins],
+        CN, plan.N, NF, plan.n_tiles, plan.tile_width, plan.tile_size, int(plan.cull),
+        M, plan.sentinel,
+        keys.data_ptr(), gids.data_ptr(), feats.data_ptr(), _backend.stream(dev),
+    )
+    _backend.check_launch(code, "emit")
+    _backend.LAUNCHES["emit"] += 1
+    return keys, gids, feats
+
+
+def emit_entries(
+    mean_x, mean_y,  # [C, N] f32
+    con_a, con_b, con_c,  # [C, N]
+    opacities,  # [C, N]
+    colors,  # [C, N, D]
+    radii,  # [C, N] i32
+    depths,  # [C, N] f32
+    tile_size: int,
+    tile_width: int,
+    tile_height: int,
+    capacity: int,
+    cull: bool = True,
+):
+    """Emit stage: per-entry rows, unsorted. Returns ``(ops,
+    slab_required)`` with ``ops = (keys, gids, feats)`` ready for
+    :func:`sort_entries`. CUDA tensors go through the emit kernel, CPU
+    tensors through its plain version."""
+    plan, slab_required = plan_emit(
+        mean_x, mean_y, con_a, con_b, con_c, opacities, colors, radii,
+        depths, tile_size, tile_width, tile_height, capacity, cull,
+    )
+    if _backend.use_kernel(plan.counts.device):
+        ops = _emit_cuda(plan)
+    else:
+        ops = _emit_plain(plan)
+    return ops, slab_required
+
+
+def sort_entries(ops: Sequence[torch.Tensor], T: int, slab_required: int) -> Binned:
+    """Sort the emitted entries by (tile, depth, gid) and build the
+    per-tile offset table (one stable key sort + a searchsorted)."""
+    keys, gids, feats = ops
+    keys_s, perm = torch.sort(keys, stable=True)
+    gids_s = gids[perm]
+    entries = feats[:, perm]
+    bounds = torch.searchsorted(
+        keys_s, torch.arange(T + 1, device=keys.device, dtype=torch.int64) << 32
+    ).to(torch.int32)
+    offs = bounds[:-1]
+    cnts = bounds[1:] - bounds[:-1]
+    n_isects = bounds[-1].to(torch.int64)
+    # culled entries sort past n_isects: zero their payload, as the JAX
+    # package zeroes its sentinel tail
+    pos = torch.arange(keys.shape[0], device=keys.device)
+    entries = torch.where(pos[None, :] < n_isects, entries, 0.0)
+    return Binned(
+        entries=entries,
+        gids=gids_s,
+        offs=offs,
+        cnts=cnts,
+        n_isects=n_isects,
+        slab_required=slab_required,
+    )
+
+
+def bin_gaussians(
+    mean_x, mean_y,  # [C, N] f32
+    con_a, con_b, con_c,  # [C, N]
+    opacities,  # [C, N]
+    colors,  # [C, N, D]
+    radii,  # [C, N] i32
+    depths,  # [C, N] f32
+    tile_size: int,
+    tile_width: int,
+    tile_height: int,
+    capacity: int,
+    cull: bool = True,
+) -> Binned:
+    """Emit + sort the per-entry stream. ``capacity`` is the JAX package's
+    slab budget; the returned ``slab_required`` is the budget needed
+    without truncation."""
+    ops, slab_required = emit_entries(
+        mean_x, mean_y, con_a, con_b, con_c, opacities, colors, radii,
+        depths, tile_size, tile_width, tile_height, capacity, cull,
+    )
+    return sort_entries(
+        ops, colors.shape[0] * tile_width * tile_height, slab_required
+    )

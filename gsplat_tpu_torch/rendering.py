@@ -1,0 +1,265 @@
+"""High-level rasterization API on one device (port of gsplat_tpu/rendering.py).
+
+`rasterization()` for 3DGS: projection, masks, SH colours, render modes,
+backgrounds, antialiased compensation and channel chunking are plain torch
+(`project_and_shade`); the binned backend runs the binning engine and the
+forward kernel (ops/binning.py, ops/rasterize_binned.py), and the oracle
+backend the O(N * pixels) reference. Not ported yet, and raising
+NotImplementedError rather than falling back: the tiled backend,
+``distributed=True``, 2DGS, ``means2d_carrier``/``absgrad``, and any binned
+call that needs a gradient.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from ._backend import common_device
+from .ops.projection import fully_fused_projection_soa
+from .ops.rasterize import TILED_NOT_PORTED, resolve_auto_backend
+from .ops.rasterize_binned import rasterize_to_pixels_binned
+from .ops.rasterize_ref import rasterize_to_pixels_ref
+from .ops.sh import spherical_harmonics
+
+RENDER_MODES = ("RGB", "D", "ED", "RGB+D", "RGB+ED")
+
+
+class Shaded(NamedTuple):
+    """Per-(camera, Gaussian) rasterizer inputs, each [C, N] (colors
+    [C, N, X]), and the backgrounds extended to the render mode."""
+
+    mean_x: torch.Tensor
+    mean_y: torch.Tensor
+    conics: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
+    opacities: torch.Tensor
+    colors: torch.Tensor
+    radii: torch.Tensor
+    depths: torch.Tensor
+    backgrounds: Optional[torch.Tensor]
+
+
+def project_and_shade(
+    means, quats, scales, opacities, colors, viewmats, Ks, width, height,
+    near_plane=0.01, far_plane=1e10, radius_clip=0.0, eps2d=0.3,
+    sh_degree=None, backgrounds=None, render_mode="RGB",
+    rasterize_mode="classic", camera_model="pinhole", covars=None, masks=None,
+) -> Shaded:
+    """Everything of `rasterization()` before the rasterizer: projection,
+    masks, compensation, colours (SH +0.5 and clamp) and the depth
+    channel."""
+    N = means.shape[0]
+    C = viewmats.shape[0]
+    proj = fully_fused_projection_soa(
+        means, quats, scales, viewmats, Ks, width, height,
+        eps2d=eps2d, near_plane=near_plane, far_plane=far_plane,
+        radius_clip=radius_clip,
+        calc_compensations=(rasterize_mode == "antialiased"),
+        camera_model=camera_model, covars=covars,
+    )
+    radii = proj["radii"]
+    depths = proj["depth"]
+    if masks is not None:
+        # dead pool slots are culled exactly like frustum-culled Gaussians
+        radii = torch.where(masks[None, :], radii, 0)
+
+    opacities_cn = opacities[None, :].expand(C, N)
+    if "compensation" in proj:
+        opacities_cn = opacities_cn * proj["compensation"]
+
+    if sh_degree is None:
+        if colors.dim() == 2:
+            colors_cn = colors[None].expand(C, N, colors.shape[-1])
+        else:
+            colors_cn = colors
+    else:
+        camtoworlds = torch.linalg.inv(viewmats)  # [C, 4, 4]
+        dirs = means[None, :, :] - camtoworlds[:, None, :3, 3]  # [C, N, 3]
+        if colors.dim() == 3:
+            shs = colors[None].expand((C,) + tuple(colors.shape))
+        else:
+            shs = colors
+        colors_cn = spherical_harmonics(sh_degree, dirs, shs, masks=radii > 0)
+        # the +0.5 offset and clamp of the reference's Inria-style colours
+        colors_cn = torch.clamp_min(colors_cn + 0.5, 0.0)
+
+    if render_mode in ("RGB+D", "RGB+ED"):
+        colors_cn = torch.cat([colors_cn, depths[..., None]], dim=-1)
+        if backgrounds is not None:
+            backgrounds = torch.cat(
+                [backgrounds, backgrounds.new_zeros((C, 1))], dim=-1
+            )
+    elif render_mode in ("D", "ED"):
+        colors_cn = depths[..., None]
+        if backgrounds is not None:
+            backgrounds = backgrounds.new_zeros((C, 1))
+
+    return Shaded(
+        mean_x=proj["mean_x"],
+        mean_y=proj["mean_y"],
+        conics=(proj["conic_a"], proj["conic_b"], proj["conic_c"]),
+        opacities=opacities_cn,
+        colors=colors_cn,
+        radii=radii,
+        depths=depths,
+        backgrounds=backgrounds,
+    )
+
+
+def rasterization(
+    means: torch.Tensor,  # [N, 3]
+    quats: torch.Tensor,  # [N, 4]
+    scales: torch.Tensor,  # [N, 3]
+    opacities: torch.Tensor,  # [N]
+    colors: torch.Tensor,  # [(C,) N, D] or [(C,) N, K, 3]
+    viewmats: torch.Tensor,  # [C, 4, 4]
+    Ks: torch.Tensor,  # [C, 3, 3]
+    width: int,
+    height: int,
+    near_plane: float = 0.01,
+    far_plane: float = 1e10,
+    radius_clip: float = 0.0,
+    eps2d: float = 0.3,
+    sh_degree: Optional[int] = None,
+    tile_size: int = 16,
+    backgrounds: Optional[torch.Tensor] = None,  # [C, D]
+    render_mode: str = "RGB",
+    rasterize_mode: str = "classic",  # or "antialiased"
+    channel_chunk: int = 32,
+    camera_model: str = "pinhole",
+    covars: Optional[torch.Tensor] = None,  # [N, 3, 3]
+    backend: str = "auto",
+    isect_capacity: Optional[int] = None,
+    means2d_carrier: Optional[torch.Tensor] = None,
+    masks: Optional[torch.Tensor] = None,  # [N] bool, False = skip (dead pool slot)
+    absgrad: bool = False,
+    distributed: bool = False,
+) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
+    """Rasterize N 3D Gaussians to C image planes, on the device of the
+    inputs.
+
+    Returns (render_colors [C, H, W, X], render_alphas [C, H, W, 1], meta).
+    X = D (+1 if render_mode includes depth).
+    """
+    if distributed:
+        raise NotImplementedError(
+            "distributed=True is not ported yet: it comes with the port's "
+            "multi-GPU slice"
+        )
+    if means2d_carrier is not None or absgrad:
+        raise NotImplementedError(
+            "means2d_carrier/absgrad are not ported yet: they come with port "
+            "slice 2 (training)"
+        )
+    if render_mode not in RENDER_MODES:
+        raise ValueError(f"render_mode must be one of {RENDER_MODES}, got {render_mode!r}")
+    if rasterize_mode not in ("classic", "antialiased"):
+        raise ValueError(f"unknown rasterize_mode {rasterize_mode!r}")
+    common_device(
+        means, quats, scales, opacities, colors, viewmats, Ks, backgrounds,
+        covars, masks,
+    )
+    C = viewmats.shape[0]
+    backend, isect_capacity = resolve_auto_backend(
+        backend, isect_capacity, C, means.shape[0], width, height
+    )
+    if backend == "tiled":
+        raise NotImplementedError(TILED_NOT_PORTED)
+    if backend not in ("oracle", "binned"):
+        raise ValueError(f"Unknown backend: {backend}")
+    if backend == "binned" and isect_capacity is None:
+        raise ValueError("backend='binned' needs isect_capacity")
+
+    s = project_and_shade(
+        means, quats, scales, opacities, colors, viewmats, Ks, width, height,
+        near_plane=near_plane, far_plane=far_plane, radius_clip=radius_clip,
+        eps2d=eps2d, sh_degree=sh_degree, backgrounds=backgrounds,
+        render_mode=render_mode, rasterize_mode=rasterize_mode,
+        camera_model=camera_model, covars=covars, masks=masks,
+    )
+    meta: Dict = {
+        "radii": s.radii,
+        "depths": s.depths,
+        "width": width,
+        "height": height,
+        "tile_size": tile_size,
+        "n_cameras": C,
+    }
+
+    if backend == "oracle":
+        means2d = torch.stack([s.mean_x, s.mean_y], dim=-1)
+        conics = torch.stack(s.conics, dim=-1)
+        meta["means2d"] = means2d
+
+        def _fn(col, bg):
+            return rasterize_to_pixels_ref(
+                means2d, conics, col, s.opacities, s.radii, s.depths,
+                width, height, tile_size, bg,
+            )
+
+        render_colors, render_alphas = _rasterize_chunked(
+            _fn, channel_chunk, s.colors, s.backgrounds
+        )
+    else:
+        aux_out = {}
+
+        def _fn(col, bg):
+            r, a, aux = rasterize_to_pixels_binned(
+                (s.mean_x, s.mean_y), s.conics, col, s.opacities,
+                s.radii, s.depths, width, height, tile_size,
+                capacity=isect_capacity, backgrounds=bg,
+            )
+            aux_out.update(aux)
+            return r, a
+
+        render_colors, render_alphas = _rasterize_chunked(
+            _fn, channel_chunk, s.colors, s.backgrounds
+        )
+        meta.update(
+            {
+                "tile_width": math.ceil(width / tile_size),
+                "tile_height": math.ceil(height / tile_size),
+                "n_isects": aux_out["n_isects"],
+                "slab_required": aux_out["slab_required"],
+                # the budget used: slab_required above it means truncation
+                "isect_capacity": isect_capacity,
+            }
+        )
+
+    if render_mode in ("ED", "RGB+ED"):
+        render_colors = torch.cat(
+            [
+                render_colors[..., :-1],
+                render_colors[..., -1:] / torch.clamp_min(render_alphas, 1e-10),
+            ],
+            dim=-1,
+        )
+
+    return render_colors, render_alphas, meta
+
+
+def _rasterize_chunked(fn, channel_chunk, colors, backgrounds):
+    """Rasterize channels in chunks of `channel_chunk`."""
+    D = colors.shape[-1]
+    if D <= channel_chunk:
+        return fn(colors, backgrounds)
+    out_c, out_a = [], None
+    n_chunks = (D + channel_chunk - 1) // channel_chunk
+    for i in range(n_chunks):
+        sl = slice(i * channel_chunk, (i + 1) * channel_chunk)
+        bg = backgrounds[..., sl] if backgrounds is not None else None
+        rc, ra = fn(colors[..., sl], bg)
+        out_c.append(rc)
+        if out_a is None:
+            out_a = ra
+    return torch.cat(out_c, dim=-1), out_a
+
+
+def rasterization_2dgs(*args, **kwargs):
+    """2DGS (surfel) rasterization is not ported yet."""
+    raise NotImplementedError(
+        "rasterization_2dgs is not ported yet: it comes with the port's 2DGS "
+        "slice"
+    )

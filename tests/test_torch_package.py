@@ -1,0 +1,259 @@
+"""The port as a package: what it imports, where it runs, what it refuses.
+
+- importing gsplat_tpu_torch loads neither jax nor gsplat_tpu, and no source
+  of the package or chip_smoke.py imports them;
+- functions run on the device of their inputs and refuse mixed devices;
+  splats_from_numpy defaults to CUDA and raises without it;
+- paths not ported yet raise NotImplementedError instead of falling back;
+- CPU runs take the kernels' plain versions and launch no kernel;
+- checkpoint arrays (the JAX trainer's layout and the viewer's) render the
+  same image in both packages through the trainer's render transform.
+"""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+import gsplat_tpu
+import gsplat_tpu_torch
+from gsplat_tpu.ops.rasterize import resolve_auto_backend as jax_resolve
+from gsplat_tpu_torch import _backend, rasterization, splats_from_numpy
+from gsplat_tpu_torch.ops import binning
+from gsplat_tpu_torch.ops import rasterize_binned as trb
+from gsplat_tpu_torch.ops.rasterize import rasterize_to_pixels, resolve_auto_backend
+
+from test_torch_rendering import CAP, _compare, _garden
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "gsplat_tpu_torch")
+
+
+def test_import_loads_no_jax():
+    code = (
+        "import sys, gsplat_tpu_torch, gsplat_tpu_torch.ops.rasterize_binned\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m == 'gsplat_tpu' or m.startswith('gsplat_tpu.'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "clean" in out.stdout
+
+
+def _imports(path):
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def _sources():
+    for root, _, files in os.walk(PKG):
+        yield from (os.path.join(root, f) for f in files if f.endswith(".py"))
+    yield os.path.join(ROOT, "chip_smoke.py")
+
+
+@pytest.mark.parametrize("path", sorted(_sources()), ids=lambda p: os.path.relpath(p, ROOT))
+def test_source_imports_no_jax(path):
+    for name in _imports(path):
+        top = name.split(".")[0]
+        assert top not in ("jax", "jaxlib", "gsplat_tpu"), f"{path} imports {name}"
+
+
+def test_kernel_sources_ship():
+    for name in _backend.KERNELS:
+        assert os.path.exists(os.path.join(_backend.CSRC, name + ".cu"))
+
+
+def test_load_test_data_matches_jax():
+    for a, b in zip(gsplat_tpu_torch.load_test_data(), gsplat_tpu.load_test_data()):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+@pytest.mark.parametrize("cap", [None, 4096])
+@pytest.mark.parametrize("n", [10, 10_000_000])
+def test_resolve_auto_backend_matches_jax(cap, n):
+    for backend in ("auto", "oracle", "binned"):
+        assert resolve_auto_backend(backend, cap, 2, n, 64, 48) == jax_resolve(
+            backend, cap, 2, n, 64, 48
+        )
+
+
+def test_splats_from_numpy_needs_cuda_unless_cpu(monkeypatch):
+    arrays = {"means": np.zeros((4, 3), np.float32), "quats": np.ones((4, 4), np.float32),
+              "scales": np.zeros((4, 3), np.float32), "opacities": np.zeros(4, np.float32),
+              "sh0": np.zeros((4, 1, 3), np.float32)}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        splats_from_numpy(arrays)
+    splats, live = splats_from_numpy(arrays, device="cpu")
+    assert live is None
+    assert splats["shN"].shape == (4, 0, 3)
+    assert all(t.device.type == "cpu" for t in splats.values())
+    with pytest.raises(KeyError):
+        splats_from_numpy({"means": arrays["means"]}, device="cpu")
+
+
+def _tiny(requires_grad=False):
+    rng = np.random.default_rng(0)
+    N, C, W, H = 64, 1, 32, 32
+    means = torch.from_numpy(rng.standard_normal((N, 3)).astype(np.float32))
+    quats = torch.from_numpy(rng.standard_normal((N, 4)).astype(np.float32))
+    scales = torch.full((N, 3), 0.2)
+    opac = torch.full((N,), 0.8)
+    colors = torch.from_numpy(rng.random((N, 3)).astype(np.float32))
+    viewmats = torch.eye(4)[None].clone()
+    viewmats[0, 2, 3] = 4.0
+    Ks = torch.tensor([[[30.0, 0, W / 2], [0, 30.0, H / 2], [0, 0, 1]]])
+    means.requires_grad_(requires_grad)
+    return [means, quats, scales, opac, colors, viewmats, Ks, W, H]
+
+
+def test_binned_backend_refuses_gradients():
+    args = _tiny(requires_grad=True)
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        rasterization(*args, backend="binned", isect_capacity=4096)
+    with torch.no_grad():
+        img, alpha, meta = rasterization(*args, backend="binned", isect_capacity=4096)
+    assert int(meta["n_isects"]) > 0 and float(alpha.mean()) > 0
+    # the oracle is plain torch and differentiates
+    img, _, _ = rasterization(*args, backend="oracle")
+    img.sum().backward()
+    assert args[0].grad is not None and torch.isfinite(args[0].grad).all()
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(backend="tiled", isect_capacity=4096), "tiled"),
+    (dict(distributed=True), "multi-GPU"),
+    (dict(absgrad=True), "slice 2"),
+    (dict(means2d_carrier=torch.zeros(1, 64, 2)), "slice 2"),
+])
+def test_unported_paths_raise(kw, match):
+    with pytest.raises(NotImplementedError, match=match):
+        rasterization(*_tiny(), **kw)
+
+
+def test_unported_entry_points_raise():
+    with pytest.raises(NotImplementedError, match="2DGS"):
+        gsplat_tpu_torch.rasterization_2dgs(*_tiny())
+    args = _tiny()
+    C, N = 1, args[0].shape[0]
+    with pytest.raises(NotImplementedError, match="tiled"):
+        rasterize_to_pixels(
+            torch.zeros(C, N, 2), torch.zeros(C, N, 3), torch.zeros(C, N, 3),
+            torch.zeros(C, N), torch.zeros(C, N, dtype=torch.int32),
+            torch.ones(C, N), 32, 32, capacity=4096, backend="tiled",
+        )
+    with pytest.raises(NotImplementedError, match="slice 2"):
+        trb.rasterize_to_pixels_binned(
+            torch.zeros(C, N, 2), torch.zeros(C, N, 3), torch.zeros(C, N, 3),
+            torch.zeros(C, N), torch.zeros(C, N, dtype=torch.int32),
+            torch.ones(C, N), 32, 32, 16, 4096,
+            abs_carrier=(torch.zeros(C, N), torch.zeros(C, N)),
+        )
+
+
+def test_auto_backend_on_a_large_scene_raises_not_falls_back(monkeypatch):
+    """resolve_auto_backend sends large scenes without a capacity to the
+    tiled backend, which is not ported: the call raises."""
+    import gsplat_tpu_torch.ops.rasterize as rz
+
+    monkeypatch.setattr(rz, "_ORACLE_AUTO_ELEMS", 16)
+    with pytest.raises(NotImplementedError, match="tiled"):
+        rasterization(*_tiny())
+
+
+def test_mixed_devices_raise():
+    args = _tiny()
+    args[4] = torch.zeros(args[4].shape, device="meta")
+    with pytest.raises(ValueError, match="one device"):
+        rasterization(*args, backend="binned", isect_capacity=4096)
+    with pytest.raises(NotImplementedError):
+        _backend.use_kernel(torch.device("meta"))
+    assert _backend.use_kernel(torch.device("cuda")) is True
+    assert _backend.use_kernel(torch.device("cpu")) is False
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    args = _tiny()
+    with torch.no_grad():
+        _, _, _, binned = trb._raster_binned_fwd(
+            *gsplat_tpu_torch.fully_fused_projection(*args[:3], *args[5:])[1:2],
+            torch.zeros(1, 64, 3), torch.rand(1, 64, 3), torch.full((1, 64), 0.5),
+            torch.ones(1, 64, dtype=torch.int32), torch.full((1, 64), 4.0),
+            32, 32, 16, 4096,
+        )
+    with pytest.raises(ValueError, match="CUDA"):
+        trb._fwd_cuda(binned.entries, binned.offs, binned.cnts, 1, 32, 32, 16)
+    plan, _ = binning.plan_emit(
+        *[torch.zeros(1, 4)] * 6, torch.zeros(1, 4, 3),
+        torch.ones(1, 4, dtype=torch.int32), torch.ones(1, 4), 16, 2, 2, 4096,
+    )
+    with pytest.raises(ValueError, match="CUDA"):
+        binning._emit_cuda(plan)
+
+
+def test_cpu_runs_launch_no_kernel():
+    _backend.reset_launch_counts()
+    with torch.no_grad():
+        rasterization(*_tiny(), backend="binned", isect_capacity=4096, sh_degree=None)
+    assert _backend.launch_counts() == {"emit": 0, "rasterize_fwd": 0}
+    assert not _backend.BUILD_LOG
+
+
+@pytest.fixture(scope="module")
+def garden():
+    return _garden(4500, 8)
+
+
+@pytest.mark.parametrize("prefix", ["splat/", ""])
+def test_checkpoint_render_matches_jax(garden, prefix):
+    """Weights carried across: both packages render the same checkpoint
+    arrays through the JAX trainer's render transform (Runner.render)."""
+    g = garden
+    N = g["means"].shape[0]
+    op = np.clip(g["opacities"], 1e-4, 1 - 1e-4)
+    arrays = {
+        prefix + "means": g["means"],
+        prefix + "quats": g["quats"],
+        prefix + "scales": np.log(g["scales"]),
+        prefix + "opacities": np.log(op / (1.0 - op)),
+        prefix + "sh0": g["rgb"][:, None, :],
+        prefix + "shN": g["sh"][:, 1:, :] * 0.1,
+        "live": g["masks"],
+    }
+    splats, live = splats_from_numpy(arrays, device="cpu")
+    assert live.dtype == torch.bool and live.shape == (N,)
+    for key in ("means", "quats", "scales", "opacities", "sh0", "shN"):
+        np.testing.assert_array_equal(splats[key].numpy(), arrays[prefix + key])
+    common = dict(sh_degree=3, backend="binned", isect_capacity=CAP)
+    got = rasterization(
+        splats["means"], splats["quats"], torch.exp(splats["scales"]),
+        torch.sigmoid(splats["opacities"]),
+        torch.cat([splats["sh0"], splats["shN"]], dim=1),
+        torch.from_numpy(g["viewmats"]), torch.from_numpy(g["Ks"]),
+        g["W"], g["H"], masks=live, **common,
+    )
+    j = {k: jnp.asarray(v) for k, v in arrays.items()}
+    want = gsplat_tpu.rasterization(
+        j[prefix + "means"], j[prefix + "quats"], jnp.exp(j[prefix + "scales"]),
+        1.0 / (1.0 + jnp.exp(-j[prefix + "opacities"])),
+        jnp.concatenate([j[prefix + "sh0"], j[prefix + "shN"]], axis=1),
+        jnp.asarray(g["viewmats"]), jnp.asarray(g["Ks"]), g["W"], g["H"],
+        masks=j["live"], **common,
+    )
+    _compare(want, got)
