@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's forward render path on one CUDA card.
+"""Drive the PyTorch port's render and training paths on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -7,24 +7,40 @@ Phases, each printing its lines; any failure raises and the script exits
 non-zero (there is no CPU fallback):
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: both kernels (csrc/emit.cu, csrc/rasterize_fwd.cu), one nvcc
-     process each, into build/gsplat_tpu_torch/;
-  3. kernel vs plain on the card: garden scene_grid=1 at its native 648x420,
-     3 cameras, tile sizes 16 and 32, sh_degree 0 and 3: the emit kernel's
-     stream must equal its plain version's, and the forward kernel's image
-     and alpha must agree with its plain version's within max abs 2e-4 (an
-     entry at the T ~ 1e-4 termination boundary can flip when the product
-     is rounded in another order) and mean abs 1e-6; the binned render must
-     agree with the oracle render on a small subsample;
-  4. main path: garden scene_grid=5 (2,794,625 Gaussians) at 1920x1080,
-     one camera per frame, tile size 16, sh_degree 3 with seeded shN,
-     through splats_from_numpy and rasterization(backend="binned"), a few
-     frames over the 3 fixture cameras; launch counts, frame and stage
-     times, finiteness, the device's busy time and idle share in one
-     profiled frame, frame time at tile sizes 8/16/32; then each kernel
-     against its plain version at these shapes, and the `kernels` line with
-     times and bounds;
-  5. the result line.
+  2. build: the four kernels (csrc/emit.cu, rasterize_fwd.cu,
+     rasterize_bwd.cu, gid_reduce.cu), one nvcc process each, started
+     together, into build/gsplat_tpu_torch/, with ptxas's register and
+     spill lines;
+  3. kernel vs plain on the card: garden scene_grid=1 at its native
+     648x420, 3 cameras, tile sizes 16 and 32, sh_degree 0 and 3:
+     - the emit kernel's stream must equal its plain version's;
+     - the forward kernel's image and alpha within max abs 2e-4 (an entry
+       at the T ~ 1e-4 termination boundary can flip when the product is
+       rounded in another order) and mean abs 1e-6;
+     - the backward kernel's rows, for seeded cotangents, within rtol 1e-3
+       and atol 1e-4 x the row's max |plain| (T is rebuilt by division,
+       which loses digits where alpha was clamped at 0.999); also with the
+       absgrad rows, and at D = 8, 16, 32 with a background;
+     - the reduce kernel against index_add_ within 1e-6 x the row's
+       largest per-Gaussian sum of |values| (the two add in other orders);
+     - binned against the oracle on a small subsample: render, and the
+       gradients w.r.t. the splat parameters;
+  4. serving path: garden scene_grid=5 (2,794,625 Gaussians) at
+     1920x1080, one camera per frame, tile size 16, sh_degree 3, through
+     rasterization(backend="binned") under no_grad, with its launch counts,
+     frame and stage times, one profiled frame and the tile-size sweep;
+     emit and forward against their plain versions at these shapes;
+  5. training path: simple_trainer.Runner on the same 2,794,625 points
+     (kNN scales, pool of round_up(1.5 N, 4096) slots) against targets
+     rendered from the fixture's own splats, 12 steps of one view, tile
+     16, DefaultStrategy refining at steps 5 and 10; per-step loss, live
+     count and time, each kernel launched in every step, finiteness, the
+     loss on view 0 falling; bench.py's fwd+bwd measure on the port; one
+     profiled step; step time at tile 16 and 32; each kernel against its
+     plain version at the train path's shapes; the reduce path (gid sort +
+     searchsorted + kernel) against index_add_ there and on synthetic
+     uniform and large-splat gids of the same sizes; the `kernels` line;
+  6. the result line.
 """
 
 import json
@@ -39,9 +55,12 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 FWD_MAX_ABS = 2e-4
 FWD_MEAN_ABS = 1e-6
+BWD_RTOL, BWD_ATOL = 1e-3, 1e-4  # atol relative to the row's max |plain|
+REDUCE_TOL = 1e-6
 MAIN_TILE = 16
 MAIN_GRID = 5
 MAIN_W, MAIN_H = 1920, 1080
+TRAIN_STEPS = 12
 SEED = 0
 
 
@@ -63,6 +82,18 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def timed_once(torch, fn):
+    """(result of one call of `fn`, its ms by CUDA events)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def device_time_by_kernel(torch, fn):
     """Kernel times on the card over one call of `fn`, from torch.profiler:
     {kernel name: ms}, summed over launches (empty if the profiler saw no
@@ -77,9 +108,24 @@ def device_time_by_kernel(torch, fn):
         torch.cuda.synchronize()
     by_name = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # user annotations (record_function ranges such as the optimizer's
+        # step) also appear on the device timeline; they span kernels
+        if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     return by_name
+
+
+def log_profile(what, kern, total_ms):
+    """Device busy time (kernels on one stream do not overlap, so their sum)
+    and idle share against the unprofiled time `total_ms`."""
+    if not kern:
+        log(f"profiled {what}: the profiler saw no device events; busy time not measured")
+        return
+    busy = sum(kern.values())
+    top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
+    log(f"profiled {what}: {len(kern)} kernel names, device busy {busy:.3f} ms, "
+        f"idle share {1.0 - busy / total_ms:.3f} of {total_ms:.3f} ms; top: "
+        + "; ".join(f"{name[:48]} {ms:.3f}" for name, ms in top))
 
 
 def splat_arrays(grid, sh_degree, seed):
@@ -151,7 +197,8 @@ def compare_emit(torch, binning, plan, slab, T):
 def compare_fwd(torch, rb, bk, C, W, H, ts, entries=None, bg=None):
     """Forward kernel vs plain on one stream (its entries, or `entries` in
     their place). Returns (max abs, mean abs, share of pixels with equal
-    `last`, count of values off by > 1e-5, evaluated pairs)."""
+    `last`, count of values off by > 1e-5, evaluated pairs, the kernel's
+    (image, T, last))."""
     entries = bk.entries if entries is None else entries
     args = (entries, bk.offs, bk.cnts, C, W, H, ts, bg)
     img_k, T_k, last_k = rb._fwd_cuda(*args)
@@ -167,7 +214,84 @@ def compare_fwd(torch, rb, bk, C, W, H, ts, entries=None, bg=None):
             f"mean abs {mean_abs:.3e} (limit {FWD_MEAN_ABS}), {n_off} values off by > 1e-5"
         )
     same_last = float((last_k == last_p).float().mean())
-    return max_abs, mean_abs, same_last, n_off, pairs
+    return max_abs, mean_abs, same_last, n_off, pairs, (img_k, T_k, last_k)
+
+
+def cotangents(torch, gen, T_out, D):
+    """Seeded cotangents of the image [C,H,W,D] and of T_final [C,H,W]."""
+    v_img = torch.randn(T_out.shape + (D,), generator=gen, device=T_out.device)
+    v_T = torch.randn(T_out.shape, generator=gen, device=T_out.device)
+    return v_img, v_T
+
+
+def compare_bwd(torch, rb, bk, T_out, last, v_img, v_T, C, W, H, ts, absgrad, entries=None, plain=None):
+    """Backward kernel vs plain on one stream. Each row within BWD_RTOL of
+    |plain| plus BWD_ATOL x the row's max |plain|. Returns (kernel rows,
+    plain rows, max abs error, per-row max abs errors, plain's pair counts).
+    `plain` is a precomputed result of `_bwd_plain` on the same inputs."""
+    entries = bk.entries if entries is None else entries
+    args = (entries, bk.offs, bk.cnts, T_out, last, v_img, v_T, C, W, H, ts, absgrad)
+    rows_k = rb._bwd_cuda(*args)
+    rows_p, pairs = rb._bwd_plain(*args) if plain is None else plain
+    if not torch.isfinite(rows_k).all():
+        raise AssertionError("backward kernel rows are not finite")
+    errs = []
+    for r in range(rows_p.shape[0]):
+        diff = (rows_k[r] - rows_p[r]).abs()
+        scale = float(rows_p[r].abs().max())
+        bad = diff > BWD_RTOL * rows_p[r].abs() + BWD_ATOL * scale
+        if bool(bad.any()):
+            raise AssertionError(
+                f"backward kernel row {r} vs plain: {int(bad.sum())} slots off, max abs "
+                f"{float(diff.max()):.3e} against row max {scale:.3e}"
+            )
+        errs.append(float(diff.max()))
+    return rows_k, rows_p, max(errs), errs, pairs
+
+
+def compare_reduce(torch, rb, rows, gids, n_out):
+    """Reduce kernel vs index_add_ (its plain version). Returns (max abs
+    error, the row scales)."""
+    got = rb._reduce_cuda(rows, *rb.gid_segments(gids, n_out), n_out)
+    want = rb._reduce_plain(rows, gids, n_out)
+    scale = rb._reduce_plain(rows.abs(), gids, n_out).amax(dim=1)  # per-row largest sum of |values|
+    diff = (got - want).abs()
+    bad = diff > REDUCE_TOL * scale[:, None]
+    if bool(bad.any()):
+        raise AssertionError(
+            f"reduce kernel vs index_add_: {int(bad.sum())} values off, max abs {float(diff.max()):.3e}"
+        )
+    return float(diff.max()), scale
+
+
+def reduce_synthetic(torch, rb, M, n_out, R, reps):
+    """The reduce path against index_add_ on seeded rows [R, M] at the train
+    shapes' sizes, for three gid layouts: uniform over the n_out Gaussians;
+    the same with one Gaussian owning 20,000 of the slots (a large splat);
+    and with Gaussians 1-100 owning 200-1,199 slots each, so that medium
+    and long segments meet inside the kernel's chunks. Each is checked as
+    compare_reduce checks it."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    rows = torch.randn((R, M), generator=gen, device=dev)
+    uniform = torch.randint(0, n_out, (M,), generator=gen, device=dev)
+    shuffled = torch.randperm(M, generator=gen, device=dev)
+    splat = uniform.clone()
+    splat[shuffled[:20000]] = 0
+    ids = torch.arange(1, 101, device=dev)
+    many = uniform.clone()
+    owners = ids.repeat_interleave(200 + (ids * 37) % 1000)
+    many[shuffled[: owners.shape[0]]] = owners
+    layouts = (("uniform gids", uniform), ("one splat over 20000 slots", splat),
+               (f"100 splats over {owners.shape[0]} slots", many))
+    for what, gids in layouts:
+        segs = rb.gid_segments(gids, n_out)
+        k_ms = cuda_ms(torch, lambda: rb._reduce_cuda(rows, *segs, n_out), reps)
+        p_ms = cuda_ms(torch, lambda: rb._reduce_cuda(rows, *rb.gid_segments(gids, n_out), n_out), reps)
+        lib_ms = cuda_ms(torch, lambda: rb._reduce_plain(rows, gids, n_out), reps)
+        err, _ = compare_reduce(torch, rb, rows, gids, n_out)
+        log(f"reduce, synthetic {what} (M {M}, n_out {n_out}, R {R}): kernel {k_ms:.3f} ms, "
+            f"sort + searchsorted + kernel {p_ms:.3f} ms, index_add_ {lib_ms:.3f} ms; max abs {err:.3e}")
 
 
 def phase_device():
@@ -193,7 +317,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     _backend.build_all()
-    log(f"build: {time.perf_counter() - t0:.1f} s (emit.cu, rasterize_fwd.cu)")
+    log(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(n + '.cu' for n in _backend.KERNELS)})")
     for name, text in _backend.BUILD_LOG.items():
         for line in text.splitlines():
             if "registers" in line or "spill" in line:
@@ -206,11 +330,13 @@ def phase_kernel_vs_plain():
     from gsplat_tpu_torch.ops import binning, rasterize_binned as rb
 
     dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED)
     arrays, viewmats, Ks, W, H = splat_arrays(1, 3, SEED)
     splats, live = splats_from_numpy(arrays, device=dev)
     vm = torch.as_tensor(viewmats, device=dev)
     K = torch.as_tensor(Ks, device=dev)
     C = vm.shape[0]
+    N = splats["means"].shape[0]
     with torch.no_grad():
         for ts in (16, 32):
             for deg in (0, 3):
@@ -218,22 +344,34 @@ def phase_kernel_vs_plain():
                 plan, slab = emit_plan(binning, s, ts, W, H, capacity=1 << 30)
                 T = C * (-(-W // ts)) * (-(-H // ts))
                 bk, _ = compare_emit(torch, binning, plan, slab, T)
-                mx, mean, same_last, n_off, _ = compare_fwd(torch, rb, bk, C, W, H, ts)
+                mx, mean, same_last, n_off, _, (_, T_k, last_k) = compare_fwd(torch, rb, bk, C, W, H, ts)
                 log(f"kernel vs plain grid1 {W}x{H} C={C} ts={ts} sh={deg}: "
                     f"n_isects {int(bk.n_isects)}, emit equal, fwd max abs {mx:.3e} "
                     f"mean abs {mean:.3e} ({n_off} values > 1e-5), last equal at {same_last:.6f} of pixels")
+                absgrad = ts == 16 and deg == 3
+                v_img, v_T = cotangents(torch, gen, T_k, 3)
+                rows_k, _, bmx, errs, _ = compare_bwd(torch, rb, bk, T_k, last_k, v_img, v_T, C, W, H, ts, absgrad)
+                rmx, _ = compare_reduce(torch, rb, rows_k, bk.gids, C * N)
+                log(f"  bwd kernel vs plain{' (with absgrad rows)' if absgrad else ''}: max abs per row "
+                    + " ".join(f"{e:.2e}" for e in errs) + f"; reduce vs index_add_ max abs {rmx:.3e}")
                 if ts == 16 and deg == 3:
-                    # wider channel counts (the kernel's 8-, 16- and 32-wide
-                    # accumulators) on this stream: random channel rows and
-                    # a random background
-                    gen = torch.Generator(device=dev).manual_seed(SEED)
+                    # wider channel counts (the kernels' 8-, 16- and 32-wide
+                    # instantiations) on this stream: random channel rows and
+                    # a random background; the background's term of v_T is
+                    # what autograd would hand the backward
                     M = bk.entries.shape[1]
                     for D in (8, 16, 32):
                         ent = torch.cat([bk.entries[:6], torch.rand((D, M), generator=gen, device=dev)])
                         bg = torch.rand((C, D), generator=gen, device=dev)
-                        mx, mean, same_last, n_off, _ = compare_fwd(torch, rb, bk, C, W, H, ts, ent, bg)
+                        mx, mean, same_last, n_off, _, (_, T_d, last_d) = compare_fwd(
+                            torch, rb, bk, C, W, H, ts, ent, bg)
+                        v_img, v_T = cotangents(torch, gen, T_d, D)
+                        v_T = v_T + (v_img * bg[:, None, None, :]).sum(dim=-1)
+                        _, _, bmx, _, _ = compare_bwd(
+                            torch, rb, bk, T_d, last_d, v_img, v_T, C, W, H, ts, True, entries=ent)
                         log(f"kernel vs plain grid1 ts={ts} D={D} with background: fwd max abs {mx:.3e} "
-                            f"mean abs {mean:.3e} ({n_off} values > 1e-5), last equal at {same_last:.6f} of pixels")
+                            f"mean abs {mean:.3e} ({n_off} values > 1e-5), last equal at {same_last:.6f} "
+                            f"of pixels; bwd (absgrad rows) max abs {bmx:.3e}")
 
         # binned (kernels) vs oracle on a small subsample, as the repo's
         # golden test cuts the garden: every 15th Gaussian, cameras / 4
@@ -256,8 +394,36 @@ def phase_kernel_vs_plain():
         log(f"binned vs oracle ({sub['means'].shape[0]} Gaussians, {W // f}x{H // f}, C={C}): "
             f"max abs image {d_img:.3e} alpha {d_a:.3e}")
 
+    # gradients, binned (backward + reduce kernels) against the oracle's
+    # autograd, cameras / 8 so the oracle's [C, pixels, N] tensors fit
+    f = 8
+    Ks8 = K.clone()
+    Ks8[:, :2, :] /= f
+    wr = torch.randn((C, H // f, W // f, 3), generator=gen, device=dev)
+    wa = torch.randn((C, H // f, W // f, 1), generator=gen, device=dev)
+    grads = {}
+    for backend in ("binned", "oracle"):
+        leaves = {k: v.clone().requires_grad_(True) for k, v in sub.items()}
+        carrier = torch.zeros((C, sub["means"].shape[0], 2), device=dev, requires_grad=True)
+        r, a, _ = rendering.rasterization(
+            *render_args(torch, leaves), vm, Ks8, W // f, H // f, sh_degree=3,
+            backgrounds=bg, backend=backend, isect_capacity=1 << 20, means2d_carrier=carrier,
+        )
+        ((r * wr).sum() + (a * wa).sum()).backward()
+        grads[backend] = {k: v.grad for k, v in leaves.items()}
+        grads[backend]["means2d"] = carrier.grad
+    worst = []
+    for k, want in grads["oracle"].items():
+        got = grads["binned"][k]
+        scale = max(float(want.abs().max()), 1e-3)
+        diff = (got - want).abs()
+        if not bool(torch.isfinite(got).all()) or bool((diff > BWD_RTOL * want.abs() + BWD_ATOL * scale).any()):
+            raise AssertionError(f"binned vs oracle gradient of {k}: max abs {float(diff.max()):.3e}, scale {scale:.3e}")
+        worst.append(f"{k} {float(diff.max()) / scale:.2e}")
+    log(f"binned vs oracle gradients ({W // f}x{H // f}, C={C}), max abs / max |oracle|: " + ", ".join(worst))
 
-def phase_main_path(smi):
+
+def phase_serving(smi):
     import torch
     from gsplat_tpu_torch import _backend, rasterization, rendering, splats_from_numpy
     from gsplat_tpu_torch.ops import binning, rasterize_binned as rb
@@ -309,13 +475,13 @@ def phase_main_path(smi):
                         f"{meta['slab_required']}, alpha mean {float(alpha.mean()):.4f}, "
                         f"image mean {float(img.mean()):.4f}, finite")
         launches = _backend.launch_counts()
-        log(f"main path: N={N}, {W}x{H}, ts={ts}, sh_degree={deg}, capacity {capacity}, "
+        log(f"serving path: N={N}, {W}x{H}, ts={ts}, sh_degree={deg}, capacity {capacity}, "
             f"{len(frames)} frames, ms/frame host {', '.join(f'{t:.2f}' for t in frames)}; "
             f"CUDA events {', '.join(f'{t:.2f}' for t in frames_dev)}")
-        log(f"launches in the main path: {launches}")
-        for name, count in launches.items():
-            if count == 0:
-                raise AssertionError(f"kernel {name} was not launched on the main path")
+        log(f"launches in the serving path: {launches}")
+        for name in ("emit", "rasterize_fwd"):
+            if launches[name] == 0:
+                raise AssertionError(f"kernel {name} was not launched on the serving path")
 
         # stage times (CUDA events), camera 0, same inputs as the frames
         s = shade(rendering, torch, splats, live, vms[0], Kss[0], W, H, deg)
@@ -335,85 +501,269 @@ def phase_main_path(smi):
             "frame": cuda_ms(torch, lambda: frame(0, capacity), reps),
         }
         log("stage ms (CUDA events, camera 0): " + ", ".join(f"{k} {v:.3f}" for k, v in stage.items()))
-
-        # device busy time of one frame (kernels on one stream do not
-        # overlap, so their sum is the busy time); idle share against the
-        # unprofiled frame time above
-        kern = device_time_by_kernel(torch, lambda: frame(0, capacity))
-        if kern:
-            busy = sum(kern.values())
-            top = sorted(kern.items(), key=lambda kv: -kv[1])[:6]
-            log(f"profiled frame (camera 0): {len(kern)} kernel names, device busy {busy:.3f} ms, "
-                f"idle share {1.0 - busy / stage['frame']:.3f} of {stage['frame']:.3f} ms; top: "
-                + "; ".join(f"{name[:48]} {ms:.3f}" for name, ms in top))
-        else:
-            log("profiled frame (camera 0): the profiler saw no device events; busy time not measured")
+        log_profile("frame (camera 0)", device_time_by_kernel(torch, lambda: frame(0, capacity)), stage["frame"])
 
         # the tile size, chosen on the card: frame time per tile size
         sweep = []
-        for tile in (8, 16, 32):
+        for tile in (16, 32):
             cap = frame(0, 512, tile)[2]["slab_required"] + 1024
             sweep.append(f"ts={tile} {cuda_ms(torch, lambda: frame(0, cap, tile), 5):.3f}")
         log("tile-size sweep, frame ms (CUDA events, camera 0): " + ", ".join(sweep))
 
-        # each kernel alone, against its plain version, at these shapes
+        # emit and forward against their plain versions at these shapes
+        _, emit_err = compare_emit(torch, binning, plan, slab, T)
+        mx, mean, same_last, n_off, _, _ = compare_fwd(torch, rb, bk, 1, W, H, ts)
+        log(f"serving shapes {W}x{H}: emit kernel equal to plain (max abs {emit_err:.3e}); forward kernel "
+            f"max abs {mx:.3e}, mean abs {mean:.3e} ({n_off} values > 1e-5), last equal at {same_last:.6f} of pixels")
+
+
+def train_scene(torch, rasterization, dev):
+    """Views and initial points for the training path: the fixture's own
+    splats rendered at 1920x1080 from its 3 cameras are the targets; its
+    means and colours are the initial points (as a COLMAP parser gives
+    them), the scene scale the cameras' spread, as the JAX Parser sets it."""
+    from gsplat_tpu_torch import load_test_data
+
+    means, quats, scales, opac, colors, viewmats, Ks, W0, _ = load_test_data(scene_grid=MAIN_GRID)
+    Ks = Ks.copy()
+    Ks[:, :2, :] *= MAIN_W / W0
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    gt = (t(means), t(quats), t(scales), t(opac), t(colors))
+    views = []
+    with torch.no_grad():
+        for i in range(len(viewmats)):
+            vm, K = t(viewmats[i : i + 1]), t(Ks[i : i + 1])
+            cap = rasterization(*gt, vm, K, MAIN_W, MAIN_H, backend="binned", isect_capacity=512,
+                                tile_size=MAIN_TILE)[2]["slab_required"] + 1024
+            img, _, _ = rasterization(*gt, vm, K, MAIN_W, MAIN_H, backend="binned",
+                                      isect_capacity=cap, tile_size=MAIN_TILE)
+            views.append({"image": img[0].clamp(0.0, 1.0), "camtoworld": torch.linalg.inv(vm[0]),
+                          "K": K[0], "image_id": i})
+    camtoworlds = np.linalg.inv(viewmats)
+    locs = camtoworlds[:, :3, 3]
+    scene_scale = float(np.max(np.linalg.norm(locs - locs.mean(axis=0), axis=1)))
+    rgb = np.clip(np.round(colors * 255.0), 0, 255).astype(np.uint8)
+    return views, means, rgb, scene_scale
+
+
+def phase_train(smi):
+    import torch
+    from gsplat_tpu_torch import _backend, rasterization, rendering
+    from gsplat_tpu_torch.ops import binning, rasterize_binned as rb
+    from gsplat_tpu_torch.simple_trainer import Config, Runner
+
+    dev = torch.device("cuda")
+    W, H, ts = MAIN_W, MAIN_H, MAIN_TILE
+    t0 = time.perf_counter()
+    views, points, rgb, scene_scale = train_scene(torch, rasterization, dev)
+    cfg = Config(
+        max_steps=TRAIN_STEPS, sh_degree=3, sh_degree_interval=1, refine_start_iter=3,
+        refine_every=5, tile_size=ts, backend="binned", pool_headroom=1.5, seed=SEED,
+    )
+    t1 = time.perf_counter()
+    runner = Runner(cfg, views, points, rgb, scene_scale, device=dev)
+    runner.probe_isect_capacity()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    cap = runner.live.shape[0]
+    log(f"training path: {points.shape[0]} points, pool {cap} slots, scene scale {scene_scale:.4f}, "
+        f"isect capacity {runner.isect_capacity}; targets {t1 - t0:.1f} s, init (kNN, probe) {t2 - t1:.1f} s")
+
+    _backend.reset_launch_counts()
+    losses, step_ms, step_dev = [], [], []
+    for step in range(TRAIN_STEPS):
+        before = _backend.launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        start.record()
+        out = runner.train_step(step)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - h0) * 1e3)
+        step_dev.append(start.elapsed_time(end))
+        loss = float(out["loss"])
+        after = _backend.launch_counts()
+        per_step = {k: after[k] - before[k] for k in after}
+        if not np.isfinite(loss):
+            raise AssertionError(f"step {step}: loss {loss}")
+        missing = [k for k, v in per_step.items() if v == 0]
+        if missing:
+            raise AssertionError(f"step {step}: kernels {missing} were not launched")
+        losses.append((out["image_ids"][0], loss))
+        log(f"step {step}: view {out['image_ids'][0]} loss {loss:.6f} live {int(runner.live.sum())}"
+            f"{' (refined)' if out['refined'] else ''} slab_required {out['slab_required']}, "
+            f"host {step_ms[-1]:.2f} ms, CUDA events {step_dev[-1]:.2f} ms; launches {per_step}")
+    launches = _backend.launch_counts()
+    log(f"launches in the training path ({TRAIN_STEPS} steps): {launches}")
+    for name, p in runner.params.items():
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"parameter {name} is not finite after training")
+    view0 = [loss for v, loss in losses if v == 0]
+    if len(view0) < 2 or not view0[-1] < view0[0]:
+        raise AssertionError(f"view 0's loss did not fall: {view0}")
+    log(f"all parameters finite; view 0 loss {view0[0]:.6f} -> {view0[-1]:.6f} over {len(view0)} visits")
+
+    # bench.py's measure on the port: rasterization fwd+bwd, loss =
+    # sum(render) + sum(alpha), grads w.r.t. the five inputs, grid5 1080p
+    from gsplat_tpu_torch import load_test_data
+
+    means, quats, scales, opac, colors, viewmats, Ks, W0, _ = load_test_data(scene_grid=MAIN_GRID)
+    Ks = Ks.copy()
+    Ks[:, :2, :] *= W / W0
+    leaves = [torch.as_tensor(a, device=dev).requires_grad_(True) for a in (means, quats, scales, opac, colors)]
+    vm, K = torch.as_tensor(viewmats[:1], device=dev), torch.as_tensor(Ks[:1], device=dev)
+    with torch.no_grad():
+        bcap = rasterization(*leaves, vm, K, W, H, backend="binned", isect_capacity=512,
+                             tile_size=ts)[2]["slab_required"] + 1024
+
+    def fwd_bwd():
+        for x in leaves:
+            x.grad = None
+        r, a, _ = rasterization(*leaves, vm, K, W, H, backend="binned", isect_capacity=bcap, tile_size=ts)
+        (r.sum() + a.sum()).backward()
+
+    bench_ms = cuda_ms(torch, fwd_bwd, 5)
+    log(f"bench.py measure on the port (garden grid5 {W}x{H}, ts={ts}, C=1, rasterization fwd+bwd): "
+        f"{bench_ms:.3f} ms, {W * H / (bench_ms / 1e3):.4e} px/s")
+
+    # one profiled train step; the train step at tile 16 and 32
+    # (step indices 13, 14 and 16 refine nothing; sh_degree stays 3)
+    step_time = cuda_ms(torch, lambda: runner.train_step(13), 3)
+    log_profile("train step", device_time_by_kernel(torch, lambda: runner.train_step(14)), step_time)
+    sweep = [f"ts=16 {step_time:.3f}"]
+    runner.cfg.tile_size = 32
+    runner.probe_isect_capacity()
+    sweep.append(f"ts=32 {cuda_ms(torch, lambda: runner.train_step(16), 3):.3f}")
+    runner.cfg.tile_size = ts
+    runner.probe_isect_capacity()
+    log("train step ms by tile size (CUDA events, after the 12 steps): " + ", ".join(sweep))
+
+    kernel_table(smi, runner, launches)
+
+
+def kernel_table(smi, runner, launches):
+    """Each kernel alone against its plain version at the train path's
+    shapes (view 0, the trained splats), and the `kernels` line."""
+    import torch
+    from gsplat_tpu_torch import rendering
+    from gsplat_tpu_torch.ops import binning, rasterize_binned as rb
+
+    dev = torch.device("cuda")
+    W, H, ts = MAIN_W, MAIN_H, MAIN_TILE
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    view = runner.trainset[0]
+    vm = torch.linalg.inv(view["camtoworld"])[None]
+    K = view["K"][None]
+    reps = 10
+    with torch.no_grad():
+        s = shade(rendering, torch, runner.params, runner.live, vm, K, W, H, runner.cfg.sh_degree)
+        plan, slab = emit_plan(binning, s, ts, W, H, runner.isect_capacity)
+        T = (-(-W // ts)) * (-(-H // ts))
         emit_ms = cuda_ms(torch, lambda: binning._emit_cuda(plan), reps)
         emit_plain_ms = cuda_ms(torch, lambda: binning._emit_plain(plan), 2)
         bk, emit_err = compare_emit(torch, binning, plan, slab, T)
-        log(f"emit kernel vs plain at {W}x{H}: equal (max abs {emit_err:.3e})")
         fwd_ms = cuda_ms(torch, lambda: rb._fwd_cuda(bk.entries, bk.offs, bk.cnts, 1, W, H, ts), reps)
         fwd_plain_ms = cuda_ms(torch, lambda: rb._fwd_plain(bk.entries, bk.offs, bk.cnts, 1, W, H, ts), 1)
-        mx, mean, same_last, n_off, pairs = compare_fwd(torch, rb, bk, 1, W, H, ts)
-        log(f"forward kernel vs plain at {W}x{H}: max abs {mx:.3e}, mean abs {mean:.3e} "
-            f"({n_off} values > 1e-5), last equal at {same_last:.6f} of pixels")
-
-        # bounds: bytes each input read once and each output written once,
-        # over HBM rate; operations this run's data needs over f32 peak.
-        # The emit kernel reads only `counts` for an id that emits nothing
-        # (culled, masked or truncated); a live id also reads its rectangle,
-        # write offset, depth and NF payload rows.
+        fmx, fmean, same_last, n_off, fwd_pairs, (_, T_k, last_k) = compare_fwd(torch, rb, bk, 1, W, H, ts)
+        D = bk.entries.shape[0] - 6
+        v_img, v_T = cotangents(torch, gen, T_k, D)
+        bargs = (bk.entries, bk.offs, bk.cnts, T_k, last_k, v_img, v_T, 1, W, H, ts, False)
+        bwd_ms = cuda_ms(torch, lambda: rb._bwd_cuda(*bargs), reps)
+        plain, bwd_plain_ms = timed_once(torch, lambda: rb._bwd_plain(*bargs))
+        rows_k, _, bmx, berrs, (n_eval, n_acc) = compare_bwd(torch, rb, bk, T_k, last_k, v_img, v_T, 1, W, H, ts,
+                                                             False, plain=plain)
         CN = plan.counts.shape[0]
-        NF = plan.payload.shape[0]
-        M = plan.n_emit
-        live_ids = int((plan.counts > 0).sum())
-        emit_bytes = live_ids * (5 * 4 + 8 + 4 * NF) + (CN - live_ids) * 4 + M * (8 + 4 + 4 * NF)
-        emit_bound = emit_bytes / PEAK_BYTES_PER_S * 1e3
-        D = NF - 6
-        n_isects = int(bk.n_isects)
-        fwd_bytes = n_isects * NF * 4 + 2 * T * 4 + H * W * (4 * D + 4 + 4)
-        fwd_ops = pairs * (18 + 2 * D)
-        fwd_bound_bytes = fwd_bytes / PEAK_BYTES_PER_S * 1e3
-        fwd_bound_ops = fwd_ops / PEAK_F32_FLOPS * 1e3
-        log(f"emit: {live_ids} of {CN} (camera, Gaussian) ids live, {M} entries, {emit_bytes} bytes; forward: {n_isects} entries, {pairs} "
-            f"evaluated (pixel, entry) pairs, {fwd_ops} flops, {fwd_bytes} bytes")
-        kernels = [
-            {
-                "name": "emit", "route": "cuda", "source": "gsplat_tpu_torch/csrc/emit.cu",
-                "replaces": "gsplat_tpu/ops/binning.py:74", "launches": launches["emit"],
-                "max_abs_err": emit_err, "ms": emit_ms, "plain_ms": emit_plain_ms,
-                "bound_ms": emit_bound, "bound_by": "bytes", "library_ms": None,
-            },
-            {
-                "name": "rasterize_fwd", "route": "cuda",
-                "source": "gsplat_tpu_torch/csrc/rasterize_fwd.cu",
-                "replaces": "gsplat_tpu/ops/rasterize_binned.py:61",
-                "launches": launches["rasterize_fwd"], "max_abs_err": mx, "ms": fwd_ms,
-                "plain_ms": fwd_plain_ms, "bound_ms": max(fwd_bound_bytes, fwd_bound_ops),
-                "bound_by": "operations" if fwd_bound_ops >= fwd_bound_bytes else "bytes",
-                "library_ms": None,
-            },
-        ]
-        log(f"card: {smi}")
-        log(json.dumps({"kernels": kernels}))
+        segs = rb.gid_segments(bk.gids, CN)
+        red_ms = cuda_ms(torch, lambda: rb._reduce_cuda(rows_k, *segs, CN), reps)
+        # the plain version is index_add_, also the one PyTorch call that
+        # computes the same function: timed once, reported as both
+        red_plain_ms = cuda_ms(torch, lambda: rb._reduce_plain(rows_k, bk.gids, CN), reps)
+        seg_ms = cuda_ms(torch, lambda: rb.gid_segments(bk.gids, CN), reps)
+        path_ms = cuda_ms(torch, lambda: rb._reduce_cuda(rows_k, *rb.gid_segments(bk.gids, CN), CN), reps)
+        rmx, _ = compare_reduce(torch, rb, rows_k, bk.gids, CN)
+    log(f"train shapes {W}x{H} (view 0, trained splats, {CN} slots): emit equal (max abs {emit_err:.3e}); "
+        f"fwd max abs {fmx:.3e} mean abs {fmean:.3e} ({n_off} > 1e-5), last equal at {same_last:.6f}; "
+        f"bwd max abs per row " + " ".join(f"{e:.2e}" for e in berrs)
+        + f"; reduce vs index_add_ max abs {rmx:.3e}")
+    log(f"reduce path at the train shapes: gid sort + searchsorted {seg_ms:.3f} ms, kernel {red_ms:.3f} ms, "
+        f"sort + searchsorted + kernel {path_ms:.3f} ms; index_add_ {red_plain_ms:.3f} ms")
+    reduce_synthetic(torch, rb, int(bk.n_isects), CN, rows_k.shape[0], reps)
+
+    # bounds: bytes each input read once and each output written once, over
+    # HBM rate; operations this run's data needs over the f32 peak
+    NF = plan.payload.shape[0]
+    M = plan.n_emit
+    n_isects = int(bk.n_isects)
+    live_ids = int((plan.counts > 0).sum())
+    # emit reads only `counts` for an id that emits nothing; a live id also
+    # reads its rectangle, write offset, depth and NF payload rows
+    emit_bytes = live_ids * (5 * 4 + 8 + 4 * NF) + (CN - live_ids) * 4 + M * (8 + 4 + 4 * NF)
+    emit_bound = emit_bytes / PEAK_BYTES_PER_S * 1e3
+    pix = H * W
+    fwd_bytes = n_isects * NF * 4 + 2 * T * 4 + pix * (4 * D + 4 + 4)
+    fwd_ops = fwd_pairs * (18 + 2 * D)
+    fwd_bound = max(fwd_bytes / PEAK_BYTES_PER_S, fwd_ops / PEAK_F32_FLOPS) * 1e3
+    R = rows_k.shape[0]
+    # backward: stream, offsets, per-pixel T, last, v_img, v_T read once;
+    # rows [R, M] written once. Flops as counted in csrc/rasterize_bwd.cu
+    bwd_bytes = n_isects * NF * 4 + 2 * T * 4 + pix * (4 + 4 + 4 * D + 4) + R * M * 4
+    bwd_ops = 16 * n_eval + (28 + 3 * D) * n_acc
+    bwd_bound_b, bwd_bound_o = bwd_bytes / PEAK_BYTES_PER_S * 1e3, bwd_ops / PEAK_F32_FLOPS * 1e3
+    # reduce: the function needs the R rows and a 4-byte gid of each of the
+    # n_isects slots read once and [R, CN] written once; the permutation and
+    # segment starts are this design's own buffers and are not counted
+    red_bytes = n_isects * (R * 4 + 4) + R * CN * 4
+    red_bound = red_bytes / PEAK_BYTES_PER_S * 1e3
+    log(f"emit: {live_ids} of {CN} ids live, {M} entries, {emit_bytes} bytes; forward: {n_isects} entries, "
+        f"{fwd_pairs} evaluated pairs, {fwd_ops} flops, {fwd_bytes} bytes; backward: {n_eval} evaluated and "
+        f"{n_acc} accepted pairs, {bwd_ops} flops, {bwd_bytes} bytes; reduce: {red_bytes} bytes")
+    kernels = [
+        {
+            "name": "emit", "route": "cuda", "source": "gsplat_tpu_torch/csrc/emit.cu",
+            "replaces": "gsplat_tpu/ops/binning.py:74", "launches": launches["emit"],
+            "max_abs_err": emit_err, "ms": emit_ms, "plain_ms": emit_plain_ms,
+            "bound_ms": emit_bound, "bound_by": "bytes", "library_ms": None,
+        },
+        {
+            "name": "rasterize_fwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/rasterize_fwd.cu",
+            "replaces": "gsplat_tpu/ops/rasterize_binned.py:61", "launches": launches["rasterize_fwd"],
+            "max_abs_err": fmx, "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound,
+            "bound_by": "operations" if fwd_ops / PEAK_F32_FLOPS >= fwd_bytes / PEAK_BYTES_PER_S else "bytes",
+            "library_ms": None,
+        },
+        {
+            "name": "rasterize_bwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/rasterize_bwd.cu",
+            "replaces": "gsplat_tpu/ops/rasterize_binned.py:299", "launches": launches["rasterize_bwd"],
+            "max_abs_err": bmx, "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+            "bound_ms": max(bwd_bound_b, bwd_bound_o),
+            "bound_by": "operations" if bwd_bound_o >= bwd_bound_b else "bytes", "library_ms": None,
+        },
+        {
+            "name": "gid_reduce", "route": "cuda", "source": "gsplat_tpu_torch/csrc/gid_reduce.cu",
+            "replaces": "gsplat_tpu/ops/rasterize_binned.py:571", "launches": launches["gid_reduce"],
+            "max_abs_err": rmx, "ms": red_ms, "plain_ms": red_plain_ms, "bound_ms": red_bound,
+            "bound_by": "bytes", "library_ms": red_plain_ms,
+        },
+    ]
+    log(f"card: {smi}")
+    log(json.dumps({"kernels": kernels}))
 
 
 def main():
     smi = phase_device()
     import torch
 
+    t0 = time.perf_counter()
     phase_build()
     phase_kernel_vs_plain()
-    phase_main_path(smi)
+    t1 = time.perf_counter()
+    phase_serving(smi)
+    t2 = time.perf_counter()
+    phase_train(smi)
+    t3 = time.perf_counter()
+    log(f"phase wall times: build + kernel vs plain {t1 - t0:.1f} s, serving {t2 - t1:.1f} s, "
+        f"training {t3 - t2:.1f} s")
     print(json.dumps({
         "ok": True,
         "device": {

@@ -2,26 +2,34 @@
 
 Port slice 1 is the forward render path: ``rasterization()`` on the binned
 backend (and the oracle), with hand-written Hopper kernels for the binning
-emit and the forward compositing under ``csrc/``. Functions run on the
-device of their input tensors: CUDA tensors go through the kernels, CPU
-tensors through each kernel's plain PyTorch version. Training, 2DGS, the
-tiled backend and multi-GPU rendering come in later slices and raise
-NotImplementedError until then.
+emit and the forward compositing under ``csrc/``. Slice 2 is training on
+the binned backend: its backward and per-Gaussian gradient-reduce kernels
+behind a ``torch.autograd.Function``, ``means2d_carrier``/``absgrad``, the
+losses, ``SelectiveAdam``, ``DefaultStrategy`` and a trainer over
+in-memory views (``simple_trainer.Runner``). Functions run on the device of
+their input tensors: CUDA tensors go through the kernels, CPU tensors
+through each kernel's plain PyTorch version. 2DGS, the tiled backend, MCMC
+and multi-GPU rendering come in later slices and raise NotImplementedError
+until then.
 """
 
 from ._helper import load_test_data
 from .version import __version__
 from .checkpoint import splats_from_numpy
+from .losses import l1, psnr, ssim, train_loss
 from .ops import (
     fully_fused_projection,
     fully_fused_projection_soa,
     quat_scale_to_covar_preci,
     rasterize_to_pixels,
     rasterize_to_pixels_ref,
+    rasterize_to_pixels_ref_absgrad,
     spherical_harmonics,
     world_to_cam,
 )
+from .optimizers import SelectiveAdam
 from .rendering import rasterization, rasterization_2dgs
+from .strategy import DefaultStrategy, Strategy
 
 __all__ = [
     "rasterization",
@@ -32,8 +40,16 @@ __all__ = [
     "quat_scale_to_covar_preci",
     "rasterize_to_pixels",
     "rasterize_to_pixels_ref",
+    "rasterize_to_pixels_ref_absgrad",
     "spherical_harmonics",
     "load_test_data",
     "splats_from_numpy",
+    "l1",
+    "psnr",
+    "ssim",
+    "train_loss",
+    "SelectiveAdam",
+    "Strategy",
+    "DefaultStrategy",
     "__version__",
 ]

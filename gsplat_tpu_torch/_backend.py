@@ -48,6 +48,8 @@ KERNELS: Dict[str, Sequence[str]] = {
     # the plain torch version, so no multiply-add contraction
     "emit": ("-fmad=false",),
     "rasterize_fwd": (),
+    "rasterize_bwd": (),
+    "gid_reduce": (),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

@@ -11,7 +11,7 @@ from .projection import (
 )
 from .rasterize import rasterize_to_pixels
 from .rasterize_binned import rasterize_to_pixels_binned
-from .rasterize_ref import rasterize_to_pixels_ref
+from .rasterize_ref import rasterize_to_pixels_ref, rasterize_to_pixels_ref_absgrad
 from .sh import eval_sh_bases, spherical_harmonics
 
 __all__ = [
@@ -28,6 +28,7 @@ __all__ = [
     "rasterize_to_pixels",
     "rasterize_to_pixels_binned",
     "rasterize_to_pixels_ref",
+    "rasterize_to_pixels_ref_absgrad",
     "spherical_harmonics",
     "eval_sh_bases",
 ]

@@ -1,14 +1,16 @@
-"""Binned rasterizer, forward: front-to-back compositing over the sorted
-entry stream (port of the forward of gsplat_tpu/ops/rasterize_binned.py).
+"""Binned rasterizer: forward compositing and its backward over the sorted
+entry stream (port of gsplat_tpu/ops/rasterize_binned.py).
 
 The binning engine (ops/binning.py) builds the (tile, depth, gid)-sorted
 stream; the forward kernel (csrc/rasterize_fwd.cu; `_fwd_plain` is its
 plain version) composites each (camera, tile) range into its pixels.
 Semantics are those of ops/rasterize_ref.py (the oracle).
 
-Only the forward is ported: the backward and the per-Gaussian gradient
-reduce come with the training slice, so a call that would need a gradient
-raises.
+Gradients go through `_BinnedRaster`, a torch.autograd.Function over
+bin -> forward -> (backward -> gid sort -> reduce): the backward kernel
+(csrc/rasterize_bwd.cu; `_bwd_plain`) writes one row of per-entry
+gradients per stream slot, and the reduce kernel (csrc/gid_reduce.cu;
+`_reduce_plain`) sums the slots of each Gaussian.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+from torch.autograd.function import once_differentiable
 
 from .. import _backend
 from .binning import Binned, bin_gaussians
@@ -24,9 +27,15 @@ from .rasterize_ref import ALPHA_MAX, ALPHA_MIN, TRANSMITTANCE_EPS
 
 TILE_SIZES = (8, 16, 32)
 MAX_CHANNELS = 32  # rendering.rasterization's channel_chunk default caps D here
-# the plain forward's loop split: tiles per group, entries per chunk
+# the plain versions' loop split: tiles per group (at 16x16 pixels per
+# tile; scaled so a group holds as many pixels at every tile size), entries
+# per chunk
 PLAIN_TILE_GROUP = 256
 PLAIN_CHUNK = 128
+
+
+def _plain_split(tile_size: int) -> Tuple[int, int]:
+    return max(1, PLAIN_TILE_GROUP * 256 // (tile_size * tile_size)), PLAIN_CHUNK
 
 
 def _fwd_plain(
@@ -46,7 +55,7 @@ def _fwd_plain(
     n_pairs), where n_pairs counts the (pixel, entry) pairs that compositing
     had to evaluate: those not behind the pixel's termination."""
     dev = entries.device
-    tile_group, chunk = PLAIN_TILE_GROUP, PLAIN_CHUNK
+    tile_group, chunk = _plain_split(tile_size)
     ts = tile_size
     P = ts * ts
     D = entries.shape[0] - 6
@@ -174,6 +183,254 @@ def _fwd_cuda(
     return img, T_out, last
 
 
+def _to_tiles(x: torch.Tensor, th: int, tw: int, ts: int, fill) -> torch.Tensor:
+    """[C, H, W, ...] image layout -> [C*th*tw, ts*ts, ...] tile layout (the
+    forward's pixel order), pixels past the image edge set to `fill`."""
+    C, H, W = x.shape[:3]
+    rest = tuple(x.shape[3:])
+    full = x.new_full((C, th * ts, tw * ts) + rest, fill)
+    full[:, :H, :W] = x
+    full = full.reshape((C, th, ts, tw, ts) + rest).transpose(2, 3)
+    return full.reshape((C * th * tw, ts * ts) + rest)
+
+
+def _bwd_plain(
+    entries: torch.Tensor,  # [6 + D, M] f32
+    offs: torch.Tensor,  # [T] i32
+    cnts: torch.Tensor,  # [T] i32
+    T_fin: torch.Tensor,  # [C, H, W] f32, the forward's T_final
+    last: torch.Tensor,  # [C, H, W] i32, the forward's last accepted index
+    v_img: torch.Tensor,  # [C, H, W, D] cotangent of the image (no background)
+    v_T: torch.Tensor,  # [C, H, W] cotangent of T_final
+    n_cams: int,
+    image_width: int,
+    image_height: int,
+    tile_size: int,
+    absgrad: bool = False,
+):
+    """Plain torch version of the backward kernel: tiles in groups of
+    PLAIN_TILE_GROUP, each group's ranges walked back to front in chunks of
+    PLAIN_CHUNK entries, carrying the product of the later (1 - alpha) and
+    the sum of the later w * cv per pixel. T before an entry is T_final over
+    the product of (1 - alpha) from that entry on. Returns (rows
+    [6 + D (+2), M], (n_eval, n_acc)): one row of per-entry gradients per
+    stream slot (zero where no pixel accepted the entry), the (pixel, entry)
+    pairs evaluated (those at or before the pixel's `last`) and the pairs
+    accepted."""
+    dev = entries.device
+    tile_group, chunk = _plain_split(tile_size)
+    ts = tile_size
+    P = ts * ts
+    D = entries.shape[0] - 6
+    M = entries.shape[1]
+    th = -(-image_height // ts)
+    tw = -(-image_width // ts)
+    n_t = n_cams * th * tw
+    pix = torch.arange(P, device=dev)
+    lx, ly = pix % ts, pix // ts
+
+    Tt = _to_tiles(T_fin, th, tw, ts, 1.0)
+    Lt = _to_tiles(last.to(torch.int64), th, tw, ts, -1)
+    Vt = _to_tiles(v_img, th, tw, ts, 0.0)
+    VLt = _to_tiles(v_T * T_fin, th, tw, ts, 0.0)  # v_logT
+    rows = torch.zeros((6 + D + (2 if absgrad else 0), M), dtype=torch.float32, device=dev)
+    n_eval = torch.zeros((), dtype=torch.int64, device=dev)
+    n_acc = torch.zeros((), dtype=torch.int64, device=dev)
+    if n_t == 0:
+        return rows, (0, 0)
+    # entries past a tile's largest `last` were accepted by no pixel
+    nact = torch.clamp(
+        torch.minimum(cnts.to(torch.int64), Lt.amax(dim=1) + 1 - offs.to(torch.int64)), min=0
+    )
+    maxes = torch.nn.functional.pad(nact, (0, -n_t % tile_group)).reshape(-1, tile_group).amax(dim=1).tolist()
+    for gi, nmax in enumerate(int(v) for v in maxes):
+        if nmax == 0:
+            continue
+        tiles = torch.arange(gi * tile_group, min((gi + 1) * tile_group, n_t), device=dev)
+        o = offs[tiles].to(torch.int64)
+        n = nact[tiles]
+        rem = tiles % (th * tw)
+        px = ((rem % tw) * ts)[:, None] + lx + 0.5  # [g, P]
+        py = ((rem // tw) * ts)[:, None] + ly + 0.5
+        T_g, L_g, V_g, VL_g = Tt[tiles], Lt[tiles], Vt[tiles], VLt[tiles]
+        S = torch.ones(px.shape, dtype=torch.float32, device=dev)
+        ssum = torch.zeros(px.shape, dtype=torch.float32, device=dev)
+        for k0 in reversed(range(0, nmax, chunk)):
+            j = k0 + torch.arange(chunk, device=dev)
+            inr = j[None, :] < n[:, None]  # [g, K]
+            idx = o[:, None] + j[None, :]
+            e = entries[:, idx.clamp(0, max(M - 1, 0))]  # [NF, g, K]
+            gx, gy, ca, cb, cc, op = (e[r][:, None, :] for r in range(6))
+            dx = px[..., None] - gx  # [g, P, K]
+            dy = py[..., None] - gy
+            sig = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+            eneg = torch.exp(-sig)
+            araw = op * eneg
+            alpha = torch.clamp_max(araw, ALPHA_MAX)
+            seen = inr[:, None, :] & (idx[:, None, :] <= L_g[..., None])
+            accept = seen & (alpha >= ALPHA_MIN) & (sig >= 0.0)
+            n_eval += seen.sum()
+            n_acc += accept.sum()
+            one_m = torch.where(accept, 1.0 - alpha, 1.0)
+            S_incl = torch.flip(torch.cumprod(torch.flip(one_m, [-1]), dim=-1), [-1]) * S[..., None]
+            Tk = T_g[..., None] / S_incl
+            w = torch.where(accept, alpha * Tk, 0.0)
+            cv = torch.einsum("gpd,dgk->gpk", V_g, e[6:])
+            wcv = w * cv
+            later = torch.flip(torch.cumsum(torch.flip(wcv, [-1]), dim=-1), [-1]) - wcv + ssum[..., None]
+            v_alpha = torch.where(accept, Tk * cv - (later + VL_g[..., None]) / one_m, 0.0)
+            notclamp = accept & (araw < ALPHA_MAX)
+            v_sig = torch.where(notclamp, -alpha * v_alpha, 0.0)
+            vals = [
+                (-(ca * dx + cb * dy) * v_sig).sum(dim=1),
+                (-(cb * dx + cc * dy) * v_sig).sum(dim=1),
+                (0.5 * dx * dx * v_sig).sum(dim=1),
+                (dx * dy * v_sig).sum(dim=1),
+                (0.5 * dy * dy * v_sig).sum(dim=1),
+                torch.where(notclamp, eneg * v_alpha, 0.0).sum(dim=1),
+            ]
+            vals = torch.cat([torch.stack(vals), torch.einsum("gpk,gpd->dgk", w, V_g)])
+            if absgrad:
+                vals = torch.cat([vals, vals[:2].abs()])
+            rows[:, idx[inr]] = vals[:, inr]
+            S = S_incl[..., 0]
+            ssum = ssum + wcv.sum(dim=-1)
+    return rows, (int(n_eval), int(n_acc))
+
+
+_BWD_ARGS = (
+    [ctypes.c_void_p, ctypes.c_longlong]  # entries, M (row stride)
+    + [ctypes.c_void_p] * 2  # offs, cnts
+    + [ctypes.c_int] * 7  # C, th, tw, ts, W, H, D
+    + [ctypes.c_void_p] * 4  # T_final, last, v_img, v_T
+    + [ctypes.c_int]  # absgrad
+    + [ctypes.c_void_p] * 2  # rows, stream
+)
+
+
+def _bwd_cuda(
+    entries: torch.Tensor,
+    offs: torch.Tensor,
+    cnts: torch.Tensor,
+    T_fin: torch.Tensor,
+    last: torch.Tensor,
+    v_img: torch.Tensor,
+    v_T: torch.Tensor,
+    n_cams: int,
+    image_width: int,
+    image_height: int,
+    tile_size: int,
+    absgrad: bool = False,
+) -> torch.Tensor:
+    """Launch csrc/rasterize_bwd.cu: one block per (camera, tile), one
+    thread per pixel. Returns rows [6 + D (+2), M] as `_bwd_plain` does."""
+    dev = entries.device
+    if dev.type != "cuda":
+        raise ValueError(f"the backward kernel takes CUDA tensors, got {dev}")
+    if tile_size not in TILE_SIZES:
+        raise ValueError(f"tile_size must be one of {TILE_SIZES}, got {tile_size}")
+    D = entries.shape[0] - 6
+    if not 1 <= D <= MAX_CHANNELS:
+        raise ValueError(f"the backward kernel takes 1..{MAX_CHANNELS} channels, got {D}")
+    th = -(-image_height // tile_size)
+    tw = -(-image_width // tile_size)
+    T = n_cams * th * tw
+    img_shape = (n_cams, image_height, image_width)
+    checks = [
+        (entries, torch.float32, None), (offs, torch.int32, (T,)), (cnts, torch.int32, (T,)),
+        (T_fin, torch.float32, img_shape), (last, torch.int32, img_shape),
+        (v_img, torch.float32, img_shape + (D,)), (v_T, torch.float32, img_shape),
+    ]
+    for t, dt, shape in checks:
+        if t.dtype != dt or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"backward input of dtype {t.dtype} on {t.device}: expected contiguous {dt} on {dev}")
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"backward input of shape {tuple(t.shape)}: expected {shape}")
+    rows = torch.zeros((6 + D + (2 if absgrad else 0), entries.shape[1]), dtype=torch.float32, device=dev)
+    if T == 0 or entries.shape[1] == 0:
+        return rows
+    fn = _backend.kernel("rasterize_bwd", "rasterize_bwd_launch", _BWD_ARGS)
+    code = fn(
+        entries.data_ptr(), entries.shape[1], offs.data_ptr(), cnts.data_ptr(),
+        n_cams, th, tw, tile_size, image_width, image_height, D,
+        T_fin.data_ptr(), last.data_ptr(), v_img.data_ptr(), v_T.data_ptr(), int(absgrad),
+        rows.data_ptr(), _backend.stream(dev),
+    )
+    _backend.check_launch(code, "rasterize_bwd")
+    _backend.LAUNCHES["rasterize_bwd"] += 1
+    return rows
+
+
+def _reduce_plain(rows: torch.Tensor, gids: torch.Tensor, n_out: int) -> torch.Tensor:
+    """Plain version of the reduce kernel, and the one PyTorch call that
+    computes the same function: index_add_ of the per-slot rows [R, M] into
+    per-Gaussian rows [R, n_out]. Slots with the culled sentinel gid
+    (n_out) land in a dropped extra row."""
+    out = torch.zeros((n_out + 1, rows.shape[0]), dtype=torch.float32, device=rows.device)
+    out.index_add_(0, gids.to(torch.int64), rows.T)
+    return out[:n_out].T.contiguous()
+
+
+def gid_segments(gids: torch.Tensor, n_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each Gaussian's slots: a stable sort of the per-slot gids (so a
+    segment keeps stream order) and the segment starts. Returns (perm [M]
+    i64, starts [n_out + 1] i64); Gaussian g owns perm[starts[g]:starts[g+1]]
+    and the culled sentinel gids sort past starts[n_out]."""
+    gids_sorted, perm = torch.sort(gids, stable=True)
+    starts = torch.searchsorted(
+        gids_sorted, torch.arange(n_out + 1, dtype=gids.dtype, device=gids.device)
+    )
+    return perm, starts
+
+
+_REDUCE_ARGS = (
+    [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]  # rows, M, R
+    + [ctypes.c_void_p] * 2  # perm, starts
+    + [ctypes.c_int]  # n_out
+    + [ctypes.c_void_p] * 3  # partials, out, stream
+)
+
+
+def _reduce_cuda(rows: torch.Tensor, perm: torch.Tensor, starts: torch.Tensor, n_out: int) -> torch.Tensor:
+    """Launch csrc/gid_reduce.cu on the segments from `gid_segments`: a
+    lane sums a short segment of each row, a warp a medium one, and a
+    segment longer than the kernel's chunk is summed chunk by chunk by
+    blocks of a first kernel. Returns [R, n_out]."""
+    dev = rows.device
+    if dev.type != "cuda":
+        raise ValueError(f"the reduce kernel takes CUDA tensors, got {dev}")
+    checks = [(rows, torch.float32, None), (perm, torch.int64, (rows.shape[1],)), (starts, torch.int64, (n_out + 1,))]
+    for t, dt, shape in checks:
+        if t.dtype != dt or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"reduce input of dtype {t.dtype} on {t.device}: expected contiguous {dt} on {dev}")
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"reduce input of shape {tuple(t.shape)}: expected {shape}")
+    R = rows.shape[0]
+    out = torch.empty((R, n_out), dtype=torch.float32, device=dev)
+    if n_out == 0 or R == 0:
+        return out
+    size = _backend.kernel("gid_reduce", "gid_reduce_partials_size", [ctypes.c_longlong, ctypes.c_int])
+    size.restype = ctypes.c_longlong
+    partials = torch.empty(max(size(rows.shape[1], R), 1), dtype=torch.float32, device=dev)
+    fn = _backend.kernel("gid_reduce", "gid_reduce_launch", _REDUCE_ARGS)
+    code = fn(
+        rows.data_ptr(), rows.shape[1], R, perm.data_ptr(), starts.data_ptr(), n_out,
+        partials.data_ptr(), out.data_ptr(), _backend.stream(dev),
+    )
+    _backend.check_launch(code, "gid_reduce")
+    _backend.LAUNCHES["gid_reduce"] += 1
+    return out
+
+
+def reduce_by_gid(rows: torch.Tensor, gids: torch.Tensor, n_out: int) -> torch.Tensor:
+    """Per-slot rows [R, M] -> per-Gaussian sums [R, n_out] (0 for a
+    Gaussian with no slot). CUDA tensors go through the reduce kernel, CPU
+    tensors through its plain version."""
+    if _backend.use_kernel(rows.device):
+        return _reduce_cuda(rows, *gid_segments(gids, n_out), n_out)
+    return _reduce_plain(rows, gids, n_out)
+
+
 def _split(means2d, conics):
     if isinstance(means2d, (tuple, list)):
         mean_x, mean_y = means2d
@@ -192,17 +449,11 @@ def _raster_binned_fwd(
     backgrounds: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, Binned]:
     """Bin, then composite. Returns (image [C,H,W,D], T_final [C,H,W],
-    last [C,H,W], binned); ``last`` is what the backward of the training
-    slice reads."""
+    last [C,H,W], binned); ``last`` is what the backward reads."""
     mean_x, mean_y, con_a, con_b, con_c = _split(means2d, conics)
-    ins = (mean_x, mean_y, con_a, con_b, con_c, colors, opacities, depths)
-    device = _backend.common_device(*ins, radii, backgrounds)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in ins + (backgrounds,) if t is not None):
-        raise NotImplementedError(
-            "the binned backend's backward is not ported yet: it comes with "
-            "port slice 2 (training); call under torch.no_grad() or use "
-            "backend='oracle'"
-        )
+    device = _backend.common_device(
+        mean_x, mean_y, con_a, con_b, con_c, colors, opacities, depths, radii, backgrounds
+    )
     if tile_size not in TILE_SIZES:
         raise ValueError(f"tile_size must be one of {TILE_SIZES}, got {tile_size}")
     if colors.shape[-1] > MAX_CHANNELS:
@@ -225,6 +476,59 @@ def _raster_binned_fwd(
     return img, T_out, last, binned
 
 
+class _BinnedRaster(torch.autograd.Function):
+    """bin -> forward kernel, with the backward kernel, the gid sort and the
+    reduce kernel as its gradient (JAX: the custom VJP `_raster_binned`).
+    Binning reads detached inputs. Returns the image without background
+    and T_final; the caller adds the background. Radii and depths get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, mean_x, mean_y, con_a, con_b, con_c, opacities, colors,
+                abs_x, abs_y, radii, depths, geom, aux):
+        image_width, image_height, tile_size, capacity = geom
+        img, T_out, last, binned = _raster_binned_fwd(
+            (mean_x, mean_y), (con_a, con_b, con_c), colors, opacities, radii,
+            depths, image_width, image_height, tile_size, capacity,
+        )
+        aux["n_isects"] = binned.n_isects
+        aux["slab_required"] = binned.slab_required
+        ctx.save_for_backward(binned.entries, binned.gids, binned.offs, binned.cnts, T_out, last)
+        ctx.geom = geom
+        ctx.n_gauss = mean_x.shape[1]
+        ctx.absgrad = abs_x is not None
+        return img, T_out
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, v_img, v_T):
+        entries, gids, offs, cnts, T_out, last = ctx.saved_tensors
+        image_width, image_height, tile_size, _ = ctx.geom
+        C = T_out.shape[0]
+        D = entries.shape[0] - 6
+        N = ctx.n_gauss
+        if v_img is None:
+            v_img = torch.zeros(T_out.shape + (D,), dtype=torch.float32, device=T_out.device)
+        if v_T is None:
+            v_T = torch.zeros_like(T_out)
+        args = (
+            entries, offs, cnts, T_out, last, v_img.contiguous(), v_T.contiguous(),
+            C, image_width, image_height, tile_size, ctx.absgrad,
+        )
+        if _backend.use_kernel(entries.device):
+            rows = _bwd_cuda(*args)
+        else:
+            rows, _ = _bwd_plain(*args)
+        red = reduce_by_gid(rows, gids, C * N)
+        grads = [red[r].reshape(C, N) for r in range(6)]
+        v_colors = red[6 : 6 + D].T.reshape(C, N, D)
+        if ctx.absgrad:
+            v_abs = [red[6 + D].reshape(C, N), red[7 + D].reshape(C, N)]
+        else:
+            v_abs = [None, None]
+        return (*grads, v_colors, *v_abs, None, None, None, None)
+
+
 def rasterize_to_pixels_binned(
     means2d,  # [C, N, 2] or (mean_x, mean_y) [C, N] tuple
     conics,  # [C, N, 3] or (a, b, c) tuple
@@ -237,22 +541,35 @@ def rasterize_to_pixels_binned(
     tile_size: int,
     capacity: int,
     backgrounds: Optional[torch.Tensor] = None,  # [C, D]
-    abs_carrier=None,
+    abs_carrier=None,  # (x, y) [C, N] zeros; its gradient is the per-tile absgrad
 ):
     """Rasterize via the binning engine (emit -> key sort -> forward kernel).
 
     Returns (render_colors [C,H,W,D], render_alphas [C,H,W,1], aux) where
     aux = {"n_isects", "slab_required"}. Semantics identical to
-    rasterize_to_pixels_ref. Forward only: with grad mode on and an input
-    that requires grad it raises NotImplementedError.
+    rasterize_to_pixels_ref. With grad mode on and an input that requires
+    grad, the call goes through `_BinnedRaster` (backward and reduce
+    kernels); the gradient of ``abs_carrier`` is then the reference's
+    absgrad statistic, the sum over tiles of |per-tile d mean2d|. Without a
+    gradient it is the forward alone, with the background composited inside
+    the forward kernel.
     """
-    if abs_carrier is not None:
-        raise NotImplementedError(
-            "abs_carrier (absgrad) comes with port slice 2 (training)"
+    mean_x, mean_y, con_a, con_b, con_c = _split(means2d, conics)
+    ins = (mean_x, mean_y, con_a, con_b, con_c, opacities, colors)
+    abs_x, abs_y = abs_carrier if abs_carrier is not None else (None, None)
+    diff = [t for t in ins + (abs_x, abs_y, backgrounds) if t is not None]
+    if not (torch.is_grad_enabled() and any(t.requires_grad for t in diff)):
+        img, T_out, _, binned = _raster_binned_fwd(
+            means2d, conics, colors, opacities, radii, depths, image_width,
+            image_height, tile_size, capacity, backgrounds=backgrounds,
         )
-    img, T_out, _, binned = _raster_binned_fwd(
-        means2d, conics, colors, opacities, radii, depths, image_width,
-        image_height, tile_size, capacity, backgrounds=backgrounds,
+        aux = {"n_isects": binned.n_isects, "slab_required": binned.slab_required}
+        return img, (1.0 - T_out)[..., None], aux
+    aux = {}
+    img, T_out = _BinnedRaster.apply(
+        *ins, abs_x, abs_y, radii, depths,
+        (image_width, image_height, tile_size, capacity), aux,
     )
-    aux = {"n_isects": binned.n_isects, "slab_required": binned.slab_required}
+    if backgrounds is not None:
+        img = img + T_out[..., None] * backgrounds[:, None, None, :]
     return img, (1.0 - T_out)[..., None], aux

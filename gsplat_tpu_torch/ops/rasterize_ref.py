@@ -3,6 +3,8 @@ gsplat_tpu/ops/rasterize_ref.py).
 
 Ground truth for the binned pipeline, differentiable by autograd, for tests
 and toy scenes only: it materialises every (pixel, Gaussian) pair.
+`rasterize_to_pixels_ref_absgrad` adds the per-tile absgrad statistic as
+the gradient of a carrier input.
 
 Exact per-pixel semantics:
   - process Gaussians in (depth, index) order (stable sort of the depth bits)
@@ -116,4 +118,71 @@ def rasterize_to_pixels_ref(
     return (
         render.reshape(C, image_height, image_width, D),
         render_alphas.reshape(C, image_height, image_width, 1),
+    )
+
+
+class _RefAbsgrad(torch.autograd.Function):
+    """The oracle, with the absgrad statistic as the gradient of an extra
+    carrier input: one masked-cotangent replay of the oracle's gradient per
+    tile, |d means2d| of each, summed over tiles."""
+
+    @staticmethod
+    def forward(ctx, means2d, conics, colors, opacities, backgrounds, abs_carrier,
+                radii, depths, image_width, image_height, tile_size):
+        ctx.save_for_backward(means2d, conics, colors, opacities, backgrounds, radii, depths)
+        ctx.geom = (image_width, image_height, tile_size)
+        return rasterize_to_pixels_ref(
+            means2d, conics, colors, opacities, radii, depths,
+            image_width, image_height, tile_size, backgrounds,
+        )
+
+    @staticmethod
+    def backward(ctx, v_render, v_alpha):
+        means2d, conics, colors, opacities, backgrounds, radii, depths = ctx.saved_tensors
+        W, H, ts = ctx.geom
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_() for t in (means2d, conics, colors, opacities, backgrounds)]
+            out = rasterize_to_pixels_ref(*ins[:4], radii, depths, W, H, ts, ins[4])
+            cts = [
+                torch.zeros_like(o) if v is None else v
+                for o, v in zip(out, (v_render, v_alpha))
+            ]
+            grads = torch.autograd.grad(out, ins, cts, retain_graph=True)
+            py, px = torch.meshgrid(
+                torch.arange(H, device=means2d.device),
+                torch.arange(W, device=means2d.device),
+                indexing="ij",
+            )
+            tid = (py // ts) * (-(-W // ts)) + px // ts  # [H, W]
+            v_abs = torch.zeros_like(means2d)
+            for t in range(int(tid.max()) + 1):
+                m = (tid == t)[None, :, :, None].to(cts[0].dtype)
+                (g,) = torch.autograd.grad(out, ins[0], [c * m for c in cts], retain_graph=True)
+                v_abs = v_abs + g.abs()
+        return (*grads, v_abs, None, None, None, None, None)
+
+
+def rasterize_to_pixels_ref_absgrad(
+    means2d: torch.Tensor,  # [C, N, 2]
+    conics: torch.Tensor,  # [C, N, 3]
+    colors: torch.Tensor,  # [C, N, D]
+    opacities: torch.Tensor,  # [C, N]
+    radii: torch.Tensor,  # [C, N] int32
+    depths: torch.Tensor,  # [C, N]
+    image_width: int,
+    image_height: int,
+    tile_size: int,
+    backgrounds: torch.Tensor,  # [C, D] (zeros rather than None)
+    abs_carrier: torch.Tensor,  # [C, N, 2] zeros
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The oracle, whose ``abs_carrier`` input has the reference's absgrad
+    statistic as its gradient: the sum over tiles of |per-tile d means2d|
+    (a Gaussian spanning several tiles gets the sum of the absolute per-tile
+    gradients, not the absolute value of their sum). The output does not
+    depend on ``abs_carrier``. The backward replays the oracle's gradient
+    once per tile: for tests and toy scenes only."""
+    common_device(means2d, conics, colors, opacities, radii, depths, backgrounds, abs_carrier)
+    return _RefAbsgrad.apply(
+        means2d, conics, colors, opacities, backgrounds, abs_carrier,
+        radii, depths, image_width, image_height, tile_size,
     )

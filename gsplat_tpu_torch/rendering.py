@@ -4,10 +4,11 @@
 backgrounds, antialiased compensation and channel chunking are plain torch
 (`project_and_shade`); the binned backend runs the binning engine and the
 forward kernel (ops/binning.py, ops/rasterize_binned.py), and the oracle
-backend the O(N * pixels) reference. Not ported yet, and raising
-NotImplementedError rather than falling back: the tiled backend,
-``distributed=True``, 2DGS, ``means2d_carrier``/``absgrad``, and any binned
-call that needs a gradient.
+backend the O(N * pixels) reference. Both differentiate: training on the
+binned backend goes through its backward and gradient-reduce kernels, and
+``means2d_carrier``/``absgrad`` give the screen-space gradients that
+densification reads. Not ported yet, and raising NotImplementedError rather
+than falling back: the tiled backend, ``distributed=True`` and 2DGS.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from ._backend import common_device
 from .ops.projection import fully_fused_projection_soa
 from .ops.rasterize import TILED_NOT_PORTED, resolve_auto_backend
 from .ops.rasterize_binned import rasterize_to_pixels_binned
-from .ops.rasterize_ref import rasterize_to_pixels_ref
+from .ops.rasterize_ref import rasterize_to_pixels_ref, rasterize_to_pixels_ref_absgrad
 from .ops.sh import spherical_harmonics
 
 RENDER_MODES = ("RGB", "D", "ED", "RGB+D", "RGB+ED")
@@ -82,8 +83,10 @@ def project_and_shade(
         else:
             shs = colors
         colors_cn = spherical_harmonics(sh_degree, dirs, shs, masks=radii > 0)
-        # the +0.5 offset and clamp of the reference's Inria-style colours
-        colors_cn = torch.clamp_min(colors_cn + 0.5, 0.0)
+        # the +0.5 offset and clamp of the reference's Inria-style colours;
+        # maximum (not clamp_min) so a colour exactly at 0 (a black point's
+        # initial sh0) passes half its gradient, as the JAX package's clip
+        colors_cn = torch.maximum(colors_cn + 0.5, colors_cn.new_zeros(()))
 
     if render_mode in ("RGB+D", "RGB+ED"):
         colors_cn = torch.cat([colors_cn, depths[..., None]], dim=-1)
@@ -142,16 +145,17 @@ def rasterization(
 
     Returns (render_colors [C, H, W, X], render_alphas [C, H, W, 1], meta).
     X = D (+1 if render_mode includes depth).
+
+    ``means2d_carrier`` (zeros [C, N, 2], requires grad) is added to the
+    projected means, so its gradient is the loss gradient w.r.t. them (the
+    densification statistic). With ``absgrad=True`` it is not added;
+    its gradient is instead the reference's absgrad statistic, |per-tile
+    gradient| summed over tiles. The rendered output is the same either way.
     """
     if distributed:
         raise NotImplementedError(
             "distributed=True is not ported yet: it comes with the port's "
             "multi-GPU slice"
-        )
-    if means2d_carrier is not None or absgrad:
-        raise NotImplementedError(
-            "means2d_carrier/absgrad are not ported yet: they come with port "
-            "slice 2 (training)"
         )
     if render_mode not in RENDER_MODES:
         raise ValueError(f"render_mode must be one of {RENDER_MODES}, got {render_mode!r}")
@@ -159,7 +163,7 @@ def rasterization(
         raise ValueError(f"unknown rasterize_mode {rasterize_mode!r}")
     common_device(
         means, quats, scales, opacities, colors, viewmats, Ks, backgrounds,
-        covars, masks,
+        covars, masks, means2d_carrier,
     )
     C = viewmats.shape[0]
     backend, isect_capacity = resolve_auto_backend(
@@ -179,6 +183,14 @@ def rasterization(
         render_mode=render_mode, rasterize_mode=rasterize_mode,
         camera_model=camera_model, covars=covars, masks=masks,
     )
+    mean_x, mean_y = s.mean_x, s.mean_y
+    abs_c = None
+    if means2d_carrier is not None:
+        if absgrad:
+            abs_c = (means2d_carrier[..., 0], means2d_carrier[..., 1])
+        else:
+            mean_x = mean_x + means2d_carrier[..., 0]
+            mean_y = mean_y + means2d_carrier[..., 1]
     meta: Dict = {
         "radii": s.radii,
         "depths": s.depths,
@@ -189,11 +201,18 @@ def rasterization(
     }
 
     if backend == "oracle":
-        means2d = torch.stack([s.mean_x, s.mean_y], dim=-1)
+        means2d = torch.stack([mean_x, mean_y], dim=-1)
         conics = torch.stack(s.conics, dim=-1)
         meta["means2d"] = means2d
 
         def _fn(col, bg):
+            if abs_c is not None:
+                if bg is None:
+                    bg = col.new_zeros((C, col.shape[-1]))
+                return rasterize_to_pixels_ref_absgrad(
+                    means2d, conics, col, s.opacities, s.radii, s.depths,
+                    width, height, tile_size, bg, means2d_carrier,
+                )
             return rasterize_to_pixels_ref(
                 means2d, conics, col, s.opacities, s.radii, s.depths,
                 width, height, tile_size, bg,
@@ -207,9 +226,9 @@ def rasterization(
 
         def _fn(col, bg):
             r, a, aux = rasterize_to_pixels_binned(
-                (s.mean_x, s.mean_y), s.conics, col, s.opacities,
+                (mean_x, mean_y), s.conics, col, s.opacities,
                 s.radii, s.depths, width, height, tile_size,
-                capacity=isect_capacity, backgrounds=bg,
+                capacity=isect_capacity, backgrounds=bg, abs_carrier=abs_c,
             )
             aux_out.update(aux)
             return r, a

@@ -103,4 +103,5 @@ def test_truncation_matches_jax(cull):
 def test_cpu_binning_launches_no_kernel():
     _backend.reset_launch_counts()
     _both(_projected(), 16, 64, 48, capacity=8192, cull=True)
-    assert _backend.launch_counts() == {"emit": 0, "rasterize_fwd": 0}
+    counts = _backend.launch_counts()
+    assert counts["emit"] == 0 and set(counts.values()) == {0}

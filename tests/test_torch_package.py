@@ -5,7 +5,10 @@
 - functions run on the device of their inputs and refuse mixed devices;
   splats_from_numpy defaults to CUDA and raises without it;
 - paths not ported yet raise NotImplementedError instead of falling back;
-- CPU runs take the kernels' plain versions and launch no kernel;
+- the binned backend differentiates (the training slice);
+- CPU runs take the kernels' plain versions and launch no kernel, forward
+  and backward;
+- the trainer runs on CUDA unless told device="cpu";
 - checkpoint arrays (the JAX trainer's layout and the viewer's) render the
   same image in both packages through the trainer's render transform.
 """
@@ -38,6 +41,8 @@ PKG = os.path.join(ROOT, "gsplat_tpu_torch")
 def test_import_loads_no_jax():
     code = (
         "import sys, gsplat_tpu_torch, gsplat_tpu_torch.ops.rasterize_binned\n"
+        "import gsplat_tpu_torch.simple_trainer, gsplat_tpu_torch.losses, gsplat_tpu_torch.modules\n"
+        "import gsplat_tpu_torch.optimizers, gsplat_tpu_torch.strategy.ops\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'gsplat_tpu' or m.startswith('gsplat_tpu.'))\n"
         "assert not bad, bad\n"
@@ -124,23 +129,29 @@ def _tiny(requires_grad=False):
 
 
 def test_binned_backend_refuses_gradients():
+    """Since the training slice the binned backend no longer refuses a
+    gradient: it differentiates, and agrees with the oracle's autograd."""
     args = _tiny(requires_grad=True)
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        rasterization(*args, backend="binned", isect_capacity=4096)
     with torch.no_grad():
         img, alpha, meta = rasterization(*args, backend="binned", isect_capacity=4096)
     assert int(meta["n_isects"]) > 0 and float(alpha.mean()) > 0
-    # the oracle is plain torch and differentiates
-    img, _, _ = rasterization(*args, backend="oracle")
-    img.sum().backward()
-    assert args[0].grad is not None and torch.isfinite(args[0].grad).all()
+    grads = []
+    for backend in ("binned", "oracle"):
+        args[0].grad = None
+        img, alpha, _ = rasterization(*args, backend=backend, isect_capacity=4096)
+        (img.sum() + alpha.sum()).backward()
+        assert torch.isfinite(args[0].grad).all()
+        grads.append(args[0].grad.clone())
+    s = float(grads[1].abs().max())
+    assert s > 0
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-3, atol=1e-4 * s)
 
 
 @pytest.mark.parametrize("kw,match", [
     (dict(backend="tiled", isect_capacity=4096), "tiled"),
     (dict(distributed=True), "multi-GPU"),
-    (dict(absgrad=True), "slice 2"),
-    (dict(means2d_carrier=torch.zeros(1, 64, 2)), "slice 2"),
+    (dict(backend="tiled", isect_capacity=4096, means2d_carrier=torch.zeros(1, 64, 2), absgrad=True), "tiled"),
+    (dict(distributed=True, means2d_carrier=torch.zeros(1, 64, 2)), "multi-GPU"),
 ])
 def test_unported_paths_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -157,13 +168,6 @@ def test_unported_entry_points_raise():
             torch.zeros(C, N, 2), torch.zeros(C, N, 3), torch.zeros(C, N, 3),
             torch.zeros(C, N), torch.zeros(C, N, dtype=torch.int32),
             torch.ones(C, N), 32, 32, capacity=4096, backend="tiled",
-        )
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        trb.rasterize_to_pixels_binned(
-            torch.zeros(C, N, 2), torch.zeros(C, N, 3), torch.zeros(C, N, 3),
-            torch.zeros(C, N), torch.zeros(C, N, dtype=torch.int32),
-            torch.ones(C, N), 32, 32, 16, 4096,
-            abs_carrier=(torch.zeros(C, N), torch.zeros(C, N)),
         )
 
 
@@ -211,8 +215,24 @@ def test_cpu_runs_launch_no_kernel():
     _backend.reset_launch_counts()
     with torch.no_grad():
         rasterization(*_tiny(), backend="binned", isect_capacity=4096, sh_degree=None)
-    assert _backend.launch_counts() == {"emit": 0, "rasterize_fwd": 0}
+    img, _, _ = rasterization(*_tiny(requires_grad=True), backend="binned", isect_capacity=4096)
+    img.sum().backward()
+    assert _backend.launch_counts() == {name: 0 for name in ("emit", "rasterize_fwd", "rasterize_bwd", "gid_reduce")}
     assert not _backend.BUILD_LOG
+
+
+def test_trainer_needs_cuda_unless_cpu(monkeypatch):
+    from gsplat_tpu_torch import simple_trainer
+
+    pts = np.random.default_rng(0).standard_normal((20, 3)).astype(np.float32)
+    rgb = np.full((20, 3), 128, np.uint8)
+    view = {"image": np.zeros((8, 8, 3), np.float32), "camtoworld": np.eye(4, dtype=np.float32),
+            "K": np.eye(3, dtype=np.float32), "image_id": 0}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        simple_trainer.Runner(simple_trainer.Config(), [view], pts, rgb, scene_scale=1.0)
+    runner = simple_trainer.Runner(simple_trainer.Config(), [view], pts, rgb, scene_scale=1.0, device="cpu")
+    assert all(p.device.type == "cpu" for p in runner.params.values())
 
 
 @pytest.fixture(scope="module")
