@@ -7,13 +7,14 @@ Phases, each printing its lines; any failure raises and the script exits
 non-zero (there is no CPU fallback):
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the four kernels (csrc/emit.cu, rasterize_fwd.cu,
-     rasterize_bwd.cu, gid_reduce.cu), one nvcc process each, started
-     together, into build/gsplat_tpu_torch/, with ptxas's register and
-     spill lines;
+  2. build: the six kernels (csrc/emit.cu, rasterize_fwd.cu,
+     rasterize_bwd.cu, gid_reduce.cu, rasterize_2dgs_fwd.cu,
+     rasterize_2dgs_bwd.cu), one nvcc process each, started together, into
+     build/gsplat_tpu_torch/, with ptxas's register and spill lines;
   3. kernel vs plain on the card: garden scene_grid=1 at its native
      648x420, 3 cameras, tile sizes 16 and 32, sh_degree 0 and 3:
-     - the emit kernel's stream must equal its plain version's;
+     - the emit kernel's stream must equal its plain version's (3DGS and
+       2DGS payloads);
      - the forward kernel's image and alpha within max abs 2e-4 (an entry
        at the T ~ 1e-4 termination boundary can flip when the product is
        rounded in another order) and mean abs 1e-6;
@@ -23,8 +24,19 @@ non-zero (there is no CPU fallback):
        absgrad rows, and at D = 8, 16, 32 with a background;
      - the reduce kernel against index_add_ within 1e-6 x the row's
        largest per-Gaussian sum of |values| (the two add in other orders);
-     - binned against the oracle on a small subsample: render, and the
-       gradients w.r.t. the splat parameters;
+     - the 2DGS forward kernel (RGB and RGB+ED, D = 3 and 4): features, T
+       and distortion off by more than 2e-4 x max(1, the output's max
+       |plain|) at a share of at most 1e-5 of the values and by at most
+       1e-2 x that anywhere (termination flips, as above), the median (a
+       selection output) off at most at a share 1e-3 of the pixels;
+     - the 2DGS backward kernel's rows, for seeded cotangents and a
+       background's term of v_T: slots off by more than 1e-3 x |plain| +
+       1e-3 x the row's max |plain| at most a share 1e-4 of the slots, none
+       by more than 1e-2 x the row's max (the ray-transform rows sum
+       pixel-scaled terms that cancel for an edge-on surfel);
+     - binned against the oracle on a small subsample, render and the
+       gradients w.r.t. the splat parameters, 3DGS and 2DGS (2DGS by the
+       repo's count-based gates for its own 2DGS backends);
   4. serving path: garden scene_grid=5 (2,794,625 Gaussians) at
      1920x1080, one camera per frame, tile size 16, sh_degree 3, through
      rasterization(backend="binned") under no_grad, with its launch counts,
@@ -39,8 +51,23 @@ non-zero (there is no CPU fallback):
      profiled step; step time at tile 16 and 32; each kernel against its
      plain version at the train path's shapes; the reduce path (gid sort +
      searchsorted + kernel) against index_add_ there and on synthetic
-     uniform and large-splat gids of the same sizes; the `kernels` line;
-  6. the result line.
+     uniform and large-splat gids of the same sizes;
+  6. 2DGS training: simple_trainer_2dgs.Runner2DGS on the training path's
+     points and views, 12 steps with both geometry losses from step 0;
+     emit, both 2DGS kernels and the gid reduce launched in every step,
+     finiteness, the loss on view 0 falling, the steady step time and one
+     profiled step; both 2DGS kernels against their plain versions at
+     these shapes, over the whole frame (the plain versions timed once)
+     and on 256 seeded tiles;
+  7. 2DGS serving: rasterization_2dgs(backend="binned",
+     render_mode="RGB+ED") under no_grad, launching emit and the 2DGS
+     forward and nothing else, on two scenes: the serving path's splats as
+     surfels (frame-sized near-plane surfels saturate every pixel at once)
+     and phase 6's trained surfels (each pixel composites many); for each,
+     frame and stage times, one profiled frame, the stream's size, and the
+     2DGS forward against its plain version on 256 seeded tiles (the other
+     tiles' counts zeroed for both);
+  8. the `kernels` line (all six kernels), then the result line.
 """
 
 import json
@@ -57,6 +84,20 @@ FWD_MAX_ABS = 2e-4
 FWD_MEAN_ABS = 1e-6
 BWD_RTOL, BWD_ATOL = 1e-3, 1e-4  # atol relative to the row's max |plain|
 REDUCE_TOL = 1e-6
+# 2DGS forward kernel vs plain: values off by more than FWD2_TOL x scale
+# (scale = max(1, the output's max |plain|)) at most a share FWD2_FLIPS of
+# them, none by more than FWD2_MAX x scale; the median (a selection output)
+# off by more than 1e-5 x scale at most a share MED_FLIPS of its pixels
+FWD2_TOL, FWD2_FLIPS, FWD2_MAX = 2e-4, 1e-5, 1e-2
+MED_FLIPS = 1e-3
+# 2DGS backward kernel vs plain, per row: slots off by more than BWD2_RTOL x
+# |plain| + BWD2_ATOL x the row's max |plain| (the repo's 2DGS gradient
+# gates) at most a share BWD2_FLIPS of them, none by more than BWD2_MAX x
+# the row's max. The M rows sum px v_hu + py v_hv over a tile, and for an
+# edge-on surfel (cross product near 0) those terms are many times their
+# sum, so another summation order moves a few slots further
+BWD2_RTOL, BWD2_ATOL, BWD2_FLIPS, BWD2_MAX = 1e-3, 1e-3, 1e-4, 1e-2
+TILE_SUBSET = 256  # tiles of the main shapes' kernel-vs-plain checks
 MAIN_TILE = 16
 MAIN_GRID = 5
 MAIN_W, MAIN_H = 1920, 1080
@@ -294,6 +335,101 @@ def reduce_synthetic(torch, rb, M, n_out, R, reps):
             f"sort + searchsorted + kernel {p_ms:.3f} ms, index_add_ {lib_ms:.3f} ms; max abs {err:.3e}")
 
 
+def shade_2dgs(rendering, torch, splats, live, viewmats, Ks, W, H, sh_degree, render_mode):
+    means, quats, scales, opac, colors = render_args(torch, splats)
+    return rendering.project_and_shade_2dgs(
+        means, quats, scales, opac, colors, viewmats, Ks, W, H,
+        sh_degree=sh_degree, masks=live, render_mode=render_mode,
+    )
+
+
+def emit_plan_2dgs(binning, r2, s, ts, W, H, capacity):
+    tw, th = -(-W // ts), -(-H // ts)
+    mx, my = s.means2d[..., 0], s.means2d[..., 1]
+    Ms = s.ray_transforms.reshape(s.ray_transforms.shape[:2] + (9,))
+    return binning.plan_emit(
+        mx, my, None, None, None, None, None, s.radii, s.depths, ts, tw, th, capacity,
+        cull=False, payload_rows=r2.surfel_payload(mx, my, Ms, s.opacities, s.colors, s.normals),
+    )
+
+
+def tile_subset(torch, bk, n_keep, seed):
+    """The stream with the counts of all but `n_keep` seeded tiles (among
+    those with entries) set to 0: the kernel-vs-plain checks at the main
+    shapes, where the whole-frame plain version is slow."""
+    gen = torch.Generator(device=bk.cnts.device).manual_seed(seed)
+    busy = torch.nonzero(bk.cnts > 0)[:, 0]
+    keep = busy[torch.randperm(busy.shape[0], generator=gen, device=busy.device)[:n_keep]]
+    cnts = torch.zeros_like(bk.cnts)
+    cnts[keep] = bk.cnts[keep]
+    return bk._replace(cnts=cnts)
+
+
+def _flip_gate(torch, name, got, want, what):
+    """FWD2_TOL / FWD2_FLIPS / FWD2_MAX on one output. Returns its max abs."""
+    scale = max(1.0, float(want.abs().max())) if want.numel() else 1.0
+    d = (got - want).abs()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{what}: kernel {name} is not finite")
+    off = float((d > FWD2_TOL * scale).float().mean()) if d.numel() else 0.0
+    mx = float(d.max()) if d.numel() else 0.0
+    if off > FWD2_FLIPS or mx > FWD2_MAX * scale:
+        raise AssertionError(f"{what}: {name} share off by > {FWD2_TOL} x {scale:.3g}: {off:.3e} "
+                             f"(limit {FWD2_FLIPS}), max abs {mx:.3e} (limit {FWD2_MAX} x scale)")
+    return mx
+
+
+def compare_fwd2(torch, r2, bk, C, W, H, ts, what, plain=None):
+    """2DGS forward kernel vs plain on one stream. Returns ({output: max abs},
+    median share off, share of pixels with equal `last`, plain's evaluated
+    pairs, the kernel's (features, T, last, distortion, median))."""
+    args = (bk.entries, bk.offs, bk.cnts, C, W, H, ts)
+    ko = r2._fwd2_cuda(*args)
+    po = r2._fwd2_plain(*args) if plain is None else plain
+    errs = {}
+    for i, name in ((0, "features"), (1, "T"), (3, "distortion")):
+        errs[name] = _flip_gate(torch, name, ko[i], po[i], what)
+    scale = max(1.0, float(po[4].abs().max())) if po[4].numel() else 1.0
+    med_off = float(((ko[4] - po[4]).abs() > 1e-5 * scale).float().mean()) if po[4].numel() else 0.0
+    if med_off > MED_FLIPS:
+        raise AssertionError(f"{what}: median differs at a share {med_off:.3e} of pixels (limit {MED_FLIPS})")
+    same_last = float((ko[2] == po[2]).float().mean()) if po[2].numel() else 1.0
+    return errs, med_off, same_last, po[5], ko
+
+
+def cotangents_2dgs(torch, gen, T_out, L):
+    """Seeded cotangents of the features [C,H,W,L], T_final and the
+    distortion [C,H,W]."""
+    v_feat = torch.randn(T_out.shape + (L,), generator=gen, device=T_out.device)
+    v_T = torch.randn(T_out.shape, generator=gen, device=T_out.device)
+    v_dist = torch.randn(T_out.shape, generator=gen, device=T_out.device)
+    return v_feat, v_T, v_dist
+
+
+def compare_bwd2(torch, r2, bk, ko, cot, D, C, W, H, ts, what, plain=None):
+    """2DGS backward kernel vs plain on one stream and the kernel forward's
+    outputs `ko`, each row held to the BWD2_* gates. Returns (kernel rows, max abs error, per-row max abs
+    errors, plain's pair counts)."""
+    feat, T_k, last_k = ko[0], ko[1], ko[2]
+    args = (bk.entries, bk.offs, bk.cnts, T_k, last_k, feat[..., D - 1].contiguous(), *cot, C, W, H, ts)
+    rows_k = r2._bwd2_cuda(*args)
+    rows_p, pairs = r2._bwd2_plain(*args) if plain is None else plain
+    if not torch.isfinite(rows_k).all():
+        raise AssertionError(f"{what}: 2DGS backward kernel rows are not finite")
+    errs = []
+    for r in range(rows_p.shape[0]):
+        diff = (rows_k[r] - rows_p[r]).abs()
+        scale = float(rows_p[r].abs().max()) if rows_p.shape[1] else 0.0
+        n_bad = int((diff > BWD2_RTOL * rows_p[r].abs() + BWD2_ATOL * scale).sum())
+        if n_bad > BWD2_FLIPS * diff.numel() or bool((diff > BWD2_MAX * scale).any()):
+            raise AssertionError(
+                f"{what}: 2DGS backward row {r} vs plain: {n_bad} of {diff.numel()} slots off, max abs "
+                f"{float(diff.max()):.3e} against row max {scale:.3e}"
+            )
+        errs.append(float(diff.max()) if diff.numel() else 0.0)
+    return rows_k, max(errs), errs, pairs
+
+
 def phase_device():
     import torch
 
@@ -421,6 +557,93 @@ def phase_kernel_vs_plain():
             raise AssertionError(f"binned vs oracle gradient of {k}: max abs {float(diff.max()):.3e}, scale {scale:.3e}")
         worst.append(f"{k} {float(diff.max()) / scale:.2e}")
     log(f"binned vs oracle gradients ({W // f}x{H // f}, C={C}), max abs / max |oracle|: " + ", ".join(worst))
+
+
+def phase_kernel_vs_plain_2dgs():
+    """The 2DGS kernels against their plain versions at grid1 (as
+    phase_kernel_vs_plain), and binned 2DGS against the 2DGS oracle on a
+    small subsample."""
+    import torch
+    from gsplat_tpu_torch import rendering, splats_from_numpy
+    from gsplat_tpu_torch.ops import binning, rasterize_2dgs_binned as r2
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    arrays, viewmats, Ks, W, H = splat_arrays(1, 3, SEED)
+    splats, live = splats_from_numpy(arrays, device=dev)
+    vm = torch.as_tensor(viewmats, device=dev)
+    K = torch.as_tensor(Ks, device=dev)
+    C = vm.shape[0]
+    with torch.no_grad():
+        for ts in (16, 32):
+            for deg in (0, 3):
+                for mode in ("RGB", "RGB+ED"):
+                    s = shade_2dgs(rendering, torch, splats, live, vm, K, W, H, deg, mode)
+                    D = s.colors.shape[-1]
+                    plan, slab = emit_plan_2dgs(binning, r2, s, ts, W, H, capacity=1 << 30)
+                    T = C * (-(-W // ts)) * (-(-H // ts))
+                    bk, _ = compare_emit(torch, binning, plan, slab, T)
+                    what = f"2DGS grid1 ts={ts} sh={deg} D={D}"
+                    errs, med_off, same_last, _, ko = compare_fwd2(torch, r2, bk, C, W, H, ts, what)
+                    # a background enters through T's cotangent (the caller
+                    # composites it), as autograd would hand it over
+                    bg = torch.rand((C, D), generator=gen, device=dev)
+                    cot = cotangents_2dgs(torch, gen, ko[1], D + 3)
+                    cot = (cot[0], cot[1] + (cot[0][..., :D] * bg[:, None, None, :]).sum(dim=-1), cot[2])
+                    rows_k, bmx, berrs, _ = compare_bwd2(torch, r2, bk, ko, cot, D, C, W, H, ts, what)
+                    log(f"kernel vs plain {what} {W}x{H} C={C}: n_isects {int(bk.n_isects)}, emit equal, fwd max abs "
+                        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                        + f", median off at {med_off:.2e} of pixels, last equal at {same_last:.6f}; "
+                        f"bwd max abs per row " + " ".join(f"{e:.2e}" for e in berrs))
+
+    # binned (kernels) against the oracle on a small subsample: every 30th
+    # Gaussian, cameras / 8, so the oracle's [C, pixels, N, 3] tensors fit
+    sub = {k: v[::30] for k, v in splats.items()}
+    f = 8
+    Ks8 = K.clone()
+    Ks8[:, :2, :] /= f
+    w8, h8 = W // f, H // f
+    bg = torch.full((C, 3), 0.2, device=dev)
+    cot = [torch.randn(shape, generator=gen, device=dev) for shape in
+           ((C, h8, w8, 4), (C, h8, w8, 1), (C, h8, w8, 3), (C, h8, w8, 1))]
+    outs, grads = {}, {}
+    for backend in ("binned", "oracle"):
+        leaves = {k: v.clone().requires_grad_(True) for k, v in sub.items()}
+        carrier = torch.zeros((C, sub["means"].shape[0], 2), device=dev, requires_grad=True)
+        o = rendering.rasterization_2dgs(
+            *render_args(torch, leaves), vm, Ks8, w8, h8, sh_degree=3, backgrounds=bg,
+            render_mode="RGB+D", distloss=True, backend=backend, isect_capacity=1 << 20,
+            densify_carrier=carrier,
+        )
+        outs[backend] = [x.detach() for x in (o[0], o[1], o[2], o[4], o[5])]
+        sum(((x * w).sum() for x, w in zip((o[0], o[1], o[2], o[4]), cot))).backward()
+        grads[backend] = {k: v.grad for k, v in leaves.items()}
+        grads[backend]["means2d"] = carrier.grad
+    d_out = []
+    for name, got, want in zip(("colors", "alphas", "normals", "distortion", "median"),
+                               outs["binned"], outs["oracle"]):
+        d = (got - want).abs()
+        # the oracle sums in another order: count-based gates, as the repo's
+        # own 2DGS tests hold a backend to the oracle
+        if float(d.max()) > 1e-2 or float((d > 2e-4).float().mean()) > 1e-3:
+            raise AssertionError(f"binned 2DGS vs oracle {name}: max abs {float(d.max()):.3e}, "
+                                 f"share > 2e-4 {float((d > 2e-4).float().mean()):.3e}")
+        d_out.append(f"{name} {float(d.max()):.2e}")
+    # the repo's gate for a 2DGS backend's gradients against the oracle's
+    # (tests/test_rasterize_2dgs_tiled.py's _mostly_close): 99.5% of values
+    # within 2e-3 x scale, none off by more than 0.05 x scale
+    worst = []
+    for k, want in grads["oracle"].items():
+        got = grads["binned"][k]
+        scale = max(float(want.abs().max()), 1.0)
+        diff = (got - want).abs()
+        close = float((diff <= 2e-3 * scale).float().mean())
+        if not bool(torch.isfinite(got).all()) or close < 0.995 or float(diff.max()) > 0.05 * scale:
+            raise AssertionError(f"binned 2DGS vs oracle gradient of {k}: max abs {float(diff.max()):.3e}, "
+                                 f"scale {scale:.3e}, share within 2e-3 x scale {close:.4f}")
+        worst.append(f"{k} {float(diff.max()) / scale:.2e}")
+    log(f"binned 2DGS vs oracle ({sub['means'].shape[0]} Gaussians, {w8}x{h8}, C={C}, RGB+D), max abs: "
+        + ", ".join(d_out) + "; gradients, max abs / max |oracle|: " + ", ".join(worst))
 
 
 def phase_serving(smi):
@@ -587,7 +810,7 @@ def phase_train(smi):
         per_step = {k: after[k] - before[k] for k in after}
         if not np.isfinite(loss):
             raise AssertionError(f"step {step}: loss {loss}")
-        missing = [k for k, v in per_step.items() if v == 0]
+        missing = [k for k in ("emit", "rasterize_fwd", "rasterize_bwd", "gid_reduce") if per_step[k] == 0]
         if missing:
             raise AssertionError(f"step {step}: kernels {missing} were not launched")
         losses.append((out["image_ids"][0], loss))
@@ -639,12 +862,13 @@ def phase_train(smi):
     runner.probe_isect_capacity()
     log("train step ms by tile size (CUDA events, after the 12 steps): " + ", ".join(sweep))
 
-    kernel_table(smi, runner, launches)
+    return kernel_table(runner, launches), (views, points, rgb, scene_scale)
 
 
-def kernel_table(smi, runner, launches):
+def kernel_table(runner, launches):
     """Each kernel alone against its plain version at the train path's
-    shapes (view 0, the trained splats), and the `kernels` line."""
+    shapes (view 0, the trained splats). Returns the kernels' entries of
+    the `kernels` line."""
     import torch
     from gsplat_tpu_torch import rendering
     from gsplat_tpu_torch.ops import binning, rasterize_binned as rb
@@ -746,8 +970,264 @@ def kernel_table(smi, runner, launches):
             "bound_by": "bytes", "library_ms": red_plain_ms,
         },
     ]
-    log(f"card: {smi}")
-    log(json.dumps({"kernels": kernels}))
+    return kernels
+
+
+def phase_serving_2dgs(trained):
+    """2DGS serving: rasterization_2dgs(backend="binned", RGB+ED) under
+    no_grad at the serving phase's shapes, on two scenes: the serving
+    phase's splats as surfels (a few thousand frame-sized surfels next to
+    the near plane saturate every pixel within a few entries: a long stream
+    and little compositing) and the 2DGS training phase's surfels after its
+    steps (`trained` = (params, live) of its Runner2DGS: each pixel
+    composites many surfels). Launch counts over both scenes' frames; for
+    each scene frame and stage times, one profiled frame, the stream's size
+    and the forward kernel against its plain version on a seeded subset of
+    tiles."""
+    import torch
+    from gsplat_tpu_torch import _backend, rasterization_2dgs, rendering, splats_from_numpy
+    from gsplat_tpu_torch.ops import binning, rasterize_2dgs_binned as r2
+    from gsplat_tpu_torch.ops.projection_2dgs import fully_fused_projection_2dgs
+
+    dev = torch.device("cuda")
+    deg, mode = 3, "RGB+ED"
+    arrays, viewmats, Ks, W0, _ = splat_arrays(MAIN_GRID, deg, SEED)
+    Ks = Ks.copy()
+    Ks[:, :2, :] *= MAIN_W / W0
+    W, H, ts = MAIN_W, MAIN_H, MAIN_TILE
+    T = (-(-W // ts)) * (-(-H // ts))
+    scenes = {"fixture splats": splats_from_numpy(arrays, device=dev), "trained surfels": trained}
+    vms = [torch.as_tensor(viewmats[i : i + 1], device=dev) for i in range(len(viewmats))]
+    Kss = [torch.as_tensor(Ks[i : i + 1], device=dev) for i in range(len(Ks))]
+
+    def frame(name, i, capacity):
+        splats, live = scenes[name]
+        return rasterization_2dgs(
+            *render_args(torch, splats), vms[i], Kss[i], W, H, sh_degree=deg, masks=live,
+            tile_size=ts, backend="binned", isect_capacity=capacity, render_mode=mode,
+        )
+
+    with torch.no_grad():
+        caps = {name: max(frame(name, i, 512)[6]["slab_required"] for i in range(len(vms))) + 1024
+                for name in scenes}
+        torch.cuda.synchronize()
+        _backend.reset_launch_counts()
+        for name, capacity in caps.items():
+            frames, frames_dev = [], []
+            for i in range(len(vms)):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                t0 = time.perf_counter()
+                start.record()
+                out = frame(name, i, capacity)
+                end.record()
+                torch.cuda.synchronize()
+                frames.append((time.perf_counter() - t0) * 1e3)
+                frames_dev.append(start.elapsed_time(end))
+                img, alpha, nrm, nfd, dist, med, meta = out
+                shapes = [tuple(x.shape) for x in (img, alpha, nrm, nfd, dist, med)]
+                want = [(1, H, W, 4), (1, H, W, 1), (1, H, W, 3), (1, H, W, 3), (1, H, W, 1), (1, H, W, 1)]
+                if shapes != want:
+                    raise AssertionError(f"2DGS {name} camera {i}: shapes {shapes}")
+                if not all(bool(torch.isfinite(x).all()) for x in (img, alpha, nrm, nfd, dist, med)):
+                    raise AssertionError(f"2DGS {name} camera {i}: non-finite output")
+                if meta["slab_required"] > capacity:
+                    raise AssertionError(f"2DGS {name} camera {i}: truncated ({meta['slab_required']} > {capacity})")
+                log(f"2DGS frame, {name}, cam {i}: n_isects {int(meta['n_isects'])}, slab_required "
+                    f"{meta['slab_required']}, alpha mean {float(alpha.mean()):.4f}, image mean "
+                    f"{float(img[..., :3].mean()):.4f}, median depth mean {float(med.mean()):.4f}, finite")
+            log(f"2DGS serving path, {name}: N={int(scenes[name][1].sum())}, {W}x{H}, ts={ts}, "
+                f"sh_degree={deg}, {mode}, capacity {capacity}, {len(frames)} frames, ms/frame host "
+                f"{', '.join(f'{t:.2f}' for t in frames)}; CUDA events {', '.join(f'{t:.2f}' for t in frames_dev)}")
+        launches = _backend.launch_counts()
+        log(f"launches in the 2DGS serving path (both scenes): {launches}")
+        extra = {k: v for k, v in launches.items() if (v > 0) != (k in ("emit", "rasterize_2dgs_fwd"))}
+        if extra:
+            raise AssertionError(f"2DGS serving launched other than emit and the 2DGS forward: {extra}")
+
+        for name, capacity in caps.items():
+            # stage times (CUDA events), camera 0, same inputs as the frames
+            splats, live = scenes[name]
+            s = shade_2dgs(rendering, torch, splats, live, vms[0], Kss[0], W, H, deg, mode)
+            plan, slab = emit_plan_2dgs(binning, r2, s, ts, W, H, capacity)
+            ops = binning._emit_cuda(plan)
+            bk = binning.sort_entries(ops, T, slab)
+            reps = 5
+            args0 = render_args(torch, splats)
+            stage = {
+                "projection+SH": cuda_ms(torch, lambda: shade_2dgs(rendering, torch, splats, live, vms[0], Kss[0],
+                                                                   W, H, deg, mode), reps),
+                "of it: projection": cuda_ms(torch, lambda: fully_fused_projection_2dgs(*args0[:3], vms[0], Kss[0],
+                                                                                        W, H), reps),
+                "emit (plan + kernel)": cuda_ms(torch, lambda: binning._emit_cuda(
+                    emit_plan_2dgs(binning, r2, s, ts, W, H, capacity)[0]), reps),
+                "of it: emit kernel": cuda_ms(torch, lambda: binning._emit_cuda(plan), reps),
+                "sort": cuda_ms(torch, lambda: binning.sort_entries(ops, T, slab), reps),
+                "forward kernel": cuda_ms(torch, lambda: r2._fwd2_cuda(bk.entries, bk.offs, bk.cnts, 1, W, H, ts),
+                                          reps),
+                "frame": cuda_ms(torch, lambda: frame(name, 0, capacity), reps),
+            }
+            log(f"2DGS stage ms (CUDA events, {name}, camera 0): "
+                + ", ".join(f"{k} {v:.3f}" for k, v in stage.items()))
+            log_profile(f"2DGS frame ({name}, camera 0)",
+                        device_time_by_kernel(torch, lambda: frame(name, 0, capacity)), stage["frame"])
+            live_ids = int((plan.counts > 0).sum())
+            NF = plan.payload.shape[0]
+            # surfels whose rectangle spans at least half the frame, and the
+            # share of the stream they own
+            big = plan.counts >= T // 2
+            log(f"2DGS stream, {name}, camera 0: {live_ids} live ids, {int(bk.n_isects)} entries ({plan.n_emit} "
+                f"emitted), largest rectangle {int(plan.counts.max())} tiles of {T}, {NF} payload rows; emit writes "
+                f"{plan.n_emit * (8 + 4 + 4 * NF)} bytes; {int(big.sum())} ids with rectangles of >= {T // 2} tiles "
+                f"emit {int(plan.counts[big].sum())} entries, median depth "
+                f"{float(plan.depth[big].median()) if bool(big.any()) else float('nan'):.4f}")
+            sub = tile_subset(torch, bk, TILE_SUBSET, SEED)
+            errs, med_off, same_last, pairs, _ = compare_fwd2(torch, r2, sub, 1, W, H, ts, f"2DGS serving, {name}")
+            log(f"2DGS serving shapes, {name}, {TILE_SUBSET} seeded tiles ({int(sub.cnts.sum())} entries, "
+                f"{int(pairs)} evaluated pairs, ~{int(pairs) / (TILE_SUBSET * ts * ts):.1f} a pixel): forward kernel "
+                f"vs plain max abs " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+                + f", median off at {med_off:.2e}, last equal at {same_last:.6f}")
+
+
+def phase_train_2dgs(scene):
+    """2DGS training: Runner2DGS on the training phase's points and views,
+    12 steps of one view with both geometry losses from step 0. Returns
+    the 2DGS kernels' entries of the `kernels` line and the runner."""
+    import torch
+    from gsplat_tpu_torch import _backend
+    from gsplat_tpu_torch.simple_trainer import Config
+    from gsplat_tpu_torch.simple_trainer_2dgs import Runner2DGS
+
+    dev = torch.device("cuda")
+    views, points, rgb, scene_scale = scene
+    cfg = Config(
+        max_steps=TRAIN_STEPS, sh_degree=3, sh_degree_interval=1, refine_start_iter=3,
+        refine_every=5, tile_size=MAIN_TILE, backend="binned", pool_headroom=1.5, seed=SEED,
+    )
+    t1 = time.perf_counter()
+    runner = Runner2DGS(cfg, views, points, rgb, scene_scale, device=dev, normal_start=0, dist_start=0)
+    runner.probe_isect_capacity()
+    torch.cuda.synchronize()
+    log(f"2DGS training path: {points.shape[0]} points, pool {runner.live.shape[0]} slots, isect capacity "
+        f"{runner.isect_capacity} (from a surfel probe); init {time.perf_counter() - t1:.1f} s")
+
+    kernels = ("emit", "rasterize_2dgs_fwd", "rasterize_2dgs_bwd", "gid_reduce")
+    _backend.reset_launch_counts()
+    losses = []
+    for step in range(TRAIN_STEPS):
+        before = _backend.launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        start.record()
+        out = runner.train_step(step)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - h0) * 1e3
+        loss = float(out["loss"])
+        after = _backend.launch_counts()
+        per_step = {k: after[k] - before[k] for k in after}
+        if not np.isfinite(loss):
+            raise AssertionError(f"2DGS step {step}: loss {loss}")
+        missing = [k for k in kernels if per_step[k] == 0]
+        other = [k for k, v in per_step.items() if v and k not in kernels]
+        if missing or other:
+            raise AssertionError(f"2DGS step {step}: kernels {missing} not launched, {other} launched")
+        losses.append((out["image_ids"][0], loss))
+        log(f"2DGS step {step}: view {out['image_ids'][0]} loss {loss:.6f} live {int(runner.live.sum())}"
+            f"{' (refined)' if out['refined'] else ''} slab_required {out['slab_required']}, "
+            f"host {host_ms:.2f} ms, CUDA events {start.elapsed_time(end):.2f} ms; launches {per_step}")
+    launches = _backend.launch_counts()
+    log(f"launches in the 2DGS training path ({TRAIN_STEPS} steps): {launches}")
+    for name, p in runner.params.items():
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"2DGS parameter {name} is not finite after training")
+    view0 = [loss for v, loss in losses if v == 0]
+    if len(view0) < 2 or not view0[-1] < view0[0]:
+        raise AssertionError(f"2DGS: view 0's loss did not fall: {view0}")
+    log(f"2DGS: all parameters finite; view 0 loss {view0[0]:.6f} -> {view0[-1]:.6f} over {len(view0)} visits")
+    step_time = cuda_ms(torch, lambda: runner.train_step(13), 3)
+    log_profile("2DGS train step", device_time_by_kernel(torch, lambda: runner.train_step(14)), step_time)
+    log(f"2DGS train step ms (CUDA events, after the 12 steps): {step_time:.3f}")
+    return kernel_table_2dgs(runner, launches), runner
+
+
+def kernel_table_2dgs(runner, launches):
+    """The 2DGS kernels alone against their plain versions at the 2DGS
+    train path's shapes (view 0, the trained splats): the whole frame (the
+    plain versions timed once) and a seeded subset of tiles."""
+    import torch
+    from gsplat_tpu_torch import rendering
+    from gsplat_tpu_torch.ops import binning, rasterize_2dgs_binned as r2
+
+    dev = torch.device("cuda")
+    W, H, ts = MAIN_W, MAIN_H, runner.cfg.tile_size
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    view = runner.trainset[0]
+    vm = torch.linalg.inv(view["camtoworld"])[None]
+    K = view["K"][None]
+    reps = 5
+    what = f"2DGS train shapes {W}x{H}"
+    with torch.no_grad():
+        s = shade_2dgs(rendering, torch, runner.params, runner.live, vm, K, W, H, runner.cfg.sh_degree, "RGB+ED")
+        D = s.colors.shape[-1]
+        L = D + 3
+        plan, slab = emit_plan_2dgs(binning, r2, s, ts, W, H, runner.isect_capacity)
+        T = (-(-W // ts)) * (-(-H // ts))
+        bk = binning.sort_entries(binning._emit_cuda(plan), T, slab)
+        fargs = (bk.entries, bk.offs, bk.cnts, 1, W, H, ts)
+        fwd_ms = cuda_ms(torch, lambda: r2._fwd2_cuda(*fargs), reps)
+        plain_f, fwd_plain_ms = timed_once(torch, lambda: r2._fwd2_plain(*fargs))
+        ferrs, med_off, same_last, fwd_pairs, ko = compare_fwd2(torch, r2, bk, 1, W, H, ts, what, plain=plain_f)
+        del plain_f
+        cot = cotangents_2dgs(torch, gen, ko[1], L)
+        bargs = (bk.entries, bk.offs, bk.cnts, ko[1], ko[2], ko[0][..., D - 1].contiguous(), *cot, 1, W, H, ts)
+        bwd_ms = cuda_ms(torch, lambda: r2._bwd2_cuda(*bargs), reps)
+        plain_b, bwd_plain_ms = timed_once(torch, lambda: r2._bwd2_plain(*bargs))
+        rows_k, bmx, berrs, (n_eval, n_acc) = compare_bwd2(torch, r2, bk, ko, cot, D, 1, W, H, ts, what, plain=plain_b)
+        del plain_b
+        # both kernels also on a seeded subset of tiles, the other tiles'
+        # counts zeroed for both
+        sub = tile_subset(torch, bk, TILE_SUBSET, SEED + 1)
+        serrs, _, _, _, ko_s = compare_fwd2(torch, r2, sub, 1, W, H, ts, what + " tile subset")
+        _, sbmx, _, _ = compare_bwd2(torch, r2, sub, ko_s, cot, D, 1, W, H, ts, what + " tile subset")
+    log(f"{what} (view 0, trained splats, {int(bk.n_isects)} entries): 2DGS forward vs plain max abs "
+        + ", ".join(f"{k} {v:.3e}" for k, v in ferrs.items())
+        + f", median off at {med_off:.2e}, last equal at {same_last:.6f}; backward max abs per row "
+        + " ".join(f"{e:.2e}" for e in berrs)
+        + f"; on {TILE_SUBSET} seeded tiles: forward max abs {max(serrs.values()):.3e}, backward {sbmx:.3e}")
+
+    NF = bk.entries.shape[0]
+    n_isects = int(bk.n_isects)
+    pix = H * W
+    # counted from csrc/rasterize_2dgs_{fwd,bwd}.cu, a division and an expf
+    # one operation each: the forward 41 per evaluated pair (sigma, alpha,
+    # tests) and 2L + 13 per accepted one; the backward 41 per pair at or
+    # before the pixel's `last` and 5L + 87 per accepted one (the chain, the
+    # cross-product VJP, one add into the slot's sum per row)
+    fwd_ops = 41 * fwd_pairs + (2 * L + 13) * n_acc
+    fwd_bytes = n_isects * NF * 4 + 2 * T * 4 + pix * 4 * (L + 4)
+    bwd_ops = 41 * n_eval + (5 * L + 87) * n_acc
+    bwd_bytes = n_isects * NF * 4 + 2 * T * 4 + pix * 4 * (L + 5) + (r2.NFIX + L) * rows_k.shape[1] * 4
+    fb = (fwd_bytes / PEAK_BYTES_PER_S * 1e3, fwd_ops / PEAK_F32_FLOPS * 1e3)
+    bb = (bwd_bytes / PEAK_BYTES_PER_S * 1e3, bwd_ops / PEAK_F32_FLOPS * 1e3)
+    log(f"2DGS forward: {fwd_pairs} evaluated and {n_acc} accepted pairs, {fwd_ops} operations, {fwd_bytes} bytes; "
+        f"backward: {n_eval} evaluated pairs, {bwd_ops} operations, {bwd_bytes} bytes; kernel ms fwd {fwd_ms:.3f} "
+        f"bwd {bwd_ms:.3f}, plain ms fwd {fwd_plain_ms:.1f} bwd {bwd_plain_ms:.1f}")
+    return [
+        {
+            "name": "rasterize_2dgs_fwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/rasterize_2dgs_fwd.cu",
+            "replaces": "gsplat_tpu/ops/rasterize_2dgs_binned.py:107", "launches": launches["rasterize_2dgs_fwd"],
+            "max_abs_err": max(ferrs.values()), "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": max(fb),
+            "bound_by": "operations" if fb[1] >= fb[0] else "bytes", "library_ms": None,
+        },
+        {
+            "name": "rasterize_2dgs_bwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/rasterize_2dgs_bwd.cu",
+            "replaces": "gsplat_tpu/ops/rasterize_2dgs_binned.py:292", "launches": launches["rasterize_2dgs_bwd"],
+            "max_abs_err": bmx, "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": max(bb),
+            "bound_by": "operations" if bb[1] >= bb[0] else "bytes", "library_ms": None,
+        },
+    ]
 
 
 def main():
@@ -757,13 +1237,21 @@ def main():
     t0 = time.perf_counter()
     phase_build()
     phase_kernel_vs_plain()
+    phase_kernel_vs_plain_2dgs()
     t1 = time.perf_counter()
     phase_serving(smi)
     t2 = time.perf_counter()
-    phase_train(smi)
+    kernels, scene = phase_train(smi)
     t3 = time.perf_counter()
+    kernels_2dgs, runner_2dgs = phase_train_2dgs(scene)
+    kernels += kernels_2dgs
+    t4 = time.perf_counter()
+    phase_serving_2dgs((runner_2dgs.params, runner_2dgs.live))
+    t5 = time.perf_counter()
+    log(f"card: {smi}")
+    log(json.dumps({"kernels": kernels}))
     log(f"phase wall times: build + kernel vs plain {t1 - t0:.1f} s, serving {t2 - t1:.1f} s, "
-        f"training {t3 - t2:.1f} s")
+        f"training {t3 - t2:.1f} s, 2DGS training {t4 - t3:.1f} s, 2DGS serving {t5 - t4:.1f} s")
     print(json.dumps({
         "ok": True,
         "device": {

@@ -6,11 +6,13 @@ emit and the forward compositing under ``csrc/``. Slice 2 is training on
 the binned backend: its backward and per-Gaussian gradient-reduce kernels
 behind a ``torch.autograd.Function``, ``means2d_carrier``/``absgrad``, the
 losses, ``SelectiveAdam``, ``DefaultStrategy`` and a trainer over
-in-memory views (``simple_trainer.Runner``). Functions run on the device of
-their input tensors: CUDA tensors go through the kernels, CPU tensors
-through each kernel's plain PyTorch version. 2DGS, the tiled backend, MCMC
-and multi-GPU rendering come in later slices and raise NotImplementedError
-until then.
+in-memory views (``simple_trainer.Runner``). Slice 3 is 2DGS (surfels):
+``rasterization_2dgs`` on the binned backend (and the oracle), with the
+2DGS forward and backward kernels, and its trainer
+(``simple_trainer_2dgs.Runner2DGS``). Functions run on the device of their
+input tensors: CUDA tensors go through the kernels, CPU tensors through
+each kernel's plain PyTorch version. The tiled backend, MCMC and multi-GPU
+rendering come in later slices and raise NotImplementedError until then.
 """
 
 from ._helper import load_test_data
@@ -19,9 +21,12 @@ from .checkpoint import splats_from_numpy
 from .losses import l1, psnr, ssim, train_loss
 from .ops import (
     fully_fused_projection,
+    fully_fused_projection_2dgs,
     fully_fused_projection_soa,
     quat_scale_to_covar_preci,
     rasterize_to_pixels,
+    rasterize_to_pixels_2dgs,
+    rasterize_to_pixels_2dgs_ref,
     rasterize_to_pixels_ref,
     rasterize_to_pixels_ref_absgrad,
     spherical_harmonics,
@@ -29,7 +34,10 @@ from .ops import (
 )
 from .optimizers import SelectiveAdam
 from .rendering import rasterization, rasterization_2dgs
+from .simple_trainer import Runner
+from .simple_trainer_2dgs import Runner2DGS
 from .strategy import DefaultStrategy, Strategy
+from .utils import depth_to_normal, depth_to_points
 
 __all__ = [
     "rasterization",
@@ -37,11 +45,16 @@ __all__ = [
     "world_to_cam",
     "fully_fused_projection_soa",
     "fully_fused_projection",
+    "fully_fused_projection_2dgs",
     "quat_scale_to_covar_preci",
     "rasterize_to_pixels",
+    "rasterize_to_pixels_2dgs",
+    "rasterize_to_pixels_2dgs_ref",
     "rasterize_to_pixels_ref",
     "rasterize_to_pixels_ref_absgrad",
     "spherical_harmonics",
+    "depth_to_points",
+    "depth_to_normal",
     "load_test_data",
     "splats_from_numpy",
     "l1",
@@ -49,6 +62,8 @@ __all__ = [
     "ssim",
     "train_loss",
     "SelectiveAdam",
+    "Runner",
+    "Runner2DGS",
     "Strategy",
     "DefaultStrategy",
     "__version__",

@@ -1,9 +1,10 @@
 """Devices, the build of the CUDA kernels, and their launch counts.
 
 Every kernel of the port is one CUDA C++ source under ``csrc/`` with a
-plain C entry point. :func:`kernel` compiles the source with ``nvcc`` for
-``sm_90a`` into ``build/gsplat_tpu_torch/`` beside the package (one shared
-library per source, named by a hash of the source and the flags, so an
+plain C entry point; it may include the shared ``csrc/*.cuh`` headers.
+:func:`kernel` compiles the source with ``nvcc`` for ``sm_90a`` into
+``build/gsplat_tpu_torch/`` beside the package (one shared library per
+source, named by a hash of the source, the headers and the flags, so an
 edited source rebuilds and an unchanged one is reused), loads it with
 ``ctypes`` and returns the entry point. Nothing is compiled or loaded when a
 module is imported: the first launch builds, or :func:`build_all` builds
@@ -50,6 +51,10 @@ KERNELS: Dict[str, Sequence[str]] = {
     "rasterize_fwd": (),
     "rasterize_bwd": (),
     "gid_reduce": (),
+    # the surfel sigma's cancelling cross products must round as the plain
+    # torch version's ops do (csrc/surfel.cuh), so no contraction either
+    "rasterize_2dgs_fwd": ("-fmad=false",),
+    "rasterize_2dgs_bwd": ("-fmad=false",),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
@@ -123,8 +128,11 @@ def _library_path(name: str) -> str:
     src = os.path.join(CSRC, name + ".cu")
     flags = list(_COMMON_FLAGS) + list(KERNELS[name])
     h = hashlib.sha256()
-    with open(src, "rb") as f:
-        h.update(f.read())
+    # the source and every shared header it may include
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for path in [src] + [os.path.join(CSRC, f) for f in headers]:
+        with open(path, "rb") as f:
+            h.update(f.read())
     h.update(" ".join(flags).encode())
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 

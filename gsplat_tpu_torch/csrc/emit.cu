@@ -79,12 +79,17 @@ __global__ void emit_kernel(const int* __restrict__ tminx, const int* __restrict
   const int y0 = tminy[i];
   const int w = max(rw[i], 1);
   const int cam = i / N;
-  const float gx = payload[i];
-  const float gy = payload[(long long)CN + i];
-  const float ca = payload[2LL * CN + i];
-  const float cb = payload[3LL * CN + i];
-  const float cc = payload[4LL * CN + i];
-  const float op = payload[5LL * CN + i];
+  // the cull reads the 3DGS layout's first six rows; a custom payload
+  // (cull = 0) may have fewer
+  float gx = 0.0f, gy = 0.0f, ca = 0.0f, cb = 0.0f, cc = 0.0f, op = 0.0f;
+  if (cull) {
+    gx = payload[i];
+    gy = payload[(long long)CN + i];
+    ca = payload[2LL * CN + i];
+    cb = payload[3LL * CN + i];
+    cc = payload[4LL * CN + i];
+    op = payload[5LL * CN + i];
+  }
   const long long dlow =
       (long long)(__float_as_uint(depth[i]) ^ 0x80000000u);
 

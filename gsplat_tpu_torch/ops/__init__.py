@@ -9,7 +9,10 @@ from .projection import (
     quat_to_rotmat,
     world_to_cam,
 )
-from .rasterize import rasterize_to_pixels
+from .projection_2dgs import fully_fused_projection_2dgs, fully_fused_projection_2dgs_soa
+from .rasterize import rasterize_to_pixels, rasterize_to_pixels_2dgs
+from .rasterize_2dgs_binned import rasterize_to_pixels_2dgs_binned
+from .rasterize_2dgs_ref import rasterize_to_pixels_2dgs_ref
 from .rasterize_binned import rasterize_to_pixels_binned
 from .rasterize_ref import rasterize_to_pixels_ref, rasterize_to_pixels_ref_absgrad
 from .sh import eval_sh_bases, spherical_harmonics
@@ -25,7 +28,12 @@ __all__ = [
     "persp_proj",
     "ortho_proj",
     "fisheye_proj",
+    "fully_fused_projection_2dgs",
+    "fully_fused_projection_2dgs_soa",
     "rasterize_to_pixels",
+    "rasterize_to_pixels_2dgs",
+    "rasterize_to_pixels_2dgs_binned",
+    "rasterize_to_pixels_2dgs_ref",
     "rasterize_to_pixels_binned",
     "rasterize_to_pixels_ref",
     "rasterize_to_pixels_ref_absgrad",

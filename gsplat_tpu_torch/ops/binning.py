@@ -42,8 +42,8 @@ class Binned(NamedTuple):
     """Sorted per-entry stream.
 
     entries: [NF, M] f32 - per-entry features in (cam, tile, depth, gid)
-        order: rows = gx, gy, conic_a, conic_b, conic_c, opacity, colors[D];
-        zero past n_isects.
+        order: rows = gx, gy, conic_a, conic_b, conic_c, opacity, colors[D]
+        (or the caller's ``payload_rows``); zero past n_isects.
     gids: [M] i32 - flattened cam*N + gaussian index per entry; C*N past
         n_isects (culled entries).
     offs: [T] i32 - start of each (cam, tile) range in the stream.
@@ -98,11 +98,20 @@ def plan_emit(
     tile_height: int,
     capacity: int,
     cull: bool = True,
+    payload_rows=None,
 ):
     """Rectangles, counts, block rule and write positions. Returns
-    ``(plan, slab_required)``."""
+    ``(plan, slab_required)``.
+
+    ``payload_rows`` (a sequence of [C, N] tensors) replaces the 3DGS
+    payload rows; that is how 2DGS surfels ride the same engine. The exact
+    ellipse cull reads the 3DGS layout, so a custom payload needs
+    ``cull=False``."""
+    if payload_rows is not None and cull:
+        raise ValueError("a custom payload_rows needs cull=False")
     _backend.common_device(
-        mean_x, mean_y, con_a, con_b, con_c, opacities, colors, radii, depths
+        mean_x, mean_y, con_a, con_b, con_c, opacities, colors, radii, depths,
+        *(payload_rows or ()),
     )
     C, N = mean_x.shape
     CN = C * N
@@ -152,10 +161,10 @@ def plan_emit(
         .tolist()
     )
 
-    D = colors.shape[-1]
-    rows = [mean_x, mean_y, con_a, con_b, con_c, opacities] + [
-        colors[..., d] for d in range(D)
-    ]
+    if payload_rows is None:
+        rows = [mean_x, mean_y, con_a, con_b, con_c, opacities] + list(colors.unbind(-1))
+    else:
+        rows = list(payload_rows)
     payload = torch.stack([_fin(r).reshape(-1) for r in rows]).to(torch.float32)
     plan = EmitPlan(
         tminx=tminx.reshape(-1).to(torch.int32),
@@ -278,14 +287,17 @@ def emit_entries(
     tile_height: int,
     capacity: int,
     cull: bool = True,
+    payload_rows=None,
 ):
     """Emit stage: per-entry rows, unsorted. Returns ``(ops,
     slab_required)`` with ``ops = (keys, gids, feats)`` ready for
     :func:`sort_entries`. CUDA tensors go through the emit kernel, CPU
-    tensors through its plain version."""
+    tensors through its plain version. ``payload_rows`` as in
+    :func:`plan_emit`."""
     plan, slab_required = plan_emit(
         mean_x, mean_y, con_a, con_b, con_c, opacities, colors, radii,
         depths, tile_size, tile_width, tile_height, capacity, cull,
+        payload_rows,
     )
     if _backend.use_kernel(plan.counts.device):
         ops = _emit_cuda(plan)
@@ -333,14 +345,16 @@ def bin_gaussians(
     tile_height: int,
     capacity: int,
     cull: bool = True,
+    payload_rows=None,
 ) -> Binned:
     """Emit + sort the per-entry stream. ``capacity`` is the JAX package's
     slab budget; the returned ``slab_required`` is the budget needed
-    without truncation."""
+    without truncation. ``payload_rows`` as in :func:`plan_emit`."""
     ops, slab_required = emit_entries(
         mean_x, mean_y, con_a, con_b, con_c, opacities, colors, radii,
         depths, tile_size, tile_width, tile_height, capacity, cull,
+        payload_rows,
     )
     return sort_entries(
-        ops, colors.shape[0] * tile_width * tile_height, slab_required
+        ops, mean_x.shape[0] * tile_width * tile_height, slab_required
     )

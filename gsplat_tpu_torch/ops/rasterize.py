@@ -1,5 +1,6 @@
-"""Reference-named rasterizer entry point `rasterize_to_pixels` over the
-port's backends (port of gsplat_tpu/ops/rasterize.py).
+"""Reference-named rasterizer entry points `rasterize_to_pixels` and
+`rasterize_to_pixels_2dgs` over the port's backends (port of
+gsplat_tpu/ops/rasterize.py).
 
 Like the JAX package, it takes ``radii``/``depths`` plus a ``capacity`` and
 builds the intersection state internally, and returns an ``aux`` dict with
@@ -13,6 +14,8 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .rasterize_2dgs_binned import rasterize_to_pixels_2dgs_binned
+from .rasterize_2dgs_ref import rasterize_to_pixels_2dgs_ref
 from .rasterize_binned import rasterize_to_pixels_binned
 from .rasterize_ref import rasterize_to_pixels_ref
 
@@ -84,6 +87,48 @@ def rasterize_to_pixels(
         return rasterize_to_pixels_binned(
             means2d, conics, colors, opacities, radii, depths,
             image_width, image_height, tile_size, capacity,
+            backgrounds=backgrounds,
+        )
+    raise ValueError(f"Unknown backend: {backend}")
+
+
+def rasterize_to_pixels_2dgs(
+    means2d: torch.Tensor,  # [C, N, 2]
+    ray_transforms: torch.Tensor,  # [C, N, 3, 3]
+    colors: torch.Tensor,  # [C, N, D], the last channel the depth
+    normals: torch.Tensor,  # [C, N, 3]
+    opacities: torch.Tensor,  # [C, N]
+    radii: torch.Tensor,  # [C, N] i32
+    depths: torch.Tensor,  # [C, N]
+    image_width: int,
+    image_height: int,
+    tile_size: int = 16,
+    capacity: Optional[int] = None,
+    backgrounds: Optional[torch.Tensor] = None,  # [C, D]
+    backend: str = "auto",
+):
+    """2DGS tile rasterization. Returns (render_colors [C,H,W,D],
+    render_alphas [C,H,W,1], render_normals [C,H,W,3] in the camera frame,
+    render_distort [C,H,W,1], render_median [C,H,W,1], aux)."""
+    if backend == "auto":
+        backend = "binned" if capacity is not None else "oracle"
+    if backend == "tiled":
+        raise NotImplementedError(TILED_NOT_PORTED)
+    if backend == "binned" and capacity is None:
+        raise ValueError(
+            "backend='binned' needs a `capacity` (intersection budget); pass "
+            "one or use backend='oracle'"
+        )
+    if backend == "oracle":
+        outs = rasterize_to_pixels_2dgs_ref(
+            means2d, ray_transforms, colors, normals, opacities, radii,
+            depths, image_width, image_height, tile_size, backgrounds,
+        )
+        return outs + ({},)
+    if backend == "binned":
+        return rasterize_to_pixels_2dgs_binned(
+            means2d, ray_transforms, colors, normals, opacities, radii,
+            depths, image_width, image_height, tile_size, capacity,
             backgrounds=backgrounds,
         )
     raise ValueError(f"Unknown backend: {backend}")

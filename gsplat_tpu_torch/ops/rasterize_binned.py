@@ -38,6 +38,23 @@ def _plain_split(tile_size: int) -> Tuple[int, int]:
     return max(1, PLAIN_TILE_GROUP * 256 // (tile_size * tile_size)), PLAIN_CHUNK
 
 
+def _to_image(x: torch.Tensor, n_cams: int, th: int, tw: int, ts: int, W: int, H: int) -> torch.Tensor:
+    """[C*th*tw, ts*ts, ...] tile layout -> [C, H, W, ...] image layout."""
+    x = x.reshape((n_cams, th, tw, ts, ts) + x.shape[2:])
+    x = x.transpose(2, 3).reshape((n_cams, th * ts, tw * ts) + x.shape[5:])
+    return x[:, :H, :W].contiguous()
+
+
+def _check(what: str, dev: torch.device, checks) -> None:
+    """Raise unless each (tensor, dtype, shape or None) of `checks` is a
+    contiguous tensor of that dtype (and shape) on `dev`."""
+    for t, dt, shape in checks:
+        if t.dtype != dt or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{what} input of dtype {t.dtype} on {t.device}: expected contiguous {dt} on {dev}")
+        if shape is not None and tuple(t.shape) != shape:
+            raise ValueError(f"{what} input of shape {tuple(t.shape)}: expected {shape}")
+
+
 def _fwd_plain(
     entries: torch.Tensor,  # [NF, M] f32
     offs: torch.Tensor,  # [T] i32
@@ -114,12 +131,9 @@ def _fwd_plain(
         T_out[tiles] = t_fin
         last[tiles] = lst.to(torch.int32)
 
-    def to_image(x):
-        x = x.reshape((n_cams, th, tw, ts, ts) + x.shape[2:])
-        x = x.transpose(2, 3).reshape((n_cams, th * ts, tw * ts) + x.shape[5:])
-        return x[:, :image_height, :image_width].contiguous()
-
-    img, T_out, last = to_image(img), to_image(T_out), to_image(last)
+    img, T_out, last = (
+        _to_image(x, n_cams, th, tw, ts, image_width, image_height) for x in (img, T_out, last)
+    )
     if backgrounds is not None:
         img = img + T_out[..., None] * backgrounds[:, None, None, :]
     return img, T_out, last, int(n_pairs)
@@ -161,11 +175,7 @@ def _fwd_cuda(
     if backgrounds is not None:
         backgrounds = backgrounds.to(torch.float32).contiguous()
         checks.append((backgrounds, torch.float32, (n_cams, D)))
-    for t, dt, shape in checks:
-        if t.dtype != dt or not t.is_contiguous() or t.device != dev:
-            raise ValueError(f"forward input of dtype {t.dtype} on {t.device}: expected contiguous {dt} on {dev}")
-        if shape is not None and tuple(t.shape) != shape:
-            raise ValueError(f"forward input of shape {tuple(t.shape)}: expected {shape}")
+    _check("forward", dev, checks)
     img = torch.empty((n_cams, image_height, image_width, D), dtype=torch.float32, device=dev)
     T_out = torch.empty((n_cams, image_height, image_width), dtype=torch.float32, device=dev)
     last = torch.empty((n_cams, image_height, image_width), dtype=torch.int32, device=dev)
@@ -341,11 +351,7 @@ def _bwd_cuda(
         (T_fin, torch.float32, img_shape), (last, torch.int32, img_shape),
         (v_img, torch.float32, img_shape + (D,)), (v_T, torch.float32, img_shape),
     ]
-    for t, dt, shape in checks:
-        if t.dtype != dt or not t.is_contiguous() or t.device != dev:
-            raise ValueError(f"backward input of dtype {t.dtype} on {t.device}: expected contiguous {dt} on {dev}")
-        if shape is not None and tuple(t.shape) != shape:
-            raise ValueError(f"backward input of shape {tuple(t.shape)}: expected {shape}")
+    _check("backward", dev, checks)
     rows = torch.zeros((6 + D + (2 if absgrad else 0), entries.shape[1]), dtype=torch.float32, device=dev)
     if T == 0 or entries.shape[1] == 0:
         return rows
@@ -400,11 +406,7 @@ def _reduce_cuda(rows: torch.Tensor, perm: torch.Tensor, starts: torch.Tensor, n
     if dev.type != "cuda":
         raise ValueError(f"the reduce kernel takes CUDA tensors, got {dev}")
     checks = [(rows, torch.float32, None), (perm, torch.int64, (rows.shape[1],)), (starts, torch.int64, (n_out + 1,))]
-    for t, dt, shape in checks:
-        if t.dtype != dt or not t.is_contiguous() or t.device != dev:
-            raise ValueError(f"reduce input of dtype {t.dtype} on {t.device}: expected contiguous {dt} on {dev}")
-        if shape is not None and tuple(t.shape) != shape:
-            raise ValueError(f"reduce input of shape {tuple(t.shape)}: expected {shape}")
+    _check("reduce", dev, checks)
     R = rows.shape[0]
     out = torch.empty((R, n_out), dtype=torch.float32, device=dev)
     if n_out == 0 or R == 0:

@@ -7,8 +7,12 @@ forward kernel (ops/binning.py, ops/rasterize_binned.py), and the oracle
 backend the O(N * pixels) reference. Both differentiate: training on the
 binned backend goes through its backward and gradient-reduce kernels, and
 ``means2d_carrier``/``absgrad`` give the screen-space gradients that
-densification reads. Not ported yet, and raising NotImplementedError rather
-than falling back: the tiled backend, ``distributed=True`` and 2DGS.
+densification reads. `rasterization_2dgs()` renders 2DGS surfels on the
+same two backends: 2DGS projection, SH, render modes, the distortion and
+median outputs, normals from depth (utils.py), and on the binned backend
+the 2DGS forward and backward kernels (ops/rasterize_2dgs_binned.py). Not
+ported yet, and raising NotImplementedError rather than falling back: the
+tiled backend and ``distributed=True``.
 """
 
 from __future__ import annotations
@@ -20,10 +24,14 @@ import torch
 
 from ._backend import common_device
 from .ops.projection import fully_fused_projection_soa
+from .ops.projection_2dgs import fully_fused_projection_2dgs
 from .ops.rasterize import TILED_NOT_PORTED, resolve_auto_backend
+from .ops.rasterize_2dgs_binned import rasterize_to_pixels_2dgs_binned
+from .ops.rasterize_2dgs_ref import rasterize_to_pixels_2dgs_ref
 from .ops.rasterize_binned import rasterize_to_pixels_binned
 from .ops.rasterize_ref import rasterize_to_pixels_ref, rasterize_to_pixels_ref_absgrad
 from .ops.sh import spherical_harmonics
+from .utils import depth_to_normal
 
 RENDER_MODES = ("RGB", "D", "ED", "RGB+D", "RGB+ED")
 
@@ -276,9 +284,202 @@ def _rasterize_chunked(fn, channel_chunk, colors, backgrounds):
     return torch.cat(out_c, dim=-1), out_a
 
 
-def rasterization_2dgs(*args, **kwargs):
-    """2DGS (surfel) rasterization is not ported yet."""
-    raise NotImplementedError(
-        "rasterization_2dgs is not ported yet: it comes with the port's 2DGS "
-        "slice"
+class Shaded2DGS(NamedTuple):
+    """Per-(camera, Gaussian) surfel rasterizer inputs and the backgrounds
+    extended to the render mode."""
+
+    means2d: torch.Tensor  # [C, N, 2]
+    ray_transforms: torch.Tensor  # [C, N, 3, 3]
+    normals: torch.Tensor  # [C, N, 3] camera frame
+    opacities: torch.Tensor  # [C, N]
+    colors: torch.Tensor  # [C, N, X]
+    radii: torch.Tensor  # [C, N] i32
+    depths: torch.Tensor  # [C, N]
+    backgrounds: Optional[torch.Tensor]
+
+
+def project_and_shade_2dgs(
+    means, quats, scales, opacities, colors, viewmats, Ks, width, height,
+    near_plane=0.01, far_plane=1e10, radius_clip=0.0, sh_degree=None,
+    backgrounds=None, render_mode="RGB", masks=None,
+) -> Shaded2DGS:
+    """Everything of `rasterization_2dgs()` before the rasterizer: 2DGS
+    projection, masks, colours (SH +0.5 and clamp) and the depth channel,
+    which is appended for RGB+D / RGB+ED and replaces the colours for D /
+    ED (plain RGB gets nothing extra)."""
+    N = means.shape[0]
+    C = viewmats.shape[0]
+    radii, means2d, depths, ray_transforms, normals = fully_fused_projection_2dgs(
+        means, quats, scales, viewmats, Ks, width, height,
+        near_plane=near_plane, far_plane=far_plane, radius_clip=radius_clip,
+    )
+    if masks is not None:
+        radii = torch.where(masks[None, :], radii, 0)
+
+    if sh_degree is None:
+        colors_cn = colors[None].expand(C, N, colors.shape[-1]) if colors.dim() == 2 else colors
+    else:
+        camtoworlds = torch.linalg.inv(viewmats)
+        dirs = means[None, :, :] - camtoworlds[:, None, :3, 3]
+        shs = colors[None].expand((C,) + tuple(colors.shape)) if colors.dim() == 3 else colors
+        colors_cn = spherical_harmonics(sh_degree, dirs, shs, masks=radii > 0)
+        colors_cn = torch.maximum(colors_cn + 0.5, colors_cn.new_zeros(()))
+
+    if render_mode in ("RGB+D", "RGB+ED"):
+        colors_cn = torch.cat([colors_cn, depths[..., None]], dim=-1)
+        if backgrounds is not None:
+            backgrounds = torch.cat([backgrounds, backgrounds.new_zeros((C, 1))], dim=-1)
+    elif render_mode in ("D", "ED"):
+        colors_cn = depths[..., None]
+        if backgrounds is not None:
+            backgrounds = backgrounds.new_zeros((C, 1))
+
+    return Shaded2DGS(
+        means2d=means2d,
+        ray_transforms=ray_transforms,
+        normals=normals,
+        opacities=opacities[None, :].expand(C, N),
+        colors=colors_cn,
+        radii=radii,
+        depths=depths,
+        backgrounds=backgrounds,
+    )
+
+
+def rasterization_2dgs(
+    means: torch.Tensor,  # [N, 3]
+    quats: torch.Tensor,  # [N, 4]
+    scales: torch.Tensor,  # [N, 3]
+    opacities: torch.Tensor,  # [N]
+    colors: torch.Tensor,  # [(C,) N, D] or [(C,) N, K, 3]
+    viewmats: torch.Tensor,  # [C, 4, 4]
+    Ks: torch.Tensor,  # [C, 3, 3]
+    width: int,
+    height: int,
+    near_plane: float = 0.01,
+    far_plane: float = 1e10,
+    radius_clip: float = 0.0,
+    sh_degree: Optional[int] = None,
+    tile_size: int = 16,
+    backgrounds: Optional[torch.Tensor] = None,  # [C, D]
+    render_mode: str = "RGB",
+    distloss: bool = False,
+    depth_mode: str = "expected",
+    backend: str = "oracle",
+    isect_capacity: Optional[int] = None,
+    densify_carrier: Optional[torch.Tensor] = None,  # [C, N, 2] zeros
+    masks: Optional[torch.Tensor] = None,  # [N] bool, False = skip (dead pool slot)
+    packed: bool = False,
+    sparse_grad: bool = False,
+    distributed: bool = False,
+):
+    """Rasterize 2D Gaussians (surfels) to C image planes, on the device of
+    the inputs.
+
+    Returns (render_colors [C,H,W,X], render_alphas [C,H,W,1],
+    render_normals [C,H,W,3] in the world frame, normals_from_depth
+    [C,H,W,3] (None unless render_mode has a depth channel),
+    render_distort [C,H,W,1], render_median [C,H,W,1], meta).
+
+    As in the JAX package, the distortion and the median read the LAST
+    channel as the depth, so in plain RGB mode they are computed from the
+    blue channel. ``distloss=False`` returns the distortion as zeros with
+    no gradient. ``densify_carrier`` (zeros [C, N, 2], requires grad) is
+    added to the projected means; its gradient is the screen-space
+    gradient the densification strategies read. ``packed`` and
+    ``sparse_grad`` are accepted and have no effect on one device.
+    """
+    if distributed:
+        raise NotImplementedError(
+            "rasterization_2dgs(distributed=True) is not ported yet: it comes "
+            "with the port's multi-GPU slice"
+        )
+    if render_mode not in RENDER_MODES:
+        raise ValueError(f"render_mode must be one of {RENDER_MODES}, got {render_mode!r}")
+    if depth_mode not in ("expected", "median"):
+        raise ValueError(f"Unknown depth_mode: {depth_mode}")
+    common_device(
+        means, quats, scales, opacities, colors, viewmats, Ks, backgrounds,
+        densify_carrier, masks,
+    )
+    N = means.shape[0]
+    C = viewmats.shape[0]
+    backend, isect_capacity = resolve_auto_backend(
+        backend, isect_capacity, C, N, width, height
+    )
+    if backend == "tiled":
+        raise NotImplementedError(TILED_NOT_PORTED)
+    if backend not in ("oracle", "binned"):
+        raise ValueError(f"Unknown backend: {backend}")
+    if backend == "binned" and isect_capacity is None:
+        raise ValueError("backend='binned' needs isect_capacity")
+
+    s = project_and_shade_2dgs(
+        means, quats, scales, opacities, colors, viewmats, Ks, width, height,
+        near_plane=near_plane, far_plane=far_plane, radius_clip=radius_clip,
+        sh_degree=sh_degree, backgrounds=backgrounds, render_mode=render_mode,
+        masks=masks,
+    )
+    means2d = s.means2d
+    if densify_carrier is not None:
+        means2d = means2d + densify_carrier
+    meta: Dict = {
+        "radii": s.radii,
+        "depths": s.depths,
+        "width": width,
+        "height": height,
+        "n_cameras": C,
+        "normals": s.normals,
+    }
+    args = (
+        means2d, s.ray_transforms, s.colors, s.normals, s.opacities, s.radii,
+        s.depths, width, height, tile_size,
+    )
+    if backend == "binned":
+        (
+            render_colors, render_alphas, render_normals, render_distort,
+            render_median, aux,
+        ) = rasterize_to_pixels_2dgs_binned(
+            *args, capacity=isect_capacity, backgrounds=s.backgrounds
+        )
+        meta["n_isects"] = aux["n_isects"]
+        meta["slab_required"] = aux["slab_required"]
+        meta["isect_capacity"] = isect_capacity
+    else:
+        (
+            render_colors, render_alphas, render_normals, render_distort,
+            render_median,
+        ) = rasterize_to_pixels_2dgs_ref(*args, s.backgrounds)
+
+    if render_mode in ("ED", "RGB+ED"):
+        render_colors = torch.cat(
+            [
+                render_colors[..., :-1],
+                render_colors[..., -1:] / torch.clamp_min(render_alphas, 1e-10),
+            ],
+            dim=-1,
+        )
+
+    # normals from the expected or median depth, for the normal-consistency
+    # loss; the caller modulates them by alpha
+    normals_from_depth = None
+    if render_mode in ("RGB+D", "RGB+ED"):
+        depth_for_normal = render_colors[..., -1:] if depth_mode == "expected" else render_median
+        normals_from_depth = depth_to_normal(depth_for_normal, torch.linalg.inv(viewmats), Ks)
+
+    if not distloss:
+        render_distort = torch.zeros_like(render_distort.detach())
+
+    # rendered normals into the world frame
+    R_wc = viewmats[:, :3, :3].transpose(-1, -2)
+    render_normals = torch.einsum("cij,chwj->chwi", R_wc, render_normals)
+
+    return (
+        render_colors,
+        render_alphas,
+        render_normals,
+        normals_from_depth,
+        render_distort,
+        render_median,
+        meta,
     )

@@ -19,7 +19,8 @@ the intersection capacity comes from a probe render and grows from
 
 Not ported yet: the COLMAP datasets and the command line, the pose,
 appearance and bilateral-grid modules, the depth loss, pool growth, MCMC,
-2DGS and multi-GPU training.
+and multi-GPU training. The 2DGS trainer (simple_trainer_2dgs.py)
+overrides the render and geometry-loss hooks of `Runner`.
 """
 
 from __future__ import annotations
@@ -221,6 +222,19 @@ class Runner:
             camera_model=cfg.camera_model,
         )
 
+    def _raster_train(self, step, camtoworlds, Ks, width, height, sh_degree, carrier):
+        """The training step's render. Returns (rgb, alphas, meta, geom),
+        `geom` holding what `_geom_losses` reads; the 2DGS runner overrides
+        both."""
+        render, alphas, meta = self._rasterize(
+            camtoworlds, Ks, width, height, sh_degree, self.isect_capacity, carrier
+        )
+        return render, alphas, meta, {}
+
+    def _geom_losses(self, step, loss, geom, alphas):
+        """Geometry loss terms added to the photometric loss (none here)."""
+        return loss
+
     def _as_batch(self, views: Sequence[Mapping]):
         """(pixels [B,H,W,3], camtoworlds [B,4,4], Ks [B,3,3]) on the device;
         a view's arrays may be numpy arrays or tensors."""
@@ -276,14 +290,15 @@ class Runner:
         cap = self.live.shape[0]
 
         carrier = torch.zeros((B, cap, 2), device=self.device, requires_grad=True)
-        render, alphas, meta = self._rasterize(
-            camtoworlds, Ks, W, H, sh_degree, self.isect_capacity, carrier
+        render, alphas, meta, geom = self._raster_train(
+            step, camtoworlds, Ks, W, H, sh_degree, carrier
         )
         if cfg.random_bkgd:
             render = render + torch.rand((1, 1, 1, 3), generator=self.generator, device=self.device) * (1.0 - alphas)
         elif cfg.white_bkgd:
             render = render + (1.0 - alphas)
         loss = train_loss(render, pixels, cfg.ssim_lambda)
+        loss = self._geom_losses(step, loss, geom, alphas)
         live = self.live
         if cfg.opacity_reg > 0.0:
             op = torch.where(live, torch.sigmoid(self.params["opacities"]), 0.0)

@@ -1,0 +1,112 @@
+"""2DGS (surfel) trainer with the normal-consistency and distortion losses
+(port of examples/simple_trainer_2dgs.py).
+
+`Runner2DGS` is the 3DGS `Runner` with the render hooks swapped for
+``rasterization_2dgs`` (``render_mode="RGB+ED"``: the normal-consistency
+loss needs the expected depth) and the two geometry losses added after
+their warm-ups. Every render of the runner goes through the surfel
+rasterizer, so the intersection-capacity probe sizes the budget from a
+surfel render: a 2DGS stream is many times longer than a 3DGS one of the
+same points (no tight cull). Multi-GPU training comes with the port's
+multi-GPU slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Mapping, Optional, Sequence
+
+import numpy as np
+import torch
+
+from .rendering import rasterization_2dgs
+from .simple_trainer import Config, Runner
+
+
+class Runner2DGS(Runner):
+    """The 3DGS runner with the 2DGS render path and geometry losses. Runs
+    on CUDA unless ``device="cpu"`` (the kernels' plain versions)."""
+
+    def __init__(
+        self,
+        cfg: Config,
+        train_views: Sequence[Mapping],
+        points: Optional[np.ndarray],
+        points_rgb: Optional[np.ndarray],
+        scene_scale: float,
+        val_views: Sequence[Mapping] = (),
+        device="cuda",
+        normal_lambda: float = 5e-2,
+        dist_lambda: float = 1e-2,
+        normal_start: int = 7000,
+        dist_start: int = 3000,
+    ):
+        self.normal_lambda = normal_lambda
+        self.dist_lambda = dist_lambda
+        self.normal_start = normal_start
+        self.dist_start = dist_start
+        # the JAX trainer caps the surfel tile at 16
+        cfg = dataclasses.replace(cfg, tile_size=min(cfg.tile_size, 16))
+        super().__init__(cfg, train_views, points, points_rgb, scene_scale, val_views, device)
+
+    def _render_2dgs(self, camtoworlds, Ks, width, height, sh_degree, capacity,
+                     carrier=None, distloss=False):
+        cfg = self.cfg
+        p = self.params
+        return rasterization_2dgs(
+            p["means"], p["quats"], torch.exp(p["scales"]), torch.sigmoid(p["opacities"]),
+            torch.cat([p["sh0"], p["shN"]], dim=1),
+            torch.linalg.inv(camtoworlds), Ks, width, height,
+            sh_degree=sh_degree, near_plane=cfg.near_plane, far_plane=cfg.far_plane,
+            densify_carrier=carrier, masks=self.live, tile_size=cfg.tile_size,
+            backend=cfg.backend, isect_capacity=capacity, render_mode="RGB+ED",
+            distloss=distloss,
+        )
+
+    def _rasterize(self, camtoworlds, Ks, width, height, sh_degree, capacity, carrier=None):
+        """Surfel render for the probe, `render` and `eval`: (rgb, alphas,
+        meta)."""
+        out = self._render_2dgs(camtoworlds, Ks, width, height, sh_degree, capacity, carrier)
+        return out[0][..., :3], out[1], out[6]
+
+    def _raster_train(self, step, camtoworlds, Ks, width, height, sh_degree, carrier):
+        render, alphas, normals, normals_depth, distort, _, meta = self._render_2dgs(
+            camtoworlds, Ks, width, height, sh_degree, self.isect_capacity, carrier,
+            distloss=step >= self.dist_start,
+        )
+        geom = {"normals": normals, "normals_depth": normals_depth, "distort": distort}
+        return render[..., :3], alphas, meta, geom
+
+    def _geom_losses(self, step, loss, geom, alphas):
+        if step >= self.normal_start:
+            # normal consistency against the depth-derived normals, which the
+            # trainer (not the rasterizer) modulates by alpha
+            normals_depth = geom["normals_depth"] * alphas.detach()
+            n = geom["normals"] / torch.clamp_min(
+                torch.linalg.norm(geom["normals"], dim=-1, keepdim=True), 1e-6
+            )
+            ncons = 1.0 - (n * normals_depth).sum(dim=-1)
+            loss = loss + self.normal_lambda * ncons.mean()
+        if step >= self.dist_start:
+            loss = loss + self.dist_lambda * geom["distort"].mean()
+        return loss
+
+    @torch.no_grad()
+    def eval_geometry(self, step: int) -> Dict:
+        """Mean normal-consistency error and distortion over the validation
+        views."""
+        ncs, dists = [], []
+        for view in self.valset:
+            pixels, camtoworlds, Ks = self._as_batch([view])
+            H, W = pixels.shape[1:3]
+            _, alphas, normals, normals_depth, distort, _, _ = self._render_2dgs(
+                camtoworlds, Ks, W, H, self.cfg.sh_degree, self.isect_capacity
+            )
+            n = normals / torch.clamp_min(torch.linalg.norm(normals, dim=-1, keepdim=True), 1e-6)
+            ncs.append(float((1.0 - (n * normals_depth * alphas).sum(dim=-1)).mean()))
+            dists.append(float(distort.mean()))
+        return {
+            "step": step,
+            "normal_consistency": float(np.mean(ncs)) if ncs else float("nan"),
+            "distortion": float(np.mean(dists)) if dists else float("nan"),
+        }

@@ -5,7 +5,7 @@
 - functions run on the device of their inputs and refuse mixed devices;
   splats_from_numpy defaults to CUDA and raises without it;
 - paths not ported yet raise NotImplementedError instead of falling back;
-- the binned backend differentiates (the training slice);
+- the binned backend differentiates (the training slice), 3DGS and 2DGS;
 - CPU runs take the kernels' plain versions and launch no kernel, forward
   and backward;
 - the trainer runs on CUDA unless told device="cpu";
@@ -43,6 +43,7 @@ def test_import_loads_no_jax():
         "import sys, gsplat_tpu_torch, gsplat_tpu_torch.ops.rasterize_binned\n"
         "import gsplat_tpu_torch.simple_trainer, gsplat_tpu_torch.losses, gsplat_tpu_torch.modules\n"
         "import gsplat_tpu_torch.optimizers, gsplat_tpu_torch.strategy.ops\n"
+        "import gsplat_tpu_torch.simple_trainer_2dgs, gsplat_tpu_torch.ops.rasterize_2dgs_binned\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'gsplat_tpu' or m.startswith('gsplat_tpu.'))\n"
         "assert not bad, bad\n"
@@ -159,14 +160,24 @@ def test_unported_paths_raise(kw, match):
 
 
 def test_unported_entry_points_raise():
-    with pytest.raises(NotImplementedError, match="2DGS"):
-        gsplat_tpu_torch.rasterization_2dgs(*_tiny())
+    """Since the 2DGS slice rasterization_2dgs renders; its multi-GPU and
+    tiled paths, and the tiled backend of both tile rasterizers, raise."""
+    with pytest.raises(NotImplementedError, match="multi-GPU"):
+        gsplat_tpu_torch.rasterization_2dgs(*_tiny(), distributed=True)
+    with pytest.raises(NotImplementedError, match="tiled"):
+        gsplat_tpu_torch.rasterization_2dgs(*_tiny(), backend="tiled", isect_capacity=4096)
     args = _tiny()
     C, N = 1, args[0].shape[0]
     with pytest.raises(NotImplementedError, match="tiled"):
         rasterize_to_pixels(
             torch.zeros(C, N, 2), torch.zeros(C, N, 3), torch.zeros(C, N, 3),
             torch.zeros(C, N), torch.zeros(C, N, dtype=torch.int32),
+            torch.ones(C, N), 32, 32, capacity=4096, backend="tiled",
+        )
+    with pytest.raises(NotImplementedError, match="tiled"):
+        gsplat_tpu_torch.rasterize_to_pixels_2dgs(
+            torch.zeros(C, N, 2), torch.zeros(C, N, 3, 3), torch.zeros(C, N, 3),
+            torch.zeros(C, N, 3), torch.zeros(C, N), torch.zeros(C, N, dtype=torch.int32),
             torch.ones(C, N), 32, 32, capacity=4096, backend="tiled",
         )
 
@@ -217,7 +228,13 @@ def test_cpu_runs_launch_no_kernel():
         rasterization(*_tiny(), backend="binned", isect_capacity=4096, sh_degree=None)
     img, _, _ = rasterization(*_tiny(requires_grad=True), backend="binned", isect_capacity=4096)
     img.sum().backward()
-    assert _backend.launch_counts() == {name: 0 for name in ("emit", "rasterize_fwd", "rasterize_bwd", "gid_reduce")}
+    out = gsplat_tpu_torch.rasterization_2dgs(
+        *_tiny(requires_grad=True), backend="binned", isect_capacity=4096, render_mode="RGB+ED", distloss=True
+    )
+    (out[0].sum() + out[4].sum()).backward()
+    assert _backend.launch_counts() == {name: 0 for name in (
+        "emit", "rasterize_fwd", "rasterize_bwd", "gid_reduce", "rasterize_2dgs_fwd", "rasterize_2dgs_bwd"
+    )}
     assert not _backend.BUILD_LOG
 
 
