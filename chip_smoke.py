@@ -7,10 +7,12 @@ Phases, each printing its lines; any failure raises and the script exits
 non-zero (there is no CPU fallback):
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the six kernels (csrc/emit.cu, rasterize_fwd.cu,
+  2. build: the ten kernels (csrc/emit.cu, rasterize_fwd.cu,
      rasterize_bwd.cu, gid_reduce.cu, rasterize_2dgs_fwd.cu,
-     rasterize_2dgs_bwd.cu), one nvcc process each, started together, into
-     build/gsplat_tpu_torch/, with ptxas's register and spill lines;
+     rasterize_2dgs_bwd.cu, rasterize_tiled_fwd.cu, rasterize_tiled_bwd.cu,
+     rasterize_2dgs_tiled_fwd.cu, rasterize_2dgs_tiled_bwd.cu), one nvcc
+     process each, started together, into build/gsplat_tpu_torch/, with
+     ptxas's register and spill lines;
   3. kernel vs plain on the card: garden scene_grid=1 at its native
      648x420, 3 cameras, tile sizes 16 and 32, sh_degree 0 and 3:
      - the emit kernel's stream must equal its plain version's (3DGS and
@@ -37,6 +39,10 @@ non-zero (there is no CPU fallback):
      - binned against the oracle on a small subsample, render and the
        gradients w.r.t. the splat parameters, 3DGS and 2DGS (2DGS by the
        repo's count-based gates for its own 2DGS backends);
+     - the four tiled kernels on the `isect_tiles` stream by the same
+       gates (3DGS also with the absgrad rows and at D = 8, 16, 32 with a
+       background; 2DGS at RGB and RGB+ED), and an empty stream, which
+       launches nothing and renders the background;
   4. serving path: garden scene_grid=5 (2,794,625 Gaussians) at
      1920x1080, one camera per frame, tile size 16, sh_degree 3, through
      rasterization(backend="binned") under no_grad, with its launch counts,
@@ -67,7 +73,20 @@ non-zero (there is no CPU fallback):
      frame and stage times, one profiled frame, the stream's size, and the
      2DGS forward against its plain version on 256 seeded tiles (the other
      tiles' counts zeroed for both);
-  8. the `kernels` line (all six kernels), then the result line.
+  8. tiled serving: rasterization(backend="auto") with no isect_capacity
+     at the serving path's shapes, which must resolve to the tiled backend
+     (n_isects and no slab_required in meta, the tiled forward launched in
+     every frame and nothing else); the stream's length beside the binned
+     stream's, stage and frame times, one profiled frame, and the tiled
+     forward against its plain version on 256 seeded tiles;
+  9. tiled training: Runner and Runner2DGS with backend="tiled" on the
+     training path's scene, 12 steps each, the tiled forward, the tiled
+     backward and the gid reduce launched in every step, with phase 5's
+     checks and prints, and the tiled kernels against their plain versions
+     at the train shapes;
+ 10. tiled 2DGS serving: rasterization_2dgs(backend="tiled", RGB+ED) on
+     phase 9's trained surfels, with phase 8's prints and checks;
+ 11. the `kernels` line (all ten kernels), then the result line.
 """
 
 import json
@@ -244,6 +263,13 @@ def compare_fwd(torch, rb, bk, C, W, H, ts, entries=None, bg=None):
     args = (entries, bk.offs, bk.cnts, C, W, H, ts, bg)
     img_k, T_k, last_k = rb._fwd_cuda(*args)
     img_p, T_p, last_p, pairs = rb._fwd_plain(*args)
+    return gate_fwd(torch, (img_k, T_k, last_k), (img_p, T_p, last_p), pairs)
+
+
+def gate_fwd(torch, ko, po, pairs):
+    """FWD_MAX_ABS / FWD_MEAN_ABS on the (image, T) of a forward kernel's
+    outputs `ko` against its plain version's `po`; returns as compare_fwd."""
+    (img_k, T_k, last_k), (img_p, T_p, last_p) = ko, po
     d = torch.cat([(img_k - img_p).abs().reshape(-1), (T_k - T_p).abs().reshape(-1)])
     max_abs, mean_abs = float(d.max()), float(d.mean())
     n_off = int((d > 1e-5).sum())
@@ -274,6 +300,12 @@ def compare_bwd(torch, rb, bk, T_out, last, v_img, v_T, C, W, H, ts, absgrad, en
     args = (entries, bk.offs, bk.cnts, T_out, last, v_img, v_T, C, W, H, ts, absgrad)
     rows_k = rb._bwd_cuda(*args)
     rows_p, pairs = rb._bwd_plain(*args) if plain is None else plain
+    return gate_bwd(torch, rows_k, rows_p, pairs)
+
+
+def gate_bwd(torch, rows_k, rows_p, pairs):
+    """BWD_RTOL / BWD_ATOL on each row of a backward kernel's slot rows
+    against its plain version's; returns as compare_bwd."""
     if not torch.isfinite(rows_k).all():
         raise AssertionError("backward kernel rows are not finite")
     errs = []
@@ -353,16 +385,22 @@ def emit_plan_2dgs(binning, r2, s, ts, W, H, capacity):
     )
 
 
-def tile_subset(torch, bk, n_keep, seed):
-    """The stream with the counts of all but `n_keep` seeded tiles (among
-    those with entries) set to 0: the kernel-vs-plain checks at the main
-    shapes, where the whole-frame plain version is slow."""
-    gen = torch.Generator(device=bk.cnts.device).manual_seed(seed)
-    busy = torch.nonzero(bk.cnts > 0)[:, 0]
+def subset_counts(torch, cnts, n_keep, seed):
+    """Per-tile counts with all but `n_keep` seeded tiles (among those with
+    entries) set to 0: the kernel-vs-plain checks at the main shapes, where
+    the whole-frame plain version is slow."""
+    gen = torch.Generator(device=cnts.device).manual_seed(seed)
+    busy = torch.nonzero(cnts > 0)[:, 0]
     keep = busy[torch.randperm(busy.shape[0], generator=gen, device=busy.device)[:n_keep]]
-    cnts = torch.zeros_like(bk.cnts)
-    cnts[keep] = bk.cnts[keep]
-    return bk._replace(cnts=cnts)
+    out = torch.zeros_like(cnts)
+    out[keep] = cnts[keep]
+    return out
+
+
+def tile_subset(torch, bk, n_keep, seed):
+    """The binned stream with the counts of all but `n_keep` seeded tiles
+    set to 0 (subset_counts)."""
+    return bk._replace(cnts=subset_counts(torch, bk.cnts, n_keep, seed))
 
 
 def _flip_gate(torch, name, got, want, what):
@@ -386,6 +424,12 @@ def compare_fwd2(torch, r2, bk, C, W, H, ts, what, plain=None):
     args = (bk.entries, bk.offs, bk.cnts, C, W, H, ts)
     ko = r2._fwd2_cuda(*args)
     po = r2._fwd2_plain(*args) if plain is None else plain
+    return gate_fwd2(torch, ko, po, what)
+
+
+def gate_fwd2(torch, ko, po, what):
+    """The FWD2_* and MED_FLIPS gates on a 2DGS forward kernel's outputs
+    `ko` against its plain version's `po`; returns as compare_fwd2."""
     errs = {}
     for i, name in ((0, "features"), (1, "T"), (3, "distortion")):
         errs[name] = _flip_gate(torch, name, ko[i], po[i], what)
@@ -414,6 +458,12 @@ def compare_bwd2(torch, r2, bk, ko, cot, D, C, W, H, ts, what, plain=None):
     args = (bk.entries, bk.offs, bk.cnts, T_k, last_k, feat[..., D - 1].contiguous(), *cot, C, W, H, ts)
     rows_k = r2._bwd2_cuda(*args)
     rows_p, pairs = r2._bwd2_plain(*args) if plain is None else plain
+    return gate_bwd2(torch, rows_k, rows_p, pairs, what)
+
+
+def gate_bwd2(torch, rows_k, rows_p, pairs, what):
+    """The BWD2_* gates on each row of a 2DGS backward kernel's slot rows
+    against its plain version's; returns as compare_bwd2."""
     if not torch.isfinite(rows_k).all():
         raise AssertionError(f"{what}: 2DGS backward kernel rows are not finite")
     errs = []
@@ -644,6 +694,152 @@ def phase_kernel_vs_plain_2dgs():
         worst.append(f"{k} {float(diff.max()) / scale:.2e}")
     log(f"binned 2DGS vs oracle ({sub['means'].shape[0]} Gaussians, {w8}x{h8}, C={C}, RGB+D), max abs: "
         + ", ".join(d_out) + "; gradients, max abs / max |oracle|: " + ", ".join(worst))
+
+
+def tiled_stream(torch, rt, isect_tiles, s, ts, W, H, capacity):
+    """The tiled backend's inputs for a 3DGS `Shaded`: (packed rows, ids,
+    offs, cnts, the Isect record)."""
+    isect = isect_tiles((s.mean_x, s.mean_y), s.radii, s.depths, ts, -(-W // ts), -(-H // ts), capacity)
+    packed = rt.pack_rows([s.mean_x, s.mean_y, *s.conics, s.opacities, *s.colors.unbind(-1)])
+    return (packed, isect.flatten_ids, *rt.stream_ranges(isect), isect)
+
+
+def tiled_stream_2dgs(torch, rt, r2, isect_tiles, s, ts, W, H, capacity):
+    """The tiled backend's inputs for a `Shaded2DGS`, as tiled_stream."""
+    mx, my = s.means2d[..., 0], s.means2d[..., 1]
+    isect = isect_tiles((mx, my), s.radii, s.depths, ts, -(-W // ts), -(-H // ts), capacity)
+    Ms = s.ray_transforms.reshape(s.ray_transforms.shape[:2] + (9,))
+    packed = rt.pack_rows(r2.surfel_payload(mx, my, Ms, s.opacities, s.colors, s.normals))
+    return (packed, isect.flatten_ids, *rt.stream_ranges(isect), isect)
+
+
+def compare_tiled_fwd(torch, rt, st, D, C, W, H, ts, bg=None, plain=None):
+    """Tiled forward kernel vs plain on one stream `st` (tiled_stream), the
+    background `bg` composited onto both as the caller does. Returns as
+    compare_fwd."""
+    args = (st[0], D, st[1], st[2], st[3], C, W, H, ts)
+    ko = list(rt._tiled_fwd_cuda(*args))
+    po = list(rt._tiled_fwd_plain(*args) if plain is None else plain)
+    if bg is not None:
+        for o in (ko, po):
+            o[0] = o[0] + o[1][..., None] * bg[:, None, None, :]
+    return gate_fwd(torch, ko, po[:3], po[3])
+
+
+def compare_tiled_bwd(torch, rt, st, D, T_out, last, v_img, v_T, C, W, H, ts, absgrad, plain=None):
+    """Tiled backward kernel vs plain on one stream; returns as compare_bwd."""
+    args = (st[0], D, st[1], st[2], st[3], T_out, last, v_img, v_T, C, W, H, ts, absgrad)
+    rows_k = rt._tiled_bwd_cuda(*args)
+    rows_p, pairs = rt._tiled_bwd_plain(*args) if plain is None else plain
+    return gate_bwd(torch, rows_k, rows_p, pairs)
+
+
+def compare_tiled_fwd2(torch, r2t, st, L, C, W, H, ts, what, plain=None):
+    """Tiled 2DGS forward kernel vs plain; returns as compare_fwd2."""
+    args = (st[0], L, st[1], st[2], st[3], C, W, H, ts)
+    ko = r2t._tiled2_fwd_cuda(*args)
+    po = r2t._tiled2_fwd_plain(*args) if plain is None else plain
+    return gate_fwd2(torch, ko, po, what)
+
+
+def compare_tiled_bwd2(torch, r2t, st, ko, cot, D, C, W, H, ts, what, plain=None):
+    """Tiled 2DGS backward kernel vs plain on the kernel forward's outputs
+    `ko`; returns as compare_bwd2."""
+    args = (st[0], D + 3, st[1], st[2], st[3], ko[1], ko[2], ko[0][..., D - 1].contiguous(), *cot,
+            C, W, H, ts)
+    rows_k = r2t._tiled2_bwd_cuda(*args)
+    rows_p, pairs = r2t._tiled2_bwd_plain(*args) if plain is None else plain
+    return gate_bwd2(torch, rows_k, rows_p, pairs, what)
+
+
+def phase_kernel_vs_plain_tiled():
+    """The four tiled kernels against their plain versions at grid1 (as
+    phase_kernel_vs_plain): 3DGS forward and backward at ts 16 and 32, sh 0
+    and 3, with the absgrad rows, and at D = 8, 16, 32 with a background;
+    the 2DGS pair on the same grid (RGB and RGB+ED) by the 2DGS gates; the
+    reduce on the tiled slots; an empty stream."""
+    import torch
+    from gsplat_tpu_torch import _backend, rendering, splats_from_numpy
+    from gsplat_tpu_torch.ops import rasterize_2dgs_binned as r2, rasterize_2dgs_tiled as r2t
+    from gsplat_tpu_torch.ops import rasterize_binned as rb, rasterize_tiled as rt
+    from gsplat_tpu_torch.ops.isect import isect_tiles
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    arrays, viewmats, Ks, W, H = splat_arrays(1, 3, SEED)
+    splats, live = splats_from_numpy(arrays, device=dev)
+    vm = torch.as_tensor(viewmats, device=dev)
+    K = torch.as_tensor(Ks, device=dev)
+    C = vm.shape[0]
+    N = splats["means"].shape[0]
+    cap = 1 << 30
+    with torch.no_grad():
+        for ts in (16, 32):
+            for deg in (0, 3):
+                s = shade(rendering, torch, splats, live, vm, K, W, H, deg)
+                st = tiled_stream(torch, rt, isect_tiles, s, ts, W, H, cap)
+                mx, mean, same_last, n_off, _, (_, T_k, last_k) = compare_tiled_fwd(torch, rt, st, 3, C, W, H, ts)
+                absgrad = ts == 16 and deg == 3
+                v_img, v_T = cotangents(torch, gen, T_k, 3)
+                rows_k, _, bmx, errs, _ = compare_tiled_bwd(
+                    torch, rt, st, 3, T_k, last_k, v_img, v_T, C, W, H, ts, absgrad)
+                rmx, _ = compare_reduce(torch, rb, rows_k, st[1], C * N)
+                log(f"tiled kernel vs plain grid1 {W}x{H} C={C} ts={ts} sh={deg}: stream {st[1].shape[0]} "
+                    f"entries, fwd max abs {mx:.3e} mean abs {mean:.3e} ({n_off} values > 1e-5), last equal "
+                    f"at {same_last:.6f} of pixels; bwd{' (with absgrad rows)' if absgrad else ''} max abs per "
+                    "row " + " ".join(f"{e:.2e}" for e in errs) + f"; reduce vs index_add_ max abs {rmx:.3e}")
+                if absgrad:
+                    M = st[1].shape[0]
+                    for D in (8, 16, 32):
+                        cols = torch.rand((C, N, D), generator=gen, device=dev)
+                        std = (rt.pack_rows([s.mean_x, s.mean_y, *s.conics, s.opacities, *cols.unbind(-1)]),
+                               *st[1:])
+                        bg = torch.rand((C, D), generator=gen, device=dev)
+                        mx, mean, same_last, n_off, _, (_, T_d, last_d) = compare_tiled_fwd(
+                            torch, rt, std, D, C, W, H, ts, bg)
+                        v_img, v_T = cotangents(torch, gen, T_d, D)
+                        v_T = v_T + (v_img * bg[:, None, None, :]).sum(dim=-1)
+                        _, _, bmx, _, _ = compare_tiled_bwd(
+                            torch, rt, std, D, T_d, last_d, v_img, v_T, C, W, H, ts, True)
+                        log(f"tiled kernel vs plain grid1 ts={ts} D={D} with background ({M} entries): fwd max "
+                            f"abs {mx:.3e} mean abs {mean:.3e} ({n_off} values > 1e-5), last equal at "
+                            f"{same_last:.6f}; bwd (absgrad rows) max abs {bmx:.3e}")
+                for mode in ("RGB", "RGB+ED"):
+                    s2 = shade_2dgs(rendering, torch, splats, live, vm, K, W, H, deg, mode)
+                    D = s2.colors.shape[-1]
+                    st2 = tiled_stream_2dgs(torch, rt, r2, isect_tiles, s2, ts, W, H, cap)
+                    what = f"tiled 2DGS grid1 ts={ts} sh={deg} D={D}"
+                    ferrs, med_off, same_last, _, ko = compare_tiled_fwd2(torch, r2t, st2, D + 3, C, W, H, ts, what)
+                    bg = torch.rand((C, D), generator=gen, device=dev)
+                    cot = cotangents_2dgs(torch, gen, ko[1], D + 3)
+                    cot = (cot[0], cot[1] + (cot[0][..., :D] * bg[:, None, None, :]).sum(dim=-1), cot[2])
+                    _, _, berrs, _ = compare_tiled_bwd2(torch, r2t, st2, ko, cot, D, C, W, H, ts, what)
+                    log(f"kernel vs plain {what}: stream {st2[1].shape[0]} entries, fwd max abs "
+                        + ", ".join(f"{k} {v:.3e}" for k, v in ferrs.items())
+                        + f", median off at {med_off:.2e}, last equal at {same_last:.6f}; bwd max abs per row "
+                        + " ".join(f"{e:.2e}" for e in berrs))
+
+        # an empty stream (every radius 0): nothing launched, the background
+        s = shade(rendering, torch, splats, torch.zeros_like(live), vm, K, W, H, 3)
+        st = tiled_stream(torch, rt, isect_tiles, s, 16, W, H, cap)
+        s2 = shade_2dgs(rendering, torch, splats, torch.zeros_like(live), vm, K, W, H, 3, "RGB+ED")
+        st2 = tiled_stream_2dgs(torch, rt, r2, isect_tiles, s2, 16, W, H, cap)
+        before = _backend.launch_counts()
+        img, T_e, last_e = rt._tiled_fwd_cuda(st[0], 3, st[1], st[2], st[3], C, W, H, 16)
+        rows = rt._tiled_bwd_cuda(st[0], 3, st[1], st[2], st[3], T_e, last_e, img, T_e, C, W, H, 16)
+        o2 = r2t._tiled2_fwd_cuda(st2[0], 7, st2[1], st2[2], st2[3], C, W, H, 16)
+        bg = torch.full((C, 3), 0.25, device=dev)
+        r, a, meta = rendering.rasterization(*render_args(torch, splats), vm, K, W, H, sh_degree=3, masks=torch.zeros_like(live),
+                                             backgrounds=bg, backend="tiled", isect_capacity=cap)
+        if _backend.launch_counts() != before:
+            raise AssertionError("an empty tiled stream launched a kernel")
+        if st[1].shape[0] or st2[1].shape[0] or rows.shape[1] or int(meta["n_isects"]):
+            raise AssertionError("the all-culled scene has a non-empty stream")
+        if not (bool((r == 0.25).all()) and not a.any() and not img.any() and bool((T_e == 1).all())
+                and not o2[0].any() and bool((o2[2] == -1).all())):
+            raise AssertionError("an empty tiled stream gave other than the background")
+        log("tiled empty stream (every radius 0): no kernel launched; rasterization(backend='tiled') "
+            "gives the background, alpha 0")
 
 
 def phase_serving(smi):
@@ -926,11 +1122,13 @@ def kernel_table(runner, launches):
     emit_bound = emit_bytes / PEAK_BYTES_PER_S * 1e3
     pix = H * W
     fwd_bytes = n_isects * NF * 4 + 2 * T * 4 + pix * (4 * D + 4 + 4)
-    fwd_ops = fwd_pairs * (18 + 2 * D)
+    # 18 per evaluated and 2D + 4 more per accepted pair (csrc/raster.cuh);
+    # the backward accepts the forward's pairs, so its count is the forward's
+    fwd_ops = 18 * fwd_pairs + (2 * D + 4) * n_acc
     fwd_bound = max(fwd_bytes / PEAK_BYTES_PER_S, fwd_ops / PEAK_F32_FLOPS) * 1e3
     R = rows_k.shape[0]
     # backward: stream, offsets, per-pixel T, last, v_img, v_T read once;
-    # rows [R, M] written once. Flops as counted in csrc/rasterize_bwd.cu
+    # rows [R, M] written once. Flops as counted in csrc/raster.cuh (bwd_3dgs)
     bwd_bytes = n_isects * NF * 4 + 2 * T * 4 + pix * (4 + 4 + 4 * D + 4) + R * M * 4
     bwd_ops = 16 * n_eval + (28 + 3 * D) * n_acc
     bwd_bound_b, bwd_bound_o = bwd_bytes / PEAK_BYTES_PER_S * 1e3, bwd_ops / PEAK_F32_FLOPS * 1e3
@@ -1094,61 +1292,12 @@ def phase_train_2dgs(scene):
     12 steps of one view with both geometry losses from step 0. Returns
     the 2DGS kernels' entries of the `kernels` line and the runner."""
     import torch
-    from gsplat_tpu_torch import _backend
-    from gsplat_tpu_torch.simple_trainer import Config
     from gsplat_tpu_torch.simple_trainer_2dgs import Runner2DGS
 
-    dev = torch.device("cuda")
-    views, points, rgb, scene_scale = scene
-    cfg = Config(
-        max_steps=TRAIN_STEPS, sh_degree=3, sh_degree_interval=1, refine_start_iter=3,
-        refine_every=5, tile_size=MAIN_TILE, backend="binned", pool_headroom=1.5, seed=SEED,
+    runner, launches = train_runner(
+        torch, Runner2DGS, scene, "binned", ("emit", "rasterize_2dgs_fwd", "rasterize_2dgs_bwd", "gid_reduce"),
+        "2DGS", normal_start=0, dist_start=0,
     )
-    t1 = time.perf_counter()
-    runner = Runner2DGS(cfg, views, points, rgb, scene_scale, device=dev, normal_start=0, dist_start=0)
-    runner.probe_isect_capacity()
-    torch.cuda.synchronize()
-    log(f"2DGS training path: {points.shape[0]} points, pool {runner.live.shape[0]} slots, isect capacity "
-        f"{runner.isect_capacity} (from a surfel probe); init {time.perf_counter() - t1:.1f} s")
-
-    kernels = ("emit", "rasterize_2dgs_fwd", "rasterize_2dgs_bwd", "gid_reduce")
-    _backend.reset_launch_counts()
-    losses = []
-    for step in range(TRAIN_STEPS):
-        before = _backend.launch_counts()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        h0 = time.perf_counter()
-        start.record()
-        out = runner.train_step(step)
-        end.record()
-        torch.cuda.synchronize()
-        host_ms = (time.perf_counter() - h0) * 1e3
-        loss = float(out["loss"])
-        after = _backend.launch_counts()
-        per_step = {k: after[k] - before[k] for k in after}
-        if not np.isfinite(loss):
-            raise AssertionError(f"2DGS step {step}: loss {loss}")
-        missing = [k for k in kernels if per_step[k] == 0]
-        other = [k for k, v in per_step.items() if v and k not in kernels]
-        if missing or other:
-            raise AssertionError(f"2DGS step {step}: kernels {missing} not launched, {other} launched")
-        losses.append((out["image_ids"][0], loss))
-        log(f"2DGS step {step}: view {out['image_ids'][0]} loss {loss:.6f} live {int(runner.live.sum())}"
-            f"{' (refined)' if out['refined'] else ''} slab_required {out['slab_required']}, "
-            f"host {host_ms:.2f} ms, CUDA events {start.elapsed_time(end):.2f} ms; launches {per_step}")
-    launches = _backend.launch_counts()
-    log(f"launches in the 2DGS training path ({TRAIN_STEPS} steps): {launches}")
-    for name, p in runner.params.items():
-        if not bool(torch.isfinite(p).all()):
-            raise AssertionError(f"2DGS parameter {name} is not finite after training")
-    view0 = [loss for v, loss in losses if v == 0]
-    if len(view0) < 2 or not view0[-1] < view0[0]:
-        raise AssertionError(f"2DGS: view 0's loss did not fall: {view0}")
-    log(f"2DGS: all parameters finite; view 0 loss {view0[0]:.6f} -> {view0[-1]:.6f} over {len(view0)} visits")
-    step_time = cuda_ms(torch, lambda: runner.train_step(13), 3)
-    log_profile("2DGS train step", device_time_by_kernel(torch, lambda: runner.train_step(14)), step_time)
-    log(f"2DGS train step ms (CUDA events, after the 12 steps): {step_time:.3f}")
     return kernel_table_2dgs(runner, launches), runner
 
 
@@ -1200,7 +1349,7 @@ def kernel_table_2dgs(runner, launches):
     NF = bk.entries.shape[0]
     n_isects = int(bk.n_isects)
     pix = H * W
-    # counted from csrc/rasterize_2dgs_{fwd,bwd}.cu, a division and an expf
+    # counted from csrc/raster.cuh (fwd_2dgs, bwd_2dgs), a division and an expf
     # one operation each: the forward 41 per evaluated pair (sigma, alpha,
     # tests) and 2L + 13 per accepted one; the backward 41 per pair at or
     # before the pixel's `last` and 5L + 87 per accepted one (the chain, the
@@ -1230,6 +1379,406 @@ def kernel_table_2dgs(runner, launches):
     ]
 
 
+def phase_serving_tiled():
+    """Tiled serving: what a caller that passes no isect_capacity gets.
+    rasterization(backend="auto") at the serving phase's shapes resolves
+    to the tiled backend (C N W H far above the oracle's limit); 3 frames
+    (one per camera) under no_grad, launch counts, the stream's length
+    beside the binned stream's, stage and frame times, one profiled frame,
+    and the forward kernel against its plain version on seeded tiles."""
+    import torch
+    from gsplat_tpu_torch import _backend, rasterization, rendering, splats_from_numpy
+    from gsplat_tpu_torch.ops import rasterize_tiled as rt
+    from gsplat_tpu_torch.ops.isect import isect_tiles
+
+    dev = torch.device("cuda")
+    deg = 3
+    arrays, viewmats, Ks, W0, _ = splat_arrays(MAIN_GRID, deg, SEED)
+    Ks = Ks.copy()
+    Ks[:, :2, :] *= MAIN_W / W0
+    W, H, ts = MAIN_W, MAIN_H, MAIN_TILE
+    splats, live = splats_from_numpy(arrays, device=dev)
+    N = splats["means"].shape[0]
+    vms = [torch.as_tensor(viewmats[i : i + 1], device=dev) for i in range(len(viewmats))]
+    Kss = [torch.as_tensor(Ks[i : i + 1], device=dev) for i in range(len(Ks))]
+
+    def frame(i):
+        return rasterization(*render_args(torch, splats), vms[i], Kss[i], W, H, sh_degree=deg, masks=live,
+                             tile_size=ts)
+
+    with torch.no_grad():
+        _backend.reset_launch_counts()
+        frames, frames_dev, n_tiled = [], [], []
+        for i in range(len(vms)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            img, alpha, meta = frame(i)
+            end.record()
+            torch.cuda.synchronize()
+            frames.append((time.perf_counter() - t0) * 1e3)
+            frames_dev.append(start.elapsed_time(end))
+            if "slab_required" in meta or "n_isects" not in meta:
+                raise AssertionError(f"camera {i}: backend='auto' did not resolve to tiled (meta {sorted(meta)})")
+            if meta["isect_capacity"] != max(1 << 20, 16 * N) or int(meta["n_isects"]) > meta["isect_capacity"]:
+                raise AssertionError(f"camera {i}: capacity {meta['isect_capacity']}, n_isects {int(meta['n_isects'])}")
+            if not (torch.isfinite(img).all() and torch.isfinite(alpha).all()):
+                raise AssertionError(f"tiled camera {i}: non-finite output")
+            if tuple(img.shape) != (1, H, W, 3) or tuple(alpha.shape) != (1, H, W, 1):
+                raise AssertionError(f"tiled camera {i}: shapes {tuple(img.shape)} {tuple(alpha.shape)}")
+            n_tiled.append(int(meta["n_isects"]))
+        launches = _backend.launch_counts()
+        log(f"launches in the tiled serving path (backend='auto', no capacity): {launches}")
+        extra = {k: v for k, v in launches.items() if (v > 0) != (k == "rasterize_tiled_fwd")}
+        if extra or launches["rasterize_tiled_fwd"] != len(vms):
+            raise AssertionError(f"tiled serving launched other than one tiled forward a frame: {launches}")
+        # the binned stream at the same cameras, for its length
+        n_binned = []
+        for i in range(len(vms)):
+            cap = rasterization(*render_args(torch, splats), vms[i], Kss[i], W, H, sh_degree=deg, masks=live,
+                                tile_size=ts, backend="binned", isect_capacity=512)[2]["slab_required"] + 1024
+            n_binned.append(int(rasterization(*render_args(torch, splats), vms[i], Kss[i], W, H, sh_degree=deg,
+                                              masks=live, tile_size=ts, backend="binned",
+                                              isect_capacity=cap)[2]["n_isects"]))
+        log(f"tiled serving path: N={N}, {W}x{H}, ts={ts}, sh_degree={deg}, capacity {meta['isect_capacity']}, "
+            f"{len(frames)} frames, ms/frame host {', '.join(f'{t:.2f}' for t in frames)}; CUDA events "
+            f"{', '.join(f'{t:.2f}' for t in frames_dev)}; stream entries tiled {n_tiled}, binned (culled) "
+            f"{n_binned}")
+
+        s = shade(rendering, torch, splats, live, vms[0], Kss[0], W, H, deg)
+        cap = meta["isect_capacity"]
+        st = tiled_stream(torch, rt, isect_tiles, s, ts, W, H, cap)
+        reps = 10
+        stage = {
+            "projection+SH": cuda_ms(torch, lambda: shade(rendering, torch, splats, live, vms[0], Kss[0], W, H, deg),
+                                     reps),
+            "isect": cuda_ms(torch, lambda: isect_tiles((s.mean_x, s.mean_y), s.radii, s.depths, ts,
+                                                        -(-W // ts), -(-H // ts), cap), reps),
+            "pack": cuda_ms(torch, lambda: rt.pack_rows([s.mean_x, s.mean_y, *s.conics, s.opacities,
+                                                         *s.colors.unbind(-1)]), reps),
+            "forward kernel": cuda_ms(torch, lambda: rt._tiled_fwd_cuda(st[0], 3, st[1], st[2], st[3], 1, W, H, ts),
+                                      reps),
+            "frame": cuda_ms(torch, lambda: frame(0), reps),
+        }
+        log("tiled stage ms (CUDA events, camera 0): " + ", ".join(f"{k} {v:.3f}" for k, v in stage.items()))
+        log_profile("tiled frame (camera 0)", device_time_by_kernel(torch, lambda: frame(0)), stage["frame"])
+        sub = (*st[:3], subset_counts(torch, st[3], TILE_SUBSET, SEED))
+        mx, mean, same_last, n_off, pairs, _ = compare_tiled_fwd(torch, rt, sub, 3, 1, W, H, ts)
+        log(f"tiled serving shapes, {TILE_SUBSET} seeded tiles ({int(sub[3].sum())} entries, {pairs} evaluated "
+            f"pairs): forward kernel max abs {mx:.3e}, mean abs {mean:.3e} ({n_off} values > 1e-5), last equal "
+            f"at {same_last:.6f} of pixels")
+
+
+def phase_serving_tiled_2dgs(trained):
+    """Tiled 2DGS serving: rasterization_2dgs(backend="tiled", RGB+ED) under
+    no_grad on the 2DGS training phase's surfels (`trained` = (params,
+    live)), 3 frames, with the tiled serving phase's prints and checks."""
+    import torch
+    from gsplat_tpu_torch import _backend, rasterization_2dgs, rendering
+    from gsplat_tpu_torch.ops import rasterize_2dgs_binned as r2, rasterize_2dgs_tiled as r2t
+    from gsplat_tpu_torch.ops import rasterize_tiled as rt
+    from gsplat_tpu_torch.ops.isect import isect_tiles, suggest_capacity
+
+    dev = torch.device("cuda")
+    deg, mode = 3, "RGB+ED"
+    _, viewmats, Ks, W0, _ = splat_arrays(MAIN_GRID, deg, SEED)
+    Ks = Ks.copy()
+    Ks[:, :2, :] *= MAIN_W / W0
+    W, H, ts = MAIN_W, MAIN_H, MAIN_TILE
+    splats, live = trained
+    vms = [torch.as_tensor(viewmats[i : i + 1], device=dev) for i in range(len(viewmats))]
+    Kss = [torch.as_tensor(Ks[i : i + 1], device=dev) for i in range(len(Ks))]
+
+    def frame(i, capacity, backend="tiled"):
+        return rasterization_2dgs(*render_args(torch, splats), vms[i], Kss[i], W, H, sh_degree=deg, masks=live,
+                                  tile_size=ts, backend=backend, isect_capacity=capacity, render_mode=mode)
+
+    with torch.no_grad():
+        capacity = suggest_capacity(max(int(frame(i, 4096)[6]["n_isects"]) for i in range(len(vms))))
+        torch.cuda.synchronize()
+        _backend.reset_launch_counts()
+        frames, frames_dev, n_tiled = [], [], []
+        for i in range(len(vms)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = frame(i, capacity)
+            end.record()
+            torch.cuda.synchronize()
+            frames.append((time.perf_counter() - t0) * 1e3)
+            frames_dev.append(start.elapsed_time(end))
+            img, alpha, nrm, nfd, dist, med, meta = out
+            shapes = [tuple(x.shape) for x in (img, alpha, nrm, nfd, dist, med)]
+            want = [(1, H, W, 4), (1, H, W, 1), (1, H, W, 3), (1, H, W, 3), (1, H, W, 1), (1, H, W, 1)]
+            if shapes != want or "slab_required" in meta or int(meta["n_isects"]) > capacity:
+                raise AssertionError(f"tiled 2DGS camera {i}: shapes {shapes}, meta {sorted(meta)}")
+            if not all(bool(torch.isfinite(x).all()) for x in (img, alpha, nrm, nfd, dist, med)):
+                raise AssertionError(f"tiled 2DGS camera {i}: non-finite output")
+            n_tiled.append(int(meta["n_isects"]))
+        launches = _backend.launch_counts()
+        log(f"launches in the tiled 2DGS serving path: {launches}")
+        extra = {k: v for k, v in launches.items() if (v > 0) != (k == "rasterize_2dgs_tiled_fwd")}
+        if extra or launches["rasterize_2dgs_tiled_fwd"] != len(vms):
+            raise AssertionError(f"tiled 2DGS serving launched other than one tiled 2DGS forward a frame: {launches}")
+        n_binned = [int(frame(i, capacity, "binned")[6]["n_isects"]) for i in range(len(vms))]
+        log(f"tiled 2DGS serving path, trained surfels: N={int(live.sum())}, {W}x{H}, ts={ts}, sh_degree={deg}, "
+            f"{mode}, capacity {capacity}, {len(frames)} frames, ms/frame host {', '.join(f'{t:.2f}' for t in frames)}; "
+            f"CUDA events {', '.join(f'{t:.2f}' for t in frames_dev)}; stream entries tiled {n_tiled}, binned "
+            f"{n_binned}")
+
+        s = shade_2dgs(rendering, torch, splats, live, vms[0], Kss[0], W, H, deg, mode)
+        st = tiled_stream_2dgs(torch, rt, r2, isect_tiles, s, ts, W, H, capacity)
+        mx, my = s.means2d[..., 0], s.means2d[..., 1]
+        Ms = s.ray_transforms.reshape(s.ray_transforms.shape[:2] + (9,))
+        reps = 5
+        stage = {
+            "projection+SH": cuda_ms(torch, lambda: shade_2dgs(rendering, torch, splats, live, vms[0], Kss[0], W, H,
+                                                               deg, mode), reps),
+            "isect": cuda_ms(torch, lambda: isect_tiles((mx, my), s.radii, s.depths, ts, -(-W // ts), -(-H // ts),
+                                                        capacity), reps),
+            "pack": cuda_ms(torch, lambda: rt.pack_rows(r2.surfel_payload(mx, my, Ms, s.opacities, s.colors,
+                                                                          s.normals)), reps),
+            "forward kernel": cuda_ms(torch, lambda: r2t._tiled2_fwd_cuda(st[0], 7, st[1], st[2], st[3], 1, W, H, ts),
+                                      reps),
+            "frame": cuda_ms(torch, lambda: frame(0, capacity), reps),
+        }
+        log("tiled 2DGS stage ms (CUDA events, trained surfels, camera 0): "
+            + ", ".join(f"{k} {v:.3f}" for k, v in stage.items()))
+        log_profile("tiled 2DGS frame (trained surfels, camera 0)", device_time_by_kernel(torch, lambda: frame(0, capacity)),
+                    stage["frame"])
+        sub = (*st[:3], subset_counts(torch, st[3], TILE_SUBSET, SEED))
+        errs, med_off, same_last, pairs, _ = compare_tiled_fwd2(torch, r2t, sub, 7, 1, W, H, ts, "tiled 2DGS serving")
+        log(f"tiled 2DGS serving shapes, {TILE_SUBSET} seeded tiles ({int(sub[3].sum())} entries, {int(pairs)} "
+            f"evaluated pairs, ~{int(pairs) / (TILE_SUBSET * ts * ts):.1f} a pixel): forward kernel vs plain max abs "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()) + f", median off at {med_off:.2e}, last equal at "
+            f"{same_last:.6f}")
+
+
+def train_runner(torch, runner_cls, scene, backend, kernels, what, **kw):
+    """TRAIN_STEPS steps of `runner_cls` on `backend` on the training
+    phase's scene, each launching `kernels` and no other kernel; finite
+    parameters, view 0's loss falling, the steady step time and one
+    profiled step. Returns (runner, launch counts)."""
+    from gsplat_tpu_torch import _backend
+    from gsplat_tpu_torch.simple_trainer import Config
+
+    views, points, rgb, scene_scale = scene
+    cfg = Config(
+        max_steps=TRAIN_STEPS, sh_degree=3, sh_degree_interval=1, refine_start_iter=3,
+        refine_every=5, tile_size=MAIN_TILE, backend=backend, pool_headroom=1.5, seed=SEED,
+    )
+    t1 = time.perf_counter()
+    runner = runner_cls(cfg, views, points, rgb, scene_scale, device=torch.device("cuda"), **kw)
+    runner.probe_isect_capacity()
+    torch.cuda.synchronize()
+    log(f"{what} training path: {points.shape[0]} points, pool {runner.live.shape[0]} slots, isect capacity "
+        f"{runner.isect_capacity} (from the probe); init {time.perf_counter() - t1:.1f} s")
+    _backend.reset_launch_counts()
+    losses = []
+    for step in range(TRAIN_STEPS):
+        before = _backend.launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        start.record()
+        out = runner.train_step(step)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - h0) * 1e3
+        loss = float(out["loss"])
+        after = _backend.launch_counts()
+        per_step = {k: after[k] - before[k] for k in after}
+        if not np.isfinite(loss):
+            raise AssertionError(f"{what} step {step}: loss {loss}")
+        missing = [k for k in kernels if per_step[k] == 0]
+        other = [k for k, v in per_step.items() if v and k not in kernels]
+        if missing or other:
+            raise AssertionError(f"{what} step {step}: kernels {missing} not launched, {other} launched")
+        losses.append((out["image_ids"][0], loss))
+        log(f"{what} step {step}: view {out['image_ids'][0]} loss {loss:.6f} live {int(runner.live.sum())}"
+            f"{' (refined)' if out['refined'] else ''} capacity needed {out['slab_required']}, "
+            f"host {host_ms:.2f} ms, CUDA events {start.elapsed_time(end):.2f} ms; launches {per_step}")
+    launches = _backend.launch_counts()
+    log(f"launches in the {what} training path ({TRAIN_STEPS} steps): {launches}")
+    for name, p in runner.params.items():
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"{what}: parameter {name} is not finite after training")
+    view0 = [loss for v, loss in losses if v == 0]
+    if len(view0) < 2 or not view0[-1] < view0[0]:
+        raise AssertionError(f"{what}: view 0's loss did not fall: {view0}")
+    log(f"{what}: all parameters finite; view 0 loss {view0[0]:.6f} -> {view0[-1]:.6f} over {len(view0)} visits")
+    step_time = cuda_ms(torch, lambda: runner.train_step(13), 3)
+    log_profile(f"{what} train step", device_time_by_kernel(torch, lambda: runner.train_step(14)), step_time)
+    log(f"{what} train step ms (CUDA events, after the {TRAIN_STEPS} steps): {step_time:.3f}")
+    return runner, launches
+
+
+def unique_row_bytes(torch, ids, nf):
+    """Bytes of the distinct packed rows a stream names, nf floats each: what
+    a gathering kernel needs to read once."""
+    return int(torch.unique(ids).numel()) * nf * 4 if ids.numel() else 0
+
+
+def phase_train_tiled(scene):
+    """Tiled 3DGS training (Runner, backend="tiled", on the training phase's
+    scene) and its two kernels alone against their plain versions at the
+    train shapes. Returns their entries of the `kernels` line."""
+    import torch
+    from gsplat_tpu_torch import rendering
+    from gsplat_tpu_torch.ops import rasterize_tiled as rt
+    from gsplat_tpu_torch.ops.isect import isect_tiles
+    from gsplat_tpu_torch.simple_trainer import Runner
+
+    runner, launches = train_runner(
+        torch, Runner, scene, "tiled", ("rasterize_tiled_fwd", "rasterize_tiled_bwd", "gid_reduce"), "tiled")
+    dev = torch.device("cuda")
+    W, H, ts = MAIN_W, MAIN_H, MAIN_TILE
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    view = runner.trainset[0]
+    vm = torch.linalg.inv(view["camtoworld"])[None]
+    K = view["K"][None]
+    reps = 10
+    with torch.no_grad():
+        s = shade(rendering, torch, runner.params, runner.live, vm, K, W, H, runner.cfg.sh_degree)
+        st = tiled_stream(torch, rt, isect_tiles, s, ts, W, H, runner.isect_capacity)
+        D = 3
+        fargs = (st[0], D, st[1], st[2], st[3], 1, W, H, ts)
+        fwd_ms = cuda_ms(torch, lambda: rt._tiled_fwd_cuda(*fargs), reps)
+        plain_f, fwd_plain_ms = timed_once(torch, lambda: rt._tiled_fwd_plain(*fargs))
+        fmx, fmean, same_last, n_off, fwd_pairs, (_, T_k, last_k) = compare_tiled_fwd(
+            torch, rt, st, D, 1, W, H, ts, plain=plain_f)
+        v_img, v_T = cotangents(torch, gen, T_k, D)
+        bargs = (st[0], D, st[1], st[2], st[3], T_k, last_k, v_img, v_T, 1, W, H, ts, False)
+        bwd_ms = cuda_ms(torch, lambda: rt._tiled_bwd_cuda(*bargs), reps)
+        plain_b, bwd_plain_ms = timed_once(torch, lambda: rt._tiled_bwd_plain(*bargs))
+        rows_k, _, bmx, berrs, (n_eval, n_acc) = compare_tiled_bwd(
+            torch, rt, st, D, T_k, last_k, v_img, v_T, 1, W, H, ts, False, plain=plain_b)
+    M = st[1].shape[0]
+    T = (-(-W // ts)) * (-(-H // ts))
+    pix = W * H
+    nf = 6 + D
+    rows_b = unique_row_bytes(torch, st[1], nf)
+    # forward: the ids and the distinct rows they name read once, the
+    # offsets, the image, T and last written once; 18 per evaluated and
+    # 2D + 4 more per accepted pair (csrc/raster.cuh), the backward's count
+    fwd_bytes = M * 4 + rows_b + 2 * T * 4 + pix * (4 * D + 4 + 4)
+    fwd_ops = 18 * fwd_pairs + (2 * D + 4) * n_acc
+    fb = (fwd_bytes / PEAK_BYTES_PER_S * 1e3, fwd_ops / PEAK_F32_FLOPS * 1e3)
+    # backward: the same reads plus T, last, v_img and v_T; the slot rows
+    # written once; 16 per evaluated and 28 + 3D per accepted pair
+    bwd_bytes = M * 4 + rows_b + 2 * T * 4 + pix * (4 + 4 + 4 * D + 4) + nf * M * 4
+    bwd_ops = 16 * n_eval + (28 + 3 * D) * n_acc
+    bb = (bwd_bytes / PEAK_BYTES_PER_S * 1e3, bwd_ops / PEAK_F32_FLOPS * 1e3)
+    log(f"tiled train shapes {W}x{H} (view 0, trained splats, {M} entries, {int(torch.unique(st[1]).numel())} "
+        f"distinct rows): fwd max abs {fmx:.3e} mean abs {fmean:.3e} ({n_off} > 1e-5), last equal at "
+        f"{same_last:.6f}; bwd max abs per row " + " ".join(f"{e:.2e}" for e in berrs))
+    log(f"tiled forward: {fwd_pairs} evaluated pairs, {fwd_ops} flops, {fwd_bytes} bytes; backward: {n_eval} "
+        f"evaluated and {n_acc} accepted pairs, {bwd_ops} flops, {bwd_bytes} bytes; kernel ms fwd {fwd_ms:.3f} "
+        f"bwd {bwd_ms:.3f}, plain ms fwd {fwd_plain_ms:.1f} bwd {bwd_plain_ms:.1f}")
+    return [
+        {
+            "name": "rasterize_tiled_fwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/rasterize_tiled_fwd.cu",
+            "replaces": "gsplat_tpu/ops/rasterize_tiled.py:127", "launches": launches["rasterize_tiled_fwd"],
+            "max_abs_err": fmx, "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": max(fb),
+            "bound_by": "operations" if fb[1] >= fb[0] else "bytes", "library_ms": None,
+        },
+        {
+            "name": "rasterize_tiled_bwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/rasterize_tiled_bwd.cu",
+            "replaces": "gsplat_tpu/ops/rasterize_tiled.py:238", "launches": launches["rasterize_tiled_bwd"],
+            "max_abs_err": bmx, "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": max(bb),
+            "bound_by": "operations" if bb[1] >= bb[0] else "bytes", "library_ms": None,
+        },
+    ]
+
+
+def phase_train_tiled_2dgs(scene):
+    """Tiled 2DGS training (Runner2DGS, backend="tiled", both geometry
+    losses from step 0) and its two kernels alone against their plain
+    versions at the train shapes: the whole frame and seeded tiles. Returns
+    their entries of the `kernels` line."""
+    import torch
+    from gsplat_tpu_torch import rendering
+    from gsplat_tpu_torch.ops import rasterize_2dgs_binned as r2, rasterize_2dgs_tiled as r2t
+    from gsplat_tpu_torch.ops import rasterize_tiled as rt
+    from gsplat_tpu_torch.ops.isect import isect_tiles
+    from gsplat_tpu_torch.simple_trainer_2dgs import Runner2DGS
+
+    runner, launches = train_runner(
+        torch, Runner2DGS, scene, "tiled", ("rasterize_2dgs_tiled_fwd", "rasterize_2dgs_tiled_bwd", "gid_reduce"),
+        "tiled 2DGS", normal_start=0, dist_start=0,
+    )
+    dev = torch.device("cuda")
+    W, H, ts = MAIN_W, MAIN_H, MAIN_TILE
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    view = runner.trainset[0]
+    vm = torch.linalg.inv(view["camtoworld"])[None]
+    K = view["K"][None]
+    reps = 5
+    what = f"tiled 2DGS train shapes {W}x{H}"
+    with torch.no_grad():
+        s = shade_2dgs(rendering, torch, runner.params, runner.live, vm, K, W, H, runner.cfg.sh_degree, "RGB+ED")
+        D = s.colors.shape[-1]
+        L = D + 3
+        st = tiled_stream_2dgs(torch, rt, r2, isect_tiles, s, ts, W, H, runner.isect_capacity)
+        fargs = (st[0], L, st[1], st[2], st[3], 1, W, H, ts)
+        fwd_ms = cuda_ms(torch, lambda: r2t._tiled2_fwd_cuda(*fargs), reps)
+        plain_f, fwd_plain_ms = timed_once(torch, lambda: r2t._tiled2_fwd_plain(*fargs))
+        ferrs, med_off, same_last, fwd_pairs, ko = compare_tiled_fwd2(torch, r2t, st, L, 1, W, H, ts, what,
+                                                                      plain=plain_f)
+        del plain_f
+        cot = cotangents_2dgs(torch, gen, ko[1], L)
+        bargs = (st[0], L, st[1], st[2], st[3], ko[1], ko[2], ko[0][..., D - 1].contiguous(), *cot, 1, W, H, ts)
+        bwd_ms = cuda_ms(torch, lambda: r2t._tiled2_bwd_cuda(*bargs), reps)
+        plain_b, bwd_plain_ms = timed_once(torch, lambda: r2t._tiled2_bwd_plain(*bargs))
+        rows_k, bmx, berrs, (n_eval, n_acc) = compare_tiled_bwd2(torch, r2t, st, ko, cot, D, 1, W, H, ts, what,
+                                                                  plain=plain_b)
+        del plain_b
+        sub = (*st[:3], subset_counts(torch, st[3], TILE_SUBSET, SEED + 1))
+        serrs, _, _, _, ko_s = compare_tiled_fwd2(torch, r2t, sub, L, 1, W, H, ts, what + " tile subset")
+        _, sbmx, _, _ = compare_tiled_bwd2(torch, r2t, sub, ko_s, cot, D, 1, W, H, ts, what + " tile subset")
+    M = st[1].shape[0]
+    T = (-(-W // ts)) * (-(-H // ts))
+    pix = W * H
+    nf = r2.NFIX + L
+    rows_b = unique_row_bytes(torch, st[1], nf)
+    log(f"{what} (view 0, trained surfels, {M} entries): forward vs plain max abs "
+        + ", ".join(f"{k} {v:.3e}" for k, v in ferrs.items())
+        + f", median off at {med_off:.2e}, last equal at {same_last:.6f}; backward max abs per row "
+        + " ".join(f"{e:.2e}" for e in berrs)
+        + f"; on {TILE_SUBSET} seeded tiles: forward max abs {max(serrs.values()):.3e}, backward {sbmx:.3e}")
+    # counted from csrc/raster.cuh, the binned 2DGS pair's kernels: 41 per
+    # evaluated pair and 2L + 13 per accepted one forward; 41 per pair at
+    # or before `last` and 5L + 87 per accepted one backward
+    fwd_ops = 41 * fwd_pairs + (2 * L + 13) * n_acc
+    fwd_bytes = M * 4 + rows_b + 2 * T * 4 + pix * 4 * (L + 4)
+    bwd_ops = 41 * n_eval + (5 * L + 87) * n_acc
+    bwd_bytes = M * 4 + rows_b + 2 * T * 4 + pix * 4 * (L + 5) + nf * M * 4
+    fb = (fwd_bytes / PEAK_BYTES_PER_S * 1e3, fwd_ops / PEAK_F32_FLOPS * 1e3)
+    bb = (bwd_bytes / PEAK_BYTES_PER_S * 1e3, bwd_ops / PEAK_F32_FLOPS * 1e3)
+    log(f"tiled 2DGS forward: {fwd_pairs} evaluated and {n_acc} accepted pairs, {fwd_ops} operations, {fwd_bytes} "
+        f"bytes; backward: {n_eval} evaluated pairs, {bwd_ops} operations, {bwd_bytes} bytes; kernel ms fwd "
+        f"{fwd_ms:.3f} bwd {bwd_ms:.3f}, plain ms fwd {fwd_plain_ms:.1f} bwd {bwd_plain_ms:.1f}")
+    entries = [
+        {
+            "name": "rasterize_2dgs_tiled_fwd", "route": "cuda",
+            "source": "gsplat_tpu_torch/csrc/rasterize_2dgs_tiled_fwd.cu",
+            "replaces": "gsplat_tpu/ops/rasterize_2dgs_tiled.py:83", "launches": launches["rasterize_2dgs_tiled_fwd"],
+            "max_abs_err": max(ferrs.values()), "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": max(fb),
+            "bound_by": "operations" if fb[1] >= fb[0] else "bytes", "library_ms": None,
+        },
+        {
+            "name": "rasterize_2dgs_tiled_bwd", "route": "cuda",
+            "source": "gsplat_tpu_torch/csrc/rasterize_2dgs_tiled_bwd.cu",
+            "replaces": "gsplat_tpu/ops/rasterize_2dgs_tiled.py:207", "launches": launches["rasterize_2dgs_tiled_bwd"],
+            "max_abs_err": bmx, "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": max(bb),
+            "bound_by": "operations" if bb[1] >= bb[0] else "bytes", "library_ms": None,
+        },
+    ]
+    return entries, runner
+
+
 def main():
     smi = phase_device()
     import torch
@@ -1238,6 +1787,7 @@ def main():
     phase_build()
     phase_kernel_vs_plain()
     phase_kernel_vs_plain_2dgs()
+    phase_kernel_vs_plain_tiled()
     t1 = time.perf_counter()
     phase_serving(smi)
     t2 = time.perf_counter()
@@ -1247,11 +1797,19 @@ def main():
     kernels += kernels_2dgs
     t4 = time.perf_counter()
     phase_serving_2dgs((runner_2dgs.params, runner_2dgs.live))
+    del runner_2dgs
     t5 = time.perf_counter()
+    phase_serving_tiled()
+    kernels += phase_train_tiled(scene)
+    kernels_tiled_2dgs, runner_tiled_2dgs = phase_train_tiled_2dgs(scene)
+    kernels += kernels_tiled_2dgs
+    phase_serving_tiled_2dgs((runner_tiled_2dgs.params, runner_tiled_2dgs.live))
+    t6 = time.perf_counter()
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))
     log(f"phase wall times: build + kernel vs plain {t1 - t0:.1f} s, serving {t2 - t1:.1f} s, "
-        f"training {t3 - t2:.1f} s, 2DGS training {t4 - t3:.1f} s, 2DGS serving {t5 - t4:.1f} s")
+        f"training {t3 - t2:.1f} s, 2DGS training {t4 - t3:.1f} s, 2DGS serving {t5 - t4:.1f} s, "
+        f"tiled serving and training {t6 - t5:.1f} s")
     print(json.dumps({
         "ok": True,
         "device": {

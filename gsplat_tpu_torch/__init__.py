@@ -9,10 +9,14 @@ losses, ``SelectiveAdam``, ``DefaultStrategy`` and a trainer over
 in-memory views (``simple_trainer.Runner``). Slice 3 is 2DGS (surfels):
 ``rasterization_2dgs`` on the binned backend (and the oracle), with the
 2DGS forward and backward kernels, and its trainer
-(``simple_trainer_2dgs.Runner2DGS``). Functions run on the device of their
-input tensors: CUDA tensors go through the kernels, CPU tensors through
-each kernel's plain PyTorch version. The tiled backend, MCMC and multi-GPU
-rendering come in later slices and raise NotImplementedError until then.
+(``simple_trainer_2dgs.Runner2DGS``). Slice 4 is the tiled backend, 3DGS
+and 2DGS, forward and backward: ``isect_tiles`` and four kernels that
+gather each tile's rows by ``flatten_ids``; ``rasterization(backend="auto")``
+reaches it at scene scale without an ``isect_capacity``, and both trainers
+take ``backend="tiled"``. Functions run on the device of their input
+tensors: CUDA tensors go through the kernels, CPU tensors through each
+kernel's plain PyTorch version. MCMC and multi-GPU rendering come in later
+slices and raise NotImplementedError until then.
 """
 
 from ._helper import load_test_data
@@ -20,16 +24,22 @@ from .version import __version__
 from .checkpoint import splats_from_numpy
 from .losses import l1, psnr, ssim, train_loss
 from .ops import (
+    Isect,
     fully_fused_projection,
     fully_fused_projection_2dgs,
     fully_fused_projection_soa,
+    isect_offset_encode,
+    isect_tiles,
     quat_scale_to_covar_preci,
     rasterize_to_pixels,
     rasterize_to_pixels_2dgs,
     rasterize_to_pixels_2dgs_ref,
+    rasterize_to_pixels_2dgs_tiled,
     rasterize_to_pixels_ref,
     rasterize_to_pixels_ref_absgrad,
+    rasterize_to_pixels_tiled,
     spherical_harmonics,
+    suggest_capacity,
     world_to_cam,
 )
 from .optimizers import SelectiveAdam
@@ -52,6 +62,12 @@ __all__ = [
     "rasterize_to_pixels_2dgs_ref",
     "rasterize_to_pixels_ref",
     "rasterize_to_pixels_ref_absgrad",
+    "rasterize_to_pixels_tiled",
+    "rasterize_to_pixels_2dgs_tiled",
+    "Isect",
+    "isect_tiles",
+    "isect_offset_encode",
+    "suggest_capacity",
     "spherical_harmonics",
     "depth_to_points",
     "depth_to_normal",

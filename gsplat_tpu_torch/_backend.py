@@ -55,6 +55,13 @@ KERNELS: Dict[str, Sequence[str]] = {
     # torch version's ops do (csrc/surfel.cuh), so no contraction either
     "rasterize_2dgs_fwd": ("-fmad=false",),
     "rasterize_2dgs_bwd": ("-fmad=false",),
+    # the tiled backend: the same kernel templates (csrc/raster.cuh) with
+    # rows gathered by flatten_ids from a packed [C*N, F] table instead of
+    # a pre-gathered stream
+    "rasterize_tiled_fwd": (),
+    "rasterize_tiled_bwd": (),
+    "rasterize_2dgs_tiled_fwd": ("-fmad=false",),
+    "rasterize_2dgs_tiled_bwd": ("-fmad=false",),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

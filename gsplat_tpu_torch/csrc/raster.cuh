@@ -1,0 +1,676 @@
+// The compositing kernels of the binned and the tiled rasterizers, 3DGS and
+// 2DGS, forward and backward (the four rasterize_*.cu files of each backend
+// are thin C entry points over these).
+//
+// Every kernel runs one block per (camera, tile), one thread per pixel:
+//   T = C*th*tw blocks; cam = t / (th*tw), rem = t % (th*tw), tile row
+//   rem / tw, column rem % tw; thread p at (p % ts, p / ts) of the tile.
+// The block walks its range [offs[t], offs[t] + cnts[t]) of a depth-sorted
+// stream in batches staged in shared memory. The two backends differ only in
+// where a batch comes from, which the staging policy says:
+//   Streamed<B>: the binned stream, [nf, M] rows of the emitted entries in
+//     sort order; the block copies B columns at a time as [nf][B], so feature
+//     f of entry j is sm[f * B + j].
+//   Gathered<B>: the tiled stream, flatten_ids [M] into a packed [C*N, F]
+//     table of per-Gaussian rows (F a multiple of 8 floats, so a row is
+//     32-byte aligned); the block copies the row packed[flatten_ids[i]] of
+//     each entry with 16-byte loads (neighbouring threads on neighbouring
+//     words of a row), so feature f of entry j is sm[j * F + f]. Nothing is
+//     pre-gathered.
+// The per-pixel bodies, and with them every accept / reject decision, are
+// written once here: both backends, and each forward and its backward,
+// decide alike.
+//
+// The backward kernels walk the range back to front from the tile's largest
+// `last` and write one row per stream slot (one tile of one Gaussian, so one
+// block writes it and no atomics are needed): each value is summed over the
+// tile's pixels by warp shuffles (skipped when no lane of the warp accepted
+// the entry), then the per-warp partials in shared memory in warp order, so
+// the result is deterministic. The caller sums each Gaussian's slots with
+// csrc/gid_reduce.cu.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "surfel.cuh"
+
+namespace raster {
+
+constexpr float kAlphaMin = 1.0f / 255.0f;
+constexpr float kAlphaMax = 0.999f;
+constexpr float kTransmittanceEps = 1e-4f;
+constexpr int kFix2 = 12;  // 2DGS rows before the features: mx, my, M00..M22, opacity
+
+template <int B>
+struct Streamed {
+  static constexpr int kBatch = B;
+  static constexpr int kStride = B;  // between one entry's features in shared memory
+  const float* entries;              // [nf, M]
+  long long M;
+  int nf;
+
+  __host__ __device__ int staged_floats() const { return nf * B; }
+  __device__ void load(float* sm, int first, int nb) const {
+    if (B > 32) {
+      // the forwards' batches: a thread per entry, its nf loads in flight
+      // together (a version staging one (feature, entry) pair per step ran
+      // the binned 3DGS forward 9% slower on an H100)
+      for (int j = threadIdx.x; j < nb; j += blockDim.x)
+        for (int f = 0; f < nf; ++f)
+          sm[f * B + j] = __ldg(entries + (long long)f * M + first + j);
+    } else {
+      // the backwards' 32-entry batches: (feature, entry) pairs over the
+      // whole block; B is a power of two, so no division
+      for (int i = threadIdx.x; i < nf * B; i += blockDim.x) {
+        const int j = i % B;
+        if (j < nb) sm[i] = __ldg(entries + (long long)(i / B) * M + first + j);
+      }
+    }
+  }
+  __device__ const float* entry(const float* sm, int j) const { return sm + j; }
+};
+
+template <int B>
+struct Gathered {
+  static constexpr int kBatch = B;
+  static constexpr int kStride = 1;
+  const float4* packed;  // [C*N, F / 4]
+  const int* ids;        // [M]
+  int F;
+
+  __host__ __device__ int staged_floats() const { return F * B; }
+  __device__ void load(float* sm, int first, int nb) const {
+    const int F4 = F / 4;
+    float4* sm4 = reinterpret_cast<float4*>(sm);
+    for (int i = threadIdx.x; i < nb * F4; i += blockDim.x) {
+      const int j = i / F4;
+      sm4[i] = __ldg(packed + (long long)__ldg(ids + first + j) * F4 + (i - j * F4));
+    }
+  }
+  __device__ const float* entry(const float* sm, int j) const { return sm + j * F; }
+};
+
+// this thread's pixel
+struct Pixel {
+  int cam, x, y;
+  bool inside;   // false past the image edge, in a partial tile
+  float cx, cy;  // the pixel centre (+0.5)
+
+  __device__ Pixel(int th, int tw, int ts, int W, int H) {
+    const int t = blockIdx.x;
+    cam = t / (th * tw);
+    const int rem = t % (th * tw);
+    x = (rem % tw) * ts + threadIdx.x % ts;
+    y = (rem / tw) * ts + threadIdx.x / ts;
+    inside = x < W && y < H;
+    cx = (float)x + 0.5f;
+    cy = (float)y + 0.5f;
+  }
+  // into [C, H, W]; computed where it is used, so it holds no registers
+  // across the compositing loop
+  __device__ long long index(int W, int H) const { return ((long long)cam * H + y) * W + x; }
+};
+
+// sigma = 0.5 (a dx^2 + c dy^2) + b dx dy, rounded op by op as the plain
+// version's torch ops are (no multiply-add contraction, whatever the build's
+// flags): an entry on the alpha = 1/255 threshold must not flip between a
+// kernel and its plain version, or between a forward and its backward
+__device__ __forceinline__ float gauss_sigma(float ca, float cb, float cc, float dx, float dy) {
+  return __fadd_rn(__fmul_rn(0.5f, __fadd_rn(__fmul_rn(__fmul_rn(ca, dx), dx),
+                                             __fmul_rn(__fmul_rn(cc, dy), dy))),
+                   __fmul_rn(__fmul_rn(cb, dx), dy));
+}
+
+// the largest `last` of the block's pixels, -1 if none
+__device__ __forceinline__ int block_max_last(int lst) {
+  __shared__ int s_lmax;
+  if (threadIdx.x == 0) s_lmax = -1;
+  __syncthreads();
+  if (lst >= 0) atomicMax(&s_lmax, lst);
+  __syncthreads();
+  return s_lmax;
+}
+
+// one entry's values g[0, nr) summed over the warp's lanes into dst[0, nr)
+template <int R>
+__device__ __forceinline__ void warp_partials(const float (&g)[R], int nr, bool accepted,
+                                              float* dst) {
+  const int lane = threadIdx.x & 31;
+  if (__any_sync(0xffffffffu, accepted)) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r < nr) {
+        float v = g[r];
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+        if (lane == 0) dst[r] = v;
+      }
+    }
+  } else {
+    for (int r = lane; r < nr; r += 32) dst[r] = 0.0f;
+  }
+}
+
+// The batch's slot rows: part [warps][B][nr] summed over the warps in warp
+// order into rows [nr, M] at slots [first, first + nb), row-major so that
+// neighbouring threads write neighbouring slots; with absgrad also |row 0|
+// and |row 1| into rows nr and nr + 1 (|v_mean| per slot, i.e. per tile)
+template <int B>
+__device__ __forceinline__ void write_slots(const float* part, int nr, int nb, int first,
+                                            long long M, bool absgrad, float* rows) {
+  const int nwarps = blockDim.x >> 5;
+  for (int i = threadIdx.x; i < nr * nb; i += blockDim.x) {
+    const int r = i / nb;
+    const int j = i - r * nb;
+    float s = 0.0f;
+    for (int w = 0; w < nwarps; ++w) s += part[(w * B + j) * nr + r];
+    const long long slot = (long long)first + j;
+    rows[(long long)r * M + slot] = s;
+    if (absgrad && r < 2) rows[(long long)(nr + r) * M + slot] = fabsf(s);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 3DGS forward. Entry rows: mx, my, conic a, b, c, opacity, D colours. Per
+// pixel, in stream order:
+//   sigma = gauss_sigma; alpha = min(0.999, op exp(-sigma)); skipped if
+//   alpha < 1/255 or sigma < 0
+//   T_incl = T (1 - alpha); if T_incl <= 1e-4 the pixel is done and the entry
+//   is NOT accepted; else accumulate T alpha color, T = T_incl, last = index.
+// The block leaves its loop once every pixel is done (__syncthreads_count).
+// Outputs per pixel inside the image: image [C,H,W,D] = accum (+ T bg where
+// bg is given), T_final [C,H,W] and last [C,H,W] (absolute stream index of
+// the last accepted entry, or -1).
+// Bound on the card: operations. Counted from the code: 18 per evaluated
+// (pixel, entry) pair (the offsets, sigma's 9, expf as negate, scale and
+// ex2, the opacity product, the clamp and the two tests) and 2D + 4 more per
+// accepted pair (1 - alpha, T_incl, its test, w, and D multiply-adds).
+template <class Stage, int DMAX>
+__global__ void __launch_bounds__(1024)
+fwd_3dgs(Stage st, const int* __restrict__ offs, const int* __restrict__ cnts, int th, int tw,
+         int ts, int W, int H, int D, const float* __restrict__ bg,  // [C, D] or null
+         float* __restrict__ img, float* __restrict__ T_out, int* __restrict__ last) {
+  extern __shared__ float4 smem[];
+  float* sm = reinterpret_cast<float*>(smem);
+  constexpr int S = Stage::kStride;
+  constexpr int B = Stage::kBatch;
+  const Pixel pix(th, tw, ts, W, H);
+  const int off = offs[blockIdx.x];
+  const int n = cnts[blockIdx.x];
+
+  float acc[DMAX];
+#pragma unroll
+  for (int d = 0; d < DMAX; ++d) acc[d] = 0.0f;
+  float T = 1.0f;
+  int lst = -1;
+  bool done = !pix.inside;  // pixels past the image edge never hold the tile open
+
+  for (int b0 = 0; b0 < n; b0 += B) {
+    // also the barrier that keeps the previous batch's readers ahead of
+    // this batch's loads
+    if (__syncthreads_count(done) == (int)blockDim.x) break;
+    const int nb = min(B, n - b0);
+    st.load(sm, off + b0, nb);
+    __syncthreads();
+    if (!done) {
+      for (int j = 0; j < nb; ++j) {
+        const float* e = st.entry(sm, j);
+        const float dx = pix.cx - e[0];
+        const float dy = pix.cy - e[S];
+        const float sigma = gauss_sigma(e[2 * S], e[3 * S], e[4 * S], dx, dy);
+        const float alpha = fminf(__fmul_rn(e[5 * S], expf(-sigma)), kAlphaMax);
+        if (sigma < 0.0f || alpha < kAlphaMin) continue;
+        const float T_incl = T * (1.0f - alpha);
+        if (T_incl <= kTransmittanceEps) {
+          done = true;
+          break;
+        }
+        const float w = T * alpha;
+#pragma unroll
+        for (int d = 0; d < DMAX; ++d)
+          if (d < D) acc[d] += w * e[(6 + d) * S];
+        T = T_incl;
+        lst = off + b0 + j;
+      }
+    }
+  }
+  if (!pix.inside) return;
+  const long long q = pix.index(W, H);
+#pragma unroll
+  for (int d = 0; d < DMAX; ++d) {
+    if (d < D) img[q * D + d] = bg != nullptr ? acc[d] + T * bg[pix.cam * D + d] : acc[d];
+  }
+  T_out[q] = T;
+  last[q] = lst;
+}
+
+// ---------------------------------------------------------------------------
+// 3DGS backward. Each pixel starts from the forward's T_final and `last`.
+// Per pixel and entry at or before `last` that passes the forward's test:
+//   T       /= 1 - alpha              (T before this entry)
+//   w        = alpha T
+//   cv       = sum_d v_img[d] color[d]
+//   v_alpha  = T cv - (s_later + v_logT) / (1 - alpha),  v_logT = v_T T_final
+//   s_later += w cv
+//   v_sigma  = -alpha v_alpha, v_op = exp(-sigma) v_alpha  (0 if alpha was
+//              clamped at 0.999)
+//   v_conic  = v_sigma (dx^2 / 2, dx dy, dy^2 / 2)
+//   v_mean   = -v_sigma (a dx + b dy, b dx + c dy),   dx = px - gx
+//   v_color  = w v_img
+// rows [6 + D (+2), M]: v_gx, v_gy, v_a, v_b, v_c, v_op, v_color[D] (+ |v_gx|,
+// |v_gy| of the slot with absgrad). Slots past the tile's largest `last`
+// stay as the caller zeroed them.
+// Bound on the card: operations. Counted from the code: 16 per evaluated
+// (pixel, entry) pair, those at or before the pixel's `last`, and 28 + 3D
+// more per accepted pair.
+template <class Stage, int DMAX>
+__global__ void __launch_bounds__(1024)
+bwd_3dgs(Stage st, long long M, const int* __restrict__ offs, const int* __restrict__ cnts,
+         int th, int tw, int ts, int W, int H, int D, const float* __restrict__ T_fin,
+         const int* __restrict__ last, const float* __restrict__ v_img,
+         const float* __restrict__ v_T, int absgrad, float* __restrict__ rows) {
+  extern __shared__ float4 smem[];
+  float* sm = reinterpret_cast<float*>(smem);
+  constexpr int S = Stage::kStride;
+  constexpr int B = Stage::kBatch;
+  const int nf = 6 + D;
+  float* part = sm + st.staged_floats();  // [warps][B][nf]
+  const Pixel pix(th, tw, ts, W, H);
+  const int warp = threadIdx.x >> 5;
+  const int off = offs[blockIdx.x];
+  const int n = cnts[blockIdx.x];
+
+  int lst = -1;
+  float T = 1.0f;
+  float vlogT = 0.0f;
+  float vimg[DMAX];
+#pragma unroll
+  for (int d = 0; d < DMAX; ++d) vimg[d] = 0.0f;
+  if (pix.inside) {
+    const long long q = pix.index(W, H);
+    lst = last[q];
+    T = T_fin[q];
+    vlogT = v_T[q] * T;
+#pragma unroll
+    for (int d = 0; d < DMAX; ++d)
+      if (d < D) vimg[d] = v_img[q * D + d];
+  }
+  // entries past the tile's largest `last` add nothing
+  const int nact = min(n, block_max_last(lst) + 1 - off);
+
+  float s_later = 0.0f;
+  for (int b0 = ((nact - 1) / B) * B; nact > 0 && b0 >= 0; b0 -= B) {
+    const int nb = min(B, nact - b0);
+    __syncthreads();  // the previous batch's readers of sm / part are done
+    st.load(sm, off + b0, nb);
+    __syncthreads();
+    for (int j = nb - 1; j >= 0; --j) {
+      const float* e = st.entry(sm, j);
+      float g[6 + DMAX];
+#pragma unroll
+      for (int r = 0; r < 6 + DMAX; ++r) g[r] = 0.0f;
+      bool accepted = false;
+      if (off + b0 + j <= lst) {
+        const float dx = pix.cx - e[0];
+        const float dy = pix.cy - e[S];
+        const float ca = e[2 * S];
+        const float cb = e[3 * S];
+        const float cc = e[4 * S];
+        const float sigma = gauss_sigma(ca, cb, cc, dx, dy);
+        const float eneg = expf(-sigma);
+        const float araw = __fmul_rn(e[5 * S], eneg);
+        const float alpha = fminf(araw, kAlphaMax);
+        if (sigma >= 0.0f && alpha >= kAlphaMin) {
+          accepted = true;
+          const float one_m = 1.0f - alpha;
+          T = T / one_m;
+          const float w = alpha * T;
+          float cv = 0.0f;
+#pragma unroll
+          for (int d = 0; d < DMAX; ++d)
+            if (d < D) cv += vimg[d] * e[(6 + d) * S];
+          const float v_alpha = T * cv - (s_later + vlogT) / one_m;
+          s_later += w * cv;
+          const bool notclamp = araw < kAlphaMax;
+          const float v_sig = notclamp ? -alpha * v_alpha : 0.0f;
+          g[0] = -(ca * dx + cb * dy) * v_sig;
+          g[1] = -(cb * dx + cc * dy) * v_sig;
+          g[2] = 0.5f * dx * dx * v_sig;
+          g[3] = dx * dy * v_sig;
+          g[4] = 0.5f * dy * dy * v_sig;
+          g[5] = notclamp ? eneg * v_alpha : 0.0f;
+#pragma unroll
+          for (int d = 0; d < DMAX; ++d)
+            if (d < D) g[6 + d] = w * vimg[d];
+        }
+      }
+      warp_partials(g, nf, accepted, part + (warp * B + j) * nf);
+    }
+    __syncthreads();
+    write_slots<B>(part, nf, nb, off + b0, M, absgrad != 0, rows);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// 2DGS (surfel) forward, built with -fmad=false (surfel.cuh). Entry rows: mx,
+// my, M00..M22, opacity, then L = D + 3 features (D colours, the last of them
+// the depth m, then 3 normals). Per pixel, in stream order:
+//   sigma  = surfel_sigma; alpha = min(0.999, op exp(-sigma)); skipped
+//            unless alpha >= 1/255 and sigma >= 0
+//   T_incl = T (1 - alpha); if T_incl <= 1e-4 the pixel is done and the
+//            entry is NOT accepted; else, with w = T alpha:
+//   feat  += w f;   dist += 2 (w m W_< - w WM_<);  W_< += w;  WM_< += w m
+//   median = m if T > 0.5;   T = T_incl;   last = the entry's stream index
+// Outputs per pixel inside the image: features [C,H,W,L], T_final, last,
+// distortion and median [C,H,W]. The caller composites the background.
+// Bound on the card: operations. Counted from the code, a division and an
+// expf one operation each: 41 per evaluated (pixel, entry) pair (the
+// ray-plane cross product, sigma, alpha and the tests) and 2L + 13 more per
+// accepted pair.
+template <class Stage, int LMAX>
+__global__ void __launch_bounds__(1024)
+fwd_2dgs(Stage st, const int* __restrict__ offs, const int* __restrict__ cnts, int th, int tw,
+         int ts, int W, int H, int L, float* __restrict__ feat, float* __restrict__ T_out,
+         int* __restrict__ last, float* __restrict__ dist_out, float* __restrict__ med_out) {
+  extern __shared__ float4 smem[];
+  float* sm = reinterpret_cast<float*>(smem);
+  constexpr int S = Stage::kStride;
+  constexpr int B = Stage::kBatch;
+  const Pixel pix(th, tw, ts, W, H);
+  const int off = offs[blockIdx.x];
+  const int n = cnts[blockIdx.x];
+  const int md = L - 4;  // the depth: the last colour channel
+
+  float acc[LMAX];
+#pragma unroll
+  for (int l = 0; l < LMAX; ++l) acc[l] = 0.0f;
+  float T = 1.0f;
+  int lst = -1;
+  float dist = 0.0f, wsum = 0.0f, wmsum = 0.0f, med = 0.0f;
+  bool done = !pix.inside;  // pixels past the image edge never hold the tile open
+
+  for (int b0 = 0; b0 < n; b0 += B) {
+    // also the barrier that keeps the previous batch's readers ahead of
+    // this batch's loads
+    if (__syncthreads_count(done) == (int)blockDim.x) break;
+    const int nb = min(B, n - b0);
+    st.load(sm, off + b0, nb);
+    __syncthreads();
+    if (!done) {
+      for (int j = 0; j < nb; ++j) {
+        const float* e = st.entry(sm, j);
+        float m[9];
+#pragma unroll
+        for (int i = 0; i < 9; ++i) m[i] = e[(2 + i) * S];
+        const SurfelSigma s = surfel_sigma(m, e[0], e[S], pix.cx, pix.cy);
+        const float alpha = fminf(e[11 * S] * expf(-s.sig), kAlphaMax);
+        if (!(s.sig >= 0.0f) || !(alpha >= kAlphaMin)) continue;
+        const float T_incl = T * (1.0f - alpha);
+        if (T_incl <= kTransmittanceEps) {
+          done = true;
+          break;
+        }
+        const float w = T * alpha;
+#pragma unroll
+        for (int l = 0; l < LMAX; ++l)
+          if (l < L) acc[l] += w * e[(kFix2 + l) * S];
+        const float depth = e[(kFix2 + md) * S];
+        const float wm = w * depth;
+        dist += 2.0f * (wm * wsum - w * wmsum);
+        wsum += w;
+        wmsum += wm;
+        if (T > 0.5f) med = depth;
+        T = T_incl;
+        lst = off + b0 + j;
+      }
+    }
+  }
+  if (!pix.inside) return;
+  const long long q = pix.index(W, H);
+#pragma unroll
+  for (int l = 0; l < LMAX; ++l)
+    if (l < L) feat[q * L + l] = acc[l];
+  T_out[q] = T;
+  last[q] = lst;
+  dist_out[q] = dist;
+  med_out[q] = med;
+}
+
+// ---------------------------------------------------------------------------
+// 2DGS backward (the exact, non-coefficient branch of the JAX kernels).
+// Per pixel, carrying the later sums S_W = sum w, S_WM = sum w m and
+// S_G = sum w G, and per entry at or before `last` that passes the
+// forward's test:
+//   T        /= 1 - alpha                       (T before this entry)
+//   w         = alpha T,   cv = sum_l v_feat[l] f[l],   m = f[depth]
+//   W_<       = W_tot - w - S_W,   WM_< = WM_tot - w m - S_WM
+//               (W_tot = 1 - T_final, WM_tot = the composited depth)
+//   G         = cv + 2 v_dist (m W_< - WM_< + S_WM - m S_W)
+//   v_alpha   = T G - (S_G + v_logT) / (1 - alpha),  v_logT = v_T T_final
+//   v_sigma   = -alpha v_alpha, v_op = exp(-sigma) v_alpha (0 if alpha was
+//               clamped at 0.999)
+//   v_f[l]    = w v_feat[l], plus 2 v_dist w (W_< - S_W) on the depth
+//   3D branch: v_u = u v_sigma, v_v = v v_sigma, through the cross product
+//              h_u x h_v to the nine v_M; 2D branch: v_mean = -2 d v_sigma.
+// The median gets no gradient. rows [12 + L, M]: v_gx, v_gy, v_M00..v_M22,
+// v_op, v_feat[L].
+// Bound on the card: operations. Counted from the code, a division and an
+// expf one operation each: 41 per evaluated pair (those at or before the
+// pixel's `last`: the forward's sigma and tests) and 5L + 87 more per
+// accepted pair (the chain, the cross-product VJP, and one add into the
+// slot's sum per row; the shuffle tree's further adds are this design's own).
+template <class Stage, int LMAX, int MAXT>
+__global__ void __launch_bounds__(MAXT)
+bwd_2dgs(Stage st, long long M, const int* __restrict__ offs, const int* __restrict__ cnts,
+         int th, int tw, int ts, int W, int H, int L, const float* __restrict__ T_fin,
+         const int* __restrict__ last, const float* __restrict__ wm_tot_in,
+         const float* __restrict__ v_feat, const float* __restrict__ v_T,
+         const float* __restrict__ v_dist, float* __restrict__ rows) {
+  extern __shared__ float4 smem[];
+  float* sm = reinterpret_cast<float*>(smem);
+  constexpr int S = Stage::kStride;
+  constexpr int B = Stage::kBatch;
+  const int nf = kFix2 + L;
+  float* part = sm + st.staged_floats();  // [warps][B][nf]
+  const Pixel pix(th, tw, ts, W, H);
+  const int warp = threadIdx.x >> 5;
+  const int off = offs[blockIdx.x];
+  const int n = cnts[blockIdx.x];
+  const int md = L - 4;  // the depth: the last colour channel
+
+  int lst = -1;
+  float T = 1.0f, vlogT = 0.0f, vdist = 0.0f, w_tot = 0.0f, wm_tot = 0.0f;
+  float vf[LMAX];
+#pragma unroll
+  for (int l = 0; l < LMAX; ++l) vf[l] = 0.0f;
+  if (pix.inside) {
+    const long long q = pix.index(W, H);
+    lst = last[q];
+    T = T_fin[q];
+    vlogT = v_T[q] * T;
+    vdist = v_dist[q];
+    w_tot = 1.0f - T;
+    wm_tot = wm_tot_in[q];
+#pragma unroll
+    for (int l = 0; l < LMAX; ++l)
+      if (l < L) vf[l] = v_feat[q * L + l];
+  }
+  // entries past the tile's largest `last` add nothing
+  const int nact = min(n, block_max_last(lst) + 1 - off);
+
+  float sG = 0.0f, sW = 0.0f, sWM = 0.0f;
+  for (int b0 = ((nact - 1) / B) * B; nact > 0 && b0 >= 0; b0 -= B) {
+    const int nb = min(B, nact - b0);
+    __syncthreads();  // the previous batch's readers of sm / part are done
+    st.load(sm, off + b0, nb);
+    __syncthreads();
+    for (int j = nb - 1; j >= 0; --j) {
+      const float* e = st.entry(sm, j);
+      float g[kFix2 + LMAX];
+#pragma unroll
+      for (int r = 0; r < kFix2 + LMAX; ++r) g[r] = 0.0f;
+      bool accepted = false;
+      if (off + b0 + j <= lst) {
+        float m[9];
+#pragma unroll
+        for (int i = 0; i < 9; ++i) m[i] = e[(2 + i) * S];
+        const SurfelSigma s = surfel_sigma(m, e[0], e[S], pix.cx, pix.cy);
+        const float eneg = expf(-s.sig);
+        const float araw = e[11 * S] * eneg;
+        const float alpha = fminf(araw, kAlphaMax);
+        if (s.sig >= 0.0f && alpha >= kAlphaMin) {
+          accepted = true;
+          const float one_m = 1.0f - alpha;
+          T = T / one_m;
+          const float w = alpha * T;
+          float cv = 0.0f;
+#pragma unroll
+          for (int l = 0; l < LMAX; ++l)
+            if (l < L) cv += vf[l] * e[(kFix2 + l) * S];
+          const float depth = e[(kFix2 + md) * S];
+          const float wm = w * depth;
+          const float W_pref = w_tot - w - sW;
+          const float WM_pref = wm_tot - wm - sWM;
+          const float G = cv + vdist * 2.0f * (depth * W_pref - WM_pref + (sWM - depth * sW));
+          const float v_alpha = T * G - (sG + vlogT) / one_m;
+          const float v_m_extra = vdist * 2.0f * w * (W_pref - sW);
+          sG += w * G;
+          sW += w;
+          sWM += wm;
+          const bool notclamp = araw < kAlphaMax;
+          const float v_sig = notclamp ? -alpha * v_alpha : 0.0f;
+          g[11] = notclamp ? eneg * v_alpha : 0.0f;
+#pragma unroll
+          for (int l = 0; l < LMAX; ++l)
+            if (l < L) g[kFix2 + l] = w * vf[l] + (l == md ? v_m_extra : 0.0f);
+          if (s.use3d) {
+            const float v_u = s.u * v_sig;
+            const float v_v = s.v * v_sig;
+            const float vc0 = v_u / s.crz;
+            const float vc1 = v_v / s.crz;
+            const float vc2 = -(s.u * v_u + s.v * v_v) / s.crz;
+            const float vhu[3] = {s.hv[1] * vc2 - s.hv[2] * vc1, s.hv[2] * vc0 - s.hv[0] * vc2,
+                                  s.hv[0] * vc1 - s.hv[1] * vc0};
+            const float vhv[3] = {vc1 * s.hu[2] - vc2 * s.hu[1], vc2 * s.hu[0] - vc0 * s.hu[2],
+                                  vc0 * s.hu[1] - vc1 * s.hu[0]};
+#pragma unroll
+            for (int c = 0; c < 3; ++c) {
+              g[2 + c] = -vhu[c];
+              g[5 + c] = -vhv[c];
+              g[8 + c] = pix.cx * vhu[c] + pix.cy * vhv[c];
+            }
+          } else {
+            g[0] = -(2.0f * s.dx * v_sig);
+            g[1] = -(2.0f * s.dy * v_sig);
+          }
+        }
+      }
+      warp_partials(g, nf, accepted, part + (warp * B + j) * nf);
+    }
+    __syncthreads();
+    write_slots<B>(part, nf, nb, off + b0, M, false, rows);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Host side: each launch picks the kernel's register-array width from D or L
+// and sets its dynamic shared memory limit (above the 48 KB default where
+// needed).
+
+inline bool valid_tile(int ts) { return ts == 8 || ts == 16 || ts == 32; }
+
+template <class K>
+cudaError_t set_smem(K kernel, size_t smem) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+}
+
+template <class Stage>
+cudaError_t launch_fwd_3dgs(const Stage& st, const int* offs, const int* cnts, int C, int th,
+                            int tw, int ts, int W, int H, int D, const float* bg, float* img,
+                            float* T_out, int* last, cudaStream_t stream) {
+  auto kernel = D <= 4    ? &fwd_3dgs<Stage, 4>
+                : D <= 8  ? &fwd_3dgs<Stage, 8>
+                : D <= 16 ? &fwd_3dgs<Stage, 16>
+                          : &fwd_3dgs<Stage, 32>;
+  const size_t smem = (size_t)st.staged_floats() * sizeof(float);
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<C * th * tw, ts * ts, smem, stream>>>(st, offs, cnts, th, tw, ts, W, H, D, bg, img,
+                                                 T_out, last);
+  return cudaGetLastError();
+}
+
+template <class Stage>
+cudaError_t launch_bwd_3dgs(const Stage& st, long long M, const int* offs, const int* cnts,
+                            int C, int th, int tw, int ts, int W, int H, int D,
+                            const float* T_fin, const int* last, const float* v_img,
+                            const float* v_T, int absgrad, float* rows, cudaStream_t stream) {
+  auto kernel = D <= 4    ? &bwd_3dgs<Stage, 4>
+                : D <= 8  ? &bwd_3dgs<Stage, 8>
+                : D <= 16 ? &bwd_3dgs<Stage, 16>
+                          : &bwd_3dgs<Stage, 32>;
+  const int threads = ts * ts;
+  const size_t smem =
+      ((size_t)st.staged_floats() + (size_t)(6 + D) * Stage::kBatch * (threads / 32)) *
+      sizeof(float);
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<C * th * tw, threads, smem, stream>>>(st, M, offs, cnts, th, tw, ts, W, H, D, T_fin,
+                                                 last, v_img, v_T, absgrad, rows);
+  return cudaGetLastError();
+}
+
+template <class Stage>
+cudaError_t launch_fwd_2dgs(const Stage& st, const int* offs, const int* cnts, int C, int th,
+                            int tw, int ts, int W, int H, int L, float* feat, float* T_out,
+                            int* last, float* dist, float* med, cudaStream_t stream) {
+  auto kernel = L <= 4    ? &fwd_2dgs<Stage, 4>
+                : L <= 8  ? &fwd_2dgs<Stage, 8>
+                : L <= 16 ? &fwd_2dgs<Stage, 16>
+                          : &fwd_2dgs<Stage, 35>;
+  const size_t smem = (size_t)st.staged_floats() * sizeof(float);
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<C * th * tw, ts * ts, smem, stream>>>(st, offs, cnts, th, tw, ts, W, H, L, feat,
+                                                 T_out, last, dist, med);
+  return cudaGetLastError();
+}
+
+// the L instantiations, each with a register budget for tiles up to 16x16
+// (256 threads) and for 32x32 (1024 threads)
+template <class Stage, int MAXT>
+cudaError_t launch_bwd_2dgs_t(const Stage& st, long long M, const int* offs, const int* cnts,
+                              int C, int th, int tw, int ts, int W, int H, int L,
+                              const float* T_fin, const int* last, const float* wm_tot,
+                              const float* v_feat, const float* v_T, const float* v_dist,
+                              float* rows, cudaStream_t stream) {
+  auto kernel = L <= 4    ? &bwd_2dgs<Stage, 4, MAXT>
+                : L <= 8  ? &bwd_2dgs<Stage, 8, MAXT>
+                : L <= 16 ? &bwd_2dgs<Stage, 16, MAXT>
+                          : &bwd_2dgs<Stage, 35, MAXT>;
+  const int threads = ts * ts;
+  const size_t smem =
+      ((size_t)st.staged_floats() + (size_t)(kFix2 + L) * Stage::kBatch * (threads / 32)) *
+      sizeof(float);
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<C * th * tw, threads, smem, stream>>>(st, M, offs, cnts, th, tw, ts, W, H, L, T_fin,
+                                                 last, wm_tot, v_feat, v_T, v_dist, rows);
+  return cudaGetLastError();
+}
+
+template <class Stage>
+cudaError_t launch_bwd_2dgs(const Stage& st, long long M, const int* offs, const int* cnts,
+                            int C, int th, int tw, int ts, int W, int H, int L,
+                            const float* T_fin, const int* last, const float* wm_tot,
+                            const float* v_feat, const float* v_T, const float* v_dist,
+                            float* rows, cudaStream_t stream) {
+  if (ts * ts <= 256)
+    return launch_bwd_2dgs_t<Stage, 256>(st, M, offs, cnts, C, th, tw, ts, W, H, L, T_fin, last,
+                                         wm_tot, v_feat, v_T, v_dist, rows, stream);
+  return launch_bwd_2dgs_t<Stage, 1024>(st, M, offs, cnts, C, th, tw, ts, W, H, L, T_fin, last,
+                                        wm_tot, v_feat, v_T, v_dist, rows, stream);
+}
+
+}  // namespace raster

@@ -1,9 +1,9 @@
-// The surfel sigma shared by the binned 2DGS kernels (rasterize_2dgs_fwd.cu,
-// rasterize_2dgs_bwd.cu), written in the operation order of the plain
-// version (gsplat_tpu_torch/ops/rasterize_2dgs_binned.py::_sigma). Both
-// files build with -fmad=false, so every product and sum rounds on its own
-// as the plain version's torch ops do: the cross products cancel heavily,
-// and a contracted multiply-add would flip entries on the alpha = 1/255
+// The surfel sigma of the 2DGS kernels (raster::fwd_2dgs and
+// raster::bwd_2dgs in raster.cuh), written in the operation order of the
+// plain version (gsplat_tpu_torch/ops/rasterize_2dgs_binned.py::_sigma). The
+// four 2DGS sources build with -fmad=false, so every product and sum rounds
+// on its own as the plain version's torch ops do: the cross products cancel
+// heavily, and a contracted multiply-add would flip entries on the alpha = 1/255
 // threshold between the kernel and its plain version, and between the
 // forward and the backward.
 

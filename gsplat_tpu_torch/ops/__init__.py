@@ -1,4 +1,5 @@
 from .binning import Binned, bin_gaussians
+from .isect import Isect, isect_offset_encode, isect_tiles, suggest_capacity
 from .projection import (
     fisheye_proj,
     fully_fused_projection,
@@ -13,13 +14,19 @@ from .projection_2dgs import fully_fused_projection_2dgs, fully_fused_projection
 from .rasterize import rasterize_to_pixels, rasterize_to_pixels_2dgs
 from .rasterize_2dgs_binned import rasterize_to_pixels_2dgs_binned
 from .rasterize_2dgs_ref import rasterize_to_pixels_2dgs_ref
+from .rasterize_2dgs_tiled import rasterize_to_pixels_2dgs_tiled
 from .rasterize_binned import rasterize_to_pixels_binned
 from .rasterize_ref import rasterize_to_pixels_ref, rasterize_to_pixels_ref_absgrad
+from .rasterize_tiled import rasterize_to_pixels_tiled
 from .sh import eval_sh_bases, spherical_harmonics
 
 __all__ = [
     "Binned",
     "bin_gaussians",
+    "Isect",
+    "isect_tiles",
+    "isect_offset_encode",
+    "suggest_capacity",
     "fully_fused_projection",
     "fully_fused_projection_soa",
     "quat_scale_to_covar_preci",
@@ -34,7 +41,9 @@ __all__ = [
     "rasterize_to_pixels_2dgs",
     "rasterize_to_pixels_2dgs_binned",
     "rasterize_to_pixels_2dgs_ref",
+    "rasterize_to_pixels_2dgs_tiled",
     "rasterize_to_pixels_binned",
+    "rasterize_to_pixels_tiled",
     "rasterize_to_pixels_ref",
     "rasterize_to_pixels_ref_absgrad",
     "spherical_harmonics",

@@ -3,9 +3,10 @@
 gsplat_tpu/ops/rasterize.py).
 
 Like the JAX package, it takes ``radii``/``depths`` plus a ``capacity`` and
-builds the intersection state internally, and returns an ``aux`` dict with
-the capacity signals ({"n_isects", "slab_required"} where the backend
-produces them). The tiled backend is not ported yet and raises.
+builds the intersection state internally (the binning engine, or
+`isect_tiles` for the tiled backend), and returns an ``aux`` dict with the
+capacity signals ({"n_isects", "slab_required"} on the binned backend,
+{"n_isects"} on the tiled one).
 """
 
 from __future__ import annotations
@@ -14,19 +15,17 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
+from .isect import isect_tiles
 from .rasterize_2dgs_binned import rasterize_to_pixels_2dgs_binned
 from .rasterize_2dgs_ref import rasterize_to_pixels_2dgs_ref
+from .rasterize_2dgs_tiled import rasterize_to_pixels_2dgs_tiled
 from .rasterize_binned import rasterize_to_pixels_binned
 from .rasterize_ref import rasterize_to_pixels_ref
+from .rasterize_tiled import rasterize_to_pixels_tiled
 
 # Largest C*N*H*W the O(N*pix)-memory oracle may be auto-selected for
 # (2^28 f32 elements ~= 1 GB of [C, N, H, W] weight tensors).
 _ORACLE_AUTO_ELEMS = 1 << 28
-
-TILED_NOT_PORTED = (
-    "the tiled backend is not ported yet: it comes with the port's tiled "
-    "slice; pass isect_capacity (or backend='binned') to use the binned backend"
-)
 
 
 def resolve_auto_backend(
@@ -69,12 +68,10 @@ def rasterize_to_pixels(
     render_alphas [C,H,W,1], aux)."""
     if backend == "auto":
         backend = "binned" if capacity is not None else "oracle"
-    if backend == "tiled":
-        raise NotImplementedError(TILED_NOT_PORTED)
-    if backend == "binned" and capacity is None:
+    if backend in ("binned", "tiled") and capacity is None:
         raise ValueError(
-            "backend='binned' needs a `capacity` (intersection budget); pass "
-            "one or use backend='oracle'"
+            f"backend={backend!r} needs a `capacity` (intersection budget); "
+            "pass one or use backend='oracle'"
         )
     as_arr = lambda x: torch.stack(x, dim=-1) if isinstance(x, (tuple, list)) else x  # noqa: E731
     if backend == "oracle":
@@ -89,6 +86,16 @@ def rasterize_to_pixels(
             image_width, image_height, tile_size, capacity,
             backgrounds=backgrounds,
         )
+    if backend == "tiled":
+        isect = isect_tiles(
+            means2d, radii, depths, tile_size, -(-image_width // tile_size),
+            -(-image_height // tile_size), capacity,
+        )
+        render, alphas = rasterize_to_pixels_tiled(
+            means2d, conics, colors, opacities, image_width, image_height,
+            tile_size, isect, backgrounds=backgrounds,
+        )
+        return render, alphas, {"n_isects": isect.n_isects}
     raise ValueError(f"Unknown backend: {backend}")
 
 
@@ -112,12 +119,10 @@ def rasterize_to_pixels_2dgs(
     render_distort [C,H,W,1], render_median [C,H,W,1], aux)."""
     if backend == "auto":
         backend = "binned" if capacity is not None else "oracle"
-    if backend == "tiled":
-        raise NotImplementedError(TILED_NOT_PORTED)
-    if backend == "binned" and capacity is None:
+    if backend in ("binned", "tiled") and capacity is None:
         raise ValueError(
-            "backend='binned' needs a `capacity` (intersection budget); pass "
-            "one or use backend='oracle'"
+            f"backend={backend!r} needs a `capacity` (intersection budget); "
+            "pass one or use backend='oracle'"
         )
     if backend == "oracle":
         outs = rasterize_to_pixels_2dgs_ref(
@@ -131,4 +136,14 @@ def rasterize_to_pixels_2dgs(
             depths, image_width, image_height, tile_size, capacity,
             backgrounds=backgrounds,
         )
+    if backend == "tiled":
+        isect = isect_tiles(
+            means2d, radii, depths, tile_size, -(-image_width // tile_size),
+            -(-image_height // tile_size), capacity,
+        )
+        outs = rasterize_to_pixels_2dgs_tiled(
+            means2d, ray_transforms, colors, normals, opacities, image_width,
+            image_height, tile_size, isect, backgrounds=backgrounds,
+        )
+        return outs + ({"n_isects": isect.n_isects},)
     raise ValueError(f"Unknown backend: {backend}")

@@ -3,16 +3,22 @@
 `rasterization()` for 3DGS: projection, masks, SH colours, render modes,
 backgrounds, antialiased compensation and channel chunking are plain torch
 (`project_and_shade`); the binned backend runs the binning engine and the
-forward kernel (ops/binning.py, ops/rasterize_binned.py), and the oracle
-backend the O(N * pixels) reference. Both differentiate: training on the
-binned backend goes through its backward and gradient-reduce kernels, and
+forward kernel (ops/binning.py, ops/rasterize_binned.py), the tiled
+backend `isect_tiles` and the tiled forward kernel (ops/isect.py,
+ops/rasterize_tiled.py), and the oracle backend the O(N * pixels)
+reference. ``backend="auto"`` takes the binned backend when given an
+``isect_capacity``, else the oracle on small problems and the tiled
+backend, with a derived budget, at scene scale (`resolve_auto_backend`).
+All three differentiate: training on the binned and tiled backends goes
+through their backward and gradient-reduce kernels, and
 ``means2d_carrier``/``absgrad`` give the screen-space gradients that
 densification reads. `rasterization_2dgs()` renders 2DGS surfels on the
-same two backends: 2DGS projection, SH, render modes, the distortion and
-median outputs, normals from depth (utils.py), and on the binned backend
-the 2DGS forward and backward kernels (ops/rasterize_2dgs_binned.py). Not
-ported yet, and raising NotImplementedError rather than falling back: the
-tiled backend and ``distributed=True``.
+same three backends: 2DGS projection, SH, render modes, the distortion and
+median outputs, normals from depth (utils.py), and the 2DGS forward and
+backward kernels of the binned and tiled backends
+(ops/rasterize_2dgs_binned.py, ops/rasterize_2dgs_tiled.py). Not ported
+yet, and raising NotImplementedError rather than falling back:
+``distributed=True``.
 """
 
 from __future__ import annotations
@@ -25,11 +31,14 @@ import torch
 from ._backend import common_device
 from .ops.projection import fully_fused_projection_soa
 from .ops.projection_2dgs import fully_fused_projection_2dgs
-from .ops.rasterize import TILED_NOT_PORTED, resolve_auto_backend
+from .ops.isect import isect_tiles
+from .ops.rasterize import resolve_auto_backend
 from .ops.rasterize_2dgs_binned import rasterize_to_pixels_2dgs_binned
 from .ops.rasterize_2dgs_ref import rasterize_to_pixels_2dgs_ref
+from .ops.rasterize_2dgs_tiled import rasterize_to_pixels_2dgs_tiled
 from .ops.rasterize_binned import rasterize_to_pixels_binned
 from .ops.rasterize_ref import rasterize_to_pixels_ref, rasterize_to_pixels_ref_absgrad
+from .ops.rasterize_tiled import rasterize_to_pixels_tiled
 from .ops.sh import spherical_harmonics
 from .utils import depth_to_normal
 
@@ -177,12 +186,10 @@ def rasterization(
     backend, isect_capacity = resolve_auto_backend(
         backend, isect_capacity, C, means.shape[0], width, height
     )
-    if backend == "tiled":
-        raise NotImplementedError(TILED_NOT_PORTED)
-    if backend not in ("oracle", "binned"):
+    if backend not in ("oracle", "binned", "tiled"):
         raise ValueError(f"Unknown backend: {backend}")
-    if backend == "binned" and isect_capacity is None:
-        raise ValueError("backend='binned' needs isect_capacity")
+    if backend != "oracle" and isect_capacity is None:
+        raise ValueError(f"backend={backend!r} needs isect_capacity")
 
     s = project_and_shade(
         means, quats, scales, opacities, colors, viewmats, Ks, width, height,
@@ -224,6 +231,32 @@ def rasterization(
             return rasterize_to_pixels_ref(
                 means2d, conics, col, s.opacities, s.radii, s.depths,
                 width, height, tile_size, bg,
+            )
+
+        render_colors, render_alphas = _rasterize_chunked(
+            _fn, channel_chunk, s.colors, s.backgrounds
+        )
+    elif backend == "tiled":
+        tile_width = math.ceil(width / tile_size)
+        tile_height = math.ceil(height / tile_size)
+        isect = isect_tiles(
+            (mean_x, mean_y), s.radii, s.depths, tile_size, tile_width,
+            tile_height, isect_capacity,
+        )
+        meta.update(
+            {
+                "tile_width": tile_width,
+                "tile_height": tile_height,
+                "n_isects": isect.n_isects,
+                # the budget used: n_isects above it means truncation
+                "isect_capacity": isect_capacity,
+            }
+        )
+
+        def _fn(col, bg):
+            return rasterize_to_pixels_tiled(
+                (mean_x, mean_y), s.conics, col, s.opacities, width, height,
+                tile_size, isect, backgrounds=bg, abs_carrier=abs_c,
             )
 
         render_colors, render_alphas = _rasterize_chunked(
@@ -407,12 +440,10 @@ def rasterization_2dgs(
     backend, isect_capacity = resolve_auto_backend(
         backend, isect_capacity, C, N, width, height
     )
-    if backend == "tiled":
-        raise NotImplementedError(TILED_NOT_PORTED)
-    if backend not in ("oracle", "binned"):
+    if backend not in ("oracle", "binned", "tiled"):
         raise ValueError(f"Unknown backend: {backend}")
-    if backend == "binned" and isect_capacity is None:
-        raise ValueError("backend='binned' needs isect_capacity")
+    if backend != "oracle" and isect_capacity is None:
+        raise ValueError(f"backend={backend!r} needs isect_capacity")
 
     s = project_and_shade_2dgs(
         means, quats, scales, opacities, colors, viewmats, Ks, width, height,
@@ -445,6 +476,19 @@ def rasterization_2dgs(
         meta["n_isects"] = aux["n_isects"]
         meta["slab_required"] = aux["slab_required"]
         meta["isect_capacity"] = isect_capacity
+    elif backend == "tiled":
+        isect = isect_tiles(
+            means2d, s.radii, s.depths, tile_size, math.ceil(width / tile_size),
+            math.ceil(height / tile_size), isect_capacity,
+        )
+        meta["n_isects"] = isect.n_isects
+        meta["isect_capacity"] = isect_capacity
+        (
+            render_colors, render_alphas, render_normals, render_distort,
+            render_median,
+        ) = rasterize_to_pixels_2dgs_tiled(
+            *args[:5], width, height, tile_size, isect, backgrounds=s.backgrounds
+        )
     else:
         (
             render_colors, render_alphas, render_normals, render_distort,

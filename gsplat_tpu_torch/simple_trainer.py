@@ -9,13 +9,13 @@ the JAX package's COLMAP ``Parser`` reads from disk): ``points`` [N, 3],
 
 One step renders through ``rasterization`` with the ``means2d_carrier``
 and ``masks=live``, composites the background, takes ``train_loss`` plus
-the opacity and scale regularisers, runs ``backward`` (on the binned
-backend: the backward and gradient-reduce kernels), steps one
+the opacity and scale regularisers, runs ``backward`` (on the binned or
+tiled backend: its backward and the gradient-reduce kernels), steps one
 ``SelectiveAdam`` per parameter with visibility = any camera's radii > 0,
 and hands the carrier's gradient to ``DefaultStrategy.step_post_backward``.
 The pool has a fixed capacity and a ``live`` mask, as in the JAX trainer;
 the intersection capacity comes from a probe render and grows from
-``slab_required``.
+``slab_required`` (the binned backend) or ``n_isects`` (the tiled one).
 
 Not ported yet: the COLMAP datasets and the command line, the pose,
 appearance and bilateral-grid modules, the depth loss, pool growth, MCMC,
@@ -62,7 +62,7 @@ class Config:
     far_plane: float = 1e10
     antialiased: bool = False
     camera_model: str = "pinhole"
-    backend: str = "binned"  # or "oracle" (O(N * pixels) memory: toy scenes)
+    backend: str = "binned"  # or "tiled", or "oracle" (O(N * pixels) memory: toy scenes)
     random_bkgd: bool = False
     white_bkgd: bool = False
     opacity_reg: float = 0.0
@@ -160,8 +160,8 @@ class Runner:
         val_views: Sequence[Mapping] = (),
         device="cuda",
     ):
-        if cfg.backend not in ("binned", "oracle"):
-            raise ValueError(f"backend must be 'binned' or 'oracle', got {cfg.backend!r}")
+        if cfg.backend not in ("binned", "tiled", "oracle"):
+            raise ValueError(f"backend must be 'binned', 'tiled' or 'oracle', got {cfg.backend!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.trainset = list(train_views)
@@ -183,7 +183,7 @@ class Runner:
         )
         self._build_optimizers()
         self.isect_capacity = None
-        if cfg.backend == "binned":
+        if cfg.backend != "oracle":
             self.isect_capacity = _round_up(cfg.isect_capacity_init or int(4e6), 4096)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
 
@@ -247,28 +247,30 @@ class Runner:
 
     def probe_isect_capacity(self) -> None:
         """Size the intersection budget from one truncated render of the
-        first view (its ``slab_required`` is computed before truncation),
-        as the JAX trainer does."""
-        if self.cfg.backend != "binned" or self.cfg.isect_capacity_init > 0:
+        first view (its ``slab_required``, or on the tiled backend its
+        ``n_isects``, is computed before truncation), as the JAX trainer
+        does."""
+        if self.cfg.backend == "oracle" or self.cfg.isect_capacity_init > 0:
             return
         pixels, camtoworlds, Ks = self._as_batch(self.trainset[:1])
         H, W = pixels.shape[1:3]
         with torch.no_grad():
             _, _, meta = self._rasterize(camtoworlds, Ks, W, H, self.cfg.sh_degree, 4096)
-        need = int(meta["slab_required"])
+        need = int(meta.get("slab_required", meta["n_isects"]))
         if need > 0:
             self.isect_capacity = _round_up(
                 max(int(need * self.cfg.isect_headroom * 1.5), 65536), 4096
             )
 
     def _grow_isect(self, need: int) -> None:
-        """Grow the intersection budget when a step's ``slab_required``
-        comes within 80% of it (at least doubling, as the JAX trainer)."""
+        """Grow the intersection budget when a step's ``slab_required`` (on
+        the tiled backend ``n_isects``) comes within 80% of it (at least
+        doubling, as the JAX trainer)."""
         cap = self.isect_capacity
         if cap is None or need <= 0.8 * cap:
             return
         if need > cap:
-            print(f"[isect] slab_required={need} exceeded capacity {cap}; this step was truncated")
+            print(f"[isect] need {need} exceeded capacity {cap}; this step was truncated")
         self.isect_capacity = _round_up(max(int(need * self.cfg.isect_headroom), 2 * cap), 4096)
 
     def data_index(self, step: int, slot: int) -> int:
@@ -281,7 +283,9 @@ class Runner:
 
     def train_step(self, step: int) -> Dict:
         """One training step. Returns {"loss" (a 0-d tensor on the device),
-        "image_ids", "refined", "slab_required"}."""
+        "image_ids", "refined", "slab_required"}; "slab_required" is the
+        capacity the step needed (``n_isects`` on the tiled backend, 0 on
+        the oracle)."""
         cfg = self.cfg
         views = [self.trainset[self.data_index(step, i)] for i in range(cfg.batch_size)]
         pixels, camtoworlds, Ks = self._as_batch(views)
@@ -319,7 +323,7 @@ class Runner:
             {"radii": meta["radii"], "width": W, "height": H, "n_cameras": B},
             carrier.grad, generator=self.generator,
         )
-        need = int(meta["slab_required"]) if "slab_required" in meta else 0
+        need = int(meta.get("slab_required", meta.get("n_isects", 0)))
         self._grow_isect(need)
         return {
             "loss": loss.detach(),

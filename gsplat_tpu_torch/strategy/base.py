@@ -28,7 +28,9 @@ class Strategy:
             if v.shape[0] != cap:
                 raise ValueError(f"param {k} has {v.shape[0]} rows, the pool {cap}")
 
-    def initialize_state(self, cap: int, scene_scale: float = 1.0, device="cpu") -> Dict[str, Any]:
+    def initialize_state(self, cap: int, scene_scale: float = 1.0, device="cuda") -> Dict[str, Any]:
+        """The strategy's running state for a `cap`-slot pool, on the card
+        unless the caller asks for the CPU (``device="cpu"``)."""
         raise NotImplementedError
 
     def step_pre_backward(self, *args, **kwargs):

@@ -13,6 +13,7 @@ from typing import Any, Dict, Optional
 
 import torch
 
+from .._backend import resolve_device
 from . import ops
 from .base import Strategy
 
@@ -34,7 +35,8 @@ class DefaultStrategy(Strategy):
     absgrad: bool = False
     revised_opacity: bool = False
 
-    def initialize_state(self, cap: int, scene_scale: float = 1.0, device="cpu") -> Dict[str, Any]:
+    def initialize_state(self, cap: int, scene_scale: float = 1.0, device="cuda") -> Dict[str, Any]:
+        device = resolve_device(device)
         state = {
             "grad2d": torch.zeros(cap, dtype=torch.float32, device=device),
             "count": torch.zeros(cap, dtype=torch.float32, device=device),

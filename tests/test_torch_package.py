@@ -4,7 +4,9 @@
   of the package or chip_smoke.py imports them;
 - functions run on the device of their inputs and refuse mixed devices;
   splats_from_numpy defaults to CUDA and raises without it;
-- paths not ported yet raise NotImplementedError instead of falling back;
+- paths not ported yet (multi-GPU) raise NotImplementedError instead of
+  falling back; the tiled backend, once such a path, renders, and
+  backend="auto" reaches it at scene scale without a capacity;
 - the binned backend differentiates (the training slice), 3DGS and 2DGS;
 - CPU runs take the kernels' plain versions and launch no kernel, forward
   and backward;
@@ -44,6 +46,8 @@ def test_import_loads_no_jax():
         "import gsplat_tpu_torch.simple_trainer, gsplat_tpu_torch.losses, gsplat_tpu_torch.modules\n"
         "import gsplat_tpu_torch.optimizers, gsplat_tpu_torch.strategy.ops\n"
         "import gsplat_tpu_torch.simple_trainer_2dgs, gsplat_tpu_torch.ops.rasterize_2dgs_binned\n"
+        "import gsplat_tpu_torch.ops.isect, gsplat_tpu_torch.ops.rasterize_tiled\n"
+        "import gsplat_tpu_torch.ops.rasterize_2dgs_tiled\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'gsplat_tpu' or m.startswith('gsplat_tpu.'))\n"
         "assert not bad, bad\n"
@@ -93,7 +97,7 @@ def test_load_test_data_matches_jax():
 @pytest.mark.parametrize("cap", [None, 4096])
 @pytest.mark.parametrize("n", [10, 10_000_000])
 def test_resolve_auto_backend_matches_jax(cap, n):
-    for backend in ("auto", "oracle", "binned"):
+    for backend in ("auto", "oracle", "binned", "tiled"):
         assert resolve_auto_backend(backend, cap, 2, n, 64, 48) == jax_resolve(
             backend, cap, 2, n, 64, 48
         )
@@ -155,41 +159,73 @@ def test_binned_backend_refuses_gradients():
     (dict(distributed=True, means2d_carrier=torch.zeros(1, 64, 2)), "multi-GPU"),
 ])
 def test_unported_paths_raise(kw, match):
-    with pytest.raises(NotImplementedError, match=match):
-        rasterization(*_tiny(), **kw)
+    """Multi-GPU is not ported and raises. The tiled backend, which raised
+    until its slice, renders (with the absgrad carrier too) and matches the
+    oracle."""
+    if match != "tiled":
+        with pytest.raises(NotImplementedError, match=match):
+            rasterization(*_tiny(), **kw)
+        return
+    with torch.no_grad():
+        img, alpha, meta = rasterization(*_tiny(), **kw)
+        want, want_alpha, _ = rasterization(*_tiny(), backend="oracle")
+    assert int(meta["n_isects"]) > 0 and meta["isect_capacity"] == 4096
+    torch.testing.assert_close(img, want, rtol=1e-5, atol=2e-5)
+    torch.testing.assert_close(alpha, want_alpha, rtol=1e-5, atol=2e-5)
 
 
 def test_unported_entry_points_raise():
-    """Since the 2DGS slice rasterization_2dgs renders; its multi-GPU and
-    tiled paths, and the tiled backend of both tile rasterizers, raise."""
+    """rasterization_2dgs's multi-GPU path raises. Its tiled path and the
+    tiled backend of both tile rasterizers, which raised until the tiled
+    slice, render: rasterization_2dgs as its binned backend does (the same
+    stream order), and on an all-culled scene the two rasterizers give the
+    background and aux {"n_isects": 0}."""
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         gsplat_tpu_torch.rasterization_2dgs(*_tiny(), distributed=True)
-    with pytest.raises(NotImplementedError, match="tiled"):
-        gsplat_tpu_torch.rasterization_2dgs(*_tiny(), backend="tiled", isect_capacity=4096)
+    with torch.no_grad():
+        tiled = gsplat_tpu_torch.rasterization_2dgs(*_tiny(), backend="tiled", isect_capacity=4096)
+        binned = gsplat_tpu_torch.rasterization_2dgs(*_tiny(), backend="binned", isect_capacity=4096)
+    assert int(tiled[6]["n_isects"]) > 0 and float(tiled[1].mean()) > 0
+    for a, b in zip(tiled[:6], binned[:6]):
+        assert (a is None and b is None) or torch.equal(a, b)
     args = _tiny()
     C, N = 1, args[0].shape[0]
-    with pytest.raises(NotImplementedError, match="tiled"):
-        rasterize_to_pixels(
-            torch.zeros(C, N, 2), torch.zeros(C, N, 3), torch.zeros(C, N, 3),
-            torch.zeros(C, N), torch.zeros(C, N, dtype=torch.int32),
-            torch.ones(C, N), 32, 32, capacity=4096, backend="tiled",
-        )
-    with pytest.raises(NotImplementedError, match="tiled"):
-        gsplat_tpu_torch.rasterize_to_pixels_2dgs(
-            torch.zeros(C, N, 2), torch.zeros(C, N, 3, 3), torch.zeros(C, N, 3),
-            torch.zeros(C, N, 3), torch.zeros(C, N), torch.zeros(C, N, dtype=torch.int32),
-            torch.ones(C, N), 32, 32, capacity=4096, backend="tiled",
-        )
+    bg = torch.full((C, 3), 0.5)
+    img, alpha, aux = rasterize_to_pixels(
+        torch.zeros(C, N, 2), torch.zeros(C, N, 3), torch.zeros(C, N, 3),
+        torch.zeros(C, N), torch.zeros(C, N, dtype=torch.int32),
+        torch.ones(C, N), 32, 32, capacity=4096, backgrounds=bg, backend="tiled",
+    )
+    assert int(aux["n_isects"]) == 0 and bool((img == 0.5).all()) and not alpha.any()
+    out = gsplat_tpu_torch.rasterize_to_pixels_2dgs(
+        torch.zeros(C, N, 2), torch.zeros(C, N, 3, 3), torch.zeros(C, N, 3),
+        torch.zeros(C, N, 3), torch.zeros(C, N), torch.zeros(C, N, dtype=torch.int32),
+        torch.ones(C, N), 32, 32, capacity=4096, backgrounds=bg, backend="tiled",
+    )
+    assert int(out[5]["n_isects"]) == 0 and bool((out[0] == 0.5).all())
+    assert not any(x.any() for x in out[1:5])
 
 
 def test_auto_backend_on_a_large_scene_raises_not_falls_back(monkeypatch):
     """resolve_auto_backend sends large scenes without a capacity to the
-    tiled backend, which is not ported: the call raises."""
+    tiled backend, which raised until the tiled slice: the call now renders
+    there, with the derived budget max(2^20, 16 C N) as its capacity, and
+    matches the oracle, 3DGS and 2DGS."""
     import gsplat_tpu_torch.ops.rasterize as rz
 
     monkeypatch.setattr(rz, "_ORACLE_AUTO_ELEMS", 16)
-    with pytest.raises(NotImplementedError, match="tiled"):
-        rasterization(*_tiny())
+    with torch.no_grad():
+        img, alpha, meta = rasterization(*_tiny())
+        out2 = gsplat_tpu_torch.rasterization_2dgs(*_tiny(), backend="auto")
+    monkeypatch.setattr(rz, "_ORACLE_AUTO_ELEMS", 1 << 28)
+    with torch.no_grad():
+        want, want_alpha, want_meta = rasterization(*_tiny())
+    C, N = 1, _tiny()[0].shape[0]
+    assert "n_isects" not in want_meta  # the oracle, at the default limit
+    assert meta["isect_capacity"] == out2[6]["isect_capacity"] == max(1 << 20, 16 * C * N)
+    assert int(meta["n_isects"]) > 0 and "slab_required" not in meta and "slab_required" not in out2[6]
+    torch.testing.assert_close(img, want, rtol=1e-5, atol=2e-5)
+    torch.testing.assert_close(alpha, want_alpha, rtol=1e-5, atol=2e-5)
 
 
 def test_mixed_devices_raise():
@@ -232,8 +268,15 @@ def test_cpu_runs_launch_no_kernel():
         *_tiny(requires_grad=True), backend="binned", isect_capacity=4096, render_mode="RGB+ED", distloss=True
     )
     (out[0].sum() + out[4].sum()).backward()
+    img, _, _ = rasterization(*_tiny(requires_grad=True), backend="tiled", isect_capacity=4096)
+    img.sum().backward()
+    out = gsplat_tpu_torch.rasterization_2dgs(
+        *_tiny(requires_grad=True), backend="tiled", isect_capacity=4096, render_mode="RGB+ED", distloss=True
+    )
+    (out[0].sum() + out[4].sum()).backward()
     assert _backend.launch_counts() == {name: 0 for name in (
-        "emit", "rasterize_fwd", "rasterize_bwd", "gid_reduce", "rasterize_2dgs_fwd", "rasterize_2dgs_bwd"
+        "emit", "rasterize_fwd", "rasterize_bwd", "gid_reduce", "rasterize_2dgs_fwd", "rasterize_2dgs_bwd",
+        "rasterize_tiled_fwd", "rasterize_tiled_bwd", "rasterize_2dgs_tiled_fwd", "rasterize_2dgs_tiled_bwd",
     )}
     assert not _backend.BUILD_LOG
 

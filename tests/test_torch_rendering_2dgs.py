@@ -197,8 +197,13 @@ def test_rasterization_2dgs_options_and_refusals(scene):
         assert (a is None and b is None) or torch.equal(a, b)
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         rasterization_2dgs(*args, distributed=True)
-    with pytest.raises(NotImplementedError, match="tiled"):
-        rasterization_2dgs(*args, backend="tiled", isect_capacity=CAP)
+    # the tiled backend, which raised until its slice, renders as the binned
+    # one does (the same stream, no cull in either)
+    with torch.no_grad():
+        tiled = rasterization_2dgs(*args, backend="tiled", isect_capacity=CAP)
+    for a, b in zip(base[:6], tiled[:6]):
+        assert (a is None and b is None) or torch.equal(a, b)
+    assert int(tiled[6]["n_isects"]) == int(base[6]["n_isects"])
     with pytest.raises(ValueError, match="isect_capacity"):
         rasterization_2dgs(*args, backend="binned")
     with pytest.raises(ValueError, match="depth_mode"):

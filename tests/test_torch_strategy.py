@@ -159,7 +159,7 @@ def test_update_state_matches_jax():
         js_ = JaxDefault(refine_scale2d_stop_iter=stop)
         ts_ = DefaultStrategy(refine_scale2d_stop_iter=stop)
         jst = js_.initialize_state(CAP)
-        tst = ts_.initialize_state(CAP)
+        tst = ts_.initialize_state(CAP, device="cpu")
         for _ in range(2):
             jst = js_.update_state(jst, dict(meta, radii=jnp.asarray(radii)), jnp.asarray(v))
             ts_.update_state(tst, dict(meta, radii=torch.from_numpy(radii)), torch.from_numpy(v))
@@ -196,7 +196,7 @@ def test_step_post_backward_schedule_matches_jax():
     jp, jl, jo, _ = _jax(params, live, moments, state)
     tp, tl, to, _ = _torch(params, live, moments, state)
     js = jstrat.initialize_state(CAP, scene_scale=1.5)
-    ts = tstrat.initialize_state(CAP, scene_scale=1.5)
+    ts = tstrat.initialize_state(CAP, scene_scale=1.5, device="cpu")
     rng = np.random.default_rng(12)
     refined_at = []
     for step in range(13):
@@ -226,3 +226,17 @@ def test_check_sanity():
         DefaultStrategy().check_sanity({k: v for k, v in tp.items() if k != "quats"}, tl)
     with pytest.raises(ValueError, match="rows"):
         DefaultStrategy().check_sanity(dict(tp, sh0=tp["sh0"][:-1]), tl)
+
+
+def test_initialize_state_needs_cuda_unless_cpu(monkeypatch):
+    """The strategy's state goes on the card by default, as the trainer's
+    parameters do; without one the default raises and device="cpu" works."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DefaultStrategy().initialize_state(CAP)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        DefaultStrategy(refine_scale2d_stop_iter=100).initialize_state(CAP, scene_scale=2.0)
+    state = DefaultStrategy(refine_scale2d_stop_iter=100).initialize_state(CAP, scene_scale=2.0, device="cpu")
+    assert sorted(state) == ["count", "grad2d", "radii", "scene_scale"]
+    assert all(state[k].device.type == "cpu" and state[k].shape == (CAP,) for k in ("count", "grad2d", "radii"))
+    assert state["scene_scale"] == 2.0

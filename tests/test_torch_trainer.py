@@ -15,6 +15,8 @@
 - A Runner smoke on the binned backend with refines: finite, the pool
   grows, the loss of a view falls.
 - The Runner runs on CUDA unless told device="cpu".
+- Two steps on the tiled backend against the binned backend: parameters
+  within rtol 1e-5 and atol 1e-5 x their learning rate.
 """
 
 import importlib.util
@@ -236,5 +238,44 @@ def test_runner_needs_cuda_unless_cpu(monkeypatch):
         st.create_splats(st.Config(), pts, rgb, 1.0, 4096)
     runner = st.Runner(st.Config(), views, pts, rgb, scene_scale=1.0, device="cpu")
     assert runner.params["means"].device.type == "cpu"
+    # since the tiled slice the Runner takes backend="tiled", with the JAX
+    # trainer's initial budget of 4e6 rounded to 4096; other names raise
+    tiled = st.Runner(st.Config(backend="tiled"), views, pts, rgb, scene_scale=1.0, device="cpu")
+    assert tiled.isect_capacity == 4_001_792
     with pytest.raises(ValueError, match="backend"):
-        st.Runner(st.Config(backend="tiled"), views, pts, rgb, scene_scale=1.0, device="cpu")
+        st.Runner(st.Config(backend="bogus"), views, pts, rgb, scene_scale=1.0, device="cpu")
+
+
+def test_runner_tiled_matches_binned():
+    """Two steps of the Runner on the tiled backend (isect_tiles, the tiled
+    kernels' plain versions, the gid reduce) from the same initial state as
+    on the binned backend, which test_three_steps_match_jax holds to JAX:
+    the tiled stream holds the binned one's entries plus entries that no
+    pixel accepts, in the same order, so parameters agree within rtol 1e-5
+    and atol 1e-5 x the learning rate. The capacity comes from the probe's
+    n_isects and grows from a step's."""
+    pts, rgb, views = _scene(2)
+    params = {}
+    for backend in ("binned", "tiled"):
+        cfg = st.Config(max_steps=30, sh_degree=2, sh_degree_interval=1, refine_start_iter=100,
+                        backend=backend, tile_size=16, pool_headroom=1.0, seed=3)
+        runner = st.Runner(cfg, views, pts, rgb, scene_scale=1.0, device="cpu")
+        runner.probe_isect_capacity()
+        if backend == "tiled":
+            view = views[0]
+            meta = runner.render(torch.from_numpy(view["camtoworld"])[None], torch.from_numpy(view["K"])[None], W, H)[2]
+            probed = st._round_up(max(int(int(meta["n_isects"]) * 1.5 * 1.5), 65536), 4096)
+            assert "slab_required" not in meta and runner.isect_capacity == probed
+        with torch.no_grad():
+            runner.params["scales"] += torch.from_numpy(
+                np.random.default_rng(0).normal(0.0, 0.3, runner.params["scales"].shape).astype(np.float32)
+            )
+        outs = [runner.train_step(step) for step in range(2)]
+        params[backend] = {k: p.detach().clone() for k, p in runner.params.items()}
+        if backend == "tiled":
+            assert all(o["slab_required"] > 0 for o in outs)  # the steps' n_isects
+            runner._grow_isect(runner.isect_capacity)  # a step that needs it all doubles it
+            assert runner.isect_capacity == 2 * probed
+    for k, want in params["binned"].items():
+        lr = cfg.means_lr if k == "means" else getattr(cfg, f"{k}_lr")
+        np.testing.assert_allclose(params["tiled"][k].numpy(), want.numpy(), rtol=1e-5, atol=1e-5 * lr, err_msg=k)
