@@ -12,7 +12,7 @@ non-zero (there is no CPU fallback):
      rasterize_2dgs_bwd.cu, rasterize_tiled_fwd.cu, rasterize_tiled_bwd.cu,
      rasterize_2dgs_tiled_fwd.cu, rasterize_2dgs_tiled_bwd.cu), one nvcc
      process each, started together, into build/gsplat_tpu_torch/, with
-     ptxas's register and spill lines;
+     ptxas's registers and spills for each kernel instantiation;
   3. kernel vs plain on the card: garden scene_grid=1 at its native
      648x420, 3 cameras, tile sizes 16 and 32, sh_degree 0 and 3:
      - the emit kernel's stream must equal its plain version's (3DGS and
@@ -35,7 +35,10 @@ non-zero (there is no CPU fallback):
        background's term of v_T: slots off by more than 1e-3 x |plain| +
        1e-3 x the row's max |plain| at most a share 1e-4 of the slots, none
        by more than 1e-2 x the row's max (the ray-transform rows sum
-       pixel-scaled terms that cancel for an edge-on surfel);
+       pixel-scaled terms that cancel for an edge-on surfel); each such
+       comparison, here and below, also prints how many values lie past
+       that per-slot tolerance and the share of pixels whose forward
+       `last` equals the plain version's;
      - binned against the oracle on a small subsample, render and the
        gradients w.r.t. the splat parameters, 3DGS and 2DGS (2DGS by the
        repo's count-based gates for its own 2DGS backends);
@@ -64,7 +67,9 @@ non-zero (there is no CPU fallback):
      finiteness, the loss on view 0 falling, the steady step time and one
      profiled step; both 2DGS kernels against their plain versions at
      these shapes, over the whole frame (the plain versions timed once)
-     and on 256 seeded tiles;
+     and on 256 seeded tiles; the gid reduce at these shapes (the kernel
+     and the gid sort + searchsorted + kernel path against index_add_,
+     with its bytes bound);
   7. 2DGS serving: rasterization_2dgs(backend="binned",
      render_mode="RGB+ED") under no_grad, launching emit and the 2DGS
      forward and nothing else, on two scenes: the serving path's splats as
@@ -453,7 +458,7 @@ def cotangents_2dgs(torch, gen, T_out, L):
 def compare_bwd2(torch, r2, bk, ko, cot, D, C, W, H, ts, what, plain=None):
     """2DGS backward kernel vs plain on one stream and the kernel forward's
     outputs `ko`, each row held to the BWD2_* gates. Returns (kernel rows, max abs error, per-row max abs
-    errors, plain's pair counts)."""
+    errors, plain's pair counts, the values past the per-slot tolerance)."""
     feat, T_k, last_k = ko[0], ko[1], ko[2]
     args = (bk.entries, bk.offs, bk.cnts, T_k, last_k, feat[..., D - 1].contiguous(), *cot, C, W, H, ts)
     rows_k = r2._bwd2_cuda(*args)
@@ -467,6 +472,7 @@ def gate_bwd2(torch, rows_k, rows_p, pairs, what):
     if not torch.isfinite(rows_k).all():
         raise AssertionError(f"{what}: 2DGS backward kernel rows are not finite")
     errs = []
+    n_past = 0
     for r in range(rows_p.shape[0]):
         diff = (rows_k[r] - rows_p[r]).abs()
         scale = float(rows_p[r].abs().max()) if rows_p.shape[1] else 0.0
@@ -477,7 +483,8 @@ def gate_bwd2(torch, rows_k, rows_p, pairs, what):
                 f"{float(diff.max()):.3e} against row max {scale:.3e}"
             )
         errs.append(float(diff.max()) if diff.numel() else 0.0)
-    return rows_k, max(errs), errs, pairs
+        n_past += n_bad
+    return rows_k, max(errs), errs, pairs, n_past
 
 
 def phase_device():
@@ -505,9 +512,35 @@ def phase_build():
     _backend.build_all()
     log(f"build: {time.perf_counter() - t0:.1f} s ({', '.join(n + '.cu' for n in _backend.KERNELS)})")
     for name, text in _backend.BUILD_LOG.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        for kernel, regs, spill in ptxas_report(text):
+            log(f"  ptxas {name} {kernel}: {regs}; {spill}")
+
+
+def ptxas_report(text):
+    """[(kernel, its 'Used N registers, ...' line, its spill line)] of each
+    entry function in an nvcc -Xptxas -v log, the names demangled by c++filt
+    where the host has it."""
+    rows, fn, spill = [], None, ""
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+            spill = ""
+        elif "spill" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and fn is not None:
+            rows.append((fn, line.split(":", 1)[-1].strip(), spill))
+    return [(n, regs, sp) for n, (_, regs, sp) in zip(demangle([r[0] for r in rows]), rows)]
+
+
+def demangle(names):
+    """C++ symbol names without their parameter lists (c++filt -p), or as
+    given where the host has no c++filt."""
+    try:
+        out = subprocess.run(["c++filt", "-p"], input="\n".join(names), capture_output=True, text=True,
+                             check=True).stdout.splitlines()
+    except (OSError, subprocess.CalledProcessError):
+        return list(names)
+    return out if len(out) == len(names) else list(names)
 
 
 def phase_kernel_vs_plain():
@@ -640,11 +673,13 @@ def phase_kernel_vs_plain_2dgs():
                     bg = torch.rand((C, D), generator=gen, device=dev)
                     cot = cotangents_2dgs(torch, gen, ko[1], D + 3)
                     cot = (cot[0], cot[1] + (cot[0][..., :D] * bg[:, None, None, :]).sum(dim=-1), cot[2])
-                    rows_k, bmx, berrs, _ = compare_bwd2(torch, r2, bk, ko, cot, D, C, W, H, ts, what)
+                    rows_k, bmx, berrs, _, n_past = compare_bwd2(torch, r2, bk, ko, cot, D, C, W, H, ts, what)
                     log(f"kernel vs plain {what} {W}x{H} C={C}: n_isects {int(bk.n_isects)}, emit equal, fwd max abs "
                         + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
                         + f", median off at {med_off:.2e} of pixels, last equal at {same_last:.6f}; "
                         f"bwd max abs per row " + " ".join(f"{e:.2e}" for e in berrs))
+                    log(f"  {what}: bwd values past the per-slot tolerance {n_past} of {rows_k.numel()}; "
+                        f"forward last equal at {same_last:.6f} of pixels")
 
     # binned (kernels) against the oracle on a small subsample: every 30th
     # Gaussian, cameras / 8, so the oracle's [C, pixels, N, 3] tensors fit
@@ -813,11 +848,13 @@ def phase_kernel_vs_plain_tiled():
                     bg = torch.rand((C, D), generator=gen, device=dev)
                     cot = cotangents_2dgs(torch, gen, ko[1], D + 3)
                     cot = (cot[0], cot[1] + (cot[0][..., :D] * bg[:, None, None, :]).sum(dim=-1), cot[2])
-                    _, _, berrs, _ = compare_tiled_bwd2(torch, r2t, st2, ko, cot, D, C, W, H, ts, what)
+                    rows2, _, berrs, _, n_past = compare_tiled_bwd2(torch, r2t, st2, ko, cot, D, C, W, H, ts, what)
                     log(f"kernel vs plain {what}: stream {st2[1].shape[0]} entries, fwd max abs "
                         + ", ".join(f"{k} {v:.3e}" for k, v in ferrs.items())
                         + f", median off at {med_off:.2e}, last equal at {same_last:.6f}; bwd max abs per row "
                         + " ".join(f"{e:.2e}" for e in berrs))
+                    log(f"  {what}: bwd values past the per-slot tolerance {n_past} of {rows2.numel()}; "
+                        f"forward last equal at {same_last:.6f} of pixels")
 
         # an empty stream (every radius 0): nothing launched, the background
         s = shade(rendering, torch, splats, torch.zeros_like(live), vm, K, W, H, 3)
@@ -1290,7 +1327,8 @@ def phase_serving_2dgs(trained):
 def phase_train_2dgs(scene):
     """2DGS training: Runner2DGS on the training phase's points and views,
     12 steps of one view with both geometry losses from step 0. Returns
-    the 2DGS kernels' entries of the `kernels` line and the runner."""
+    kernel_table_2dgs's (reduce fields, 2DGS kernel entries) and the
+    runner."""
     import torch
     from gsplat_tpu_torch.simple_trainer_2dgs import Runner2DGS
 
@@ -1304,10 +1342,12 @@ def phase_train_2dgs(scene):
 def kernel_table_2dgs(runner, launches):
     """The 2DGS kernels alone against their plain versions at the 2DGS
     train path's shapes (view 0, the trained splats): the whole frame (the
-    plain versions timed once) and a seeded subset of tiles."""
+    plain versions timed once) and a seeded subset of tiles; the gid reduce
+    at these shapes. Returns (the reduce's fields at these shapes for its
+    entry of the `kernels` line, the 2DGS kernels' entries)."""
     import torch
     from gsplat_tpu_torch import rendering
-    from gsplat_tpu_torch.ops import binning, rasterize_2dgs_binned as r2
+    from gsplat_tpu_torch.ops import binning, rasterize_2dgs_binned as r2, rasterize_binned as rb
 
     dev = torch.device("cuda")
     W, H, ts = MAIN_W, MAIN_H, runner.cfg.tile_size
@@ -1333,18 +1373,29 @@ def kernel_table_2dgs(runner, launches):
         bargs = (bk.entries, bk.offs, bk.cnts, ko[1], ko[2], ko[0][..., D - 1].contiguous(), *cot, 1, W, H, ts)
         bwd_ms = cuda_ms(torch, lambda: r2._bwd2_cuda(*bargs), reps)
         plain_b, bwd_plain_ms = timed_once(torch, lambda: r2._bwd2_plain(*bargs))
-        rows_k, bmx, berrs, (n_eval, n_acc) = compare_bwd2(torch, r2, bk, ko, cot, D, 1, W, H, ts, what, plain=plain_b)
+        rows_k, bmx, berrs, (n_eval, n_acc), n_past = compare_bwd2(torch, r2, bk, ko, cot, D, 1, W, H, ts, what,
+                                                                    plain=plain_b)
         del plain_b
         # both kernels also on a seeded subset of tiles, the other tiles'
         # counts zeroed for both
         sub = tile_subset(torch, bk, TILE_SUBSET, SEED + 1)
         serrs, _, _, _, ko_s = compare_fwd2(torch, r2, sub, 1, W, H, ts, what + " tile subset")
-        _, sbmx, _, _ = compare_bwd2(torch, r2, sub, ko_s, cot, D, 1, W, H, ts, what + " tile subset")
+        _, sbmx, _, _, s_past = compare_bwd2(torch, r2, sub, ko_s, cot, D, 1, W, H, ts, what + " tile subset")
+        # the gid reduce at these shapes: the [12 + L, M] slot rows summed
+        # per Gaussian, as kernel_table times it at the 3DGS shapes
+        CN = plan.counts.shape[0]
+        segs = rb.gid_segments(bk.gids, CN)
+        red_ms = cuda_ms(torch, lambda: rb._reduce_cuda(rows_k, *segs, CN), reps)
+        path_ms = cuda_ms(torch, lambda: rb._reduce_cuda(rows_k, *rb.gid_segments(bk.gids, CN), CN), reps)
+        red_plain_ms = cuda_ms(torch, lambda: rb._reduce_plain(rows_k, bk.gids, CN), reps)
+        rmx, _ = compare_reduce(torch, rb, rows_k, bk.gids, CN)
     log(f"{what} (view 0, trained splats, {int(bk.n_isects)} entries): 2DGS forward vs plain max abs "
         + ", ".join(f"{k} {v:.3e}" for k, v in ferrs.items())
         + f", median off at {med_off:.2e}, last equal at {same_last:.6f}; backward max abs per row "
         + " ".join(f"{e:.2e}" for e in berrs)
         + f"; on {TILE_SUBSET} seeded tiles: forward max abs {max(serrs.values()):.3e}, backward {sbmx:.3e}")
+    log(f"  {what}: bwd values past the per-slot tolerance {n_past} of {rows_k.numel()} (on the seeded "
+        f"tiles {s_past}); forward last equal at {same_last:.6f} of pixels")
 
     NF = bk.entries.shape[0]
     n_isects = int(bk.n_isects)
@@ -1360,10 +1411,22 @@ def kernel_table_2dgs(runner, launches):
     bwd_bytes = n_isects * NF * 4 + 2 * T * 4 + pix * 4 * (L + 5) + (r2.NFIX + L) * rows_k.shape[1] * 4
     fb = (fwd_bytes / PEAK_BYTES_PER_S * 1e3, fwd_ops / PEAK_F32_FLOPS * 1e3)
     bb = (bwd_bytes / PEAK_BYTES_PER_S * 1e3, bwd_ops / PEAK_F32_FLOPS * 1e3)
+    # reduce: the R rows and a 4-byte gid of each slot read once, [R, CN]
+    # written once (as kernel_table counts it)
+    R = rows_k.shape[0]
+    red_bytes = n_isects * (R * 4 + 4) + R * CN * 4
+    red_bound = red_bytes / PEAK_BYTES_PER_S * 1e3
     log(f"2DGS forward: {fwd_pairs} evaluated and {n_acc} accepted pairs, {fwd_ops} operations, {fwd_bytes} bytes; "
         f"backward: {n_eval} evaluated pairs, {bwd_ops} operations, {bwd_bytes} bytes; kernel ms fwd {fwd_ms:.3f} "
         f"bwd {bwd_ms:.3f}, plain ms fwd {fwd_plain_ms:.1f} bwd {bwd_plain_ms:.1f}")
-    return [
+    log(f"reduce at the {what} ({n_isects} slots of {R} rows, {CN} ids): kernel {red_ms:.3f} ms, gid sort + "
+        f"searchsorted + kernel {path_ms:.3f} ms, index_add_ {red_plain_ms:.3f} ms; {red_bytes} bytes, bound "
+        f"{red_bound:.3f} ms; vs index_add_ max abs {rmx:.3e}")
+    reduce_2dgs = {
+        "ms_2dgs": red_ms, "path_ms_2dgs": path_ms, "plain_ms_2dgs": red_plain_ms, "bound_ms_2dgs": red_bound,
+        "library_ms_2dgs": red_plain_ms, "max_abs_err_2dgs": rmx,
+    }
+    return reduce_2dgs, [
         {
             "name": "rasterize_2dgs_fwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/rasterize_2dgs_fwd.cu",
             "replaces": "gsplat_tpu/ops/rasterize_2dgs_binned.py:107", "launches": launches["rasterize_2dgs_fwd"],
@@ -1732,12 +1795,13 @@ def phase_train_tiled_2dgs(scene):
         bargs = (st[0], L, st[1], st[2], st[3], ko[1], ko[2], ko[0][..., D - 1].contiguous(), *cot, 1, W, H, ts)
         bwd_ms = cuda_ms(torch, lambda: r2t._tiled2_bwd_cuda(*bargs), reps)
         plain_b, bwd_plain_ms = timed_once(torch, lambda: r2t._tiled2_bwd_plain(*bargs))
-        rows_k, bmx, berrs, (n_eval, n_acc) = compare_tiled_bwd2(torch, r2t, st, ko, cot, D, 1, W, H, ts, what,
-                                                                  plain=plain_b)
+        rows_k, bmx, berrs, (n_eval, n_acc), n_past = compare_tiled_bwd2(
+            torch, r2t, st, ko, cot, D, 1, W, H, ts, what, plain=plain_b)
         del plain_b
         sub = (*st[:3], subset_counts(torch, st[3], TILE_SUBSET, SEED + 1))
         serrs, _, _, _, ko_s = compare_tiled_fwd2(torch, r2t, sub, L, 1, W, H, ts, what + " tile subset")
-        _, sbmx, _, _ = compare_tiled_bwd2(torch, r2t, sub, ko_s, cot, D, 1, W, H, ts, what + " tile subset")
+        _, sbmx, _, _, s_past = compare_tiled_bwd2(torch, r2t, sub, ko_s, cot, D, 1, W, H, ts,
+                                                   what + " tile subset")
     M = st[1].shape[0]
     T = (-(-W // ts)) * (-(-H // ts))
     pix = W * H
@@ -1748,6 +1812,8 @@ def phase_train_tiled_2dgs(scene):
         + f", median off at {med_off:.2e}, last equal at {same_last:.6f}; backward max abs per row "
         + " ".join(f"{e:.2e}" for e in berrs)
         + f"; on {TILE_SUBSET} seeded tiles: forward max abs {max(serrs.values()):.3e}, backward {sbmx:.3e}")
+    log(f"  {what}: bwd values past the per-slot tolerance {n_past} of {rows_k.numel()} (on the seeded "
+        f"tiles {s_past}); forward last equal at {same_last:.6f} of pixels")
     # counted from csrc/raster.cuh, the binned 2DGS pair's kernels: 41 per
     # evaluated pair and 2L + 13 per accepted one forward; 41 per pair at
     # or before `last` and 5L + 87 per accepted one backward
@@ -1793,7 +1859,8 @@ def main():
     t2 = time.perf_counter()
     kernels, scene = phase_train(smi)
     t3 = time.perf_counter()
-    kernels_2dgs, runner_2dgs = phase_train_2dgs(scene)
+    (reduce_2dgs, kernels_2dgs), runner_2dgs = phase_train_2dgs(scene)
+    next(k for k in kernels if k["name"] == "gid_reduce").update(reduce_2dgs)
     kernels += kernels_2dgs
     t4 = time.perf_counter()
     phase_serving_2dgs((runner_2dgs.params, runner_2dgs.live))

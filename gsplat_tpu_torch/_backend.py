@@ -51,17 +51,19 @@ KERNELS: Dict[str, Sequence[str]] = {
     "rasterize_fwd": (),
     "rasterize_bwd": (),
     "gid_reduce": (),
-    # the surfel sigma's cancelling cross products must round as the plain
-    # torch version's ops do (csrc/surfel.cuh), so no contraction either
+    # the 2DGS forwards keep their bits: no contraction anywhere. The
+    # backwards decide with the same explicitly rounded surfel sigma and
+    # alpha product (csrc/surfel.cuh), so they accept the forward's entries
+    # whatever the flags, and contract their gradient chains
     "rasterize_2dgs_fwd": ("-fmad=false",),
-    "rasterize_2dgs_bwd": ("-fmad=false",),
+    "rasterize_2dgs_bwd": (),
     # the tiled backend: the same kernel templates (csrc/raster.cuh) with
     # rows gathered by flatten_ids from a packed [C*N, F] table instead of
     # a pre-gathered stream
     "rasterize_tiled_fwd": (),
     "rasterize_tiled_bwd": (),
     "rasterize_2dgs_tiled_fwd": ("-fmad=false",),
-    "rasterize_2dgs_tiled_bwd": ("-fmad=false",),
+    "rasterize_2dgs_tiled_bwd": (),
 }
 
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}

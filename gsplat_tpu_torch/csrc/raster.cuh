@@ -2,7 +2,8 @@
 // 2DGS, forward and backward (the four rasterize_*.cu files of each backend
 // are thin C entry points over these).
 //
-// Every kernel runs one block per (camera, tile), one thread per pixel:
+// Every kernel runs one block per (camera, tile), one thread per pixel
+// (the 2DGS backward: P pixels a thread, below):
 //   T = C*th*tw blocks; cam = t / (th*tw), rem = t % (th*tw), tile row
 //   rem / tw, column rem % tw; thread p at (p % ts, p / ts) of the tile.
 // The block walks its range [offs[t], offs[t] + cnts[t]) of a depth-sorted
@@ -23,11 +24,13 @@
 //
 // The backward kernels walk the range back to front from the tile's largest
 // `last` and write one row per stream slot (one tile of one Gaussian, so one
-// block writes it and no atomics are needed): each value is summed over the
-// tile's pixels by warp shuffles (skipped when no lane of the warp accepted
-// the entry), then the per-warp partials in shared memory in warp order, so
-// the result is deterministic. The caller sums each Gaussian's slots with
-// csrc/gid_reduce.cu.
+// block writes it and no atomics are needed): each value is summed over a
+// warp's pixels (skipped when no lane of the warp accepted the entry), by a
+// shuffle tree per value in the 3DGS backward (warp_partials) and by one
+// transposed reduction over all values in the 2DGS backward
+// (warp_transpose_sum), then the per-warp partials in shared memory in warp
+// order, so the result is deterministic. The caller sums each Gaussian's
+// slots with csrc/gid_reduce.cu.
 
 #pragma once
 
@@ -149,6 +152,41 @@ __device__ __forceinline__ void warp_partials(const float (&g)[R], int nr, bool 
     }
   } else {
     for (int r = lane; r < nr; r += 32) dst[r] = 0.0f;
+  }
+}
+
+// One step of the transposed warp sum below: a[0, 2H) of each lane becomes
+// a[0, H), the half that the lane's bit H selects, each value plus the one
+// that lane ^ H held at the same index; then the steps H / 2 .. 1
+template <int H>
+__device__ __forceinline__ void warp_halve(float (&a)[32], int lane) {
+  const bool up = (lane & H) != 0;
+#pragma unroll
+  for (int i = 0; i < H; ++i) {
+    const float send = up ? a[i] : a[i + H];
+    const float keep = up ? a[i + H] : a[i];
+    a[i] = keep + __shfl_xor_sync(0xffffffffu, send, H);
+  }
+  if constexpr (H > 1) warp_halve<H / 2>(a, lane);
+}
+
+// The transposed warp sum of N values a lane (N a multiple of 32): after it,
+// v[c] of lane r holds the warp's sum of value 32 c + r. Recursive halving:
+// at offset 16 a lane keeps the half of each 32 values that its lane bit
+// selects, sends the other half to lane ^ 16 and adds what it receives; then
+// offsets 8, 4, 2 and 1 the same way: 31 shuffles for 32 values, where a
+// shuffle tree per value takes 5 each. The order is fixed (deterministic).
+// Every index is a compile-time constant, so the values stay in registers.
+template <int N>
+__device__ __forceinline__ void warp_transpose_sum(float (&v)[N]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int c = 0; c < N / 32; ++c) {
+    float a[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) a[i] = v[32 * c + i];
+    warp_halve<16>(a, lane);
+    v[c] = a[0];
   }
 }
 
@@ -455,15 +493,32 @@ fwd_2dgs(Stage st, const int* __restrict__ offs, const int* __restrict__ cnts, i
 //              h_u x h_v to the nine v_M; 2D branch: v_mean = -2 d v_sigma.
 // The median gets no gradient. rows [12 + L, M]: v_gx, v_gy, v_M00..v_M22,
 // v_op, v_feat[L].
+//
+// Layout: a block of TS * TS / P threads per tile; thread i owns the P
+// pixels of column i % TS, rows (i / TS) P .. (i / TS) P + P - 1, so they
+// share d_x and h_u (surfel_column) and each staged entry is read from shared
+// memory once for all P. Per entry a thread first evaluates sigma, alpha and
+// the accept test of its P pixels (independent, so their divisions and expf
+// overlap), then runs the chain of each accepting pixel, adding its gradient
+// values into one register sum. The warp then sums those by recursive
+// halving (warp_transpose_sum: 31 shuffles for up to 32 rows), after which
+// lane r holds row r, written with one warp-wide store into
+// part[warp][entry][row]; write_slots adds the warps in warp order. The
+// order is fixed, so the rows are deterministic. Every keep / drop decision
+// (surfel_sigma, the alpha product) rounds op by op whatever the build's
+// flags, so the kernel builds with multiply-add contraction and accepts
+// exactly the forward's entries; the cross-product VJP and the ray-transform
+// rows' px / py terms round op by op too (they cancel for an edge-on surfel).
 // Bound on the card: operations. Counted from the code, a division and an
 // expf one operation each: 41 per evaluated pair (those at or before the
 // pixel's `last`: the forward's sigma and tests) and 5L + 87 more per
 // accepted pair (the chain, the cross-product VJP, and one add into the
-// slot's sum per row; the shuffle tree's further adds are this design's own).
-template <class Stage, int LMAX, int MAXT>
-__global__ void __launch_bounds__(MAXT)
+// slot's sum per row; the warp reduction's further adds are this design's
+// own). The f32 peak counts a multiply-add as two operations.
+template <class Stage, int LMAX, int TS, int P>
+__global__ void __launch_bounds__(TS * TS / P)
 bwd_2dgs(Stage st, long long M, const int* __restrict__ offs, const int* __restrict__ cnts,
-         int th, int tw, int ts, int W, int H, int L, const float* __restrict__ T_fin,
+         int th, int tw, int W, int H, int L, const float* __restrict__ T_fin,
          const int* __restrict__ last, const float* __restrict__ wm_tot_in,
          const float* __restrict__ v_feat, const float* __restrict__ v_T,
          const float* __restrict__ v_dist, float* __restrict__ rows) {
@@ -471,102 +526,158 @@ bwd_2dgs(Stage st, long long M, const int* __restrict__ offs, const int* __restr
   float* sm = reinterpret_cast<float*>(smem);
   constexpr int S = Stage::kStride;
   constexpr int B = Stage::kBatch;
+  constexpr int R = (kFix2 + LMAX + 31) / 32 * 32;  // the register sum, padded to whole warps
   const int nf = kFix2 + L;
   float* part = sm + st.staged_floats();  // [warps][B][nf]
-  const Pixel pix(th, tw, ts, W, H);
   const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   const int off = offs[blockIdx.x];
   const int n = cnts[blockIdx.x];
   const int md = L - 4;  // the depth: the last colour channel
 
-  int lst = -1;
-  float T = 1.0f, vlogT = 0.0f, vdist = 0.0f, w_tot = 0.0f, wm_tot = 0.0f;
-  float vf[LMAX];
+  const int cam = blockIdx.x / (th * tw);
+  const int rem = blockIdx.x % (th * tw);
+  const int x = (rem % tw) * TS + threadIdx.x % TS;
+  const int y0 = (rem / tw) * TS + (threadIdx.x / TS) * P;
+  const float px = (float)x + 0.5f;
+
+  int lst[P];
+  float T[P], vlogT[P], vdist[P], w_tot[P], wm_tot[P], vf[P][LMAX];
+  int lmax = -1;
 #pragma unroll
-  for (int l = 0; l < LMAX; ++l) vf[l] = 0.0f;
-  if (pix.inside) {
-    const long long q = pix.index(W, H);
-    lst = last[q];
-    T = T_fin[q];
-    vlogT = v_T[q] * T;
-    vdist = v_dist[q];
-    w_tot = 1.0f - T;
-    wm_tot = wm_tot_in[q];
+  for (int k = 0; k < P; ++k) {
+    lst[k] = -1;
+    T[k] = 1.0f;
+    vlogT[k] = vdist[k] = w_tot[k] = wm_tot[k] = 0.0f;
 #pragma unroll
-    for (int l = 0; l < LMAX; ++l)
-      if (l < L) vf[l] = v_feat[q * L + l];
+    for (int l = 0; l < LMAX; ++l) vf[k][l] = 0.0f;
+    if (x < W && y0 + k < H) {
+      const long long q = ((long long)cam * H + y0 + k) * W + x;
+      lst[k] = last[q];
+      T[k] = T_fin[q];
+      vlogT[k] = v_T[q] * T[k];
+      vdist[k] = v_dist[q];
+      w_tot[k] = 1.0f - T[k];
+      wm_tot[k] = wm_tot_in[q];
+#pragma unroll
+      for (int l = 0; l < LMAX; ++l)
+        if (l < L) vf[k][l] = v_feat[q * L + l];
+      lmax = max(lmax, lst[k]);
+    }
   }
   // entries past the tile's largest `last` add nothing
-  const int nact = min(n, block_max_last(lst) + 1 - off);
+  const int nact = min(n, block_max_last(lmax) + 1 - off);
 
-  float sG = 0.0f, sW = 0.0f, sWM = 0.0f;
+  float sG[P], sW[P], sWM[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) sG[k] = sW[k] = sWM[k] = 0.0f;
   for (int b0 = ((nact - 1) / B) * B; nact > 0 && b0 >= 0; b0 -= B) {
     const int nb = min(B, nact - b0);
     __syncthreads();  // the previous batch's readers of sm / part are done
     st.load(sm, off + b0, nb);
     __syncthreads();
     for (int j = nb - 1; j >= 0; --j) {
-      const float* e = st.entry(sm, j);
-      float g[kFix2 + LMAX];
+      const int idx = off + b0 + j;
+      float acc[R];
 #pragma unroll
-      for (int r = 0; r < kFix2 + LMAX; ++r) g[r] = 0.0f;
-      bool accepted = false;
-      if (off + b0 + j <= lst) {
+      for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+      bool any = false;
+      if (idx <= lmax) {
+        const float* e = st.entry(sm, j);
         float m[9];
 #pragma unroll
         for (int i = 0; i < 9; ++i) m[i] = e[(2 + i) * S];
-        const SurfelSigma s = surfel_sigma(m, e[0], e[S], pix.cx, pix.cy);
-        const float eneg = expf(-s.sig);
-        const float araw = e[11 * S] * eneg;
-        const float alpha = fminf(araw, kAlphaMax);
-        if (s.sig >= 0.0f && alpha >= kAlphaMin) {
-          accepted = true;
+        const float gy = e[S];
+        const float op = e[11 * S];
+        float f[LMAX];
+#pragma unroll
+        for (int l = 0; l < LMAX; ++l) f[l] = l < L ? e[(kFix2 + l) * S] : 0.0f;
+        const float depth = e[(kFix2 + md) * S];
+        const SurfelColumn col = surfel_column(m, e[0], px);
+        // the forward's decisions for the thread's P pixels
+        SurfelSigma s[P];
+        float eneg[P], araw[P];
+        bool keep[P];
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          s[k] = surfel_sigma(m, col, gy, (float)(y0 + k) + 0.5f);
+          eneg[k] = expf(-s[k].sig);
+          araw[k] = __fmul_rn(op, eneg[k]);
+          keep[k] = idx <= lst[k] && s[k].sig >= 0.0f && fminf(araw[k], kAlphaMax) >= kAlphaMin;
+        }
+        float v_depth = 0.0f;  // the depth row's distortion term, added below
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          if (!keep[k]) continue;
+          any = true;
+          const float alpha = fminf(araw[k], kAlphaMax);
           const float one_m = 1.0f - alpha;
-          T = T / one_m;
-          const float w = alpha * T;
+          T[k] = __fdiv_rn(T[k], one_m);
+          const float w = alpha * T[k];
           float cv = 0.0f;
 #pragma unroll
-          for (int l = 0; l < LMAX; ++l)
-            if (l < L) cv += vf[l] * e[(kFix2 + l) * S];
-          const float depth = e[(kFix2 + md) * S];
+          for (int l = 0; l < LMAX; ++l) cv += vf[k][l] * f[l];
           const float wm = w * depth;
-          const float W_pref = w_tot - w - sW;
-          const float WM_pref = wm_tot - wm - sWM;
-          const float G = cv + vdist * 2.0f * (depth * W_pref - WM_pref + (sWM - depth * sW));
-          const float v_alpha = T * G - (sG + vlogT) / one_m;
-          const float v_m_extra = vdist * 2.0f * w * (W_pref - sW);
-          sG += w * G;
-          sW += w;
-          sWM += wm;
-          const bool notclamp = araw < kAlphaMax;
+          const float W_pref = w_tot[k] - w - sW[k];
+          const float WM_pref = wm_tot[k] - wm - sWM[k];
+          const float G =
+              cv + vdist[k] * 2.0f * (depth * W_pref - WM_pref + (sWM[k] - depth * sW[k]));
+          const float v_alpha = T[k] * G - (sG[k] + vlogT[k]) / one_m;
+          v_depth += vdist[k] * 2.0f * w * (W_pref - sW[k]);
+          sG[k] += w * G;
+          sW[k] += w;
+          sWM[k] += wm;
+          const bool notclamp = araw[k] < kAlphaMax;
           const float v_sig = notclamp ? -alpha * v_alpha : 0.0f;
-          g[11] = notclamp ? eneg * v_alpha : 0.0f;
+          if (notclamp) acc[11] += eneg[k] * v_alpha;
 #pragma unroll
           for (int l = 0; l < LMAX; ++l)
-            if (l < L) g[kFix2 + l] = w * vf[l] + (l == md ? v_m_extra : 0.0f);
-          if (s.use3d) {
-            const float v_u = s.u * v_sig;
-            const float v_v = s.v * v_sig;
-            const float vc0 = v_u / s.crz;
-            const float vc1 = v_v / s.crz;
-            const float vc2 = -(s.u * v_u + s.v * v_v) / s.crz;
-            const float vhu[3] = {s.hv[1] * vc2 - s.hv[2] * vc1, s.hv[2] * vc0 - s.hv[0] * vc2,
-                                  s.hv[0] * vc1 - s.hv[1] * vc0};
-            const float vhv[3] = {vc1 * s.hu[2] - vc2 * s.hu[1], vc2 * s.hu[0] - vc0 * s.hu[2],
-                                  vc0 * s.hu[1] - vc1 * s.hu[0]};
+            if (l < L) acc[kFix2 + l] += w * vf[k][l];
+          if (s[k].use3d) {
+            // one reciprocal for the three quotients (the plain version
+            // divides three times; this is gradient, not decision). The
+            // cross-product VJP and the px / py terms round op by op as the
+            // plain version's ops: for an edge-on surfel they cancel, and
+            // contracted they moved a ray-transform slot past its gate
+            const float rcz = __frcp_rn(s[k].crz);
+            const float v_u = s[k].u * v_sig;
+            const float v_v = s[k].v * v_sig;
+            const float vc0 = v_u * rcz;
+            const float vc1 = v_v * rcz;
+            const float vc2 = -__fadd_rn(__fmul_rn(s[k].u, v_u), __fmul_rn(s[k].v, v_v)) * rcz;
+            const float* hu = s[k].hu;
+            const float* hv = s[k].hv;
+            const float vhu[3] = {__fsub_rn(__fmul_rn(hv[1], vc2), __fmul_rn(hv[2], vc1)),
+                                  __fsub_rn(__fmul_rn(hv[2], vc0), __fmul_rn(hv[0], vc2)),
+                                  __fsub_rn(__fmul_rn(hv[0], vc1), __fmul_rn(hv[1], vc0))};
+            const float vhv[3] = {__fsub_rn(__fmul_rn(vc1, hu[2]), __fmul_rn(vc2, hu[1])),
+                                  __fsub_rn(__fmul_rn(vc2, hu[0]), __fmul_rn(vc0, hu[2])),
+                                  __fsub_rn(__fmul_rn(vc0, hu[1]), __fmul_rn(vc1, hu[0]))};
+            const float py = (float)(y0 + k) + 0.5f;
 #pragma unroll
             for (int c = 0; c < 3; ++c) {
-              g[2 + c] = -vhu[c];
-              g[5 + c] = -vhv[c];
-              g[8 + c] = pix.cx * vhu[c] + pix.cy * vhv[c];
+              acc[2 + c] -= vhu[c];
+              acc[5 + c] -= vhv[c];
+              acc[8 + c] += __fadd_rn(__fmul_rn(px, vhu[c]), __fmul_rn(py, vhv[c]));
             }
           } else {
-            g[0] = -(2.0f * s.dx * v_sig);
-            g[1] = -(2.0f * s.dy * v_sig);
+            acc[0] -= 2.0f * s[k].dx * v_sig;
+            acc[1] -= 2.0f * s[k].dy * v_sig;
           }
         }
+#pragma unroll
+        for (int l = 0; l < LMAX; ++l)
+          if (l == md) acc[kFix2 + l] += v_depth;
       }
-      warp_partials(g, nf, accepted, part + (warp * B + j) * nf);
+      float* dst = part + (warp * B + j) * nf;
+      if (__any_sync(0xffffffffu, any)) {
+        warp_transpose_sum(acc);
+#pragma unroll
+        for (int c = 0; c < R / 32; ++c)
+          if (32 * c + lane < nf) dst[32 * c + lane] = acc[c];
+      } else {
+        for (int r = lane; r < nf; r += 32) dst[r] = 0.0f;
+      }
     }
     __syncthreads();
     write_slots<B>(part, nf, nb, off + b0, M, false, rows);
@@ -575,8 +686,8 @@ bwd_2dgs(Stage st, long long M, const int* __restrict__ offs, const int* __restr
 
 // ---------------------------------------------------------------------------
 // Host side: each launch picks the kernel's register-array width from D or L
-// and sets its dynamic shared memory limit (above the 48 KB default where
-// needed).
+// (the 2DGS backward also its tile size and pixels a thread) and sets its
+// dynamic shared memory limit (above the 48 KB default where needed).
 
 inline bool valid_tile(int ts) { return ts == 8 || ts == 16 || ts == 32; }
 
@@ -637,27 +748,44 @@ cudaError_t launch_fwd_2dgs(const Stage& st, const int* offs, const int* cnts, i
   return cudaGetLastError();
 }
 
-// the L instantiations, each with a register budget for tiles up to 16x16
-// (256 threads) and for 32x32 (1024 threads)
-template <class Stage, int MAXT>
-cudaError_t launch_bwd_2dgs_t(const Stage& st, long long M, const int* offs, const int* cnts,
-                              int C, int th, int tw, int ts, int W, int H, int L,
-                              const float* T_fin, const int* last, const float* wm_tot,
-                              const float* v_feat, const float* v_T, const float* v_dist,
-                              float* rows, cudaStream_t stream) {
-  auto kernel = L <= 4    ? &bwd_2dgs<Stage, 4, MAXT>
-                : L <= 8  ? &bwd_2dgs<Stage, 8, MAXT>
-                : L <= 16 ? &bwd_2dgs<Stage, 16, MAXT>
-                          : &bwd_2dgs<Stage, 35, MAXT>;
-  const int threads = ts * ts;
+// P, the pixels a thread owns: kBwd2Pix; 2 for the L > 16 arrays below
+// 32x32 tiles (P = 4 spilled there); fewer at 8x8 tiles so that a block
+// keeps a whole warp
+constexpr int kBwd2Pix = 4;
+
+template <class Stage, int TS, int LMAX>
+cudaError_t launch_bwd_2dgs_tl(const Stage& st, long long M, const int* offs, const int* cnts,
+                               int C, int th, int tw, int W, int H, int L, const float* T_fin,
+                               const int* last, const float* wm_tot, const float* v_feat,
+                               const float* v_T, const float* v_dist, float* rows,
+                               cudaStream_t stream) {
+  constexpr int P0 = LMAX > 16 && TS < 32 ? 2 : kBwd2Pix;
+  constexpr int P = P0 < TS * TS / 32 ? P0 : TS * TS / 32;
+  constexpr int threads = TS * TS / P;
+  auto kernel = &bwd_2dgs<Stage, LMAX, TS, P>;
   const size_t smem =
       ((size_t)st.staged_floats() + (size_t)(kFix2 + L) * Stage::kBatch * (threads / 32)) *
       sizeof(float);
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<C * th * tw, threads, smem, stream>>>(st, M, offs, cnts, th, tw, ts, W, H, L, T_fin,
-                                                 last, wm_tot, v_feat, v_T, v_dist, rows);
+  kernel<<<C * th * tw, threads, smem, stream>>>(st, M, offs, cnts, th, tw, W, H, L, T_fin, last,
+                                                 wm_tot, v_feat, v_T, v_dist, rows);
   return cudaGetLastError();
+}
+
+// the L instantiations of one tile size
+template <class Stage, int TS>
+cudaError_t launch_bwd_2dgs_t(const Stage& st, long long M, const int* offs, const int* cnts,
+                              int C, int th, int tw, int W, int H, int L, const float* T_fin,
+                              const int* last, const float* wm_tot, const float* v_feat,
+                              const float* v_T, const float* v_dist, float* rows,
+                              cudaStream_t stream) {
+  auto launch = L <= 4    ? &launch_bwd_2dgs_tl<Stage, TS, 4>
+                : L <= 8  ? &launch_bwd_2dgs_tl<Stage, TS, 8>
+                : L <= 16 ? &launch_bwd_2dgs_tl<Stage, TS, 16>
+                          : &launch_bwd_2dgs_tl<Stage, TS, 35>;
+  return launch(st, M, offs, cnts, C, th, tw, W, H, L, T_fin, last, wm_tot, v_feat, v_T, v_dist,
+                rows, stream);
 }
 
 template <class Stage>
@@ -666,11 +794,11 @@ cudaError_t launch_bwd_2dgs(const Stage& st, long long M, const int* offs, const
                             const float* T_fin, const int* last, const float* wm_tot,
                             const float* v_feat, const float* v_T, const float* v_dist,
                             float* rows, cudaStream_t stream) {
-  if (ts * ts <= 256)
-    return launch_bwd_2dgs_t<Stage, 256>(st, M, offs, cnts, C, th, tw, ts, W, H, L, T_fin, last,
-                                         wm_tot, v_feat, v_T, v_dist, rows, stream);
-  return launch_bwd_2dgs_t<Stage, 1024>(st, M, offs, cnts, C, th, tw, ts, W, H, L, T_fin, last,
-                                        wm_tot, v_feat, v_T, v_dist, rows, stream);
+  auto launch = ts == 8    ? &launch_bwd_2dgs_t<Stage, 8>
+                : ts == 16 ? &launch_bwd_2dgs_t<Stage, 16>
+                           : &launch_bwd_2dgs_t<Stage, 32>;
+  return launch(st, M, offs, cnts, C, th, tw, W, H, L, T_fin, last, wm_tot, v_feat, v_T, v_dist,
+                rows, stream);
 }
 
 }  // namespace raster

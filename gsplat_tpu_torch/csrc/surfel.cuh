@@ -1,11 +1,13 @@
 // The surfel sigma of the 2DGS kernels (raster::fwd_2dgs and
 // raster::bwd_2dgs in raster.cuh), written in the operation order of the
-// plain version (gsplat_tpu_torch/ops/rasterize_2dgs_binned.py::_sigma). The
-// four 2DGS sources build with -fmad=false, so every product and sum rounds
-// on its own as the plain version's torch ops do: the cross products cancel
-// heavily, and a contracted multiply-add would flip entries on the alpha = 1/255
-// threshold between the kernel and its plain version, and between the
-// forward and the backward.
+// plain version (gsplat_tpu_torch/ops/rasterize_2dgs_binned.py::_sigma),
+// every product, sum and quotient rounded on its own (__fmul_rn, __fadd_rn,
+// __fsub_rn, __fdiv_rn) as the plain version's torch ops are, whatever the
+// build's flags: the cross products cancel heavily, and a contracted
+// multiply-add would flip entries on the alpha = 1/255 threshold between the
+// kernel and its plain version, and between the forward and the backward.
+// So the forwards may build with -fmad=false and the backwards without it
+// (multiply-add in their gradient chains), and both decide alike.
 
 #pragma once
 
@@ -19,32 +21,56 @@ struct SurfelSigma {
   float hu[3], hv[3];
 };
 
+// what the pixels of one column (one pixel centre x) share for one surfel:
+// d_x = px - gx, its square, and h_u = -M0 + px M2
+struct SurfelColumn {
+  float dx, dx2;
+  float hu[3];
+};
+
 // torch.minimum: NaN if either side is NaN
 __device__ __forceinline__ float nan_min(float a, float b) {
   return isnan(a) ? a : (a <= b ? a : b);
 }
 
-// m: the ray transform M00..M22 (row-major); (gx, gy) the projected centre;
-// (px, py) the pixel centre
+// m: the ray transform M00..M22 (row-major); gx the projected centre's x;
+// px the pixel centre's x
+__device__ __forceinline__ SurfelColumn surfel_column(const float (&m)[9], float gx, float px) {
+  SurfelColumn c;
+  c.dx = __fsub_rn(px, gx);
+  c.dx2 = __fmul_rn(c.dx, c.dx);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) c.hu[i] = __fadd_rn(-m[i], __fmul_rn(px, m[6 + i]));
+  return c;
+}
+
+// the sigma of the pixel at (col's px, py); gy the projected centre's y
+__device__ __forceinline__ SurfelSigma surfel_sigma(const float (&m)[9], const SurfelColumn& col,
+                                                    float gy, float py) {
+  SurfelSigma s;
+  s.dx = col.dx;
+  s.dy = __fsub_rn(py, gy);
+  // h_u = -M0 + px M2 (the column's), h_v = -M1 + py M2
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    s.hu[i] = col.hu[i];
+    s.hv[i] = __fadd_rn(-m[3 + i], __fmul_rn(py, m[6 + i]));
+  }
+  const float cr0 = __fsub_rn(__fmul_rn(s.hu[1], s.hv[2]), __fmul_rn(s.hu[2], s.hv[1]));
+  const float cr1 = __fsub_rn(__fmul_rn(s.hu[2], s.hv[0]), __fmul_rn(s.hu[0], s.hv[2]));
+  const float cr2 = __fsub_rn(__fmul_rn(s.hu[0], s.hv[1]), __fmul_rn(s.hu[1], s.hv[0]));
+  s.crz = fabsf(cr2) < 1e-12f ? 1e-12f : cr2;
+  s.u = __fdiv_rn(cr0, s.crz);
+  s.v = __fdiv_rn(cr1, s.crz);
+  const float sig3 = __fadd_rn(__fmul_rn(s.u, s.u), __fmul_rn(s.v, s.v));
+  const float sig2 = __fmul_rn(2.0f, __fadd_rn(col.dx2, __fmul_rn(s.dy, s.dy)));
+  s.use3d = sig3 <= sig2;
+  s.sig = __fmul_rn(0.5f, nan_min(sig3, sig2));
+  return s;
+}
+
+// the sigma of the pixel centre (px, py)
 __device__ __forceinline__ SurfelSigma surfel_sigma(const float (&m)[9], float gx, float gy,
                                                     float px, float py) {
-  SurfelSigma s;
-  s.dx = px - gx;
-  s.dy = py - gy;
-  // h_u = -M0 + px M2, h_v = -M1 + py M2
-  for (int c = 0; c < 3; ++c) {
-    s.hu[c] = -m[c] + px * m[6 + c];
-    s.hv[c] = -m[3 + c] + py * m[6 + c];
-  }
-  const float cr0 = s.hu[1] * s.hv[2] - s.hu[2] * s.hv[1];
-  const float cr1 = s.hu[2] * s.hv[0] - s.hu[0] * s.hv[2];
-  const float cr2 = s.hu[0] * s.hv[1] - s.hu[1] * s.hv[0];
-  s.crz = fabsf(cr2) < 1e-12f ? 1e-12f : cr2;
-  s.u = cr0 / s.crz;
-  s.v = cr1 / s.crz;
-  const float sig3 = s.u * s.u + s.v * s.v;
-  const float sig2 = 2.0f * (s.dx * s.dx + s.dy * s.dy);
-  s.use3d = sig3 <= sig2;
-  s.sig = 0.5f * nan_min(sig3, sig2);
-  return s;
+  return surfel_sigma(m, surfel_column(m, gx, px), gy, py);
 }
