@@ -22,10 +22,14 @@ non-zero (there is no CPU fallback):
        rounded in another order) and mean abs 1e-6;
      - the backward kernel's rows, for seeded cotangents, within rtol 1e-3
        and atol 1e-4 x the row's max |plain| (T is rebuilt by division,
-       which loses digits where alpha was clamped at 0.999); also with the
-       absgrad rows, and at D = 8, 16, 32 with a background;
+       which loses digits where alpha was clamped at 0.999), and the same
+       bits from two launches; also with the absgrad rows, and at D = 8,
+       16, 32 with a background at both tile sizes (the absgrad rows at
+       16);
      - the reduce kernel against index_add_ within 1e-6 x the row's
-       largest per-Gaussian sum of |values| (the two add in other orders);
+       largest per-Gaussian sum of |values| (the two add in other orders),
+       on the stream's own gid order and through a gid sort, each the same
+       bits from two launches;
      - the 2DGS forward kernel (RGB and RGB+ED, D = 3 and 4): features, T
        and distortion off by more than 2e-4 x max(1, the output's max
        |plain|) at a share of at most 1e-5 of the values and by at most
@@ -58,18 +62,19 @@ non-zero (there is no CPU fallback):
      count and time, each kernel launched in every step, finiteness, the
      loss on view 0 falling; bench.py's fwd+bwd measure on the port; one
      profiled step; step time at tile 16 and 32; each kernel against its
-     plain version at the train path's shapes; the reduce path (gid sort +
-     searchsorted + kernel) against index_add_ there and on synthetic
-     uniform and large-splat gids of the same sizes;
+     plain version at the train path's shapes; the reduce on the stream's
+     own gid order (the path's call) and through a gid sort against
+     index_add_ there, with its bytes bound, and through a gid sort on
+     synthetic uniform and large-splat gids of the same sizes;
   6. 2DGS training: simple_trainer_2dgs.Runner2DGS on the training path's
      points and views, 12 steps with both geometry losses from step 0;
      emit, both 2DGS kernels and the gid reduce launched in every step,
      finiteness, the loss on view 0 falling, the steady step time and one
      profiled step; both 2DGS kernels against their plain versions at
      these shapes, over the whole frame (the plain versions timed once)
-     and on 256 seeded tiles; the gid reduce at these shapes (the kernel
-     and the gid sort + searchsorted + kernel path against index_add_,
-     with its bytes bound);
+     and on 256 seeded tiles; the gid reduce at these shapes (on the
+     stream's order and through a gid sort, against index_add_, with its
+     bytes bound);
   7. 2DGS serving: rasterization_2dgs(backend="binned",
      render_mode="RGB+ED") under no_grad, launching emit and the 2DGS
      forward and nothing else, on two scenes: the serving path's splats as
@@ -87,8 +92,9 @@ non-zero (there is no CPU fallback):
   9. tiled training: Runner and Runner2DGS with backend="tiled" on the
      training path's scene, 12 steps each, the tiled forward, the tiled
      backward and the gid reduce launched in every step, with phase 5's
-     checks and prints, and the tiled kernels against their plain versions
-     at the train shapes;
+     checks and prints, the tiled kernels against their plain versions at
+     the train shapes, and the reduce on the tiled streams' own order at
+     the 3DGS and 2DGS shapes as in phases 5-6;
  10. tiled 2DGS serving: rasterization_2dgs(backend="tiled", RGB+ED) on
      phase 9's trained surfels, with phase 8's prints and checks;
  11. the `kernels` line (all ten kernels), then the result line.
@@ -250,9 +256,10 @@ def compare_emit(torch, binning, plan, slab, T):
         if not torch.equal(a, b):
             bad = int((a != b).sum())
             raise AssertionError(f"emit kernel {what} differ from plain at {bad} places")
-    bk = binning.sort_entries(raw_k, T, slab)
-    bp = binning.sort_entries(raw_p, T, slab)
-    for f in ("entries", "gids", "offs", "cnts", "n_isects"):
+    starts = binning.segment_starts(plan)
+    bk = binning.sort_entries(raw_k, T, slab, starts)
+    bp = binning.sort_entries(raw_p, T, slab, starts)
+    for f in ("entries", "gids", "offs", "cnts", "n_isects", "dst"):
         if not torch.equal(getattr(bk, f), getattr(bp, f)):
             raise AssertionError(f"sorted stream field {f} differs between emit kernel and plain")
     err = float((bk.entries - bp.entries).abs().max()) if bk.entries.numel() else 0.0
@@ -298,12 +305,13 @@ def cotangents(torch, gen, T_out, D):
 
 def compare_bwd(torch, rb, bk, T_out, last, v_img, v_T, C, W, H, ts, absgrad, entries=None, plain=None):
     """Backward kernel vs plain on one stream. Each row within BWD_RTOL of
-    |plain| plus BWD_ATOL x the row's max |plain|. Returns (kernel rows,
-    plain rows, max abs error, per-row max abs errors, plain's pair counts).
-    `plain` is a precomputed result of `_bwd_plain` on the same inputs."""
+    |plain| plus BWD_ATOL x the row's max |plain|, and the same bits from
+    two launches. Returns (kernel rows, plain rows, max abs error, per-row
+    max abs errors, plain's pair counts). `plain` is a precomputed result
+    of `_bwd_plain` on the same inputs."""
     entries = bk.entries if entries is None else entries
     args = (entries, bk.offs, bk.cnts, T_out, last, v_img, v_T, C, W, H, ts, absgrad)
-    rows_k = rb._bwd_cuda(*args)
+    rows_k = same_twice(torch, "backward kernel", lambda: rb._bwd_cuda(*args))
     rows_p, pairs = rb._bwd_plain(*args) if plain is None else plain
     return gate_bwd(torch, rows_k, rows_p, pairs)
 
@@ -327,19 +335,58 @@ def gate_bwd(torch, rows_k, rows_p, pairs):
     return rows_k, rows_p, max(errs), errs, pairs
 
 
-def compare_reduce(torch, rb, rows, gids, n_out):
-    """Reduce kernel vs index_add_ (its plain version). Returns (max abs
-    error, the row scales)."""
-    got = rb._reduce_cuda(rows, *rb.gid_segments(gids, n_out), n_out)
+def same_twice(torch, what, fn):
+    """fn() run twice; raises unless the two results are the same bits.
+    Returns the first."""
+    a = fn()
+    if not torch.equal(a, fn()):
+        raise AssertionError(f"{what}: two launches on the same inputs differ")
+    return a
+
+
+def compare_reduce(torch, rb, rows, gids, n_out, order=None):
+    """Reduce kernel vs index_add_ (its plain version), on the stream's own
+    gid order `order` (Binned.order / Isect.order) where given and on the
+    gids' sort (gid_order, the route of a caller without a stream order);
+    each the same bits from two launches. Returns (max abs error, the row
+    scales)."""
     want = rb._reduce_plain(rows, gids, n_out)
     scale = rb._reduce_plain(rows.abs(), gids, n_out).amax(dim=1)  # per-row largest sum of |values|
-    diff = (got - want).abs()
-    bad = diff > REDUCE_TOL * scale[:, None]
-    if bool(bad.any()):
-        raise AssertionError(
-            f"reduce kernel vs index_add_: {int(bad.sum())} values off, max abs {float(diff.max()):.3e}"
-        )
-    return float(diff.max()), scale
+    errs = []
+    for how, o in (("stream order", order), ("gid sort", rb.gid_order(gids, n_out))):
+        if o is None:
+            continue
+        got = same_twice(torch, f"reduce kernel ({how})", lambda: rb._reduce_cuda(rows, *o, n_out))
+        diff = (got - want).abs()
+        bad = diff > REDUCE_TOL * scale[:, None]
+        if bool(bad.any()):
+            raise AssertionError(
+                f"reduce kernel ({how}) vs index_add_: {int(bad.sum())} values off, max abs {float(diff.max()):.3e}"
+            )
+        errs.append(float(diff.max()) if diff.numel() else 0.0)
+    return max(errs), scale
+
+
+def reduce_at(torch, rb, rows, gids, n_out, order, reps, what):
+    """The gid reduce at a training path's shapes: the kernel on the
+    stream's own gid order `order` (the path's call, no sort), the same
+    kernel through a gid sort (reduce_by_gid without an order) and
+    index_add_, each time beside the bytes bound (each live slot's R values
+    and a 4-byte gid read once, [R, n_out] written once), and the kernel
+    against index_add_ as compare_reduce holds it. Returns (kernel ms,
+    index_add_ ms, bound ms, max abs error)."""
+    ms = cuda_ms(torch, lambda: rb._reduce_cuda(rows, *order, n_out), reps)
+    sort_ms = cuda_ms(torch, lambda: rb.reduce_by_gid(rows, gids, n_out), reps)
+    lib_ms = cuda_ms(torch, lambda: rb._reduce_plain(rows, gids, n_out), reps)
+    err, _ = compare_reduce(torch, rb, rows, gids, n_out, order)
+    R = rows.shape[0]
+    n_live = int((gids < n_out).sum())
+    red_bytes = n_live * (R * 4 + 4) + R * n_out * 4
+    bound = red_bytes / PEAK_BYTES_PER_S * 1e3
+    log(f"reduce at the {what} ({n_live} slots of {R} rows into {n_out} ids): on the stream's gid order "
+        f"{ms:.3f} ms, through a gid sort {sort_ms:.3f} ms, index_add_ {lib_ms:.3f} ms; {red_bytes} bytes, "
+        f"bound {bound:.3f} ms; vs index_add_ max abs {err:.3e}")
+    return ms, lib_ms, bound, err
 
 
 def reduce_synthetic(torch, rb, M, n_out, R, reps):
@@ -363,13 +410,13 @@ def reduce_synthetic(torch, rb, M, n_out, R, reps):
     layouts = (("uniform gids", uniform), ("one splat over 20000 slots", splat),
                (f"100 splats over {owners.shape[0]} slots", many))
     for what, gids in layouts:
-        segs = rb.gid_segments(gids, n_out)
-        k_ms = cuda_ms(torch, lambda: rb._reduce_cuda(rows, *segs, n_out), reps)
-        p_ms = cuda_ms(torch, lambda: rb._reduce_cuda(rows, *rb.gid_segments(gids, n_out), n_out), reps)
+        order = rb.gid_order(gids, n_out)
+        k_ms = cuda_ms(torch, lambda: rb._reduce_cuda(rows, *order, n_out), reps)
+        p_ms = cuda_ms(torch, lambda: rb.reduce_by_gid(rows, gids, n_out), reps)
         lib_ms = cuda_ms(torch, lambda: rb._reduce_plain(rows, gids, n_out), reps)
-        err, _ = compare_reduce(torch, rb, rows, gids, n_out)
+        err, _ = compare_reduce(torch, rb, rows, gids, n_out, order)
         log(f"reduce, synthetic {what} (M {M}, n_out {n_out}, R {R}): kernel {k_ms:.3f} ms, "
-            f"sort + searchsorted + kernel {p_ms:.3f} ms, index_add_ {lib_ms:.3f} ms; max abs {err:.3e}")
+            f"gid sort + kernel {p_ms:.3f} ms, index_add_ {lib_ms:.3f} ms; max abs {err:.3e}")
 
 
 def shade_2dgs(rendering, torch, splats, live, viewmats, Ks, W, H, sh_degree, render_mode):
@@ -570,14 +617,15 @@ def phase_kernel_vs_plain():
                 absgrad = ts == 16 and deg == 3
                 v_img, v_T = cotangents(torch, gen, T_k, 3)
                 rows_k, _, bmx, errs, _ = compare_bwd(torch, rb, bk, T_k, last_k, v_img, v_T, C, W, H, ts, absgrad)
-                rmx, _ = compare_reduce(torch, rb, rows_k, bk.gids, C * N)
+                rmx, _ = compare_reduce(torch, rb, rows_k, bk.gids, C * N, bk.order)
                 log(f"  bwd kernel vs plain{' (with absgrad rows)' if absgrad else ''}: max abs per row "
                     + " ".join(f"{e:.2e}" for e in errs) + f"; reduce vs index_add_ max abs {rmx:.3e}")
-                if ts == 16 and deg == 3:
+                if deg == 3:
                     # wider channel counts (the kernels' 8-, 16- and 32-wide
                     # instantiations) on this stream: random channel rows and
                     # a random background; the background's term of v_T is
-                    # what autograd would hand the backward
+                    # what autograd would hand the backward; the absgrad rows
+                    # at ts 16, none at ts 32
                     M = bk.entries.shape[1]
                     for D in (8, 16, 32):
                         ent = torch.cat([bk.entries[:6], torch.rand((D, M), generator=gen, device=dev)])
@@ -586,11 +634,13 @@ def phase_kernel_vs_plain():
                             torch, rb, bk, C, W, H, ts, ent, bg)
                         v_img, v_T = cotangents(torch, gen, T_d, D)
                         v_T = v_T + (v_img * bg[:, None, None, :]).sum(dim=-1)
-                        _, _, bmx, _, _ = compare_bwd(
-                            torch, rb, bk, T_d, last_d, v_img, v_T, C, W, H, ts, True, entries=ent)
+                        rows_d, _, bmx, _, _ = compare_bwd(
+                            torch, rb, bk, T_d, last_d, v_img, v_T, C, W, H, ts, ts == 16, entries=ent)
+                        rmx, _ = compare_reduce(torch, rb, rows_d, bk.gids, C * N, bk.order)
                         log(f"kernel vs plain grid1 ts={ts} D={D} with background: fwd max abs {mx:.3e} "
                             f"mean abs {mean:.3e} ({n_off} values > 1e-5), last equal at {same_last:.6f} "
-                            f"of pixels; bwd (absgrad rows) max abs {bmx:.3e}")
+                            f"of pixels; bwd{' (absgrad rows)' if ts == 16 else ''} max abs {bmx:.3e}; "
+                            f"reduce ({rows_d.shape[0]} rows) max abs {rmx:.3e}")
 
         # binned (kernels) vs oracle on a small subsample, as the repo's
         # golden test cuts the garden: every 15th Gaussian, cameras / 4
@@ -764,7 +814,7 @@ def compare_tiled_fwd(torch, rt, st, D, C, W, H, ts, bg=None, plain=None):
 def compare_tiled_bwd(torch, rt, st, D, T_out, last, v_img, v_T, C, W, H, ts, absgrad, plain=None):
     """Tiled backward kernel vs plain on one stream; returns as compare_bwd."""
     args = (st[0], D, st[1], st[2], st[3], T_out, last, v_img, v_T, C, W, H, ts, absgrad)
-    rows_k = rt._tiled_bwd_cuda(*args)
+    rows_k = same_twice(torch, "tiled backward kernel", lambda: rt._tiled_bwd_cuda(*args))
     rows_p, pairs = rt._tiled_bwd_plain(*args) if plain is None else plain
     return gate_bwd(torch, rows_k, rows_p, pairs)
 
@@ -790,9 +840,10 @@ def compare_tiled_bwd2(torch, r2t, st, ko, cot, D, C, W, H, ts, what, plain=None
 def phase_kernel_vs_plain_tiled():
     """The four tiled kernels against their plain versions at grid1 (as
     phase_kernel_vs_plain): 3DGS forward and backward at ts 16 and 32, sh 0
-    and 3, with the absgrad rows, and at D = 8, 16, 32 with a background;
-    the 2DGS pair on the same grid (RGB and RGB+ED) by the 2DGS gates; the
-    reduce on the tiled slots; an empty stream."""
+    and 3, with the absgrad rows at ts 16, and at D = 8, 16, 32 with a
+    background; the 2DGS pair on the same grid (RGB and RGB+ED) by the 2DGS
+    gates; the reduce on the tiled slots (the stream's order and the gid
+    sort); an empty stream."""
     import torch
     from gsplat_tpu_torch import _backend, rendering, splats_from_numpy
     from gsplat_tpu_torch.ops import rasterize_2dgs_binned as r2, rasterize_2dgs_tiled as r2t
@@ -818,12 +869,12 @@ def phase_kernel_vs_plain_tiled():
                 v_img, v_T = cotangents(torch, gen, T_k, 3)
                 rows_k, _, bmx, errs, _ = compare_tiled_bwd(
                     torch, rt, st, 3, T_k, last_k, v_img, v_T, C, W, H, ts, absgrad)
-                rmx, _ = compare_reduce(torch, rb, rows_k, st[1], C * N)
+                rmx, _ = compare_reduce(torch, rb, rows_k, st[1], C * N, st[4].order)
                 log(f"tiled kernel vs plain grid1 {W}x{H} C={C} ts={ts} sh={deg}: stream {st[1].shape[0]} "
                     f"entries, fwd max abs {mx:.3e} mean abs {mean:.3e} ({n_off} values > 1e-5), last equal "
                     f"at {same_last:.6f} of pixels; bwd{' (with absgrad rows)' if absgrad else ''} max abs per "
                     "row " + " ".join(f"{e:.2e}" for e in errs) + f"; reduce vs index_add_ max abs {rmx:.3e}")
-                if absgrad:
+                if deg == 3:
                     M = st[1].shape[0]
                     for D in (8, 16, 32):
                         cols = torch.rand((C, N, D), generator=gen, device=dev)
@@ -834,11 +885,13 @@ def phase_kernel_vs_plain_tiled():
                             torch, rt, std, D, C, W, H, ts, bg)
                         v_img, v_T = cotangents(torch, gen, T_d, D)
                         v_T = v_T + (v_img * bg[:, None, None, :]).sum(dim=-1)
-                        _, _, bmx, _, _ = compare_tiled_bwd(
-                            torch, rt, std, D, T_d, last_d, v_img, v_T, C, W, H, ts, True)
+                        rows_d, _, bmx, _, _ = compare_tiled_bwd(
+                            torch, rt, std, D, T_d, last_d, v_img, v_T, C, W, H, ts, ts == 16)
+                        rmx, _ = compare_reduce(torch, rb, rows_d, st[1], C * N, st[4].order)
                         log(f"tiled kernel vs plain grid1 ts={ts} D={D} with background ({M} entries): fwd max "
                             f"abs {mx:.3e} mean abs {mean:.3e} ({n_off} values > 1e-5), last equal at "
-                            f"{same_last:.6f}; bwd (absgrad rows) max abs {bmx:.3e}")
+                            f"{same_last:.6f}; bwd{' (absgrad rows)' if ts == 16 else ''} max abs {bmx:.3e}; "
+                            f"reduce ({rows_d.shape[0]} rows) max abs {rmx:.3e}")
                 for mode in ("RGB", "RGB+ED"):
                     s2 = shade_2dgs(rendering, torch, splats, live, vm, K, W, H, deg, mode)
                     D = s2.colors.shape[-1]
@@ -1131,20 +1184,14 @@ def kernel_table(runner, launches):
         rows_k, _, bmx, berrs, (n_eval, n_acc) = compare_bwd(torch, rb, bk, T_k, last_k, v_img, v_T, 1, W, H, ts,
                                                              False, plain=plain)
         CN = plan.counts.shape[0]
-        segs = rb.gid_segments(bk.gids, CN)
-        red_ms = cuda_ms(torch, lambda: rb._reduce_cuda(rows_k, *segs, CN), reps)
         # the plain version is index_add_, also the one PyTorch call that
         # computes the same function: timed once, reported as both
-        red_plain_ms = cuda_ms(torch, lambda: rb._reduce_plain(rows_k, bk.gids, CN), reps)
-        seg_ms = cuda_ms(torch, lambda: rb.gid_segments(bk.gids, CN), reps)
-        path_ms = cuda_ms(torch, lambda: rb._reduce_cuda(rows_k, *rb.gid_segments(bk.gids, CN), CN), reps)
-        rmx, _ = compare_reduce(torch, rb, rows_k, bk.gids, CN)
+        red_ms, red_plain_ms, red_bound, rmx = reduce_at(
+            torch, rb, rows_k, bk.gids, CN, bk.order, reps, f"train shapes {W}x{H}")
     log(f"train shapes {W}x{H} (view 0, trained splats, {CN} slots): emit equal (max abs {emit_err:.3e}); "
         f"fwd max abs {fmx:.3e} mean abs {fmean:.3e} ({n_off} > 1e-5), last equal at {same_last:.6f}; "
         f"bwd max abs per row " + " ".join(f"{e:.2e}" for e in berrs)
         + f"; reduce vs index_add_ max abs {rmx:.3e}")
-    log(f"reduce path at the train shapes: gid sort + searchsorted {seg_ms:.3f} ms, kernel {red_ms:.3f} ms, "
-        f"sort + searchsorted + kernel {path_ms:.3f} ms; index_add_ {red_plain_ms:.3f} ms")
     reduce_synthetic(torch, rb, int(bk.n_isects), CN, rows_k.shape[0], reps)
 
     # bounds: bytes each input read once and each output written once, over
@@ -1169,14 +1216,12 @@ def kernel_table(runner, launches):
     bwd_bytes = n_isects * NF * 4 + 2 * T * 4 + pix * (4 + 4 + 4 * D + 4) + R * M * 4
     bwd_ops = 16 * n_eval + (28 + 3 * D) * n_acc
     bwd_bound_b, bwd_bound_o = bwd_bytes / PEAK_BYTES_PER_S * 1e3, bwd_ops / PEAK_F32_FLOPS * 1e3
-    # reduce: the function needs the R rows and a 4-byte gid of each of the
-    # n_isects slots read once and [R, CN] written once; the permutation and
-    # segment starts are this design's own buffers and are not counted
-    red_bytes = n_isects * (R * 4 + 4) + R * CN * 4
-    red_bound = red_bytes / PEAK_BYTES_PER_S * 1e3
+    # reduce (reduce_at): the function needs the R rows and a 4-byte gid of
+    # each of the n_isects slots read once and [R, CN] written once; the
+    # stream order and the scratch are this design's own and not counted
     log(f"emit: {live_ids} of {CN} ids live, {M} entries, {emit_bytes} bytes; forward: {n_isects} entries, "
         f"{fwd_pairs} evaluated pairs, {fwd_ops} flops, {fwd_bytes} bytes; backward: {n_eval} evaluated and "
-        f"{n_acc} accepted pairs, {bwd_ops} flops, {bwd_bytes} bytes; reduce: {red_bytes} bytes")
+        f"{n_acc} accepted pairs, {bwd_ops} flops, {bwd_bytes} bytes")
     kernels = [
         {
             "name": "emit", "route": "cuda", "source": "gsplat_tpu_torch/csrc/emit.cu",
@@ -1363,7 +1408,7 @@ def kernel_table_2dgs(runner, launches):
         L = D + 3
         plan, slab = emit_plan_2dgs(binning, r2, s, ts, W, H, runner.isect_capacity)
         T = (-(-W // ts)) * (-(-H // ts))
-        bk = binning.sort_entries(binning._emit_cuda(plan), T, slab)
+        bk = binning.sort_entries(binning._emit_cuda(plan), T, slab, binning.segment_starts(plan))
         fargs = (bk.entries, bk.offs, bk.cnts, 1, W, H, ts)
         fwd_ms = cuda_ms(torch, lambda: r2._fwd2_cuda(*fargs), reps)
         plain_f, fwd_plain_ms = timed_once(torch, lambda: r2._fwd2_plain(*fargs))
@@ -1384,11 +1429,7 @@ def kernel_table_2dgs(runner, launches):
         # the gid reduce at these shapes: the [12 + L, M] slot rows summed
         # per Gaussian, as kernel_table times it at the 3DGS shapes
         CN = plan.counts.shape[0]
-        segs = rb.gid_segments(bk.gids, CN)
-        red_ms = cuda_ms(torch, lambda: rb._reduce_cuda(rows_k, *segs, CN), reps)
-        path_ms = cuda_ms(torch, lambda: rb._reduce_cuda(rows_k, *rb.gid_segments(bk.gids, CN), CN), reps)
-        red_plain_ms = cuda_ms(torch, lambda: rb._reduce_plain(rows_k, bk.gids, CN), reps)
-        rmx, _ = compare_reduce(torch, rb, rows_k, bk.gids, CN)
+        red_ms, red_plain_ms, red_bound, rmx = reduce_at(torch, rb, rows_k, bk.gids, CN, bk.order, reps, what)
     log(f"{what} (view 0, trained splats, {int(bk.n_isects)} entries): 2DGS forward vs plain max abs "
         + ", ".join(f"{k} {v:.3e}" for k, v in ferrs.items())
         + f", median off at {med_off:.2e}, last equal at {same_last:.6f}; backward max abs per row "
@@ -1411,19 +1452,11 @@ def kernel_table_2dgs(runner, launches):
     bwd_bytes = n_isects * NF * 4 + 2 * T * 4 + pix * 4 * (L + 5) + (r2.NFIX + L) * rows_k.shape[1] * 4
     fb = (fwd_bytes / PEAK_BYTES_PER_S * 1e3, fwd_ops / PEAK_F32_FLOPS * 1e3)
     bb = (bwd_bytes / PEAK_BYTES_PER_S * 1e3, bwd_ops / PEAK_F32_FLOPS * 1e3)
-    # reduce: the R rows and a 4-byte gid of each slot read once, [R, CN]
-    # written once (as kernel_table counts it)
-    R = rows_k.shape[0]
-    red_bytes = n_isects * (R * 4 + 4) + R * CN * 4
-    red_bound = red_bytes / PEAK_BYTES_PER_S * 1e3
     log(f"2DGS forward: {fwd_pairs} evaluated and {n_acc} accepted pairs, {fwd_ops} operations, {fwd_bytes} bytes; "
         f"backward: {n_eval} evaluated pairs, {bwd_ops} operations, {bwd_bytes} bytes; kernel ms fwd {fwd_ms:.3f} "
         f"bwd {bwd_ms:.3f}, plain ms fwd {fwd_plain_ms:.1f} bwd {bwd_plain_ms:.1f}")
-    log(f"reduce at the {what} ({n_isects} slots of {R} rows, {CN} ids): kernel {red_ms:.3f} ms, gid sort + "
-        f"searchsorted + kernel {path_ms:.3f} ms, index_add_ {red_plain_ms:.3f} ms; {red_bytes} bytes, bound "
-        f"{red_bound:.3f} ms; vs index_add_ max abs {rmx:.3e}")
     reduce_2dgs = {
-        "ms_2dgs": red_ms, "path_ms_2dgs": path_ms, "plain_ms_2dgs": red_plain_ms, "bound_ms_2dgs": red_bound,
+        "ms_2dgs": red_ms, "plain_ms_2dgs": red_plain_ms, "bound_ms_2dgs": red_bound,
         "library_ms_2dgs": red_plain_ms, "max_abs_err_2dgs": rmx,
     }
     return reduce_2dgs, [
@@ -1690,7 +1723,7 @@ def phase_train_tiled(scene):
     train shapes. Returns their entries of the `kernels` line."""
     import torch
     from gsplat_tpu_torch import rendering
-    from gsplat_tpu_torch.ops import rasterize_tiled as rt
+    from gsplat_tpu_torch.ops import rasterize_binned as rb, rasterize_tiled as rt
     from gsplat_tpu_torch.ops.isect import isect_tiles
     from gsplat_tpu_torch.simple_trainer import Runner
 
@@ -1718,6 +1751,7 @@ def phase_train_tiled(scene):
         plain_b, bwd_plain_ms = timed_once(torch, lambda: rt._tiled_bwd_plain(*bargs))
         rows_k, _, bmx, berrs, (n_eval, n_acc) = compare_tiled_bwd(
             torch, rt, st, D, T_k, last_k, v_img, v_T, 1, W, H, ts, False, plain=plain_b)
+        reduce_at(torch, rb, rows_k, st[1], s.mean_x.numel(), st[4].order, reps, f"tiled train shapes {W}x{H}")
     M = st[1].shape[0]
     T = (-(-W // ts)) * (-(-H // ts))
     pix = W * H
@@ -1764,7 +1798,7 @@ def phase_train_tiled_2dgs(scene):
     import torch
     from gsplat_tpu_torch import rendering
     from gsplat_tpu_torch.ops import rasterize_2dgs_binned as r2, rasterize_2dgs_tiled as r2t
-    from gsplat_tpu_torch.ops import rasterize_tiled as rt
+    from gsplat_tpu_torch.ops import rasterize_binned as rb, rasterize_tiled as rt
     from gsplat_tpu_torch.ops.isect import isect_tiles
     from gsplat_tpu_torch.simple_trainer_2dgs import Runner2DGS
 
@@ -1802,6 +1836,7 @@ def phase_train_tiled_2dgs(scene):
         serrs, _, _, _, ko_s = compare_tiled_fwd2(torch, r2t, sub, L, 1, W, H, ts, what + " tile subset")
         _, sbmx, _, _, s_past = compare_tiled_bwd2(torch, r2t, sub, ko_s, cot, D, 1, W, H, ts,
                                                    what + " tile subset")
+        reduce_at(torch, rb, rows_k, st[1], s.opacities.numel(), st[4].order, reps, what)
     M = st[1].shape[0]
     T = (-(-W // ts)) * (-(-H // ts))
     pix = W * H

@@ -3,7 +3,7 @@
 // are thin C entry points over these).
 //
 // Every kernel runs one block per (camera, tile), one thread per pixel
-// (the 2DGS backward: P pixels a thread, below):
+// (the backwards: P pixels a thread, below):
 //   T = C*th*tw blocks; cam = t / (th*tw), rem = t % (th*tw), tile row
 //   rem / tw, column rem % tw; thread p at (p % ts, p / ts) of the tile.
 // The block walks its range [offs[t], offs[t] + cnts[t]) of a depth-sorted
@@ -25,12 +25,11 @@
 // The backward kernels walk the range back to front from the tile's largest
 // `last` and write one row per stream slot (one tile of one Gaussian, so one
 // block writes it and no atomics are needed): each value is summed over a
-// warp's pixels (skipped when no lane of the warp accepted the entry), by a
-// shuffle tree per value in the 3DGS backward (warp_partials) and by one
-// transposed reduction over all values in the 2DGS backward
-// (warp_transpose_sum), then the per-warp partials in shared memory in warp
-// order, so the result is deterministic. The caller sums each Gaussian's
-// slots with csrc/gid_reduce.cu.
+// thread's pixels, then over a warp's by one transposed reduction over all
+// values (warp_transpose_sum; skipped when no lane of the warp accepted the
+// entry), then the per-warp partials in shared memory in warp order, so the
+// result is deterministic. The caller sums each Gaussian's slots with
+// csrc/gid_reduce.cu.
 
 #pragma once
 
@@ -54,22 +53,12 @@ struct Streamed {
   int nf;
 
   __host__ __device__ int staged_floats() const { return nf * B; }
+  // a thread per entry, its nf loads in flight together (a version staging
+  // one (feature, entry) pair per step ran the binned 3DGS forward 9% slower
+  // on an H100)
   __device__ void load(float* sm, int first, int nb) const {
-    if (B > 32) {
-      // the forwards' batches: a thread per entry, its nf loads in flight
-      // together (a version staging one (feature, entry) pair per step ran
-      // the binned 3DGS forward 9% slower on an H100)
-      for (int j = threadIdx.x; j < nb; j += blockDim.x)
-        for (int f = 0; f < nf; ++f)
-          sm[f * B + j] = __ldg(entries + (long long)f * M + first + j);
-    } else {
-      // the backwards' 32-entry batches: (feature, entry) pairs over the
-      // whole block; B is a power of two, so no division
-      for (int i = threadIdx.x; i < nf * B; i += blockDim.x) {
-        const int j = i % B;
-        if (j < nb) sm[i] = __ldg(entries + (long long)(i / B) * M + first + j);
-      }
-    }
+    for (int j = threadIdx.x; j < nb; j += blockDim.x)
+      for (int f = 0; f < nf; ++f) sm[f * B + j] = __ldg(entries + (long long)f * M + first + j);
   }
   __device__ const float* entry(const float* sm, int j) const { return sm + j; }
 };
@@ -135,31 +124,11 @@ __device__ __forceinline__ int block_max_last(int lst) {
   return s_lmax;
 }
 
-// one entry's values g[0, nr) summed over the warp's lanes into dst[0, nr)
-template <int R>
-__device__ __forceinline__ void warp_partials(const float (&g)[R], int nr, bool accepted,
-                                              float* dst) {
-  const int lane = threadIdx.x & 31;
-  if (__any_sync(0xffffffffu, accepted)) {
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-      if (r < nr) {
-        float v = g[r];
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-        if (lane == 0) dst[r] = v;
-      }
-    }
-  } else {
-    for (int r = lane; r < nr; r += 32) dst[r] = 0.0f;
-  }
-}
-
 // One step of the transposed warp sum below: a[0, 2H) of each lane becomes
 // a[0, H), the half that the lane's bit H selects, each value plus the one
 // that lane ^ H held at the same index; then the steps H / 2 .. 1
-template <int H>
-__device__ __forceinline__ void warp_halve(float (&a)[32], int lane) {
+template <int H, int N>
+__device__ __forceinline__ void warp_halve(float (&a)[N], int lane) {
   const bool up = (lane & H) != 0;
 #pragma unroll
   for (int i = 0; i < H; ++i) {
@@ -170,15 +139,20 @@ __device__ __forceinline__ void warp_halve(float (&a)[32], int lane) {
   if constexpr (H > 1) warp_halve<H / 2>(a, lane);
 }
 
-// The transposed warp sum of N values a lane (N a multiple of 32): after it,
-// v[c] of lane r holds the warp's sum of value 32 c + r. Recursive halving:
-// at offset 16 a lane keeps the half of each 32 values that its lane bit
-// selects, sends the other half to lane ^ 16 and adds what it receives; then
-// offsets 8, 4, 2 and 1 the same way: 31 shuffles for 32 values, where a
-// shuffle tree per value takes 5 each. The order is fixed (deterministic).
-// Every index is a compile-time constant, so the values stay in registers.
+// The transposed warp sum of N values a lane (N a multiple of 16): after it,
+// v[c] of lane r holds the warp's sum of value 32 c + r, and where N ends
+// in a half group of 16, v[N / 32] of lanes r and r + 16 holds that of
+// value 32 (N / 32) + r. Recursive halving: at offset 16 a lane keeps the
+// half of each 32 values that its lane bit selects, sends the other half to
+// lane ^ 16 and adds what it receives; then offsets 8, 4, 2 and 1 the same
+// way: 31 shuffles for 32 values, where a shuffle tree per value takes 5
+// each. A half group halves at offsets 8 .. 1 within each 16 lanes, then
+// adds the two halves at offset 16: 16 shuffles for 16 values. The order is
+// fixed (deterministic). Every index is a compile-time constant, so the
+// values stay in registers.
 template <int N>
 __device__ __forceinline__ void warp_transpose_sum(float (&v)[N]) {
+  static_assert(N % 16 == 0, "whole half groups of 16 values");
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int c = 0; c < N / 32; ++c) {
@@ -187,6 +161,13 @@ __device__ __forceinline__ void warp_transpose_sum(float (&v)[N]) {
     for (int i = 0; i < 32; ++i) a[i] = v[32 * c + i];
     warp_halve<16>(a, lane);
     v[c] = a[0];
+  }
+  if constexpr (N % 32 == 16) {
+    float a[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) a[i] = v[N - 16 + i];
+    warp_halve<8>(a, lane);
+    v[N / 32] = a[0] + __shfl_xor_sync(0xffffffffu, a[0], 16);
   }
 }
 
@@ -283,6 +264,28 @@ fwd_3dgs(Stage st, const int* __restrict__ offs, const int* __restrict__ cnts, i
   last[q] = lst;
 }
 
+// The least sigma = 0.5 (a dx^2 + c dy^2) + b dx dy over the box [dx0, dx1]
+// x [dy0, dy1] of offsets, for a positive definite conic: 0 if the box holds
+// the centre, else the least of the four edges' minima, each edge's
+// minimiser clamped to the edge (the emit cull bounds a tile the same way)
+__device__ __forceinline__ float box_min_sigma(float a, float b, float c, float dx0, float dx1,
+                                               float dy0, float dy1) {
+  if (dx0 <= 0.0f && dx1 >= 0.0f && dy0 <= 0.0f && dy1 >= 0.0f) return 0.0f;
+  const auto q = [=](float dx, float dy) {
+    return 0.5f * (a * dx * dx + c * dy * dy) + b * dx * dy;
+  };
+  const float ye0 = fminf(fmaxf(-b * dx0 / c, dy0), dy1);
+  const float ye1 = fminf(fmaxf(-b * dx1 / c, dy0), dy1);
+  const float xe0 = fminf(fmaxf(-b * dy0 / a, dx0), dx1);
+  const float xe1 = fminf(fmaxf(-b * dy1 / a, dx0), dx1);
+  return fminf(fminf(q(dx0, ye0), q(dx1, ye1)), fminf(q(xe0, dy0), q(xe1, dy1)));
+}
+
+// A warp skips an entry when opacity x exp(-least sigma over its pixels)
+// stays below 1/255 by this factor: the margin covers the rounding of the
+// bound against each pixel's sigma, so no pair a pixel accepts is skipped
+constexpr float kSkipMargin = 0.999f;
+
 // ---------------------------------------------------------------------------
 // 3DGS backward. Each pixel starts from the forward's T_final and `last`.
 // Per pixel and entry at or before `last` that passes the forward's test:
@@ -299,91 +302,182 @@ fwd_3dgs(Stage st, const int* __restrict__ offs, const int* __restrict__ cnts, i
 // rows [6 + D (+2), M]: v_gx, v_gy, v_a, v_b, v_c, v_op, v_color[D] (+ |v_gx|,
 // |v_gy| of the slot with absgrad). Slots past the tile's largest `last`
 // stay as the caller zeroed them.
+//
+// Layout, as bwd_2dgs below: a block of TS * TS / P threads per tile;
+// thread i owns the P pixels of column i % TS, rows (i / TS) P .. (i / TS)
+// P + P - 1, so they share dx and each staged entry is read from shared
+// memory once for all P (bwd3_pixels: 1 for RGB at 16x16 tiles). Per
+// entry a thread first evaluates sigma, alpha and the accept test of its P
+// pixels (independent, so their expf overlap), then runs the chain of each
+// accepting pixel, adding its 6 + D gradient values into one register sum.
+// The warp sums those by recursive halving
+// (warp_transpose_sum: 16 shuffles for up to 16 rows, 31 for 32), after
+// which lane r holds row r, written with one warp-wide store into
+// part[warp][entry][row]; an entry no lane of the warp accepted writes
+// zeros and shuffles nothing. After staging a batch the block bounds, per
+// entry and warp, the least sigma over the warp's pixel box
+// (box_min_sigma); a warp whose box the entry cannot reach writes the
+// entry's zeros without evaluating it (most warp-entries of small splats).
+// Skipping changes no bit: no pixel of the warp would accept the entry.
+// write_slots adds the warps in warp order, so
+// the rows are deterministic. The decisions round through gauss_sigma and
+// __fmul_rn whatever the build's flags, so the kernel builds with
+// multiply-add contraction and accepts exactly the forward's entries.
 // Bound on the card: operations. Counted from the code: 16 per evaluated
 // (pixel, entry) pair, those at or before the pixel's `last`, and 28 + 3D
-// more per accepted pair.
-template <class Stage, int DMAX>
-__global__ void __launch_bounds__(1024)
+// more per accepted pair (the warp reduction's adds are this design's own).
+template <class Stage, int DMAX, int TS, int P>
+__global__ void __launch_bounds__(TS * TS / P)
 bwd_3dgs(Stage st, long long M, const int* __restrict__ offs, const int* __restrict__ cnts,
-         int th, int tw, int ts, int W, int H, int D, const float* __restrict__ T_fin,
+         int th, int tw, int W, int H, int D, const float* __restrict__ T_fin,
          const int* __restrict__ last, const float* __restrict__ v_img,
          const float* __restrict__ v_T, int absgrad, float* __restrict__ rows) {
   extern __shared__ float4 smem[];
   float* sm = reinterpret_cast<float*>(smem);
   constexpr int S = Stage::kStride;
   constexpr int B = Stage::kBatch;
+  constexpr int R = (6 + DMAX + 15) / 16 * 16;  // the register sum, padded to half warps
   const int nf = 6 + D;
   float* part = sm + st.staged_floats();  // [warps][B][nf]
-  const Pixel pix(th, tw, ts, W, H);
   const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
   const int off = offs[blockIdx.x];
   const int n = cnts[blockIdx.x];
 
-  int lst = -1;
-  float T = 1.0f;
-  float vlogT = 0.0f;
-  float vimg[DMAX];
+  const int cam = blockIdx.x / (th * tw);
+  const int rem = blockIdx.x % (th * tw);
+  const int x = (rem % tw) * TS + threadIdx.x % TS;
+  const int y0 = (rem / tw) * TS + (threadIdx.x / TS) * P;
+  const float px = (float)x + 0.5f;
+
+  int lst[P];
+  float T[P], vlogT[P], vimg[P][DMAX];
+  int lmax = -1;
 #pragma unroll
-  for (int d = 0; d < DMAX; ++d) vimg[d] = 0.0f;
-  if (pix.inside) {
-    const long long q = pix.index(W, H);
-    lst = last[q];
-    T = T_fin[q];
-    vlogT = v_T[q] * T;
+  for (int k = 0; k < P; ++k) {
+    lst[k] = -1;
+    T[k] = 1.0f;
+    vlogT[k] = 0.0f;
 #pragma unroll
-    for (int d = 0; d < DMAX; ++d)
-      if (d < D) vimg[d] = v_img[q * D + d];
+    for (int d = 0; d < DMAX; ++d) vimg[k][d] = 0.0f;
+    if (x < W && y0 + k < H) {
+      const long long q = ((long long)cam * H + y0 + k) * W + x;
+      lst[k] = last[q];
+      T[k] = T_fin[q];
+      vlogT[k] = v_T[q] * T[k];
+#pragma unroll
+      for (int d = 0; d < DMAX; ++d)
+        if (d < D) vimg[k][d] = v_img[q * D + d];
+      lmax = max(lmax, lst[k]);
+    }
   }
   // entries past the tile's largest `last` add nothing
-  const int nact = min(n, block_max_last(lst) + 1 - off);
+  const int nact = min(n, block_max_last(lmax) + 1 - off);
 
-  float s_later = 0.0f;
+  // each warp's pixel box: all TS columns, rows [warp RW, warp RW + RW) of the tile
+  constexpr int NW = TS * TS / P / 32;
+  constexpr int RW = TS / NW;
+  __shared__ unsigned reach[B];  // bit w: warp w's box may accept the entry
+
+  float s_later[P];
+#pragma unroll
+  for (int k = 0; k < P; ++k) s_later[k] = 0.0f;
   for (int b0 = ((nact - 1) / B) * B; nact > 0 && b0 >= 0; b0 -= B) {
     const int nb = min(B, nact - b0);
-    __syncthreads();  // the previous batch's readers of sm / part are done
+    __syncthreads();  // the previous batch's readers of sm / part / reach are done
     st.load(sm, off + b0, nb);
     __syncthreads();
-    for (int j = nb - 1; j >= 0; --j) {
+    for (int j = threadIdx.x; j < nb; j += blockDim.x) {
       const float* e = st.entry(sm, j);
-      float g[6 + DMAX];
+      const float a = e[2 * S], b = e[3 * S], c = e[4 * S];
+      unsigned m = ~0u;  // not positive definite: no bound, every warp evaluates it
+      if (a > 0.0f && c > 0.0f && a * c - b * b > 0.0f) {
+        m = 0u;
+        // the tile's first pixel centre, recomputed here so that it holds
+        // no registers across the compositing loop
+        const int t = blockIdx.x % (th * tw);
+        const float bx0 = (float)((t % tw) * TS) + 0.5f;
+        const float by0 = (float)((t / tw) * TS) + 0.5f;
+        const float dx0 = bx0 - e[0];
 #pragma unroll
-      for (int r = 0; r < 6 + DMAX; ++r) g[r] = 0.0f;
-      bool accepted = false;
-      if (off + b0 + j <= lst) {
-        const float dx = pix.cx - e[0];
-        const float dy = pix.cy - e[S];
+        for (int w = 0; w < NW; ++w) {
+          const float dy0 = by0 + (float)(w * RW) - e[S];
+          const float smin = box_min_sigma(a, b, c, dx0, dx0 + (TS - 1), dy0, dy0 + (RW - 1));
+          // written as "not below" so that a NaN bound keeps the entry
+          if (!(e[5 * S] * expf(-smin) < kAlphaMin * kSkipMargin)) m |= 1u << w;
+        }
+      }
+      reach[j] = m;
+    }
+    __syncthreads();
+    for (int j = nb - 1; j >= 0; --j) {
+      const int idx = off + b0 + j;
+      if (!((reach[j] >> warp) & 1u)) {  // the same for every lane of the warp
+        float* dst = part + (warp * B + j) * nf;
+        for (int r = lane; r < nf; r += 32) dst[r] = 0.0f;
+        continue;
+      }
+      float acc[R];
+#pragma unroll
+      for (int r = 0; r < R; ++r) acc[r] = 0.0f;
+      bool any = false;
+      if (idx <= lmax) {
+        const float* e = st.entry(sm, j);
+        const float dx = px - e[0];
+        const float gy = e[S];
         const float ca = e[2 * S];
         const float cb = e[3 * S];
         const float cc = e[4 * S];
-        const float sigma = gauss_sigma(ca, cb, cc, dx, dy);
-        const float eneg = expf(-sigma);
-        const float araw = __fmul_rn(e[5 * S], eneg);
-        const float alpha = fminf(araw, kAlphaMax);
-        if (sigma >= 0.0f && alpha >= kAlphaMin) {
-          accepted = true;
+        const float op = e[5 * S];
+        // the forward's decisions for the thread's P pixels
+        float dy[P], eneg[P], araw[P];
+        bool keep[P];
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          dy[k] = (float)(y0 + k) + 0.5f - gy;
+          const float sigma = gauss_sigma(ca, cb, cc, dx, dy[k]);
+          eneg[k] = expf(-sigma);
+          araw[k] = __fmul_rn(op, eneg[k]);
+          keep[k] = idx <= lst[k] && sigma >= 0.0f && fminf(araw[k], kAlphaMax) >= kAlphaMin;
+        }
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          if (!keep[k]) continue;
+          any = true;
+          const float alpha = fminf(araw[k], kAlphaMax);
           const float one_m = 1.0f - alpha;
-          T = T / one_m;
-          const float w = alpha * T;
+          T[k] = T[k] / one_m;
+          const float w = alpha * T[k];
           float cv = 0.0f;
 #pragma unroll
           for (int d = 0; d < DMAX; ++d)
-            if (d < D) cv += vimg[d] * e[(6 + d) * S];
-          const float v_alpha = T * cv - (s_later + vlogT) / one_m;
-          s_later += w * cv;
-          const bool notclamp = araw < kAlphaMax;
+            if (d < D) cv += vimg[k][d] * e[(6 + d) * S];
+          const float v_alpha = T[k] * cv - (s_later[k] + vlogT[k]) / one_m;
+          s_later[k] += w * cv;
+          const bool notclamp = araw[k] < kAlphaMax;
           const float v_sig = notclamp ? -alpha * v_alpha : 0.0f;
-          g[0] = -(ca * dx + cb * dy) * v_sig;
-          g[1] = -(cb * dx + cc * dy) * v_sig;
-          g[2] = 0.5f * dx * dx * v_sig;
-          g[3] = dx * dy * v_sig;
-          g[4] = 0.5f * dy * dy * v_sig;
-          g[5] = notclamp ? eneg * v_alpha : 0.0f;
+          acc[0] -= (ca * dx + cb * dy[k]) * v_sig;
+          acc[1] -= (cb * dx + cc * dy[k]) * v_sig;
+          acc[2] += 0.5f * dx * dx * v_sig;
+          acc[3] += dx * dy[k] * v_sig;
+          acc[4] += 0.5f * dy[k] * dy[k] * v_sig;
+          if (notclamp) acc[5] += eneg[k] * v_alpha;
 #pragma unroll
           for (int d = 0; d < DMAX; ++d)
-            if (d < D) g[6 + d] = w * vimg[d];
+            if (d < D) acc[6 + d] += w * vimg[k][d];
         }
       }
-      warp_partials(g, nf, accepted, part + (warp * B + j) * nf);
+      float* dst = part + (warp * B + j) * nf;
+      if (__any_sync(0xffffffffu, any)) {
+        warp_transpose_sum(acc);
+#pragma unroll
+        for (int c = 0; c < R / 32; ++c)
+          if (32 * c + lane < nf) dst[32 * c + lane] = acc[c];
+        constexpr int H = R / 32 * 32;  // the half group's first row
+        if (R % 32 == 16 && lane < 16 && H + lane < nf) dst[H + lane] = acc[R / 32];
+      } else {
+        for (int r = lane; r < nf; r += 32) dst[r] = 0.0f;
+      }
     }
     __syncthreads();
     write_slots<B>(part, nf, nb, off + b0, M, absgrad != 0, rows);
@@ -686,7 +780,7 @@ bwd_2dgs(Stage st, long long M, const int* __restrict__ offs, const int* __restr
 
 // ---------------------------------------------------------------------------
 // Host side: each launch picks the kernel's register-array width from D or L
-// (the 2DGS backward also its tile size and pixels a thread) and sets its
+// (the backwards also their tile size and pixels a thread) and sets its
 // dynamic shared memory limit (above the 48 KB default where needed).
 
 inline bool valid_tile(int ts) { return ts == 8 || ts == 16 || ts == 32; }
@@ -712,24 +806,62 @@ cudaError_t launch_fwd_3dgs(const Stage& st, const int* offs, const int* cnts, i
   return cudaGetLastError();
 }
 
-template <class Stage>
-cudaError_t launch_bwd_3dgs(const Stage& st, long long M, const int* offs, const int* cnts,
-                            int C, int th, int tw, int ts, int W, int H, int D,
-                            const float* T_fin, const int* last, const float* v_img,
-                            const float* v_T, int absgrad, float* rows, cudaStream_t stream) {
-  auto kernel = D <= 4    ? &bwd_3dgs<Stage, 4>
-                : D <= 8  ? &bwd_3dgs<Stage, 8>
-                : D <= 16 ? &bwd_3dgs<Stage, 16>
-                          : &bwd_3dgs<Stage, 32>;
-  const int threads = ts * ts;
+// P, the pixels a thread of the 3DGS backward owns. kBwd3Pix at 16x16
+// tiles for up to 8 channels (256 threads: with the warp-entry skip a
+// warp's box of 2 rows skips more entries than 2 pixels' 4 rows; P = 1 ran
+// 6-13% faster than 2 and 26% faster than 4 at the train shapes on an
+// H100); 2 for the wider arrays there and at 8x8 tiles (ptxas spilled
+// some of those at P = 1, none at 2); 4 at 32x32 tiles (256 threads; P = 2
+// spilled the 32-channel array there)
+constexpr int kBwd3Pix = 1;
+
+template <int TS, int DMAX>
+constexpr int bwd3_pixels() {
+  return TS == 32 ? 4 : TS == 16 && DMAX <= 8 ? kBwd3Pix : 2;
+}
+
+template <class Stage, int TS, int DMAX>
+cudaError_t launch_bwd_3dgs_tl(const Stage& st, long long M, const int* offs, const int* cnts,
+                               int C, int th, int tw, int W, int H, int D, const float* T_fin,
+                               const int* last, const float* v_img, const float* v_T,
+                               int absgrad, float* rows, cudaStream_t stream) {
+  constexpr int P = bwd3_pixels<TS, DMAX>();
+  constexpr int threads = TS * TS / P;
+  auto kernel = &bwd_3dgs<Stage, DMAX, TS, P>;
   const size_t smem =
       ((size_t)st.staged_floats() + (size_t)(6 + D) * Stage::kBatch * (threads / 32)) *
       sizeof(float);
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<C * th * tw, threads, smem, stream>>>(st, M, offs, cnts, th, tw, ts, W, H, D, T_fin,
-                                                 last, v_img, v_T, absgrad, rows);
+  kernel<<<C * th * tw, threads, smem, stream>>>(st, M, offs, cnts, th, tw, W, H, D, T_fin, last,
+                                                 v_img, v_T, absgrad, rows);
   return cudaGetLastError();
+}
+
+// the D instantiations of one tile size
+template <class Stage, int TS>
+cudaError_t launch_bwd_3dgs_t(const Stage& st, long long M, const int* offs, const int* cnts,
+                              int C, int th, int tw, int W, int H, int D, const float* T_fin,
+                              const int* last, const float* v_img, const float* v_T,
+                              int absgrad, float* rows, cudaStream_t stream) {
+  auto launch = D <= 4    ? &launch_bwd_3dgs_tl<Stage, TS, 4>
+                : D <= 8  ? &launch_bwd_3dgs_tl<Stage, TS, 8>
+                : D <= 16 ? &launch_bwd_3dgs_tl<Stage, TS, 16>
+                          : &launch_bwd_3dgs_tl<Stage, TS, 32>;
+  return launch(st, M, offs, cnts, C, th, tw, W, H, D, T_fin, last, v_img, v_T, absgrad, rows,
+                stream);
+}
+
+template <class Stage>
+cudaError_t launch_bwd_3dgs(const Stage& st, long long M, const int* offs, const int* cnts,
+                            int C, int th, int tw, int ts, int W, int H, int D,
+                            const float* T_fin, const int* last, const float* v_img,
+                            const float* v_T, int absgrad, float* rows, cudaStream_t stream) {
+  auto launch = ts == 8    ? &launch_bwd_3dgs_t<Stage, 8>
+                : ts == 16 ? &launch_bwd_3dgs_t<Stage, 16>
+                           : &launch_bwd_3dgs_t<Stage, 32>;
+  return launch(st, M, offs, cnts, C, th, tw, W, H, D, T_fin, last, v_img, v_T, absgrad, rows,
+                stream);
 }
 
 template <class Stage>

@@ -8,7 +8,8 @@
 // stream back to front in K-aligned 128-lane slices with lane-roll scans,
 // wrote per-entry gradients into ventries [F, capA], and left the
 // per-Gaussian sums to the gather's VJP, an XLA scatter-add. Here a block
-// gathers 32 rows of its range at a time and writes one row per stream slot
+// gathers 64 rows of its range at a time (a thread owns P pixels of a
+// column, as in csrc/rasterize_bwd.cu) and writes one row per stream slot
 // (one tile of one Gaussian): rows [6 + D (+2), M], summed per Gaussian by
 // the caller with the gid reduce kernel (csrc/gid_reduce.cu), so no atomics
 // are needed and the sums are deterministic.
@@ -23,7 +24,7 @@ extern "C" int rasterize_tiled_bwd_launch(const void* packed, int F, const void*
                                           void* rows, void* stream) {
   if (!raster::valid_tile(ts) || D < 1 || D > 32 || F % 8 != 0 || F < 6 + D)
     return (int)cudaErrorInvalidValue;
-  const raster::Gathered<32> st{(const float4*)packed, (const int*)ids, F};
+  const raster::Gathered<64> st{(const float4*)packed, (const int*)ids, F};
   return (int)raster::launch_bwd_3dgs(st, M, (const int*)offs, (const int*)cnts, C, th, tw, ts,
                                       W, H, D, (const float*)T_fin, (const int*)last,
                                       (const float*)v_img, (const float*)v_T, absgrad,

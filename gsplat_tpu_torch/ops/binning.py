@@ -17,13 +17,15 @@ rasterizer reads carried along.
   3. `torch.sort` of the 64-bit key `tile << 32 | depth bits` (stable), one
      permutation of the gid and payload rows, and `torch.searchsorted` for
      the tile offsets. A stable sort over gid-ordered emission gives the
-     JAX package's (tile, depth, gid) order exactly.
+     JAX package's (tile, depth, gid) order exactly, and its permutation is
+     also each slot's place in gid order: the gid reduce of the backward
+     needs no second sort (`Binned.order`).
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Sequence
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -51,6 +53,11 @@ class Binned(NamedTuple):
     n_isects: [] i64 tensor - true (culled) entry count.
     slab_required: int - the JAX package's slab capacity to emit without
         truncation (feed back into `capacity`).
+    dst: [M] i64 and seg_starts: [C*N + 1] i64, or None - the stream in
+        gid order, for the gid reduce (``order``): slot k holds emit
+        position dst[k], and (camera, Gaussian) i owns emit positions
+        [seg_starts[i], seg_starts[i+1]) (emission runs in ascending flat
+        gid). A culled slot keeps its position inside its Gaussian's range.
     """
 
     entries: torch.Tensor
@@ -59,6 +66,13 @@ class Binned(NamedTuple):
     cnts: torch.Tensor
     n_isects: torch.Tensor
     slab_required: int
+    dst: Optional[torch.Tensor] = None
+    seg_starts: Optional[torch.Tensor] = None
+
+    @property
+    def order(self) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """(dst, seg_starts), the reduce's ``order``, or None."""
+        return None if self.dst is None else (self.dst, self.seg_starts)
 
 
 class EmitPlan(NamedTuple):
@@ -275,6 +289,19 @@ def _emit_cuda(plan: EmitPlan):
     return keys, gids, feats
 
 
+def _emit(plan: EmitPlan):
+    """The emit kernel for CUDA tensors, its plain version for CPU tensors."""
+    if _backend.use_kernel(plan.counts.device):
+        return _emit_cuda(plan)
+    return _emit_plain(plan)
+
+
+def segment_starts(plan: EmitPlan) -> torch.Tensor:
+    """[CN + 1] i64: each (camera, Gaussian)'s first emit position, then
+    the count of emitted entries (its write offsets closed)."""
+    return torch.cat([plan.woff, plan.woff.new_full((1,), plan.n_emit)])
+
+
 def emit_entries(
     mean_x, mean_y,  # [C, N] f32
     con_a, con_b, con_c,  # [C, N]
@@ -299,16 +326,16 @@ def emit_entries(
         depths, tile_size, tile_width, tile_height, capacity, cull,
         payload_rows,
     )
-    if _backend.use_kernel(plan.counts.device):
-        ops = _emit_cuda(plan)
-    else:
-        ops = _emit_plain(plan)
-    return ops, slab_required
+    return _emit(plan), slab_required
 
 
-def sort_entries(ops: Sequence[torch.Tensor], T: int, slab_required: int) -> Binned:
+def sort_entries(
+    ops: Sequence[torch.Tensor], T: int, slab_required: int, starts: Optional[torch.Tensor] = None
+) -> Binned:
     """Sort the emitted entries by (tile, depth, gid) and build the
-    per-tile offset table (one stable key sort + a searchsorted)."""
+    per-tile offset table (one stable key sort + a searchsorted). With
+    ``starts`` (`segment_starts` of the plan) the result carries the
+    reduce's order: ``dst``, the sort's permutation, and ``seg_starts``."""
     keys, gids, feats = ops
     keys_s, perm = torch.sort(keys, stable=True)
     gids_s = gids[perm]
@@ -330,6 +357,8 @@ def sort_entries(ops: Sequence[torch.Tensor], T: int, slab_required: int) -> Bin
         cnts=cnts,
         n_isects=n_isects,
         slab_required=slab_required,
+        dst=None if starts is None else perm,
+        seg_starts=starts,
     )
 
 
@@ -349,12 +378,14 @@ def bin_gaussians(
 ) -> Binned:
     """Emit + sort the per-entry stream. ``capacity`` is the JAX package's
     slab budget; the returned ``slab_required`` is the budget needed
-    without truncation. ``payload_rows`` as in :func:`plan_emit`."""
-    ops, slab_required = emit_entries(
+    without truncation; ``order`` is set. ``payload_rows`` as in
+    :func:`plan_emit`."""
+    plan, slab_required = plan_emit(
         mean_x, mean_y, con_a, con_b, con_c, opacities, colors, radii,
         depths, tile_size, tile_width, tile_height, capacity, cull,
         payload_rows,
     )
     return sort_entries(
-        ops, mean_x.shape[0] * tile_width * tile_height, slab_required
+        _emit(plan), mean_x.shape[0] * tile_width * tile_height, slab_required,
+        segment_starts(plan),
     )

@@ -15,11 +15,16 @@ capacity)`` entries. Past ``capacity`` the same entries are dropped as in
 JAX (the last ones in (camera, Gaussian) expansion order, before the
 sort), and ``n_isects`` still counts them all, so a caller can grow the
 capacity.
+
+The expansion runs in ascending flat gid, so the sort's permutation is
+also each entry's place in gid order: ``Isect.order`` hands it, with each
+(camera, Gaussian)'s range of the expansion, to the gid reduce of the
+backward, which then needs no second sort.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -35,6 +40,10 @@ class Isect(NamedTuple):
     ends: [C, th, tw] i32, end of each range.
     n_isects: [] i64 tensor, the true entry count (> M when truncated).
     tiles_per_gauss: [C, N] i32.
+    dst: [M] i64 and seg_starts: [C*N + 1] i64 - the stream in gid order,
+        for the gid reduce (``order``): entry k is expansion entry dst[k],
+        and (camera, Gaussian) i owns expansion entries
+        [seg_starts[i], seg_starts[i+1]).
     """
 
     tile_keys: torch.Tensor
@@ -44,6 +53,13 @@ class Isect(NamedTuple):
     ends: torch.Tensor
     n_isects: torch.Tensor
     tiles_per_gauss: torch.Tensor
+    dst: Optional[torch.Tensor] = None
+    seg_starts: Optional[torch.Tensor] = None
+
+    @property
+    def order(self) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        """(dst, seg_starts), the reduce's ``order``, or None."""
+        return None if self.dst is None else (self.dst, self.seg_starts)
 
 
 def isect_tiles(
@@ -108,6 +124,8 @@ def isect_tiles(
         ends=bounds[1:].reshape(C, tile_height, tile_width),
         n_isects=n_isects,
         tiles_per_gauss=tiles_per_gauss,
+        dst=perm,
+        seg_starts=torch.cat([torch.clamp(starts, max=M), starts.new_full((1,), M)]),
     )
 
 

@@ -449,9 +449,9 @@ def _raster_2dgs_fwd(
 
 
 class _Binned2DGS(torch.autograd.Function):
-    """bin -> 2DGS forward kernel, with the 2DGS backward kernel, the gid
-    sort and the reduce kernel as its gradient (JAX: the custom VJP
-    `_raster_2dgs_binned`). Binning reads detached inputs. Returns the
+    """bin -> 2DGS forward kernel, with the 2DGS backward kernel and the
+    reduce kernel (in the binning sort's gid order) as its gradient (JAX:
+    the custom VJP `_raster_2dgs_binned`). Binning reads detached inputs. Returns the
     features without background, T_final, the distortion and the median
     (which has no gradient); radii and depths get none either."""
 
@@ -467,7 +467,7 @@ class _Binned2DGS(torch.autograd.Function):
         D = colors.shape[-1]
         ctx.save_for_backward(
             binned.entries, binned.gids, binned.offs, binned.cnts, T_out, last,
-            feat[..., D - 1].contiguous(),
+            feat[..., D - 1].contiguous(), *binned.order,
         )
         ctx.geom = geom
         ctx.n_gauss = mean_x.shape[1]
@@ -477,7 +477,7 @@ class _Binned2DGS(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, v_feat, v_T, v_dist, _v_med):
-        entries, gids, offs, cnts, T_out, last, wm_tot = ctx.saved_tensors
+        entries, gids, offs, cnts, T_out, last, wm_tot, dst, starts = ctx.saved_tensors
         image_width, image_height, tile_size, _ = ctx.geom
         C = T_out.shape[0]
         L = entries.shape[0] - NFIX
@@ -496,7 +496,7 @@ class _Binned2DGS(torch.autograd.Function):
             rows = _bwd2_cuda(*args)
         else:
             rows, _ = _bwd2_plain(*args)
-        red = reduce_by_gid(rows, gids, C * N)  # [12 + L, C * N]
+        red = reduce_by_gid(rows, gids, C * N, order=(dst, starts))  # [12 + L, C * N]
         v_feat_g = red[NFIX:].T.reshape(C, N, L)
         return (
             red[0].reshape(C, N), red[1].reshape(C, N), red[2:11].T.reshape(C, N, 9),

@@ -207,13 +207,14 @@ def _raster_2dgs_tiled_fwd(
 
 class _Tiled2DGS(torch.autograd.Function):
     """pack -> tiled 2DGS forward kernel, with the tiled 2DGS backward
-    kernel, the gid sort and the reduce kernel as its gradient (JAX: the
-    custom VJP `_raster_entries_2dgs` and its gather's VJP). Returns the
-    features without background, T_final, the distortion and the median
-    (which has no gradient)."""
+    kernel and the reduce kernel (in ``order``, the stream's gid order, as
+    `_TiledRaster`) as its gradient (JAX: the custom VJP
+    `_raster_entries_2dgs` and its gather's VJP). Returns the features
+    without background, T_final, the distortion and the median (which has
+    no gradient)."""
 
     @staticmethod
-    def forward(ctx, mean_x, mean_y, Ms, opacities, colors, normals, ids, offs, cnts, geom):
+    def forward(ctx, mean_x, mean_y, Ms, opacities, colors, normals, ids, offs, cnts, order, geom):
         feat, T_out, last, dist, med, packed = _raster_2dgs_tiled_fwd(
             mean_x, mean_y, Ms, opacities, colors, normals, ids, offs, cnts, *geom,
         )
@@ -222,6 +223,7 @@ class _Tiled2DGS(torch.autograd.Function):
         ctx.geom = geom
         ctx.n_gauss = mean_x.shape[1]
         ctx.L = D + 3
+        ctx.order = order
         ctx.mark_non_differentiable(med)
         return feat, T_out, dist, med
 
@@ -245,12 +247,12 @@ class _Tiled2DGS(torch.autograd.Function):
             rows = _tiled2_bwd_cuda(*args)
         else:
             rows, _ = _tiled2_bwd_plain(*args)
-        red = reduce_by_gid(rows, ids, C * N)  # [12 + L, C * N]
+        red = reduce_by_gid(rows, ids, C * N, order=ctx.order)  # [12 + L, C * N]
         v_feat_g = red[NFIX:].T.reshape(C, N, L)
         return (
             red[0].reshape(C, N), red[1].reshape(C, N), red[2:11].T.reshape(C, N, 9),
             red[11].reshape(C, N), v_feat_g[..., :D], v_feat_g[..., D:],
-            None, None, None, None,
+            None, None, None, None, None,
         )
 
 
@@ -286,7 +288,7 @@ def rasterize_to_pixels_2dgs_tiled(
     offs, cnts = stream_ranges(isect)
     geom = (image_width, image_height, tile_size)
     if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
-        feat, T_out, dist, med = _Tiled2DGS.apply(*ins, ids, offs, cnts, geom)
+        feat, T_out, dist, med = _Tiled2DGS.apply(*ins, ids, offs, cnts, isect.order, geom)
     else:
         feat, T_out, _, dist, med, _ = _raster_2dgs_tiled_fwd(*ins, ids, offs, cnts, *geom)
     render = feat[..., :D]

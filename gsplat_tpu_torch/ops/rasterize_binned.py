@@ -7,10 +7,11 @@ plain version) composites each (camera, tile) range into its pixels.
 Semantics are those of ops/rasterize_ref.py (the oracle).
 
 Gradients go through `_BinnedRaster`, a torch.autograd.Function over
-bin -> forward -> (backward -> gid sort -> reduce): the backward kernel
+bin -> forward -> (backward -> reduce): the backward kernel
 (csrc/rasterize_bwd.cu; `_bwd_plain`) writes one row of per-entry
 gradients per stream slot, and the reduce kernel (csrc/gid_reduce.cu;
-`_reduce_plain`) sums the slots of each Gaussian.
+`_reduce_plain`) sums the slots of each Gaussian in the gid order that the
+binning sort already gives (`Binned.order`).
 """
 
 from __future__ import annotations
@@ -389,47 +390,83 @@ def gid_segments(gids: torch.Tensor, n_out: int) -> Tuple[torch.Tensor, torch.Te
     return perm, starts
 
 
+def gid_order(gids: torch.Tensor, n_out: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reduce's ``order`` for slots that come with no stream order: from
+    `gid_segments`, each slot's place in gid order (the inverse of its
+    permutation) and the segment starts. Returns (dst [M] i64, starts
+    [n_out + 1] i64)."""
+    perm, starts = gid_segments(gids, n_out)
+    dst = torch.empty_like(perm)
+    dst[perm] = torch.arange(perm.shape[0], dtype=perm.dtype, device=perm.device)
+    return dst, starts
+
+
+REDUCE_MAX_ROWS = 64  # csrc/gid_reduce.cu: a slot's padded row of at most 16 float4s
+
 _REDUCE_ARGS = (
-    [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int]  # rows, M, R
-    + [ctypes.c_void_p] * 2  # perm, starts
+    [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]  # rows, M, R, Rp
+    + [ctypes.c_void_p] * 2  # dst, starts
     + [ctypes.c_int]  # n_out
-    + [ctypes.c_void_p] * 3  # partials, out, stream
+    + [ctypes.c_void_p] * 4  # scratch, partials, out, stream
 )
 
 
-def _reduce_cuda(rows: torch.Tensor, perm: torch.Tensor, starts: torch.Tensor, n_out: int) -> torch.Tensor:
-    """Launch csrc/gid_reduce.cu on the segments from `gid_segments`: a
-    lane sums a short segment of each row, a warp a medium one, and a
-    segment longer than the kernel's chunk is summed chunk by chunk by
-    blocks of a first kernel. Returns [R, n_out]."""
+def reduce_row_floats(R: int) -> int:
+    """Floats of a slot's row in the reduce's gid-order scratch: R rounded
+    up to whole 32-byte sectors above 16 rows (the 2DGS rows: a scattered
+    row of whole sectors wrote faster on an H100 than 20% fewer bytes in
+    part-sectors), else to whole 16-byte vectors (the 3DGS rows, where a
+    sector's rounding would add a third)."""
+    return -(-R // 8) * 8 if R > 16 else -(-R // 4) * 4
+
+
+def _reduce_cuda(rows: torch.Tensor, dst: torch.Tensor, starts: torch.Tensor, n_out: int) -> torch.Tensor:
+    """Launch csrc/gid_reduce.cu: pass 1 scatters each slot's values into
+    a gid-ordered [M, Rp] scratch at dst[k] (16-byte stores), pass 2 sums
+    each Gaussian's contiguous segment [starts[g], starts[g+1]) of it (a
+    lane a short segment, a warp a medium one, LONG-slot chunks a long
+    one). ``dst`` is a permutation of the M slots and ``starts`` ascending
+    with starts[0] = 0 (`binning.Binned.order`, `isect.Isect.order`,
+    `gid_order`). Returns [R, n_out]."""
     dev = rows.device
     if dev.type != "cuda":
         raise ValueError(f"the reduce kernel takes CUDA tensors, got {dev}")
-    checks = [(rows, torch.float32, None), (perm, torch.int64, (rows.shape[1],)), (starts, torch.int64, (n_out + 1,))]
+    R, M = rows.shape
+    checks = [(rows, torch.float32, None), (dst, torch.int64, (M,)), (starts, torch.int64, (n_out + 1,))]
     _check("reduce", dev, checks)
-    R = rows.shape[0]
+    if R > REDUCE_MAX_ROWS:
+        raise ValueError(f"the reduce kernel takes at most {REDUCE_MAX_ROWS} rows, got {R}")
     out = torch.empty((R, n_out), dtype=torch.float32, device=dev)
     if n_out == 0 or R == 0:
         return out
+    Rp = reduce_row_floats(R)
+    scratch = torch.empty(max(M * Rp, 4), dtype=torch.float32, device=dev)
     size = _backend.kernel("gid_reduce", "gid_reduce_partials_size", [ctypes.c_longlong, ctypes.c_int])
     size.restype = ctypes.c_longlong
-    partials = torch.empty(max(size(rows.shape[1], R), 1), dtype=torch.float32, device=dev)
+    partials = torch.empty(max(size(M, R), 4), dtype=torch.float32, device=dev)
     fn = _backend.kernel("gid_reduce", "gid_reduce_launch", _REDUCE_ARGS)
     code = fn(
-        rows.data_ptr(), rows.shape[1], R, perm.data_ptr(), starts.data_ptr(), n_out,
-        partials.data_ptr(), out.data_ptr(), _backend.stream(dev),
+        rows.data_ptr(), M, R, Rp, dst.data_ptr(), starts.data_ptr(), n_out,
+        scratch.data_ptr(), partials.data_ptr(), out.data_ptr(), _backend.stream(dev),
     )
     _backend.check_launch(code, "gid_reduce")
     _backend.LAUNCHES["gid_reduce"] += 1
     return out
 
 
-def reduce_by_gid(rows: torch.Tensor, gids: torch.Tensor, n_out: int) -> torch.Tensor:
+def reduce_by_gid(
+    rows: torch.Tensor, gids: torch.Tensor, n_out: int,
+    order: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
     """Per-slot rows [R, M] -> per-Gaussian sums [R, n_out] (0 for a
-    Gaussian with no slot). CUDA tensors go through the reduce kernel, CPU
-    tensors through its plain version."""
+    Gaussian with no slot; slots with the culled sentinel gid n_out are
+    dropped). CUDA tensors go through the reduce kernel, CPU tensors
+    through its plain version. ``order = (dst, starts)`` is the stream's
+    own gid order (`Binned.order`, `Isect.order`): slot k's place in it and
+    each Gaussian's segment; without it the kernel's caller sorts the gids
+    (`gid_order`). The plain version needs no order."""
     if _backend.use_kernel(rows.device):
-        return _reduce_cuda(rows, *gid_segments(gids, n_out), n_out)
+        return _reduce_cuda(rows, *(order if order is not None else gid_order(gids, n_out)), n_out)
     return _reduce_plain(rows, gids, n_out)
 
 
@@ -479,8 +516,9 @@ def _raster_binned_fwd(
 
 
 class _BinnedRaster(torch.autograd.Function):
-    """bin -> forward kernel, with the backward kernel, the gid sort and the
-    reduce kernel as its gradient (JAX: the custom VJP `_raster_binned`).
+    """bin -> forward kernel, with the backward kernel and the reduce kernel
+    (in the binning sort's gid order) as its gradient (JAX: the custom VJP
+    `_raster_binned`).
     Binning reads detached inputs. Returns the image without background
     and T_final; the caller adds the background. Radii and depths get no
     gradient."""
@@ -495,7 +533,8 @@ class _BinnedRaster(torch.autograd.Function):
         )
         aux["n_isects"] = binned.n_isects
         aux["slab_required"] = binned.slab_required
-        ctx.save_for_backward(binned.entries, binned.gids, binned.offs, binned.cnts, T_out, last)
+        ctx.save_for_backward(binned.entries, binned.gids, binned.offs, binned.cnts, T_out, last,
+                              *binned.order)
         ctx.geom = geom
         ctx.n_gauss = mean_x.shape[1]
         ctx.absgrad = abs_x is not None
@@ -504,7 +543,7 @@ class _BinnedRaster(torch.autograd.Function):
     @staticmethod
     @once_differentiable
     def backward(ctx, v_img, v_T):
-        entries, gids, offs, cnts, T_out, last = ctx.saved_tensors
+        entries, gids, offs, cnts, T_out, last, dst, starts = ctx.saved_tensors
         image_width, image_height, tile_size, _ = ctx.geom
         C = T_out.shape[0]
         D = entries.shape[0] - 6
@@ -521,7 +560,7 @@ class _BinnedRaster(torch.autograd.Function):
             rows = _bwd_cuda(*args)
         else:
             rows, _ = _bwd_plain(*args)
-        red = reduce_by_gid(rows, gids, C * N)
+        red = reduce_by_gid(rows, gids, C * N, order=(dst, starts))
         grads = [red[r].reshape(C, N) for r in range(6)]
         v_colors = red[6 : 6 + D].T.reshape(C, N, D)
         if ctx.absgrad:

@@ -14,7 +14,8 @@ Gradients go through `_TiledRaster`, a torch.autograd.Function over
 pack -> forward -> (backward -> gid reduce): the backward kernel
 (csrc/rasterize_tiled_bwd.cu; `_tiled_bwd_plain`) writes one row of
 per-entry gradients per stream slot, and the gid reduce kernel
-(ops/rasterize_binned.py::reduce_by_gid) sums the slots of each Gaussian,
+(ops/rasterize_binned.py::reduce_by_gid) sums the slots of each Gaussian
+in the gid order that `isect_tiles`'s sort already gives (`Isect.order`),
 where JAX's gather VJP is a scatter-add. The background is added outside
 the kernels, as in JAX.
 """
@@ -253,14 +254,15 @@ def _raster_tiled_fwd(
 
 
 class _TiledRaster(torch.autograd.Function):
-    """pack -> tiled forward kernel, with the tiled backward kernel, the gid
-    sort and the reduce kernel as its gradient (JAX: the custom VJP
-    `_raster_packed`). Returns the image without background and T_final;
-    the caller adds the background."""
+    """pack -> tiled forward kernel, with the tiled backward kernel and the
+    reduce kernel as its gradient (JAX: the custom VJP `_raster_packed`).
+    ``order`` is the stream's gid order for the reduce (`Isect.order`, or
+    None to sort the gids). Returns the image without background and
+    T_final; the caller adds the background."""
 
     @staticmethod
     def forward(ctx, mean_x, mean_y, con_a, con_b, con_c, opacities, colors,
-                abs_x, abs_y, ids, offs, cnts, geom):
+                abs_x, abs_y, ids, offs, cnts, order, geom):
         image_width, image_height, tile_size = geom
         img, T_out, last, packed = _raster_tiled_fwd(
             mean_x, mean_y, con_a, con_b, con_c, opacities, colors, ids, offs, cnts,
@@ -271,6 +273,7 @@ class _TiledRaster(torch.autograd.Function):
         ctx.n_gauss = mean_x.shape[1]
         ctx.D = colors.shape[-1]
         ctx.absgrad = abs_x is not None
+        ctx.order = order
         return img, T_out
 
     @staticmethod
@@ -293,14 +296,14 @@ class _TiledRaster(torch.autograd.Function):
             rows = _tiled_bwd_cuda(*args)
         else:
             rows, _ = _tiled_bwd_plain(*args)
-        red = reduce_by_gid(rows, ids, C * N)
+        red = reduce_by_gid(rows, ids, C * N, order=ctx.order)
         grads = [red[r].reshape(C, N) for r in range(6)]
         v_colors = red[6 : 6 + D].T.reshape(C, N, D)
         if ctx.absgrad:
             v_abs = [red[6 + D].reshape(C, N), red[7 + D].reshape(C, N)]
         else:
             v_abs = [None, None]
-        return (*grads, v_colors, *v_abs, None, None, None, None)
+        return (*grads, v_colors, *v_abs, None, None, None, None, None)
 
 
 def rasterize_to_pixels_tiled(
@@ -329,7 +332,7 @@ def rasterize_to_pixels_tiled(
     offs, cnts = stream_ranges(isect)
     geom = (image_width, image_height, tile_size)
     if torch.is_grad_enabled() and any(t.requires_grad for t in ins + (abs_x, abs_y) if t is not None):
-        img, T_out = _TiledRaster.apply(*ins, abs_x, abs_y, ids, offs, cnts, geom)
+        img, T_out = _TiledRaster.apply(*ins, abs_x, abs_y, ids, offs, cnts, isect.order, geom)
     else:
         img, T_out, _, _ = _raster_tiled_fwd(*ins, ids, offs, cnts, *geom)
     if backgrounds is not None:

@@ -155,6 +155,8 @@ def rasterization(
     means2d_carrier: Optional[torch.Tensor] = None,
     masks: Optional[torch.Tensor] = None,  # [N] bool, False = skip (dead pool slot)
     absgrad: bool = False,
+    packed: bool = False,
+    sparse_grad: bool = False,
     distributed: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     """Rasterize N 3D Gaussians to C image planes, on the device of the
@@ -168,6 +170,8 @@ def rasterization(
     densification statistic). With ``absgrad=True`` it is not added;
     its gradient is instead the reference's absgrad statistic, |per-tile
     gradient| summed over tiles. The rendered output is the same either way.
+    ``packed`` and ``sparse_grad`` are accepted and have no effect on one
+    device, as in the JAX package.
     """
     if distributed:
         raise NotImplementedError(

@@ -1,0 +1,35 @@
+#!/bin/bash
+# Three alternating pairs (P C, C P, P C) of chip_smoke.py's training
+# phases (5, 6 and 9: Runner, Runner2DGS, and both with backend="tiled")
+# on a checkout of another tree (P, for example the parent commit unpacked
+# with `git archive` into build/parent) and on this one (C), on one CUDA
+# card; each run's log goes to chiprun_out/pair<N>_<P|C>.log and its step
+# times, bench.py's measure, the reduce lines and view 0's losses to stdout.
+#
+#     bash scripts/torch_train_ab.sh build/parent
+set -u
+parent=${1:?usage: torch_train_ab.sh PARENT_DIR}
+here=$(cd "$(dirname "$0")/.." && pwd)
+mkdir -p "$here/chiprun_out"
+smoke() {
+  (cd "$1" && python3 -c "
+import time, chip_smoke as c
+smi = c.phase_device(); c.phase_build()
+t0 = time.perf_counter()
+k, scene = c.phase_train(smi)
+c.phase_train_2dgs(scene)
+c.phase_train_tiled(scene)
+c.phase_train_tiled_2dgs(scene)
+print('phases 5, 6, 9 done in', round(time.perf_counter() - t0, 1), 's')
+")
+}
+for pair in 1 2 3; do
+  if [ "$pair" = 2 ]; then order="C P"; else order="P C"; fi
+  for t in $order; do
+    if [ "$t" = P ]; then dir=$parent; else dir=$here; fi
+    log="$here/chiprun_out/pair${pair}_$t.log"
+    smoke "$dir" > "$log" 2>&1
+    echo "pair $pair tree $t rc $?"
+    grep -E "train step ms|bench.py measure|reduce at the|reduce path|view 0 loss|phases 5, 6, 9|Error" "$log" | cut -c1-260
+  done
+done

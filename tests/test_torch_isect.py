@@ -93,3 +93,34 @@ def test_isect_offset_encode_matches_jax(scene):
 def test_suggest_capacity_matches_jax(n):
     assert suggest_capacity(n) == jax_suggest(n)
     assert suggest_capacity(n, slack=2.0, align=512) == jax_suggest(n, slack=2.0, align=512)
+
+
+@pytest.mark.parametrize("cap", [8192, 1000])
+def test_isect_order_places_entries_in_segments(scene, cap):
+    """The stream's own gid order (`Isect.order`, from the key sort over the
+    expansion): a permutation of the M kept entries, each inside the
+    expansion range of its (camera, Gaussian), the ranges those of
+    tiles_per_gauss clipped at the capacity; the reduce kernel's two passes
+    on it give index_add_'s sums and JAX's _reduce_call's (interpret mode)
+    for seeded rows; reduce_by_gid with the order equals the call without."""
+    from gsplat_tpu_torch.ops import rasterize_binned as trb
+    from test_torch_rasterize_binned_bwd import assert_in_segments, jax_reduce, two_pass_reduce
+
+    m2d, radii, depths = scene
+    got = isect_tiles(_T(m2d), _T(radii), _T(depths), TS, TW, TH, cap)
+    M = got.flatten_ids.shape[0]
+    CN = radii.size
+    assert M == min(int(got.n_isects), cap) and (cap == 8192) == (M == int(got.n_isects))
+    dst, starts = got.order
+    assert dst.dtype == starts.dtype == torch.int64 and starts.shape == (CN + 1,)
+    cum = np.cumsum(got.tiles_per_gauss.numpy().reshape(-1).astype(np.int64))
+    np.testing.assert_array_equal(starts.numpy(), np.minimum(np.concatenate([[0], cum]), M))
+    assert_in_segments(dst, starts, got.flatten_ids, torch.ones(M, dtype=torch.bool))
+    rows = torch.from_numpy(np.random.default_rng(cap).standard_normal((9, M)).astype(np.float32))
+    want = trb._reduce_plain(rows, got.flatten_ids, CN)
+    np.testing.assert_allclose(two_pass_reduce(rows, dst, starts, CN).numpy(), want.numpy(),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(want.numpy(), jax_reduce(rows.numpy(), got.flatten_ids.numpy(), CN),
+                               rtol=1e-6, atol=1e-6)
+    assert torch.equal(trb.reduce_by_gid(rows, got.flatten_ids, CN, order=got.order),
+                       trb.reduce_by_gid(rows, got.flatten_ids, CN))

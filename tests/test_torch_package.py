@@ -1,7 +1,8 @@
 """The port as a package: what it imports, where it runs, what it refuses.
 
 - importing gsplat_tpu_torch loads neither jax nor gsplat_tpu, and no source
-  of the package or chip_smoke.py imports them;
+  of the package, chip_smoke.py or the port's scripts/torch_*.py imports
+  them;
 - functions run on the device of their inputs and refuse mixed devices;
   splats_from_numpy defaults to CUDA and raises without it;
 - paths not ported yet (multi-GPU) raise NotImplementedError instead of
@@ -75,6 +76,8 @@ def _sources():
     for root, _, files in os.walk(PKG):
         yield from (os.path.join(root, f) for f in files if f.endswith(".py"))
     yield os.path.join(ROOT, "chip_smoke.py")
+    scripts = os.path.join(ROOT, "scripts")
+    yield from (os.path.join(scripts, f) for f in os.listdir(scripts) if f.startswith("torch_") and f.endswith(".py"))
 
 
 @pytest.mark.parametrize("path", sorted(_sources()), ids=lambda p: os.path.relpath(p, ROOT))

@@ -8,7 +8,11 @@ package), same cotangents. Tolerances:
 - gradients: rtol 1e-3, atol 1e-4 x the largest |gradient| of the input,
   as tests/test_rasterize_binned.py holds JAX's own kernel to its oracle;
 - absgrad: rtol 1e-4, atol 1e-5, as JAX's absgrad test;
-- reduce: rtol 1e-6, atol 1e-6 (the same sums in another order).
+- reduce: rtol 1e-6, atol 1e-6 (the same sums in another order), also
+  for a torch emulation of the reduce kernel's two passes (scatter into
+  gid order at each slot's `dst`, then a sum over each segment of
+  `starts`) on the stream's own order (`Binned.order`) and on the gids'
+  sort (`gid_order`).
 """
 
 import numpy as np
@@ -24,6 +28,7 @@ from gsplat_tpu.ops.projection import fully_fused_projection
 from gsplat_tpu.ops.rasterize_ref import rasterize_to_pixels_ref as jax_ref
 from gsplat_tpu.ops.rasterize_ref import rasterize_to_pixels_ref_absgrad as jax_ref_absgrad
 from gsplat_tpu_torch import _backend, rasterization
+from gsplat_tpu_torch.ops import binning as tbin
 from gsplat_tpu_torch.ops import rasterize_binned as trb
 from gsplat_tpu_torch.ops.rasterize_ref import (
     rasterize_to_pixels_ref,
@@ -145,6 +150,49 @@ def test_absgrad_matches_jax():
         np.testing.assert_allclose(carrier.grad.numpy(), want, rtol=1e-4, atol=1e-5, err_msg=backend)
 
 
+def jax_reduce(rows, gids, n_out):
+    """JAX's _reduce_call (interpret mode) on per-slot rows [R, M] and gids
+    [M] in any order (n_out = the culled sentinel): the slots stably sorted
+    by gid, as its caller does. Returns [R, n_out]."""
+    n_rows, M = rows.shape
+    order = np.argsort(gids, kind="stable")
+    GR = -(-(1 + n_rows) // 8) * 8
+    capA2 = -(-M // jrb.RK) * jrb.RK
+    vg = np.zeros((GR, capA2), np.float32)
+    vg[0] = float(1 << 24)
+    vg[0, :M] = gids[order]
+    vg[1 : 1 + n_rows, :M] = rows[:, order]
+    gid_row = jnp.asarray(vg[0].astype(np.int32))
+    return np.asarray(jrb._reduce_call(gid_row, jnp.asarray(vg), M=n_out, GR=GR, interpret=True))[1 : 1 + n_rows]
+
+
+def two_pass_reduce(rows, dst, starts, n_out):
+    """The reduce kernel's two passes (csrc/gid_reduce.cu) in torch: pass 1
+    writes slot k's values as row dst[k] of a gid-ordered [M, Rp] scratch
+    (Rp = trb.reduce_row_floats(R), zero-padded); pass 2 sums each
+    Gaussian's rows [starts[g], starts[g+1]) front to back. Positions past
+    starts[n_out] are never read."""
+    R, M = rows.shape
+    assert sorted(dst.tolist()) == list(range(M))  # a permutation of the slots
+    assert starts.shape == (n_out + 1,) and int(starts[0]) == 0 and bool((starts.diff() >= 0).all())
+    assert int(starts[-1]) <= M
+    scratch = torch.zeros((M, trb.reduce_row_floats(R)), dtype=torch.float32)
+    scratch[dst, :R] = rows.T
+    out = torch.zeros((R, n_out), dtype=torch.float32)
+    for g in range(n_out):
+        for k in range(int(starts[g]), int(starts[g + 1])):
+            out[:, g] += scratch[k, :R]
+    return out
+
+
+def assert_in_segments(dst, starts, gids, live):
+    """Every live slot k lies inside the segment of its gid: starts[gids[k]]
+    <= dst[k] < starts[gids[k] + 1]."""
+    g = gids[live].to(torch.int64)
+    d = dst[live]
+    assert bool((starts[g] <= d).all()) and bool((d < starts[g + 1]).all())
+
+
 @pytest.mark.parametrize("n_rows", [9, 13])
 def test_reduce_plain_matches_jax(n_rows):
     """_reduce_plain against JAX's _reduce_call (interpret mode) on random
@@ -169,6 +217,12 @@ def test_reduce_plain_matches_jax(n_rows):
     shuffled = trb.reduce_by_gid(torch.from_numpy(rows[:, perm]), torch.from_numpy(gids[perm]), n_out)
     np.testing.assert_allclose(shuffled.numpy(), want, rtol=1e-6, atol=1e-6)
     assert (np.bincount(gids[gids < n_out], minlength=n_out) == 0).any()  # empty segments give 0
+    # the kernel's two passes on the gids' sort (the route without a stream order)
+    g_sh = torch.from_numpy(gids[perm])
+    dst, starts = trb.gid_order(g_sh, n_out)
+    assert_in_segments(dst, starts, g_sh, g_sh < n_out)
+    emu = two_pass_reduce(torch.from_numpy(rows[:, perm]), dst, starts, n_out)
+    np.testing.assert_allclose(emu.numpy(), want, rtol=1e-6, atol=1e-6)
 
 
 def test_gid_segments():
@@ -263,6 +317,65 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     v_img = torch.zeros(C, H, W, D)
     with pytest.raises(ValueError, match="CUDA"):
         trb._bwd_cuda(b.entries, b.offs, b.cnts, T_out, last, v_img, T_out, C, W, H, TS)
-    perm, starts = trb.gid_segments(b.gids, C * 100)
-    with pytest.raises(ValueError, match="CUDA"):
-        trb._reduce_cuda(torch.zeros(9, b.gids.shape[0]), perm, starts, C * 100)
+    # the reduce on the stream's own order and on the gids' sort
+    for order in (b.order, trb.gid_order(b.gids, C * 100)):
+        with pytest.raises(ValueError, match="CUDA"):
+            trb._reduce_cuda(torch.zeros(9, b.gids.shape[0]), *order, C * 100)
+
+
+@pytest.fixture(scope="module")
+def culled_stream():
+    """tests/test_rasterize_binned.py's scene (C=2, 64x48) with N=1200, so
+    that its 2,400 (camera, Gaussian) ids fill three emit blocks of 1,024,
+    binned with the exact cull; per capacity (one that emits every block,
+    one that truncates the last), the stream and the plain backward's slot
+    rows for seeded cotangents, with absgrad."""
+    from test_rasterize_binned import _scene as binned_scene
+
+    Cs, Ws, Hs, N = 2, 64, 48, 1200
+    radii, m2d, depths, conics, colors, opac = (
+        np.asarray(x) for x in binned_scene(np.random.default_rng(4), N=N))
+    mx, my = torch.from_numpy(m2d[..., 0].copy()), torch.from_numpy(m2d[..., 1].copy())
+    con = [torch.from_numpy(conics[..., i].copy()) for i in range(3)]
+    args = (mx, my, *con, torch.from_numpy(opac), torch.from_numpy(colors), torch.from_numpy(radii),
+            torch.from_numpy(depths))
+    full = tbin.bin_gaussians(*args, TS, 4, 3, capacity=1 << 16, cull=True)
+    rng = np.random.default_rng(5)
+    out = {}
+    for cap in (1 << 16, full.slab_required - tbin.SB):
+        b = tbin.bin_gaussians(*args, TS, 4, 3, capacity=cap, cull=True)
+        _, T_out, last, _ = trb._fwd_plain(b.entries, b.offs, b.cnts, Cs, Ws, Hs, TS)
+        v_img = torch.from_numpy(rng.standard_normal((Cs, Hs, Ws, 3)).astype(np.float32))
+        v_T = torch.from_numpy(rng.standard_normal((Cs, Hs, Ws)).astype(np.float32))
+        rows, _ = trb._bwd_plain(b.entries, b.offs, b.cnts, T_out, last, v_img, v_T, Cs, Ws, Hs, TS, True)
+        out[cap] = (b, rows, Cs * N)
+    return out
+
+
+@pytest.mark.parametrize("which", ["full", "truncated"])
+def test_binned_order_places_slots_in_segments(culled_stream, which):
+    """The binned stream's own gid order (`Binned.order`, from the binning
+    sort): a permutation of the slots with every live slot inside its
+    Gaussian's segment, culled slots (past n_isects, zero rows) inside some
+    segment; the kernel's two passes on it give index_add_'s sums and JAX's
+    _reduce_call's; reduce_by_gid with the order equals the call without."""
+    caps = sorted(culled_stream)
+    b, rows, n_out = culled_stream[caps[-1] if which == "full" else caps[0]]
+    M = b.gids.shape[0]
+    n_isects = int(b.n_isects)
+    assert n_isects < M  # the cull dropped entries; they sort past n_isects
+    if which == "truncated":
+        assert b.slab_required > caps[0] and 0 < M < culled_stream[caps[-1]][0].gids.shape[0]
+    dst, starts = b.order
+    live = torch.arange(M) < n_isects
+    assert_in_segments(dst, starts, b.gids, live)
+    assert bool((b.gids[~live] == n_out).all()) and bool((dst[~live] < starts[-1]).all())
+    assert int(starts[-1]) == M  # every emitted slot has its place
+    assert not rows[:, n_isects:].any()  # the culled slots' rows are zero
+    want = trb._reduce_plain(rows, b.gids, n_out)
+    np.testing.assert_allclose(two_pass_reduce(rows, dst, starts, n_out).numpy(), want.numpy(),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(want.numpy(), jax_reduce(rows.numpy(), b.gids.numpy(), n_out),
+                               rtol=1e-6, atol=1e-6)
+    assert torch.equal(trb.reduce_by_gid(rows, b.gids, n_out, order=b.order),
+                       trb.reduce_by_gid(rows, b.gids, n_out))

@@ -232,3 +232,39 @@ def test_kernel_wrappers_refuse_cpu_tensors(ref):
     img, T, last, _ = rt._tiled_fwd_plain(packed, 3, ids, offs, cnts, C, W, H, TS)
     with pytest.raises(ValueError, match="CUDA"):
         rt._tiled_bwd_cuda(packed, 3, ids, offs, cnts, T, last, img, T, C, W, H, TS)
+
+
+@pytest.mark.parametrize("cap", [CAP, 1000])
+def test_tiled_reduce_on_stream_order(ref, cap):
+    """The tiled backward's slot rows (its plain version, seeded cotangents,
+    absgrad) summed per Gaussian on the stream's own gid order
+    (`Isect.order`): the reduce kernel's two passes give index_add_'s sums
+    and JAX's _reduce_call's (interpret mode), at a capacity that keeps
+    every entry and at one that truncates; every slot lies inside its
+    Gaussian's segment; the autograd path's reduce_by_gid with the order
+    equals the call without."""
+    from gsplat_tpu_torch.ops import rasterize_binned as trb
+    from test_torch_rasterize_binned_bwd import assert_in_segments, jax_reduce, two_pass_reduce
+
+    r = ref[3]
+    m2d, conics, colors, opac, radii, depths = (_T(a) for a in r["scene"])
+    isect = isect_tiles(m2d, radii, depths, TS, TW, TH, cap)
+    M = isect.flatten_ids.shape[0]
+    assert (M < r["n_isects"]) == (cap == 1000)
+    D = colors.shape[-1]
+    packed = rt.pack_rows([m2d[..., 0], m2d[..., 1], *conics.unbind(-1), opac, *colors.unbind(-1)])
+    offs, cnts = rt.stream_ranges(isect)
+    _, T_out, last, _ = rt._tiled_fwd_plain(packed, D, isect.flatten_ids, offs, cnts, C, W, H, TS)
+    wr, wa = r["cot"]
+    rows, _ = rt._tiled_bwd_plain(packed, D, isect.flatten_ids, offs, cnts, T_out, last, _T(wr),
+                                  -_T(wa)[..., 0], C, W, H, TS, True)
+    CN = radii.numel()
+    dst, starts = isect.order
+    assert_in_segments(dst, starts, isect.flatten_ids, torch.ones(M, dtype=torch.bool))
+    want = trb._reduce_plain(rows, isect.flatten_ids, CN)
+    np.testing.assert_allclose(two_pass_reduce(rows, dst, starts, CN).numpy(), want.numpy(),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(want.numpy(), jax_reduce(rows.numpy(), isect.flatten_ids.numpy(), CN),
+                               rtol=1e-6, atol=1e-6)
+    assert torch.equal(trb.reduce_by_gid(rows, isect.flatten_ids, CN, order=isect.order),
+                       trb.reduce_by_gid(rows, isect.flatten_ids, CN))

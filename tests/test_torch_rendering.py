@@ -111,3 +111,20 @@ def test_rasterization_matches_jax(case, garden, garden_small):
     g = garden if backend == "binned" else garden_small
     want, got = _run(g, backend, color_key, kw)
     _compare(want, got)
+
+
+def test_rasterization_packed_sparse_grad_are_inert(garden):
+    """`packed` and `sparse_grad`, which the JAX API takes and leaves inert
+    on one device, are taken too: with both set (False, as a call written
+    for the JAX API passes them) the render equals JAX's with the same
+    flags, and the port's renders with them unset and with both True are
+    the same bits."""
+    flags = dict(packed=False, sparse_grad=False)
+    want, got = _run(garden, "binned", "rgb", dict(backgrounds=3, **flags))
+    _compare(want, got)
+    args = [torch.from_numpy(garden[k]) for k in ("means", "quats", "scales", "opacities", "rgb", "viewmats", "Ks")]
+    kw = dict(backgrounds=torch.from_numpy(garden["bg"][:, :3]), backend="binned", isect_capacity=CAP)
+    unset = rasterization(*args, garden["W"], garden["H"], **kw)
+    on = rasterization(*args, garden["W"], garden["H"], packed=True, sparse_grad=True, **kw)
+    for a, b, c in zip(got[:2], unset[:2], on[:2]):
+        assert torch.equal(a, b) and torch.equal(a, c)
