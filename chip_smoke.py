@@ -50,6 +50,10 @@ non-zero (there is no CPU fallback):
        gates (3DGS also with the absgrad rows and at D = 8, 16, 32 with a
        background; 2DGS at RGB and RGB+ED), and an empty stream, which
        launches nothing and renders the background;
+     - both 2DGS pairs (binned and tiled, forward and backward, RGB and
+       RGB+ED, sh_degree 3) also at 648x405 and tile sizes 8 and 16: the
+       last tile row holds 5 pixel rows, which the 2DGS forward's P pixels
+       of a column a thread do not divide;
   4. serving path: garden scene_grid=5 (2,794,625 Gaussians) at
      1920x1080, one camera per frame, tile size 16, sh_degree 3, through
      rasterization(backend="binned") under no_grad, with its launch counts,
@@ -74,7 +78,10 @@ non-zero (there is no CPU fallback):
      these shapes, over the whole frame (the plain versions timed once)
      and on 256 seeded tiles; the gid reduce at these shapes (on the
      stream's order and through a gid sort, against index_add_, with its
-     bytes bound);
+     bytes bound); the emit kernel alone at these shapes with its bytes
+     bound; the 2DGS forward's SASS instructions per (pixel, entry) pair
+     (its entry loop's static count, cuobjdump, over its P pixels) beside
+     the issue slots per pair its time allowed;
   7. 2DGS serving: rasterization_2dgs(backend="binned",
      render_mode="RGB+ED") under no_grad, launching emit and the 2DGS
      forward and nothing else, on two scenes: the serving path's splats as
@@ -93,14 +100,20 @@ non-zero (there is no CPU fallback):
      training path's scene, 12 steps each, the tiled forward, the tiled
      backward and the gid reduce launched in every step, with phase 5's
      checks and prints, the tiled kernels against their plain versions at
-     the train shapes, and the reduce on the tiled streams' own order at
-     the 3DGS and 2DGS shapes as in phases 5-6;
+     the train shapes (the tiled 2DGS forward's SASS per pair as in phase
+     6), and the reduce on the tiled streams' own order at the 3DGS and
+     2DGS shapes as in phases 5-6;
  10. tiled 2DGS serving: rasterization_2dgs(backend="tiled", RGB+ED) on
      phase 9's trained surfels, with phase 8's prints and checks;
- 11. the `kernels` line (all ten kernels), then the result line.
+ 11. the `kernels` line (all ten kernels; emit and the reduce also with
+     their times and bounds at the 2DGS train shapes, the two 2DGS
+     forwards with their SASS instructions per pair), then the result
+     line.
 """
 
 import json
+import os
+import re
 import subprocess
 import sys
 import time
@@ -131,6 +144,9 @@ TILE_SUBSET = 256  # tiles of the main shapes' kernel-vs-plain checks
 MAIN_TILE = 16
 MAIN_GRID = 5
 MAIN_W, MAIN_H = 1920, 1080
+# grid1's height cut so that its last tile row holds 5 pixel rows at tile 8
+# and 16: a partial column the 2DGS forward's P pixels a thread do not divide
+RAGGED_H = 405
 TRAIN_STEPS = 12
 SEED = 0
 
@@ -590,6 +606,94 @@ def demangle(names):
     return out if len(out) == len(names) else list(names)
 
 
+def sass_loops(so, pattern):
+    """{demangled kernel: the instructions of the innermost loop of its SASS
+    that holds an MUFU.EX2 (an expf)} for each kernel of the shared library
+    `so` whose name contains `pattern` (cuobjdump beside nvcc). A static
+    count of the loop's body: the compositing loop over staged entries."""
+    from gsplat_tpu_torch import _backend
+
+    cuobjdump = os.path.join(os.path.dirname(_backend._nvcc()), "cuobjdump")
+    text = subprocess.run([cuobjdump, "-sass", so], capture_output=True, text=True, check=True).stdout
+    funcs, fn, pending = {}, None, []
+    for line in text.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn, pending = m.group(1), []
+            funcs[fn] = ([], {})
+            continue
+        if fn is None:
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s*(.*?);", line)
+        if m:
+            addr = int(m.group(1), 16)
+            funcs[fn][0].append((addr, m.group(2)))
+            funcs[fn][1].update({lb: addr for lb in pending})
+            pending = []
+    counts = {}
+    for name, (ins, labels) in zip(demangle(list(funcs)), funcs.values()):
+        if pattern not in name:
+            continue
+        best = None
+        for i, (addr, op) in enumerate(ins):
+            m = re.search(r"\bBRA\b[^`]*?(?:0x([0-9a-f]+)|`\(\s*(\.L_x_\d+)\s*\))", op)
+            if not m:
+                continue
+            target = int(m.group(1), 16) if m.group(1) else labels.get(m.group(2), addr + 1)
+            if target > addr:
+                continue
+            body = [o for a, o in ins[:i + 1] if a >= target]
+            if any("MUFU.EX2" in o for o in body) and (best is None or len(body) < best):
+                best = len(body)
+        counts[name] = best
+    return counts
+
+
+def fwd2_sass_per_pair(so, L, ts):
+    """(kernel, loop instructions, P, instructions per (pixel, entry) pair)
+    of the fwd_2dgs instantiation in `so` that L channels at tile size ts
+    launch: its entry loop's SASS count over its P pixels a thread (a kernel
+    without the TS and P arguments is one pixel a thread)."""
+    lmax = 4 if L <= 4 else 8 if L <= 8 else 16 if L <= 16 else 35
+    for name, n in sass_loops(so, "fwd_2dgs").items():
+        m = re.search(r"fwd_2dgs<raster::\w+<\d+>, (\d+)(?:, (\d+), (\d+))?>", name)
+        if m and int(m.group(1)) == lmax and (m.group(2) is None or int(m.group(2)) == ts):
+            P = int(m.group(3)) if m.group(3) else 1
+            return name, n, P, (n / P if n else None)
+    return None, None, None, None
+
+
+def fwd2_sass_report(_backend, name, L, ts, ms, pairs):
+    """Log the SASS instructions per pair of the 2DGS forward that `name`
+    launched at L channels and tile size ts beside the issue slots per
+    evaluated pair that its `ms` allowed; returns the former."""
+    kernel, n, P, per_pair = fwd2_sass_per_pair(_backend._library_path(name), L, ts)
+    if per_pair is None:
+        raise AssertionError(f"{name}: no entry loop found in the SASS of {kernel}")
+    # 132 SMs x 4 schedulers x 32 lanes a cycle at the largest SM clock
+    mhz = float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+                               capture_output=True, text=True, check=True).stdout.split()[0])
+    slots = ms * 1e-3 * 132 * 128 * mhz * 1e6 / max(pairs, 1)
+    log(f"{name} {kernel}: {n} SASS instructions in the entry loop for {P} pixels, {per_pair:.1f} a pair; "
+        f"{ms:.3f} ms allowed {slots:.1f} thread-instruction slots an evaluated pair at {mhz:.0f} MHz")
+    return per_pair
+
+
+def emit_bytes(plan):
+    """(bytes the emit kernel must move, live ids): emit reads only `counts`
+    for an id that emits nothing; a live id also reads its rectangle, write
+    offset, depth and NF payload rows; each entry writes its key, gid and NF
+    rows."""
+    NF = plan.payload.shape[0]
+    CN = plan.counts.shape[0]
+    live_ids = int((plan.counts > 0).sum())
+    return live_ids * (5 * 4 + 8 + 4 * NF) + (CN - live_ids) * 4 + plan.n_emit * (8 + 4 + 4 * NF), live_ids
+
+
 def phase_kernel_vs_plain():
     import torch
     from gsplat_tpu_torch import rendering, splats_from_numpy
@@ -692,13 +796,40 @@ def phase_kernel_vs_plain():
     log(f"binned vs oracle gradients ({W // f}x{H // f}, C={C}), max abs / max |oracle|: " + ", ".join(worst))
 
 
+def check_2dgs_binned(torch, gen, splats, live, vm, K, W, H, ts, deg, mode):
+    """Emit, the binned 2DGS forward and backward against their plain
+    versions on one grid1 stream at W x H, with a background's term of v_T."""
+    from gsplat_tpu_torch import rendering
+    from gsplat_tpu_torch.ops import binning, rasterize_2dgs_binned as r2
+
+    C = vm.shape[0]
+    s = shade_2dgs(rendering, torch, splats, live, vm, K, W, H, deg, mode)
+    D = s.colors.shape[-1]
+    plan, slab = emit_plan_2dgs(binning, r2, s, ts, W, H, capacity=1 << 30)
+    T = C * (-(-W // ts)) * (-(-H // ts))
+    bk, _ = compare_emit(torch, binning, plan, slab, T)
+    what = f"2DGS grid1 ts={ts} sh={deg} D={D}"
+    errs, med_off, same_last, _, ko = compare_fwd2(torch, r2, bk, C, W, H, ts, what)
+    # a background enters through T's cotangent (the caller composites it),
+    # as autograd would hand it over
+    bg = torch.rand((C, D), generator=gen, device=vm.device)
+    cot = cotangents_2dgs(torch, gen, ko[1], D + 3)
+    cot = (cot[0], cot[1] + (cot[0][..., :D] * bg[:, None, None, :]).sum(dim=-1), cot[2])
+    rows_k, bmx, berrs, _, n_past = compare_bwd2(torch, r2, bk, ko, cot, D, C, W, H, ts, what)
+    log(f"kernel vs plain {what} {W}x{H} C={C}: n_isects {int(bk.n_isects)}, emit equal, fwd max abs "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f", median off at {med_off:.2e} of pixels, last equal at {same_last:.6f}; "
+        f"bwd max abs per row " + " ".join(f"{e:.2e}" for e in berrs))
+    log(f"  {what}: bwd values past the per-slot tolerance {n_past} of {rows_k.numel()}; "
+        f"forward last equal at {same_last:.6f} of pixels")
+
+
 def phase_kernel_vs_plain_2dgs():
     """The 2DGS kernels against their plain versions at grid1 (as
     phase_kernel_vs_plain), and binned 2DGS against the 2DGS oracle on a
     small subsample."""
     import torch
     from gsplat_tpu_torch import rendering, splats_from_numpy
-    from gsplat_tpu_torch.ops import binning, rasterize_2dgs_binned as r2
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(SEED + 3)
@@ -711,25 +842,12 @@ def phase_kernel_vs_plain_2dgs():
         for ts in (16, 32):
             for deg in (0, 3):
                 for mode in ("RGB", "RGB+ED"):
-                    s = shade_2dgs(rendering, torch, splats, live, vm, K, W, H, deg, mode)
-                    D = s.colors.shape[-1]
-                    plan, slab = emit_plan_2dgs(binning, r2, s, ts, W, H, capacity=1 << 30)
-                    T = C * (-(-W // ts)) * (-(-H // ts))
-                    bk, _ = compare_emit(torch, binning, plan, slab, T)
-                    what = f"2DGS grid1 ts={ts} sh={deg} D={D}"
-                    errs, med_off, same_last, _, ko = compare_fwd2(torch, r2, bk, C, W, H, ts, what)
-                    # a background enters through T's cotangent (the caller
-                    # composites it), as autograd would hand it over
-                    bg = torch.rand((C, D), generator=gen, device=dev)
-                    cot = cotangents_2dgs(torch, gen, ko[1], D + 3)
-                    cot = (cot[0], cot[1] + (cot[0][..., :D] * bg[:, None, None, :]).sum(dim=-1), cot[2])
-                    rows_k, bmx, berrs, _, n_past = compare_bwd2(torch, r2, bk, ko, cot, D, C, W, H, ts, what)
-                    log(f"kernel vs plain {what} {W}x{H} C={C}: n_isects {int(bk.n_isects)}, emit equal, fwd max abs "
-                        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-                        + f", median off at {med_off:.2e} of pixels, last equal at {same_last:.6f}; "
-                        f"bwd max abs per row " + " ".join(f"{e:.2e}" for e in berrs))
-                    log(f"  {what}: bwd values past the per-slot tolerance {n_past} of {rows_k.numel()}; "
-                        f"forward last equal at {same_last:.6f} of pixels")
+                    check_2dgs_binned(torch, gen, splats, live, vm, K, W, H, ts, deg, mode)
+        # a partial last tile row that P does not divide (H % 16 = 5): the
+        # forward's P pixels of a column, some past the image edge
+        for ts in (8, 16):
+            for mode in ("RGB", "RGB+ED"):
+                check_2dgs_binned(torch, gen, splats, live, vm, K, W, RAGGED_H, ts, 3, mode)
 
     # binned (kernels) against the oracle on a small subsample: every 30th
     # Gaussian, cameras / 8, so the oracle's [C, pixels, N, 3] tensors fit
@@ -837,6 +955,32 @@ def compare_tiled_bwd2(torch, r2t, st, ko, cot, D, C, W, H, ts, what, plain=None
     return gate_bwd2(torch, rows_k, rows_p, pairs, what)
 
 
+def check_2dgs_tiled(torch, gen, splats, live, vm, K, W, H, ts, deg, mode):
+    """The tiled 2DGS forward and backward against their plain versions on
+    one grid1 stream at W x H, as check_2dgs_binned."""
+    from gsplat_tpu_torch import rendering
+    from gsplat_tpu_torch.ops import rasterize_2dgs_binned as r2, rasterize_2dgs_tiled as r2t
+    from gsplat_tpu_torch.ops import rasterize_tiled as rt
+    from gsplat_tpu_torch.ops.isect import isect_tiles
+
+    C = vm.shape[0]
+    s2 = shade_2dgs(rendering, torch, splats, live, vm, K, W, H, deg, mode)
+    D = s2.colors.shape[-1]
+    st2 = tiled_stream_2dgs(torch, rt, r2, isect_tiles, s2, ts, W, H, 1 << 30)
+    what = f"tiled 2DGS grid1 ts={ts} sh={deg} D={D}"
+    ferrs, med_off, same_last, _, ko = compare_tiled_fwd2(torch, r2t, st2, D + 3, C, W, H, ts, what)
+    bg = torch.rand((C, D), generator=gen, device=vm.device)
+    cot = cotangents_2dgs(torch, gen, ko[1], D + 3)
+    cot = (cot[0], cot[1] + (cot[0][..., :D] * bg[:, None, None, :]).sum(dim=-1), cot[2])
+    rows2, _, berrs, _, n_past = compare_tiled_bwd2(torch, r2t, st2, ko, cot, D, C, W, H, ts, what)
+    log(f"kernel vs plain {what} {W}x{H}: stream {st2[1].shape[0]} entries, fwd max abs "
+        + ", ".join(f"{k} {v:.3e}" for k, v in ferrs.items())
+        + f", median off at {med_off:.2e}, last equal at {same_last:.6f}; bwd max abs per row "
+        + " ".join(f"{e:.2e}" for e in berrs))
+    log(f"  {what}: bwd values past the per-slot tolerance {n_past} of {rows2.numel()}; "
+        f"forward last equal at {same_last:.6f} of pixels")
+
+
 def phase_kernel_vs_plain_tiled():
     """The four tiled kernels against their plain versions at grid1 (as
     phase_kernel_vs_plain): 3DGS forward and backward at ts 16 and 32, sh 0
@@ -893,21 +1037,11 @@ def phase_kernel_vs_plain_tiled():
                             f"{same_last:.6f}; bwd{' (absgrad rows)' if ts == 16 else ''} max abs {bmx:.3e}; "
                             f"reduce ({rows_d.shape[0]} rows) max abs {rmx:.3e}")
                 for mode in ("RGB", "RGB+ED"):
-                    s2 = shade_2dgs(rendering, torch, splats, live, vm, K, W, H, deg, mode)
-                    D = s2.colors.shape[-1]
-                    st2 = tiled_stream_2dgs(torch, rt, r2, isect_tiles, s2, ts, W, H, cap)
-                    what = f"tiled 2DGS grid1 ts={ts} sh={deg} D={D}"
-                    ferrs, med_off, same_last, _, ko = compare_tiled_fwd2(torch, r2t, st2, D + 3, C, W, H, ts, what)
-                    bg = torch.rand((C, D), generator=gen, device=dev)
-                    cot = cotangents_2dgs(torch, gen, ko[1], D + 3)
-                    cot = (cot[0], cot[1] + (cot[0][..., :D] * bg[:, None, None, :]).sum(dim=-1), cot[2])
-                    rows2, _, berrs, _, n_past = compare_tiled_bwd2(torch, r2t, st2, ko, cot, D, C, W, H, ts, what)
-                    log(f"kernel vs plain {what}: stream {st2[1].shape[0]} entries, fwd max abs "
-                        + ", ".join(f"{k} {v:.3e}" for k, v in ferrs.items())
-                        + f", median off at {med_off:.2e}, last equal at {same_last:.6f}; bwd max abs per row "
-                        + " ".join(f"{e:.2e}" for e in berrs))
-                    log(f"  {what}: bwd values past the per-slot tolerance {n_past} of {rows2.numel()}; "
-                        f"forward last equal at {same_last:.6f} of pixels")
+                    check_2dgs_tiled(torch, gen, splats, live, vm, K, W, H, ts, deg, mode)
+        # a partial last tile row that P does not divide, as for the binned
+        for ts in (8, 16):
+            for mode in ("RGB", "RGB+ED"):
+                check_2dgs_tiled(torch, gen, splats, live, vm, K, W, RAGGED_H, ts, 3, mode)
 
         # an empty stream (every radius 0): nothing launched, the background
         s = shade(rendering, torch, splats, torch.zeros_like(live), vm, K, W, H, 3)
@@ -1199,11 +1333,8 @@ def kernel_table(runner, launches):
     NF = plan.payload.shape[0]
     M = plan.n_emit
     n_isects = int(bk.n_isects)
-    live_ids = int((plan.counts > 0).sum())
-    # emit reads only `counts` for an id that emits nothing; a live id also
-    # reads its rectangle, write offset, depth and NF payload rows
-    emit_bytes = live_ids * (5 * 4 + 8 + 4 * NF) + (CN - live_ids) * 4 + M * (8 + 4 + 4 * NF)
-    emit_bound = emit_bytes / PEAK_BYTES_PER_S * 1e3
+    e_bytes, live_ids = emit_bytes(plan)
+    emit_bound = e_bytes / PEAK_BYTES_PER_S * 1e3
     pix = H * W
     fwd_bytes = n_isects * NF * 4 + 2 * T * 4 + pix * (4 * D + 4 + 4)
     # 18 per evaluated and 2D + 4 more per accepted pair (csrc/raster.cuh);
@@ -1219,7 +1350,7 @@ def kernel_table(runner, launches):
     # reduce (reduce_at): the function needs the R rows and a 4-byte gid of
     # each of the n_isects slots read once and [R, CN] written once; the
     # stream order and the scratch are this design's own and not counted
-    log(f"emit: {live_ids} of {CN} ids live, {M} entries, {emit_bytes} bytes; forward: {n_isects} entries, "
+    log(f"emit: {live_ids} of {CN} ids live, {M} entries, {e_bytes} bytes; forward: {n_isects} entries, "
         f"{fwd_pairs} evaluated pairs, {fwd_ops} flops, {fwd_bytes} bytes; backward: {n_eval} evaluated and "
         f"{n_acc} accepted pairs, {bwd_ops} flops, {bwd_bytes} bytes")
     kernels = [
@@ -1372,7 +1503,8 @@ def phase_serving_2dgs(trained):
 def phase_train_2dgs(scene):
     """2DGS training: Runner2DGS on the training phase's points and views,
     12 steps of one view with both geometry losses from step 0. Returns
-    kernel_table_2dgs's (reduce fields, 2DGS kernel entries) and the
+    kernel_table_2dgs's (the reduce's and emit's fields at these shapes, by
+    kernel name; the 2DGS kernels' entries) and the
     runner."""
     import torch
     from gsplat_tpu_torch.simple_trainer_2dgs import Runner2DGS
@@ -1388,10 +1520,12 @@ def kernel_table_2dgs(runner, launches):
     """The 2DGS kernels alone against their plain versions at the 2DGS
     train path's shapes (view 0, the trained splats): the whole frame (the
     plain versions timed once) and a seeded subset of tiles; the gid reduce
-    at these shapes. Returns (the reduce's fields at these shapes for its
-    entry of the `kernels` line, the 2DGS kernels' entries)."""
+    and the emit kernel at these shapes. Returns ({kernel name: its fields
+    at these shapes} for the reduce's and emit's entries of the `kernels`
+    line, the 2DGS kernels' entries, the forward's with its SASS
+    instructions per pair)."""
     import torch
-    from gsplat_tpu_torch import rendering
+    from gsplat_tpu_torch import _backend, rendering
     from gsplat_tpu_torch.ops import binning, rasterize_2dgs_binned as r2, rasterize_binned as rb
 
     dev = torch.device("cuda")
@@ -1408,6 +1542,8 @@ def kernel_table_2dgs(runner, launches):
         L = D + 3
         plan, slab = emit_plan_2dgs(binning, r2, s, ts, W, H, runner.isect_capacity)
         T = (-(-W // ts)) * (-(-H // ts))
+        # the emit kernel alone at these shapes (row 1 at the 2DGS payload)
+        emit_ms = cuda_ms(torch, lambda: binning._emit_cuda(plan), reps)
         bk = binning.sort_entries(binning._emit_cuda(plan), T, slab, binning.segment_starts(plan))
         fargs = (bk.entries, bk.offs, bk.cnts, 1, W, H, ts)
         fwd_ms = cuda_ms(torch, lambda: r2._fwd2_cuda(*fargs), reps)
@@ -1452,19 +1588,25 @@ def kernel_table_2dgs(runner, launches):
     bwd_bytes = n_isects * NF * 4 + 2 * T * 4 + pix * 4 * (L + 5) + (r2.NFIX + L) * rows_k.shape[1] * 4
     fb = (fwd_bytes / PEAK_BYTES_PER_S * 1e3, fwd_ops / PEAK_F32_FLOPS * 1e3)
     bb = (bwd_bytes / PEAK_BYTES_PER_S * 1e3, bwd_ops / PEAK_F32_FLOPS * 1e3)
+    e_bytes, live_ids = emit_bytes(plan)
     log(f"2DGS forward: {fwd_pairs} evaluated and {n_acc} accepted pairs, {fwd_ops} operations, {fwd_bytes} bytes; "
         f"backward: {n_eval} evaluated pairs, {bwd_ops} operations, {bwd_bytes} bytes; kernel ms fwd {fwd_ms:.3f} "
         f"bwd {bwd_ms:.3f}, plain ms fwd {fwd_plain_ms:.1f} bwd {bwd_plain_ms:.1f}")
-    reduce_2dgs = {
-        "ms_2dgs": red_ms, "plain_ms_2dgs": red_plain_ms, "bound_ms_2dgs": red_bound,
-        "library_ms_2dgs": red_plain_ms, "max_abs_err_2dgs": rmx,
+    log(f"emit at the 2DGS train shapes: {live_ids} of {plan.counts.shape[0]} ids live, {plan.n_emit} entries of "
+        f"{plan.payload.shape[0]} rows, {e_bytes} bytes; kernel ms {emit_ms:.3f}, bound "
+        f"{e_bytes / PEAK_BYTES_PER_S * 1e3:.3f} ms (bytes)")
+    sass = fwd2_sass_report(_backend, "rasterize_2dgs_fwd", L, ts, fwd_ms, fwd_pairs)
+    shared = {
+        "gid_reduce": {"ms_2dgs": red_ms, "plain_ms_2dgs": red_plain_ms, "bound_ms_2dgs": red_bound,
+                       "library_ms_2dgs": red_plain_ms, "max_abs_err_2dgs": rmx},
+        "emit": {"ms_2dgs": emit_ms, "bound_ms_2dgs": e_bytes / PEAK_BYTES_PER_S * 1e3},
     }
-    return reduce_2dgs, [
+    return shared, [
         {
             "name": "rasterize_2dgs_fwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/rasterize_2dgs_fwd.cu",
             "replaces": "gsplat_tpu/ops/rasterize_2dgs_binned.py:107", "launches": launches["rasterize_2dgs_fwd"],
             "max_abs_err": max(ferrs.values()), "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": max(fb),
-            "bound_by": "operations" if fb[1] >= fb[0] else "bytes", "library_ms": None,
+            "bound_by": "operations" if fb[1] >= fb[0] else "bytes", "library_ms": None, "sass_per_pair": sass,
         },
         {
             "name": "rasterize_2dgs_bwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/rasterize_2dgs_bwd.cu",
@@ -1796,7 +1938,7 @@ def phase_train_tiled_2dgs(scene):
     versions at the train shapes: the whole frame and seeded tiles. Returns
     their entries of the `kernels` line."""
     import torch
-    from gsplat_tpu_torch import rendering
+    from gsplat_tpu_torch import _backend, rendering
     from gsplat_tpu_torch.ops import rasterize_2dgs_binned as r2, rasterize_2dgs_tiled as r2t
     from gsplat_tpu_torch.ops import rasterize_binned as rb, rasterize_tiled as rt
     from gsplat_tpu_torch.ops.isect import isect_tiles
@@ -1858,6 +2000,7 @@ def phase_train_tiled_2dgs(scene):
     bwd_bytes = M * 4 + rows_b + 2 * T * 4 + pix * 4 * (L + 5) + nf * M * 4
     fb = (fwd_bytes / PEAK_BYTES_PER_S * 1e3, fwd_ops / PEAK_F32_FLOPS * 1e3)
     bb = (bwd_bytes / PEAK_BYTES_PER_S * 1e3, bwd_ops / PEAK_F32_FLOPS * 1e3)
+    sass = fwd2_sass_report(_backend, "rasterize_2dgs_tiled_fwd", L, ts, fwd_ms, fwd_pairs)
     log(f"tiled 2DGS forward: {fwd_pairs} evaluated and {n_acc} accepted pairs, {fwd_ops} operations, {fwd_bytes} "
         f"bytes; backward: {n_eval} evaluated pairs, {bwd_ops} operations, {bwd_bytes} bytes; kernel ms fwd "
         f"{fwd_ms:.3f} bwd {bwd_ms:.3f}, plain ms fwd {fwd_plain_ms:.1f} bwd {bwd_plain_ms:.1f}")
@@ -1867,7 +2010,7 @@ def phase_train_tiled_2dgs(scene):
             "source": "gsplat_tpu_torch/csrc/rasterize_2dgs_tiled_fwd.cu",
             "replaces": "gsplat_tpu/ops/rasterize_2dgs_tiled.py:83", "launches": launches["rasterize_2dgs_tiled_fwd"],
             "max_abs_err": max(ferrs.values()), "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": max(fb),
-            "bound_by": "operations" if fb[1] >= fb[0] else "bytes", "library_ms": None,
+            "bound_by": "operations" if fb[1] >= fb[0] else "bytes", "library_ms": None, "sass_per_pair": sass,
         },
         {
             "name": "rasterize_2dgs_tiled_bwd", "route": "cuda",
@@ -1894,8 +2037,9 @@ def main():
     t2 = time.perf_counter()
     kernels, scene = phase_train(smi)
     t3 = time.perf_counter()
-    (reduce_2dgs, kernels_2dgs), runner_2dgs = phase_train_2dgs(scene)
-    next(k for k in kernels if k["name"] == "gid_reduce").update(reduce_2dgs)
+    (shared_2dgs, kernels_2dgs), runner_2dgs = phase_train_2dgs(scene)
+    for k in kernels:
+        k.update(shared_2dgs.get(k["name"], {}))
     kernels += kernels_2dgs
     t4 = time.perf_counter()
     phase_serving_2dgs((runner_2dgs.params, runner_2dgs.live))

@@ -3,7 +3,8 @@
 // are thin C entry points over these).
 //
 // Every kernel runs one block per (camera, tile), one thread per pixel
-// (the backwards: P pixels a thread, below):
+// (the backwards and the 2DGS forward: P pixels of a column a thread,
+// Column below):
 //   T = C*th*tw blocks; cam = t / (th*tw), rem = t % (th*tw), tile row
 //   rem / tw, column rem % tw; thread p at (p % ts, p / ts) of the tile.
 // The block walks its range [offs[t], offs[t] + cnts[t]) of a depth-sorted
@@ -11,7 +12,8 @@
 // where a batch comes from, which the staging policy says:
 //   Streamed<B>: the binned stream, [nf, M] rows of the emitted entries in
 //     sort order; the block copies B columns at a time as [nf][B], so feature
-//     f of entry j is sm[f * B + j].
+//     f of entry j is sm[f * B + j] (load_rows, for the 2DGS forward: entry
+//     j's row at sm[j * row_floats()], read as float4).
 //   Gathered<B>: the tiled stream, flatten_ids [M] into a packed [C*N, F]
 //     table of per-Gaussian rows (F a multiple of 8 floats, so a row is
 //     32-byte aligned); the block copies the row packed[flatten_ids[i]] of
@@ -44,6 +46,12 @@ constexpr float kAlphaMax = 0.999f;
 constexpr float kTransmittanceEps = 1e-4f;
 constexpr int kFix2 = 12;  // 2DGS rows before the features: mx, my, M00..M22, opacity
 
+// the floats of an entry-major staged row of nf values: nf rounded up to
+// whole float4, an odd number of them
+__host__ __device__ constexpr int staged_row(int nf) {
+  return ((nf + 3) / 4 | 1) * 4;
+}
+
 template <int B>
 struct Streamed {
   static constexpr int kBatch = B;
@@ -61,6 +69,31 @@ struct Streamed {
       for (int f = 0; f < nf; ++f) sm[f * B + j] = __ldg(entries + (long long)f * M + first + j);
   }
   __device__ const float* entry(const float* sm, int j) const { return sm + j; }
+
+  // Entry-major staging (the 2DGS forward): entry j's nf values at sm[j *
+  // row_floats() ...], zero padded, so a thread reads a row 16 bytes at a
+  // time. A thread per entry reads its values coalesced across the warp as
+  // load() does and writes them as float4; the row holds an odd number of
+  // float4 (staged_row), so the 8 threads of a 16-byte store phase hit 8
+  // distinct bank groups. NQ bounds row_floats() / 4 at compile time.
+  __host__ __device__ int row_floats() const { return staged_row(nf); }
+  template <int NQ>
+  __device__ void load_rows(float* sm, int first, int nb) const {
+    const int nq = row_floats() / 4;
+    for (int j = threadIdx.x; j < nb; j += blockDim.x) {
+      const float* src = entries + first + j;
+      float4* dst = reinterpret_cast<float4*>(sm) + j * nq;
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        if (q < nq) {
+          float v[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) v[c] = 4 * q + c < nf ? __ldg(src + (long long)(4 * q + c) * M) : 0.0f;
+          dst[q] = make_float4(v[0], v[1], v[2], v[3]);
+        }
+      }
+    }
+  }
 };
 
 template <int B>
@@ -81,6 +114,13 @@ struct Gathered {
     }
   }
   __device__ const float* entry(const float* sm, int j) const { return sm + j * F; }
+
+  // already entry-major: a row of F floats, F a multiple of 8
+  __host__ __device__ int row_floats() const { return F; }
+  template <int NQ>
+  __device__ void load_rows(float* sm, int first, int nb) const {
+    load(sm, first, nb);
+  }
 };
 
 // this thread's pixel
@@ -102,6 +142,28 @@ struct Pixel {
   // into [C, H, W]; computed where it is used, so it holds no registers
   // across the compositing loop
   __device__ long long index(int W, int H) const { return ((long long)cam * H + y) * W + x; }
+};
+
+// this thread's P pixels of one column (bwd_3dgs, fwd_2dgs, bwd_2dgs): a
+// block of TS * TS / P threads per tile; thread i owns column i % TS, rows
+// (i / TS) P .. (i / TS) P + P - 1 of the tile
+template <int TS, int P>
+struct Column {
+  int cam, x, y0;
+  float px;  // the column's pixel centre x (+0.5)
+
+  __device__ Column(int th, int tw) {
+    cam = blockIdx.x / (th * tw);
+    const int rem = blockIdx.x % (th * tw);
+    x = (rem % tw) * TS + threadIdx.x % TS;
+    y0 = (rem / tw) * TS + (threadIdx.x / TS) * P;
+    px = (float)x + 0.5f;
+  }
+  __device__ bool inside(int k, int W, int H) const { return x < W && y0 + k < H; }
+  // pixel k's index into [C, H, W]
+  __device__ long long index(int k, int W, int H) const {
+    return ((long long)cam * H + y0 + k) * W + x;
+  }
 };
 
 // sigma = 0.5 (a dx^2 + c dy^2) + b dx dy, rounded op by op as the plain
@@ -344,11 +406,9 @@ bwd_3dgs(Stage st, long long M, const int* __restrict__ offs, const int* __restr
   const int off = offs[blockIdx.x];
   const int n = cnts[blockIdx.x];
 
-  const int cam = blockIdx.x / (th * tw);
-  const int rem = blockIdx.x % (th * tw);
-  const int x = (rem % tw) * TS + threadIdx.x % TS;
-  const int y0 = (rem / tw) * TS + (threadIdx.x / TS) * P;
-  const float px = (float)x + 0.5f;
+  const Column<TS, P> pix(th, tw);
+  const int y0 = pix.y0;
+  const float px = pix.px;
 
   int lst[P];
   float T[P], vlogT[P], vimg[P][DMAX];
@@ -360,8 +420,8 @@ bwd_3dgs(Stage st, long long M, const int* __restrict__ offs, const int* __restr
     vlogT[k] = 0.0f;
 #pragma unroll
     for (int d = 0; d < DMAX; ++d) vimg[k][d] = 0.0f;
-    if (x < W && y0 + k < H) {
-      const long long q = ((long long)cam * H + y0 + k) * W + x;
+    if (pix.inside(k, W, H)) {
+      const long long q = pix.index(k, W, H);
       lst[k] = last[q];
       T[k] = T_fin[q];
       vlogT[k] = v_T[q] * T[k];
@@ -496,77 +556,135 @@ bwd_3dgs(Stage st, long long M, const int* __restrict__ offs, const int* __restr
 //   median = m if T > 0.5;   T = T_incl;   last = the entry's stream index
 // Outputs per pixel inside the image: features [C,H,W,L], T_final, last,
 // distortion and median [C,H,W]. The caller composites the background.
+//
 // Bound on the card: operations. Counted from the code, a division and an
 // expf one operation each: 41 per evaluated (pixel, entry) pair (the
 // ray-plane cross product, sigma, alpha and the tests) and 2L + 13 more per
-// accepted pair.
-template <class Stage, int LMAX>
-__global__ void __launch_bounds__(1024)
+// accepted pair. Nearly every evaluated pair is accepted on trained surfels,
+// and every product and sum rounds on its own (two IEEE divisions, expf and
+// some 40 more operations for sigma and alpha alone), so the kernel is bound
+// by the instructions it issues a pair, not by latency or bytes: the design
+// cuts those.
+//
+// Layout (Column): a block of TS * TS / P threads per tile, thread i owning
+// the P pixels of column i % TS, rows (i / TS) P .. (i / TS) P + P - 1
+// (fwd2_pixels: 2 at 16x16 tiles). What the P pixels share is done once an
+// entry: the 12 fixed values and the features are read from shared memory
+// as float4 (the batch is staged entry-major, Stage::load_rows) and
+// surfel_column's d_x and h_u computed once. Per entry a thread first
+// evaluates sigma, alpha and the test of its P pixels (independent, so their
+// divisions and expf overlap), then composites each accepting pixel into
+// all LMAX lanes of its array (no lane tests L). Each pixel walks the stream
+// in order and rounds every product and sum on its own, as the one pixel a
+// thread design did, so all five outputs keep their bits. A thread is done
+// when its P pixels are (pixels past the image edge start done), and the
+// block leaves once all its threads are. P = 4 issues fewer instructions a
+// pair but holds twice the registers, and with fewer warps an SM it ran
+// slower than P = 2 (scripts/torch_fwd2_ab.py).
+template <class Stage, int LMAX, int TS, int P>
+__global__ void __launch_bounds__(TS * TS / P)
 fwd_2dgs(Stage st, const int* __restrict__ offs, const int* __restrict__ cnts, int th, int tw,
-         int ts, int W, int H, int L, float* __restrict__ feat, float* __restrict__ T_out,
+         int W, int H, int L, float* __restrict__ feat, float* __restrict__ T_out,
          int* __restrict__ last, float* __restrict__ dist_out, float* __restrict__ med_out) {
   extern __shared__ float4 smem[];
   float* sm = reinterpret_cast<float*>(smem);
-  constexpr int S = Stage::kStride;
   constexpr int B = Stage::kBatch;
-  const Pixel pix(th, tw, ts, W, H);
+  constexpr int NQ = (LMAX + 3) / 4;  // float4 of features
+  const int rs = st.row_floats();
+  const Column<TS, P> pix(th, tw);
   const int off = offs[blockIdx.x];
   const int n = cnts[blockIdx.x];
   const int md = L - 4;  // the depth: the last colour channel
 
-  float acc[LMAX];
+  float acc[P][LMAX];
+  float T[P], dist[P], wsum[P], wmsum[P], med[P];
+  int lst[P];
+  bool done[P];
+  bool all_done = true;
 #pragma unroll
-  for (int l = 0; l < LMAX; ++l) acc[l] = 0.0f;
-  float T = 1.0f;
-  int lst = -1;
-  float dist = 0.0f, wsum = 0.0f, wmsum = 0.0f, med = 0.0f;
-  bool done = !pix.inside;  // pixels past the image edge never hold the tile open
+  for (int k = 0; k < P; ++k) {
+#pragma unroll
+    for (int l = 0; l < LMAX; ++l) acc[k][l] = 0.0f;
+    T[k] = 1.0f;
+    dist[k] = wsum[k] = wmsum[k] = med[k] = 0.0f;
+    lst[k] = -1;
+    done[k] = !pix.inside(k, W, H);  // pixels past the image edge never hold the tile open
+    all_done = all_done && done[k];
+  }
 
   for (int b0 = 0; b0 < n; b0 += B) {
     // also the barrier that keeps the previous batch's readers ahead of
     // this batch's loads
-    if (__syncthreads_count(done) == (int)blockDim.x) break;
+    if (__syncthreads_count(all_done) == (int)blockDim.x) break;
     const int nb = min(B, n - b0);
-    st.load(sm, off + b0, nb);
+    st.template load_rows<staged_row(kFix2 + LMAX) / 4>(sm, off + b0, nb);
     __syncthreads();
-    if (!done) {
-      for (int j = 0; j < nb; ++j) {
-        const float* e = st.entry(sm, j);
-        float m[9];
+    for (int j = 0; j < nb && !all_done; ++j) {
+      const float* e = sm + j * rs;
+      const float4* e4 = reinterpret_cast<const float4*>(e);
+      const float4 r0 = e4[0], r1 = e4[1], r2 = e4[2];
+      const float m[9] = {r0.z, r0.w, r1.x, r1.y, r1.z, r1.w, r2.x, r2.y, r2.z};
+      const SurfelColumn col = surfel_column(m, r0.x, pix.px);
+      // the tests of the thread's P pixels
+      float alpha[P];
+      bool keep[P];
+      bool any = false;
 #pragma unroll
-        for (int i = 0; i < 9; ++i) m[i] = e[(2 + i) * S];
-        const SurfelSigma s = surfel_sigma(m, e[0], e[S], pix.cx, pix.cy);
-        const float alpha = fminf(e[11 * S] * expf(-s.sig), kAlphaMax);
-        if (!(s.sig >= 0.0f) || !(alpha >= kAlphaMin)) continue;
-        const float T_incl = T * (1.0f - alpha);
-        if (T_incl <= kTransmittanceEps) {
-          done = true;
-          break;
-        }
-        const float w = T * alpha;
-#pragma unroll
-        for (int l = 0; l < LMAX; ++l)
-          if (l < L) acc[l] += w * e[(kFix2 + l) * S];
-        const float depth = e[(kFix2 + md) * S];
-        const float wm = w * depth;
-        dist += 2.0f * (wm * wsum - w * wmsum);
-        wsum += w;
-        wmsum += wm;
-        if (T > 0.5f) med = depth;
-        T = T_incl;
-        lst = off + b0 + j;
+      for (int k = 0; k < P; ++k) {
+        const SurfelSigma s = surfel_sigma(m, col, r0.y, (float)(pix.y0 + k) + 0.5f);
+        alpha[k] = fminf(r2.w * expf(-s.sig), kAlphaMax);
+        keep[k] = !done[k] && s.sig >= 0.0f && alpha[k] >= kAlphaMin;
+        any = any || keep[k];
       }
+      if (!any) continue;
+      float f[4 * NQ];  // LMAX <= 4 NQ
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const float4 v = 4 * q < L ? e4[kFix2 / 4 + q] : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        f[4 * q] = v.x;
+        f[4 * q + 1] = v.y;
+        f[4 * q + 2] = v.z;
+        f[4 * q + 3] = v.w;
+      }
+      const float depth = e[kFix2 + md];
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        if (!keep[k]) continue;
+        const float T_incl = T[k] * (1.0f - alpha[k]);
+        if (T_incl <= kTransmittanceEps) {
+          done[k] = true;
+          continue;
+        }
+        const float w = T[k] * alpha[k];
+        // every lane of the array, the padding's too (zeros, or the row's
+        // next values: never written out), so no lane tests L
+#pragma unroll
+        for (int l = 0; l < LMAX; ++l) acc[k][l] += w * f[l];
+        const float wm = w * depth;
+        dist[k] += 2.0f * (wm * wsum[k] - w * wmsum[k]);
+        wsum[k] += w;
+        wmsum[k] += wm;
+        if (T[k] > 0.5f) med[k] = depth;
+        T[k] = T_incl;
+        lst[k] = off + b0 + j;
+      }
+      all_done = true;
+#pragma unroll
+      for (int k = 0; k < P; ++k) all_done = all_done && done[k];
     }
   }
-  if (!pix.inside) return;
-  const long long q = pix.index(W, H);
 #pragma unroll
-  for (int l = 0; l < LMAX; ++l)
-    if (l < L) feat[q * L + l] = acc[l];
-  T_out[q] = T;
-  last[q] = lst;
-  dist_out[q] = dist;
-  med_out[q] = med;
+  for (int k = 0; k < P; ++k) {
+    if (!pix.inside(k, W, H)) continue;
+    const long long q = pix.index(k, W, H);
+#pragma unroll
+    for (int l = 0; l < LMAX; ++l)
+      if (l < L) feat[q * L + l] = acc[k][l];
+    T_out[q] = T[k];
+    last[q] = lst[k];
+    dist_out[q] = dist[k];
+    med_out[q] = med[k];
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -629,11 +747,9 @@ bwd_2dgs(Stage st, long long M, const int* __restrict__ offs, const int* __restr
   const int n = cnts[blockIdx.x];
   const int md = L - 4;  // the depth: the last colour channel
 
-  const int cam = blockIdx.x / (th * tw);
-  const int rem = blockIdx.x % (th * tw);
-  const int x = (rem % tw) * TS + threadIdx.x % TS;
-  const int y0 = (rem / tw) * TS + (threadIdx.x / TS) * P;
-  const float px = (float)x + 0.5f;
+  const Column<TS, P> pix(th, tw);
+  const int y0 = pix.y0;
+  const float px = pix.px;
 
   int lst[P];
   float T[P], vlogT[P], vdist[P], w_tot[P], wm_tot[P], vf[P][LMAX];
@@ -645,8 +761,8 @@ bwd_2dgs(Stage st, long long M, const int* __restrict__ offs, const int* __restr
     vlogT[k] = vdist[k] = w_tot[k] = wm_tot[k] = 0.0f;
 #pragma unroll
     for (int l = 0; l < LMAX; ++l) vf[k][l] = 0.0f;
-    if (x < W && y0 + k < H) {
-      const long long q = ((long long)cam * H + y0 + k) * W + x;
+    if (pix.inside(k, W, H)) {
+      const long long q = pix.index(k, W, H);
       lst[k] = last[q];
       T[k] = T_fin[q];
       vlogT[k] = v_T[q] * T[k];
@@ -864,20 +980,52 @@ cudaError_t launch_bwd_3dgs(const Stage& st, long long M, const int* offs, const
                 stream);
 }
 
+// P, the pixels a thread of the 2DGS forward owns: kFwd2Pix (4 issued
+// fewer instructions a pair but, with its registers, ran slower on an H100);
+// 4 at 32x32 tiles and for the 16-wide array, where ptxas spilled some
+// P = 2 instantiations (512 threads cap a thread at 128 registers); at 8x8
+// tiles no more than keeps a whole warp
+constexpr int kFwd2Pix = 2;
+
+template <int TS, int LMAX>
+constexpr int fwd2_pixels() {
+  return TS == 8 ? 2 : TS == 32 || LMAX == 16 ? 4 : kFwd2Pix;
+}
+
+template <class Stage, int TS, int LMAX>
+cudaError_t launch_fwd_2dgs_tl(const Stage& st, const int* offs, const int* cnts, int C, int th,
+                               int tw, int W, int H, int L, float* feat, float* T_out, int* last,
+                               float* dist, float* med, cudaStream_t stream) {
+  constexpr int P = fwd2_pixels<TS, LMAX>();
+  auto kernel = &fwd_2dgs<Stage, LMAX, TS, P>;
+  const size_t smem = (size_t)Stage::kBatch * st.row_floats() * sizeof(float);
+  cudaError_t err = set_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<C * th * tw, TS * TS / P, smem, stream>>>(st, offs, cnts, th, tw, W, H, L, feat, T_out,
+                                                     last, dist, med);
+  return cudaGetLastError();
+}
+
+// the L instantiations of one tile size
+template <class Stage, int TS>
+cudaError_t launch_fwd_2dgs_t(const Stage& st, const int* offs, const int* cnts, int C, int th,
+                              int tw, int W, int H, int L, float* feat, float* T_out, int* last,
+                              float* dist, float* med, cudaStream_t stream) {
+  auto launch = L <= 4    ? &launch_fwd_2dgs_tl<Stage, TS, 4>
+                : L <= 8  ? &launch_fwd_2dgs_tl<Stage, TS, 8>
+                : L <= 16 ? &launch_fwd_2dgs_tl<Stage, TS, 16>
+                          : &launch_fwd_2dgs_tl<Stage, TS, 35>;
+  return launch(st, offs, cnts, C, th, tw, W, H, L, feat, T_out, last, dist, med, stream);
+}
+
 template <class Stage>
 cudaError_t launch_fwd_2dgs(const Stage& st, const int* offs, const int* cnts, int C, int th,
                             int tw, int ts, int W, int H, int L, float* feat, float* T_out,
                             int* last, float* dist, float* med, cudaStream_t stream) {
-  auto kernel = L <= 4    ? &fwd_2dgs<Stage, 4>
-                : L <= 8  ? &fwd_2dgs<Stage, 8>
-                : L <= 16 ? &fwd_2dgs<Stage, 16>
-                          : &fwd_2dgs<Stage, 35>;
-  const size_t smem = (size_t)st.staged_floats() * sizeof(float);
-  cudaError_t err = set_smem(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<C * th * tw, ts * ts, smem, stream>>>(st, offs, cnts, th, tw, ts, W, H, L, feat,
-                                                 T_out, last, dist, med);
-  return cudaGetLastError();
+  auto launch = ts == 8    ? &launch_fwd_2dgs_t<Stage, 8>
+                : ts == 16 ? &launch_fwd_2dgs_t<Stage, 16>
+                           : &launch_fwd_2dgs_t<Stage, 32>;
+  return launch(st, offs, cnts, C, th, tw, W, H, L, feat, T_out, last, dist, med, stream);
 }
 
 // P, the pixels a thread owns: kBwd2Pix; 2 for the L > 16 arrays below

@@ -33,6 +33,12 @@ __device__ __forceinline__ float nan_min(float a, float b) {
   return isnan(a) ? a : (a <= b ? a : b);
 }
 
+// q0 = a0 / b and q1 = a1 / b, each rounded correctly (IEEE division)
+__device__ __forceinline__ void div2_rn(float a0, float a1, float b, float& q0, float& q1) {
+  q0 = __fdiv_rn(a0, b);
+  q1 = __fdiv_rn(a1, b);
+}
+
 // m: the ray transform M00..M22 (row-major); gx the projected centre's x;
 // px the pixel centre's x
 __device__ __forceinline__ SurfelColumn surfel_column(const float (&m)[9], float gx, float px) {
@@ -60,8 +66,7 @@ __device__ __forceinline__ SurfelSigma surfel_sigma(const float (&m)[9], const S
   const float cr1 = __fsub_rn(__fmul_rn(s.hu[2], s.hv[0]), __fmul_rn(s.hu[0], s.hv[2]));
   const float cr2 = __fsub_rn(__fmul_rn(s.hu[0], s.hv[1]), __fmul_rn(s.hu[1], s.hv[0]));
   s.crz = fabsf(cr2) < 1e-12f ? 1e-12f : cr2;
-  s.u = __fdiv_rn(cr0, s.crz);
-  s.v = __fdiv_rn(cr1, s.crz);
+  div2_rn(cr0, cr1, s.crz, s.u, s.v);
   const float sig3 = __fadd_rn(__fmul_rn(s.u, s.u), __fmul_rn(s.v, s.v));
   const float sig2 = __fmul_rn(2.0f, __fadd_rn(col.dx2, __fmul_rn(s.dy, s.dy)));
   s.use3d = sig3 <= sig2;

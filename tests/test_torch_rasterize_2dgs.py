@@ -43,11 +43,15 @@ from gsplat_tpu_torch.ops.rasterize import rasterize_to_pixels_2dgs
 from gsplat_tpu_torch.ops.rasterize_2dgs_ref import rasterize_to_pixels_2dgs_ref
 
 N, C, W, H, CAP = 300, 2, 64, 48, 16384
+# a ragged image: the last tile row holds 45 % ts pixel rows (5 at tile 8,
+# 13 at tile 16), which the kernel's P pixels of a column a thread (2 at
+# tile 8, 4 at 16) do not divide, and the last tile column 61 % ts
+RAGGED_W, RAGGED_H, RAGGED_N = 61, 45, 120
 NAMES = ("means2d", "ray_transforms", "colors", "normals", "opacities")
 OUTS = ("colors", "alphas", "normals", "distort", "median")
 
 
-def _scene(seed=0):
+def _scene(seed=0, W=W, H=H, N=N):
     rng = np.random.default_rng(seed)
     means = rng.standard_normal((N, 3)).astype(np.float32)
     quats = rng.standard_normal((N, 4)).astype(np.float32)
@@ -257,6 +261,40 @@ def _stream(scene, ts=16):
         diff[0][..., 0], diff[0][..., 1], Ms, diff[4], diff[2], diff[3],
         _T(scene["radii"]), _T(scene["depths"]), W, H, ts, CAP,
     )
+
+
+_RAGGED = {}
+
+
+def ragged_case(ts):
+    """(the ragged scene, JAX's eager oracle's five outputs at tile size
+    ts), computed once per ts. The oracle, not JAX's binned or tiled
+    kernels: on this seeded scene those (in interpret mode) round the
+    cancelling cross products otherwise and put 0.25% of the colour values
+    more than 2e-4 from JAX's own oracle, past the flip gate, where the
+    port's kernels' plain versions put 0.07%."""
+    if ts not in _RAGGED:
+        s = _scene(1, W=RAGGED_W, H=RAGGED_H, N=RAGGED_N)
+        args = map(jnp.asarray, s["diff"] + [s["radii"], s["depths"]])
+        want = jax_ref(*args, RAGGED_W, RAGGED_H, ts, backgrounds=jnp.asarray(s["bg"]))
+        _RAGGED[ts] = s, [np.asarray(x) for x in want[:5]]
+    return _RAGGED[ts]
+
+
+@pytest.mark.parametrize("ts", [8, 16])
+def test_binned_2dgs_forward_ragged_matches_jax(ts):
+    """The binned forward (emit -> sort -> the forward kernel's plain
+    version) on a ragged image, where chip_smoke.py holds the kernel to
+    this plain version, against JAX's oracle: the five outputs by the flip
+    gates."""
+    s, want = ragged_case(ts)
+    with torch.no_grad():
+        got = r2.rasterize_to_pixels_2dgs_binned(*map(_T, s["diff"] + [s["radii"], s["depths"]]), RAGGED_W,
+                                                 RAGGED_H, ts, capacity=CAP, backgrounds=_T(s["bg"]))
+    assert int(got[5]["n_isects"]) > 0
+    for g, w, name in zip(got[:5], want, OUTS):
+        assert tuple(g.shape) == w.shape, name
+        _flip_gate(g.numpy(), w, name)
 
 
 def test_plain_chunking_is_exact(scene, monkeypatch):

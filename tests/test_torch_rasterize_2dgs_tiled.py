@@ -35,7 +35,8 @@ from gsplat_tpu_torch.ops.rasterize_2dgs_binned import rasterize_to_pixels_2dgs_
 from gsplat_tpu_torch.ops.rasterize_tiled import pack_rows, stream_ranges
 
 from test_rasterize_2dgs_tiled import _mostly_close
-from test_torch_rasterize_2dgs import C, H, NAMES, W, _scene
+from test_torch_rasterize_2dgs import C, H, NAMES, RAGGED_H, RAGGED_W, W, _flip_gate, _scene, ragged_case
+from test_torch_rasterize_2dgs import OUTS as OUTS_2DGS
 from test_torch_rendering_2dgs import CASES, _args, _inputs, _kw
 from test_torch_rendering_2dgs import H as R2_H
 from test_torch_rendering_2dgs import OUTS as R2_OUTS
@@ -150,6 +151,25 @@ def test_rasterization_2dgs_tiled_matches_jax():
     jisect = jax_isect(m2d, radii, depths, 16, 3, 2, 8192)
     assert int(got[6]["n_isects"]) == int(jisect.n_isects) > 0
     assert got[6]["isect_capacity"] == 8192 and "slab_required" not in got[6]
+
+
+@pytest.mark.parametrize("ts", [8, 16])
+def test_2dgs_tiled_forward_ragged_matches_jax(ts):
+    """The tiled forward (the port's isect_tiles -> the forward kernel's
+    plain version) on the ragged image of
+    tests/test_torch_rasterize_2dgs.py, where chip_smoke.py holds the
+    kernel to this plain version, against JAX's oracle by that file's flip
+    gates (ragged_case says why the oracle)."""
+    s, want = ragged_case(ts)
+    leaves = [_T(a) for a in s["diff"]]
+    isect = isect_tiles(leaves[0], _T(s["radii"]), _T(s["depths"]), ts, -(-RAGGED_W // ts), -(-RAGGED_H // ts),
+                        CAP)
+    with torch.no_grad():
+        got = r2t.rasterize_to_pixels_2dgs_tiled(*leaves, RAGGED_W, RAGGED_H, ts, isect, backgrounds=_T(s["bg"]))
+    assert int(isect.n_isects) > 0
+    for g, w, name in zip(got[:5], want, OUTS_2DGS):
+        assert tuple(g.shape) == w.shape, name
+        _flip_gate(g.numpy(), w, name)
 
 
 def test_rasterize_to_pixels_2dgs_tiled_dispatch(ref):
