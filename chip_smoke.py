@@ -7,17 +7,19 @@ Phases, each printing its lines; any failure raises and the script exits
 non-zero (there is no CPU fallback):
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the ten kernels (csrc/emit.cu, rasterize_fwd.cu,
-     rasterize_bwd.cu, gid_reduce.cu, rasterize_2dgs_fwd.cu,
+  2. build: the eleven kernels (csrc/emit.cu, emit_gather.cu,
+     rasterize_fwd.cu, rasterize_bwd.cu, gid_reduce.cu, rasterize_2dgs_fwd.cu,
      rasterize_2dgs_bwd.cu, rasterize_tiled_fwd.cu, rasterize_tiled_bwd.cu,
      rasterize_2dgs_tiled_fwd.cu, rasterize_2dgs_tiled_bwd.cu), one nvcc
      process each, started together, into build/gsplat_tpu_torch/, with
      ptxas's registers and spills for each kernel instantiation;
   3. kernel vs plain on the card: garden scene_grid=1 at its native
      648x420, 3 cameras, tile sizes 16 and 32, sh_degree 0 and 3:
-     - the emit kernel's stream must equal its plain version's (3DGS and
-       2DGS payloads);
-     - the forward kernel's image and alpha within max abs 2e-4 (an entry
+     - the emit kernel's keys and gids, and the gather kernel's sorted gids
+       and entry rows, must equal their plain versions' (3DGS and 2DGS
+       payloads; also a truncated capacity and an empty stream);
+     - the forward kernel's image (the background composited after it, as
+       the path does) and alpha within max abs 2e-4 (an entry
        at the T ~ 1e-4 termination boundary can flip when the product is
        rounded in another order) and mean abs 1e-6;
      - the backward kernel's rows, for seeded cotangents, within rtol 1e-3
@@ -57,8 +59,9 @@ non-zero (there is no CPU fallback):
   4. serving path: garden scene_grid=5 (2,794,625 Gaussians) at
      1920x1080, one camera per frame, tile size 16, sh_degree 3, through
      rasterization(backend="binned") under no_grad, with its launch counts,
-     frame and stage times, one profiled frame and the tile-size sweep;
-     emit and forward against their plain versions at these shapes;
+     frame and stage times (the sort with, of it, the gather), one profiled
+     frame and the tile-size sweep; emit, gather and forward against their
+     plain versions at these shapes;
   5. training path: simple_trainer.Runner on the same 2,794,625 points
      (kNN scales, pool of round_up(1.5 N, 4096) slots) against targets
      rendered from the fixture's own splats, 12 steps of one view, tile
@@ -78,8 +81,9 @@ non-zero (there is no CPU fallback):
      these shapes, over the whole frame (the plain versions timed once)
      and on 256 seeded tiles; the gid reduce at these shapes (on the
      stream's order and through a gid sort, against index_add_, with its
-     bytes bound); the emit kernel alone at these shapes with its bytes
-     bound; the 2DGS forward's SASS instructions per (pixel, entry) pair
+     bytes bound); the emit and gather kernels alone at these shapes with
+     their bytes bounds (the gather also against index_select); the 2DGS
+     forward's SASS instructions per (pixel, entry) pair
      (its entry loop's static count, cuobjdump, over its P pixels) beside
      the issue slots per pair its time allowed;
   7. 2DGS serving: rasterization_2dgs(backend="binned",
@@ -87,9 +91,11 @@ non-zero (there is no CPU fallback):
      forward and nothing else, on two scenes: the serving path's splats as
      surfels (frame-sized near-plane surfels saturate every pixel at once)
      and phase 6's trained surfels (each pixel composites many); for each,
-     frame and stage times, one profiled frame, the stream's size, and the
-     2DGS forward against its plain version on 256 seeded tiles (the other
-     tiles' counts zeroed for both);
+     frame and stage times (the sort with, of it, the gather), the peak
+     device memory of a frame, one profiled frame, the stream's size, the
+     emit and gather kernels alone on the fixture surfels with their
+     bounds, and the 2DGS forward against its plain version on 256 seeded
+     tiles (the other tiles' counts zeroed for both);
   8. tiled serving: rasterization(backend="auto") with no isect_capacity
      at the serving path's shapes, which must resolve to the tiled backend
      (n_isects and no slab_required in meta, the tiled forward launched in
@@ -105,10 +111,10 @@ non-zero (there is no CPU fallback):
      2DGS shapes as in phases 5-6;
  10. tiled 2DGS serving: rasterization_2dgs(backend="tiled", RGB+ED) on
      phase 9's trained surfels, with phase 8's prints and checks;
- 11. the `kernels` line (all ten kernels; emit and the reduce also with
-     their times and bounds at the 2DGS train shapes, the two 2DGS
-     forwards with their SASS instructions per pair), then the result
-     line.
+ 11. the `kernels` line (all eleven kernels; emit, the gather and the
+     reduce also with their times and bounds at the 2DGS train shapes, emit
+     and the gather also at the fixture surfels, the four forwards with
+     their SASS instructions per pair), then the result line.
 """
 
 import json
@@ -263,34 +269,67 @@ def emit_plan(binning, s, ts, W, H, capacity):
 
 
 def compare_emit(torch, binning, plan, slab, T):
-    """Emit kernel vs plain on one plan: raw and sorted streams equal.
-    Returns (the kernel's sorted stream, max abs difference of its entries
-    from the plain version's)."""
+    """Emit kernel vs plain on one plan (keys and gids equal), then the
+    sort and the gather kernel vs its plain version on the sorted keys
+    (gids and entry rows equal). Returns (the kernels' sorted stream, max
+    abs difference of its entries from the plain gather's)."""
     raw_k = binning._emit_cuda(plan)
     raw_p = binning._emit_plain(plan)
-    for a, b, what in zip(raw_k, raw_p, ("keys", "gids", "feats")):
+    for a, b, what in zip(raw_k, raw_p, ("keys", "gids")):
         if not torch.equal(a, b):
             bad = int((a != b).sum())
             raise AssertionError(f"emit kernel {what} differ from plain at {bad} places")
-    starts = binning.segment_starts(plan)
-    bk = binning.sort_entries(raw_k, T, slab, starts)
-    bp = binning.sort_entries(raw_p, T, slab, starts)
-    for f in ("entries", "gids", "offs", "cnts", "n_isects", "dst"):
-        if not torch.equal(getattr(bk, f), getattr(bp, f)):
-            raise AssertionError(f"sorted stream field {f} differs between emit kernel and plain")
-    err = float((bk.entries - bp.entries).abs().max()) if bk.entries.numel() else 0.0
+    bk = binning.sort_entries(raw_k, plan.packed, plan.nf, T, slab, binning.segment_starts(plan))
+    gp = binning._gather_plain(plan.packed, plan.nf, bk.dst, raw_k[1], bk.n_isects)
+    for a, b, what in zip((bk.gids, bk.entries), gp, ("gids", "entries")):
+        if not torch.equal(a, b):
+            raise AssertionError(f"gather kernel {what} differ from plain at {int((a != b).sum())} places")
+    err = float((bk.entries - gp[1]).abs().max()) if bk.entries.numel() else 0.0
     return bk, err
+
+
+def gather_args(torch, plan, bk):
+    """The gather's inputs for a stream sorted with its order (perm, the
+    emitted gids, n_isects), and the valid row ids of index_select."""
+    perm = bk.dst
+    gids = torch.empty_like(bk.gids)
+    gids[perm] = bk.gids  # the emitted order: gids_s[k] = gids[perm[k]]
+    ids = torch.where(torch.arange(bk.gids.shape[0], device=perm.device) < bk.n_isects, bk.gids, 0)
+    return (plan.packed, plan.nf, perm, gids, bk.n_isects), ids
+
+
+def binning_fields(torch, binning, plan, bk, reps, what):
+    """Emit and the gather alone on one plan and its sorted stream: {kernel
+    name: its ms, bound_ms and, for the gather, library_ms}, logged."""
+    gargs, ids = gather_args(torch, plan, bk)
+    emit_ms = cuda_ms(torch, lambda: binning._emit_cuda(plan), reps)
+    gather_ms = cuda_ms(torch, lambda: binning._gather_cuda(*gargs), reps)
+    # one PyTorch call for the same rows: index_select and its transpose
+    lib_ms = cuda_ms(torch, lambda: torch.index_select(plan.packed, 0, ids)[:, :plan.nf].t().contiguous(), reps)
+    e_bytes, live_ids = emit_bytes(plan)
+    g_bytes, n_rows = gather_bytes(torch, plan, bk)
+    log(f"emit and gather, {what}: {live_ids} of {plan.counts.shape[0]} ids live, {plan.n_emit} entries, "
+        f"{int(bk.n_isects)} kept, {plan.nf} payload rows; emit {emit_ms:.3f} ms, bound {e_bytes} bytes "
+        f"{e_bytes / PEAK_BYTES_PER_S * 1e3:.3f} ms; gather {gather_ms:.3f} ms, bound {g_bytes} bytes "
+        f"({n_rows} distinct rows) {g_bytes / PEAK_BYTES_PER_S * 1e3:.3f} ms; index_select + transpose "
+        f"{lib_ms:.3f} ms")
+    return {
+        "emit": {"ms": emit_ms, "bound_ms": e_bytes / PEAK_BYTES_PER_S * 1e3},
+        "emit_gather": {"ms": gather_ms, "bound_ms": g_bytes / PEAK_BYTES_PER_S * 1e3, "library_ms": lib_ms},
+    }
 
 
 def compare_fwd(torch, rb, bk, C, W, H, ts, entries=None, bg=None):
     """Forward kernel vs plain on one stream (its entries, or `entries` in
-    their place). Returns (max abs, mean abs, share of pixels with equal
+    their place), the background `bg` composited onto both. Returns (max abs, mean abs, share of pixels with equal
     `last`, count of values off by > 1e-5, evaluated pairs, the kernel's
     (image, T, last))."""
     entries = bk.entries if entries is None else entries
-    args = (entries, bk.offs, bk.cnts, C, W, H, ts, bg)
+    args = (entries, bk.offs, bk.cnts, C, W, H, ts)
     img_k, T_k, last_k = rb._fwd_cuda(*args)
-    img_p, T_p, last_p, pairs = rb._fwd_plain(*args)
+    if bg is not None:  # composited after the kernel, as the path does
+        img_k = img_k + T_k[..., None] * bg[:, None, None, :]
+    img_p, T_p, last_p, pairs = rb._fwd_plain(*args, bg)
     return gate_fwd(torch, (img_k, T_k, last_k), (img_p, T_p, last_p), pairs)
 
 
@@ -606,11 +645,13 @@ def demangle(names):
     return out if len(out) == len(names) else list(names)
 
 
-def sass_loops(so, pattern):
+def sass_loops(so, pattern, ex2=None):
     """{demangled kernel: the instructions of the innermost loop of its SASS
     that holds an MUFU.EX2 (an expf)} for each kernel of the shared library
-    `so` whose name contains `pattern` (cuobjdump beside nvcc). A static
-    count of the loop's body: the compositing loop over staged entries."""
+    `so` whose name contains `pattern` (cuobjdump beside nvcc); with `ex2`
+    (a function of the kernel's name) the loop must hold exactly ex2(name)
+    of them. A static count of the loop's body: the compositing loop over
+    staged entries."""
     from gsplat_tpu_torch import _backend
 
     cuobjdump = os.path.join(os.path.dirname(_backend._nvcc()), "cuobjdump")
@@ -639,6 +680,7 @@ def sass_loops(so, pattern):
         if pattern not in name:
             continue
         best = None
+        want = ex2(name) if ex2 is not None else None
         for i, (addr, op) in enumerate(ins):
             m = re.search(r"\bBRA\b[^`]*?(?:0x([0-9a-f]+)|`\(\s*(\.L_x_\d+)\s*\))", op)
             if not m:
@@ -647,7 +689,8 @@ def sass_loops(so, pattern):
             if target > addr:
                 continue
             body = [o for a, o in ins[:i + 1] if a >= target]
-            if any("MUFU.EX2" in o for o in body) and (best is None or len(body) < best):
+            n_ex2 = sum("MUFU.EX2" in o for o in body)
+            if n_ex2 and (want is None or n_ex2 == want) and (best is None or len(body) < best):
                 best = len(body)
         counts[name] = best
     return counts
@@ -667,11 +710,50 @@ def fwd2_sass_per_pair(so, L, ts):
     return None, None, None, None
 
 
-def fwd2_sass_report(_backend, name, L, ts, ms, pairs):
-    """Log the SASS instructions per pair of the 2DGS forward that `name`
-    launched at L channels and tile size ts beside the issue slots per
-    evaluated pair that its `ms` allowed; returns the former."""
-    kernel, n, P, per_pair = fwd2_sass_per_pair(_backend._library_path(name), L, ts)
+def emit_bytes(plan):
+    """(bytes the emit kernel must move, live ids): a live id's start,
+    rectangle and depth read (and its six cull values with the cull), each
+    entry's key and gid written; an id that emits nothing costs nothing."""
+    CN = plan.counts.shape[0]
+    live_ids = int((plan.counts > 0).sum())
+    return live_ids * (8 + 3 * 4 + 4 + (6 * 4 if plan.cull else 0)) + plan.n_emit * (8 + 4), live_ids
+
+
+def gather_bytes(torch, plan, bk):
+    """(bytes the gather must move, distinct rows): per slot the sort's
+    permutation (8) and an emitted gid (4) read, the sorted gid (4) and nf
+    values written; each distinct row that a kept slot names read once."""
+    n = int(bk.n_isects)
+    rows = int(torch.unique(bk.gids[:n]).numel()) if n else 0
+    M = bk.gids.shape[0]
+    return M * (8 + 4 + 4 + 4 * plan.nf) + rows * plan.nf * 4 + 8, rows
+
+
+def fwd3_sass_per_pair(so, D, ts):
+    """(kernel, loop instructions, P, instructions per (pixel, entry) pair)
+    of the fwd_3dgs instantiation in `so` that D channels at tile size ts
+    launch: its compositing loop (the loop holding its P pixels' expf, not
+    the warp-reach loop's) over its P pixels a thread."""
+    dmax = 4 if D <= 4 else 8 if D <= 8 else 16 if D <= 16 else 32
+    for name, n in sass_loops(so, "fwd_3dgs", ex2=_fwd3_pixels).items():
+        m = re.search(r"fwd_3dgs<raster::\w+<\d+>, (\d+), (\d+), (\d+)>", name)
+        if m and int(m.group(1)) == dmax and int(m.group(2)) == ts:
+            P = int(m.group(3))
+            return name, n, P, (n / P if n else None)
+    return None, None, None, None
+
+
+def _fwd3_pixels(name):
+    m = re.search(r"fwd_3dgs<raster::\w+<\d+>, \d+, \d+, (\d+)>", name)
+    return int(m.group(1)) if m else None
+
+
+def forward_sass_report(_backend, name, per_pair_fn, ms, pairs, *args):
+    """Log the SASS instructions per pair of the forward that `name`
+    launched (per_pair_fn(so, *args): fwd2_sass_per_pair or
+    fwd3_sass_per_pair) beside the issue slots per evaluated pair that its
+    `ms` allowed; returns the former."""
+    kernel, n, P, per_pair = per_pair_fn(_backend._library_path(name), *args)
     if per_pair is None:
         raise AssertionError(f"{name}: no entry loop found in the SASS of {kernel}")
     # 132 SMs x 4 schedulers x 32 lanes a cycle at the largest SM clock
@@ -681,17 +763,6 @@ def fwd2_sass_report(_backend, name, L, ts, ms, pairs):
     log(f"{name} {kernel}: {n} SASS instructions in the entry loop for {P} pixels, {per_pair:.1f} a pair; "
         f"{ms:.3f} ms allowed {slots:.1f} thread-instruction slots an evaluated pair at {mhz:.0f} MHz")
     return per_pair
-
-
-def emit_bytes(plan):
-    """(bytes the emit kernel must move, live ids): emit reads only `counts`
-    for an id that emits nothing; a live id also reads its rectangle, write
-    offset, depth and NF payload rows; each entry writes its key, gid and NF
-    rows."""
-    NF = plan.payload.shape[0]
-    CN = plan.counts.shape[0]
-    live_ids = int((plan.counts > 0).sum())
-    return live_ids * (5 * 4 + 8 + 4 * NF) + (CN - live_ids) * 4 + plan.n_emit * (8 + 4 + 4 * NF), live_ids
 
 
 def phase_kernel_vs_plain():
@@ -745,6 +816,21 @@ def phase_kernel_vs_plain():
                             f"mean abs {mean:.3e} ({n_off} values > 1e-5), last equal at {same_last:.6f} "
                             f"of pixels; bwd{' (absgrad rows)' if ts == 16 else ''} max abs {bmx:.3e}; "
                             f"reduce ({rows_d.shape[0]} rows) max abs {rmx:.3e}")
+
+        # emit and the gather at a truncated capacity (half the slab: whole
+        # emit blocks dropped) and on an empty stream (no radius), ts 16
+        T = C * (-(-W // 16)) * (-(-H // 16))
+        full, need = emit_plan(binning, s, 16, W, H, capacity=1 << 30)
+        plan, slab = emit_plan(binning, s, 16, W, H, capacity=need // 2)
+        bk, _ = compare_emit(torch, binning, plan, slab, T)
+        if not 0 < plan.n_emit < full.n_emit:
+            raise AssertionError(f"capacity {need // 2} emitted {plan.n_emit} of {full.n_emit} entries")
+        empty, slab_e = emit_plan(binning, s._replace(radii=torch.zeros_like(s.radii)), 16, W, H, capacity=1 << 30)
+        be, _ = compare_emit(torch, binning, empty, slab_e, T)
+        if empty.n_emit or be.entries.shape != (empty.nf, 0) or int(be.cnts.sum()):
+            raise AssertionError(f"empty stream: {empty.n_emit} emitted, entries {tuple(be.entries.shape)}")
+        log(f"emit and gather vs plain grid1 ts=16: truncated capacity {need // 2} ({plan.n_emit} of "
+            f"{full.n_emit} entries emitted, {int(bk.n_isects)} kept) equal; empty stream equal")
 
         # binned (kernels) vs oracle on a small subsample, as the repo's
         # golden test cuts the garden: every 15th Gaussian, cameras / 4
@@ -1122,7 +1208,7 @@ def phase_serving(smi):
             f"{len(frames)} frames, ms/frame host {', '.join(f'{t:.2f}' for t in frames)}; "
             f"CUDA events {', '.join(f'{t:.2f}' for t in frames_dev)}")
         log(f"launches in the serving path: {launches}")
-        for name in ("emit", "rasterize_fwd"):
+        for name in ("emit", "emit_gather", "rasterize_fwd"):
             if launches[name] == 0:
                 raise AssertionError(f"kernel {name} was not launched on the serving path")
 
@@ -1131,7 +1217,8 @@ def phase_serving(smi):
         plan, slab = emit_plan(binning, s, ts, W, H, capacity)
         T = (-(-W // ts)) * (-(-H // ts))
         ops = binning._emit_cuda(plan)
-        bk = binning.sort_entries(ops, T, slab)
+        bk = binning.sort_entries(ops, plan.packed, plan.nf, T, slab, binning.segment_starts(plan))
+        gargs, _ = gather_args(torch, plan, bk)
         reps = 10
         args0 = render_args(torch, splats)
         stage = {
@@ -1139,7 +1226,8 @@ def phase_serving(smi):
             "of it: render transform (exp, sigmoid, cat)": cuda_ms(torch, lambda: render_args(torch, splats), reps),
             "of it: projection": cuda_ms(torch, lambda: fully_fused_projection_soa(*args0[:3], vms[0], Kss[0], W, H), reps),
             "emit (plan + kernel)": cuda_ms(torch, lambda: binning._emit_cuda(emit_plan(binning, s, ts, W, H, capacity)[0]), reps),
-            "sort": cuda_ms(torch, lambda: binning.sort_entries(ops, T, slab), reps),
+            "sort": cuda_ms(torch, lambda: binning.sort_entries(ops, plan.packed, plan.nf, T, slab), reps),
+            "of it: gather": cuda_ms(torch, lambda: binning._gather_cuda(*gargs), reps),
             "forward kernel": cuda_ms(torch, lambda: rb._fwd_cuda(bk.entries, bk.offs, bk.cnts, 1, W, H, ts), reps),
             "frame": cuda_ms(torch, lambda: frame(0, capacity), reps),
         }
@@ -1153,10 +1241,10 @@ def phase_serving(smi):
             sweep.append(f"ts={tile} {cuda_ms(torch, lambda: frame(0, cap, tile), 5):.3f}")
         log("tile-size sweep, frame ms (CUDA events, camera 0): " + ", ".join(sweep))
 
-        # emit and forward against their plain versions at these shapes
+        # emit, gather and forward against their plain versions at these shapes
         _, emit_err = compare_emit(torch, binning, plan, slab, T)
         mx, mean, same_last, n_off, _, _ = compare_fwd(torch, rb, bk, 1, W, H, ts)
-        log(f"serving shapes {W}x{H}: emit kernel equal to plain (max abs {emit_err:.3e}); forward kernel "
+        log(f"serving shapes {W}x{H}: emit and gather kernels equal to plain (max abs {emit_err:.3e}); forward kernel "
             f"max abs {mx:.3e}, mean abs {mean:.3e} ({n_off} values > 1e-5), last equal at {same_last:.6f} of pixels")
 
 
@@ -1230,7 +1318,8 @@ def phase_train(smi):
         per_step = {k: after[k] - before[k] for k in after}
         if not np.isfinite(loss):
             raise AssertionError(f"step {step}: loss {loss}")
-        missing = [k for k in ("emit", "rasterize_fwd", "rasterize_bwd", "gid_reduce") if per_step[k] == 0]
+        missing = [k for k in ("emit", "emit_gather", "rasterize_fwd", "rasterize_bwd", "gid_reduce")
+                   if per_step[k] == 0]
         if missing:
             raise AssertionError(f"step {step}: kernels {missing} were not launched")
         losses.append((out["image_ids"][0], loss))
@@ -1290,7 +1379,7 @@ def kernel_table(runner, launches):
     shapes (view 0, the trained splats). Returns the kernels' entries of
     the `kernels` line."""
     import torch
-    from gsplat_tpu_torch import rendering
+    from gsplat_tpu_torch import _backend, rendering
     from gsplat_tpu_torch.ops import binning, rasterize_binned as rb
 
     dev = torch.device("cuda")
@@ -1304,9 +1393,11 @@ def kernel_table(runner, launches):
         s = shade(rendering, torch, runner.params, runner.live, vm, K, W, H, runner.cfg.sh_degree)
         plan, slab = emit_plan(binning, s, ts, W, H, runner.isect_capacity)
         T = (-(-W // ts)) * (-(-H // ts))
-        emit_ms = cuda_ms(torch, lambda: binning._emit_cuda(plan), reps)
         emit_plain_ms = cuda_ms(torch, lambda: binning._emit_plain(plan), 2)
         bk, emit_err = compare_emit(torch, binning, plan, slab, T)
+        bfields = binning_fields(torch, binning, plan, bk, reps, f"train shapes {W}x{H}")
+        gargs, _ = gather_args(torch, plan, bk)
+        gather_plain_ms = cuda_ms(torch, lambda: binning._gather_plain(*gargs), 2)
         fwd_ms = cuda_ms(torch, lambda: rb._fwd_cuda(bk.entries, bk.offs, bk.cnts, 1, W, H, ts), reps)
         fwd_plain_ms = cuda_ms(torch, lambda: rb._fwd_plain(bk.entries, bk.offs, bk.cnts, 1, W, H, ts), 1)
         fmx, fmean, same_last, n_off, fwd_pairs, (_, T_k, last_k) = compare_fwd(torch, rb, bk, 1, W, H, ts)
@@ -1322,7 +1413,7 @@ def kernel_table(runner, launches):
         # computes the same function: timed once, reported as both
         red_ms, red_plain_ms, red_bound, rmx = reduce_at(
             torch, rb, rows_k, bk.gids, CN, bk.order, reps, f"train shapes {W}x{H}")
-    log(f"train shapes {W}x{H} (view 0, trained splats, {CN} slots): emit equal (max abs {emit_err:.3e}); "
+    log(f"train shapes {W}x{H} (view 0, trained splats, {CN} slots): emit and gather equal (max abs {emit_err:.3e}); "
         f"fwd max abs {fmx:.3e} mean abs {fmean:.3e} ({n_off} > 1e-5), last equal at {same_last:.6f}; "
         f"bwd max abs per row " + " ".join(f"{e:.2e}" for e in berrs)
         + f"; reduce vs index_add_ max abs {rmx:.3e}")
@@ -1330,11 +1421,10 @@ def kernel_table(runner, launches):
 
     # bounds: bytes each input read once and each output written once, over
     # HBM rate; operations this run's data needs over the f32 peak
-    NF = plan.payload.shape[0]
+    NF = plan.nf
     M = plan.n_emit
     n_isects = int(bk.n_isects)
     e_bytes, live_ids = emit_bytes(plan)
-    emit_bound = e_bytes / PEAK_BYTES_PER_S * 1e3
     pix = H * W
     fwd_bytes = n_isects * NF * 4 + 2 * T * 4 + pix * (4 * D + 4 + 4)
     # 18 per evaluated and 2D + 4 more per accepted pair (csrc/raster.cuh);
@@ -1353,19 +1443,27 @@ def kernel_table(runner, launches):
     log(f"emit: {live_ids} of {CN} ids live, {M} entries, {e_bytes} bytes; forward: {n_isects} entries, "
         f"{fwd_pairs} evaluated pairs, {fwd_ops} flops, {fwd_bytes} bytes; backward: {n_eval} evaluated and "
         f"{n_acc} accepted pairs, {bwd_ops} flops, {bwd_bytes} bytes")
+    sass = forward_sass_report(_backend, "rasterize_fwd", fwd3_sass_per_pair, fwd_ms, fwd_pairs, D, ts)
     kernels = [
         {
             "name": "emit", "route": "cuda", "source": "gsplat_tpu_torch/csrc/emit.cu",
             "replaces": "gsplat_tpu/ops/binning.py:74", "launches": launches["emit"],
-            "max_abs_err": emit_err, "ms": emit_ms, "plain_ms": emit_plain_ms,
-            "bound_ms": emit_bound, "bound_by": "bytes", "library_ms": None,
+            "max_abs_err": 0.0, "ms": bfields["emit"]["ms"], "plain_ms": emit_plain_ms,
+            "bound_ms": bfields["emit"]["bound_ms"], "bound_by": "bytes", "library_ms": None,
+        },
+        {
+            "name": "emit_gather", "route": "cuda", "source": "gsplat_tpu_torch/csrc/emit_gather.cu",
+            "replaces": "gsplat_tpu/ops/binning.py:74", "launches": launches["emit_gather"],
+            "max_abs_err": emit_err, "ms": bfields["emit_gather"]["ms"], "plain_ms": gather_plain_ms,
+            "bound_ms": bfields["emit_gather"]["bound_ms"], "bound_by": "bytes",
+            "library_ms": bfields["emit_gather"]["library_ms"],
         },
         {
             "name": "rasterize_fwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/rasterize_fwd.cu",
             "replaces": "gsplat_tpu/ops/rasterize_binned.py:61", "launches": launches["rasterize_fwd"],
             "max_abs_err": fmx, "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": fwd_bound,
             "bound_by": "operations" if fwd_ops / PEAK_F32_FLOPS >= fwd_bytes / PEAK_BYTES_PER_S else "bytes",
-            "library_ms": None,
+            "library_ms": None, "sass_per_pair": sass,
         },
         {
             "name": "rasterize_bwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/rasterize_bwd.cu",
@@ -1392,9 +1490,10 @@ def phase_serving_2dgs(trained):
     and little compositing) and the 2DGS training phase's surfels after its
     steps (`trained` = (params, live) of its Runner2DGS: each pixel
     composites many surfels). Launch counts over both scenes' frames; for
-    each scene frame and stage times, one profiled frame, the stream's size
-    and the forward kernel against its plain version on a seeded subset of
-    tiles."""
+    each scene frame and stage times, the peak device memory of a frame,
+    one profiled frame, the stream's size and the forward kernel against
+    its plain version on a seeded subset of tiles. Returns emit's and the
+    gather's fields on the fixture surfels, by kernel name."""
     import torch
     from gsplat_tpu_torch import _backend, rasterization_2dgs, rendering, splats_from_numpy
     from gsplat_tpu_torch.ops import binning, rasterize_2dgs_binned as r2
@@ -1452,9 +1551,11 @@ def phase_serving_2dgs(trained):
                 f"{', '.join(f'{t:.2f}' for t in frames)}; CUDA events {', '.join(f'{t:.2f}' for t in frames_dev)}")
         launches = _backend.launch_counts()
         log(f"launches in the 2DGS serving path (both scenes): {launches}")
-        extra = {k: v for k, v in launches.items() if (v > 0) != (k in ("emit", "rasterize_2dgs_fwd"))}
+        extra = {k: v for k, v in launches.items() if (v > 0) != (k in ("emit", "emit_gather", "rasterize_2dgs_fwd"))}
         if extra:
-            raise AssertionError(f"2DGS serving launched other than emit and the 2DGS forward: {extra}")
+            raise AssertionError(f"2DGS serving launched other than emit, the gather and the 2DGS forward: {extra}")
+
+        fields = {}
 
         for name, capacity in caps.items():
             # stage times (CUDA events), camera 0, same inputs as the frames
@@ -1462,7 +1563,8 @@ def phase_serving_2dgs(trained):
             s = shade_2dgs(rendering, torch, splats, live, vms[0], Kss[0], W, H, deg, mode)
             plan, slab = emit_plan_2dgs(binning, r2, s, ts, W, H, capacity)
             ops = binning._emit_cuda(plan)
-            bk = binning.sort_entries(ops, T, slab)
+            bk = binning.sort_entries(ops, plan.packed, plan.nf, T, slab, binning.segment_starts(plan))
+            gargs, _ = gather_args(torch, plan, bk)
             reps = 5
             args0 = render_args(torch, splats)
             stage = {
@@ -1473,7 +1575,8 @@ def phase_serving_2dgs(trained):
                 "emit (plan + kernel)": cuda_ms(torch, lambda: binning._emit_cuda(
                     emit_plan_2dgs(binning, r2, s, ts, W, H, capacity)[0]), reps),
                 "of it: emit kernel": cuda_ms(torch, lambda: binning._emit_cuda(plan), reps),
-                "sort": cuda_ms(torch, lambda: binning.sort_entries(ops, T, slab), reps),
+                "sort": cuda_ms(torch, lambda: binning.sort_entries(ops, plan.packed, plan.nf, T, slab), reps),
+                "of it: gather": cuda_ms(torch, lambda: binning._gather_cuda(*gargs), reps),
                 "forward kernel": cuda_ms(torch, lambda: r2._fwd2_cuda(bk.entries, bk.offs, bk.cnts, 1, W, H, ts),
                                           reps),
                 "frame": cuda_ms(torch, lambda: frame(name, 0, capacity), reps),
@@ -1482,14 +1585,26 @@ def phase_serving_2dgs(trained):
                 + ", ".join(f"{k} {v:.3f}" for k, v in stage.items()))
             log_profile(f"2DGS frame ({name}, camera 0)",
                         device_time_by_kernel(torch, lambda: frame(name, 0, capacity)), stage["frame"])
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            frame(name, 0, capacity)
+            torch.cuda.synchronize()
+            log(f"2DGS frame ({name}, camera 0): peak device memory {torch.cuda.max_memory_allocated()} bytes "
+                f"({torch.cuda.max_memory_allocated() - base} above the {base} held before the frame)")
+            if name == "fixture splats":
+                # emit and the gather alone on the fixture's near-plane surfels
+                fields = {k: {f + "_fixture_surfels": v for f, v in kf.items()} for k, kf in binning_fields(
+                    torch, binning, plan, bk, reps, f"2DGS serving, {name}, camera 0").items()}
             live_ids = int((plan.counts > 0).sum())
-            NF = plan.payload.shape[0]
+            NF = plan.nf
             # surfels whose rectangle spans at least half the frame, and the
             # share of the stream they own
             big = plan.counts >= T // 2
             log(f"2DGS stream, {name}, camera 0: {live_ids} live ids, {int(bk.n_isects)} entries ({plan.n_emit} "
                 f"emitted), largest rectangle {int(plan.counts.max())} tiles of {T}, {NF} payload rows; emit writes "
-                f"{plan.n_emit * (8 + 4 + 4 * NF)} bytes; {int(big.sum())} ids with rectangles of >= {T // 2} tiles "
+                f"{plan.n_emit * (8 + 4)} bytes, the gather {plan.n_emit * (4 + 4 * NF)}; {int(big.sum())} ids "
+                f"with rectangles of >= {T // 2} tiles "
                 f"emit {int(plan.counts[big].sum())} entries, median depth "
                 f"{float(plan.depth[big].median()) if bool(big.any()) else float('nan'):.4f}")
             sub = tile_subset(torch, bk, TILE_SUBSET, SEED)
@@ -1498,19 +1613,21 @@ def phase_serving_2dgs(trained):
                 f"{int(pairs)} evaluated pairs, ~{int(pairs) / (TILE_SUBSET * ts * ts):.1f} a pixel): forward kernel "
                 f"vs plain max abs " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
                 + f", median off at {med_off:.2e}, last equal at {same_last:.6f}")
+    return fields
 
 
 def phase_train_2dgs(scene):
     """2DGS training: Runner2DGS on the training phase's points and views,
     12 steps of one view with both geometry losses from step 0. Returns
-    kernel_table_2dgs's (the reduce's and emit's fields at these shapes, by
-    kernel name; the 2DGS kernels' entries) and the
+    kernel_table_2dgs's (the reduce's, emit's and the gather's fields at
+    these shapes, by kernel name; the 2DGS kernels' entries) and the
     runner."""
     import torch
     from gsplat_tpu_torch.simple_trainer_2dgs import Runner2DGS
 
     runner, launches = train_runner(
-        torch, Runner2DGS, scene, "binned", ("emit", "rasterize_2dgs_fwd", "rasterize_2dgs_bwd", "gid_reduce"),
+        torch, Runner2DGS, scene, "binned",
+        ("emit", "emit_gather", "rasterize_2dgs_fwd", "rasterize_2dgs_bwd", "gid_reduce"),
         "2DGS", normal_start=0, dist_start=0,
     )
     return kernel_table_2dgs(runner, launches), runner
@@ -1520,10 +1637,10 @@ def kernel_table_2dgs(runner, launches):
     """The 2DGS kernels alone against their plain versions at the 2DGS
     train path's shapes (view 0, the trained splats): the whole frame (the
     plain versions timed once) and a seeded subset of tiles; the gid reduce
-    and the emit kernel at these shapes. Returns ({kernel name: its fields
-    at these shapes} for the reduce's and emit's entries of the `kernels`
-    line, the 2DGS kernels' entries, the forward's with its SASS
-    instructions per pair)."""
+    and the emit and gather kernels at these shapes. Returns ({kernel name:
+    its fields at these shapes} for the reduce's, emit's and the gather's
+    entries of the `kernels` line, the 2DGS kernels' entries, the
+    forward's with its SASS instructions per pair)."""
     import torch
     from gsplat_tpu_torch import _backend, rendering
     from gsplat_tpu_torch.ops import binning, rasterize_2dgs_binned as r2, rasterize_binned as rb
@@ -1542,9 +1659,9 @@ def kernel_table_2dgs(runner, launches):
         L = D + 3
         plan, slab = emit_plan_2dgs(binning, r2, s, ts, W, H, runner.isect_capacity)
         T = (-(-W // ts)) * (-(-H // ts))
-        # the emit kernel alone at these shapes (row 1 at the 2DGS payload)
-        emit_ms = cuda_ms(torch, lambda: binning._emit_cuda(plan), reps)
-        bk = binning.sort_entries(binning._emit_cuda(plan), T, slab, binning.segment_starts(plan))
+        # emit and the gather alone at these shapes (row 1 at the 2DGS payload)
+        bk, _ = compare_emit(torch, binning, plan, slab, T)
+        bfields = binning_fields(torch, binning, plan, bk, reps, what)
         fargs = (bk.entries, bk.offs, bk.cnts, 1, W, H, ts)
         fwd_ms = cuda_ms(torch, lambda: r2._fwd2_cuda(*fargs), reps)
         plain_f, fwd_plain_ms = timed_once(torch, lambda: r2._fwd2_plain(*fargs))
@@ -1588,18 +1705,14 @@ def kernel_table_2dgs(runner, launches):
     bwd_bytes = n_isects * NF * 4 + 2 * T * 4 + pix * 4 * (L + 5) + (r2.NFIX + L) * rows_k.shape[1] * 4
     fb = (fwd_bytes / PEAK_BYTES_PER_S * 1e3, fwd_ops / PEAK_F32_FLOPS * 1e3)
     bb = (bwd_bytes / PEAK_BYTES_PER_S * 1e3, bwd_ops / PEAK_F32_FLOPS * 1e3)
-    e_bytes, live_ids = emit_bytes(plan)
     log(f"2DGS forward: {fwd_pairs} evaluated and {n_acc} accepted pairs, {fwd_ops} operations, {fwd_bytes} bytes; "
         f"backward: {n_eval} evaluated pairs, {bwd_ops} operations, {bwd_bytes} bytes; kernel ms fwd {fwd_ms:.3f} "
         f"bwd {bwd_ms:.3f}, plain ms fwd {fwd_plain_ms:.1f} bwd {bwd_plain_ms:.1f}")
-    log(f"emit at the 2DGS train shapes: {live_ids} of {plan.counts.shape[0]} ids live, {plan.n_emit} entries of "
-        f"{plan.payload.shape[0]} rows, {e_bytes} bytes; kernel ms {emit_ms:.3f}, bound "
-        f"{e_bytes / PEAK_BYTES_PER_S * 1e3:.3f} ms (bytes)")
-    sass = fwd2_sass_report(_backend, "rasterize_2dgs_fwd", L, ts, fwd_ms, fwd_pairs)
+    sass = forward_sass_report(_backend, "rasterize_2dgs_fwd", fwd2_sass_per_pair, fwd_ms, fwd_pairs, L, ts)
     shared = {
         "gid_reduce": {"ms_2dgs": red_ms, "plain_ms_2dgs": red_plain_ms, "bound_ms_2dgs": red_bound,
                        "library_ms_2dgs": red_plain_ms, "max_abs_err_2dgs": rmx},
-        "emit": {"ms_2dgs": emit_ms, "bound_ms_2dgs": e_bytes / PEAK_BYTES_PER_S * 1e3},
+        **{k: {f + "_2dgs": v for f, v in fields.items()} for k, fields in bfields.items()},
     }
     return shared, [
         {
@@ -1864,7 +1977,7 @@ def phase_train_tiled(scene):
     scene) and its two kernels alone against their plain versions at the
     train shapes. Returns their entries of the `kernels` line."""
     import torch
-    from gsplat_tpu_torch import rendering
+    from gsplat_tpu_torch import _backend, rendering
     from gsplat_tpu_torch.ops import rasterize_binned as rb, rasterize_tiled as rt
     from gsplat_tpu_torch.ops.isect import isect_tiles
     from gsplat_tpu_torch.simple_trainer import Runner
@@ -1916,12 +2029,13 @@ def phase_train_tiled(scene):
     log(f"tiled forward: {fwd_pairs} evaluated pairs, {fwd_ops} flops, {fwd_bytes} bytes; backward: {n_eval} "
         f"evaluated and {n_acc} accepted pairs, {bwd_ops} flops, {bwd_bytes} bytes; kernel ms fwd {fwd_ms:.3f} "
         f"bwd {bwd_ms:.3f}, plain ms fwd {fwd_plain_ms:.1f} bwd {bwd_plain_ms:.1f}")
+    sass = forward_sass_report(_backend, "rasterize_tiled_fwd", fwd3_sass_per_pair, fwd_ms, fwd_pairs, D, ts)
     return [
         {
             "name": "rasterize_tiled_fwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/rasterize_tiled_fwd.cu",
             "replaces": "gsplat_tpu/ops/rasterize_tiled.py:127", "launches": launches["rasterize_tiled_fwd"],
             "max_abs_err": fmx, "ms": fwd_ms, "plain_ms": fwd_plain_ms, "bound_ms": max(fb),
-            "bound_by": "operations" if fb[1] >= fb[0] else "bytes", "library_ms": None,
+            "bound_by": "operations" if fb[1] >= fb[0] else "bytes", "library_ms": None, "sass_per_pair": sass,
         },
         {
             "name": "rasterize_tiled_bwd", "route": "cuda", "source": "gsplat_tpu_torch/csrc/rasterize_tiled_bwd.cu",
@@ -2000,7 +2114,7 @@ def phase_train_tiled_2dgs(scene):
     bwd_bytes = M * 4 + rows_b + 2 * T * 4 + pix * 4 * (L + 5) + nf * M * 4
     fb = (fwd_bytes / PEAK_BYTES_PER_S * 1e3, fwd_ops / PEAK_F32_FLOPS * 1e3)
     bb = (bwd_bytes / PEAK_BYTES_PER_S * 1e3, bwd_ops / PEAK_F32_FLOPS * 1e3)
-    sass = fwd2_sass_report(_backend, "rasterize_2dgs_tiled_fwd", L, ts, fwd_ms, fwd_pairs)
+    sass = forward_sass_report(_backend, "rasterize_2dgs_tiled_fwd", fwd2_sass_per_pair, fwd_ms, fwd_pairs, L, ts)
     log(f"tiled 2DGS forward: {fwd_pairs} evaluated and {n_acc} accepted pairs, {fwd_ops} operations, {fwd_bytes} "
         f"bytes; backward: {n_eval} evaluated pairs, {bwd_ops} operations, {bwd_bytes} bytes; kernel ms fwd "
         f"{fwd_ms:.3f} bwd {bwd_ms:.3f}, plain ms fwd {fwd_plain_ms:.1f} bwd {bwd_plain_ms:.1f}")
@@ -2042,7 +2156,9 @@ def main():
         k.update(shared_2dgs.get(k["name"], {}))
     kernels += kernels_2dgs
     t4 = time.perf_counter()
-    phase_serving_2dgs((runner_2dgs.params, runner_2dgs.live))
+    fixture_fields = phase_serving_2dgs((runner_2dgs.params, runner_2dgs.live))
+    for k in kernels:
+        k.update(fixture_fields.get(k["name"], {}))
     del runner_2dgs
     t5 = time.perf_counter()
     phase_serving_tiled()

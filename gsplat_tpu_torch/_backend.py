@@ -48,6 +48,8 @@ KERNELS: Dict[str, Sequence[str]] = {
     # the exact ellipse-vs-tile cull must keep and drop the same entries as
     # the plain torch version, so no multiply-add contraction
     "emit": ("-fmad=false",),
+    # the sorted stream's payload, gathered from the packed rows: copies only
+    "emit_gather": (),
     "rasterize_fwd": (),
     "rasterize_bwd": (),
     "gid_reduce": (),

@@ -4,34 +4,54 @@
 // emit_entries). That kernel walked blocks of 1024 Gaussians and duplicated
 // their rows into per-entry rows with one-hot selection matmuls on the MXU,
 // because the TPU has no cheap gather. Here the contract is kept and the
-// mechanism is not: one thread per flattened (camera, Gaussian) id walks its
-// tile rectangle and writes each entry directly at its exclusive prefix-sum
-// position `woff[i] + k`, so the emission order is ascending flat id.
+// mechanism is not: each flattened (camera, Gaussian) id i owns the emit
+// positions [starts[i], starts[i + 1]) (an exclusive prefix sum of its
+// entry counts, closed by the total), so the emission order is ascending
+// flat id, and entry k of i's tile rectangle (row-major) lies at
+// starts[i] + k.
 //
-// Per entry it writes
+// Per position it writes only
 //   keys[pos]  = tile_key << 32 | (depth bits ^ 0x80000000)  (64-bit sort key;
 //                the xor maps signed int32 bit order to unsigned, so the key
 //                orders depths as the JAX package's int32 depth key does)
-//   gids[pos]  = i
-//   feats[f, pos] = payload[f, i] for the NF payload rows,
+//   gids[pos]  = i,
 // and, where the exact ellipse-vs-tile cull drops the entry, the sentinel key
-// (T << 32) and gid C*N instead. The cull is the JAX kernel's
-// (binning.py:154-186) in the same operation order; this file is compiled
-// with -fmad=false so that no multiply-add contraction changes a keep/drop
-// decision against the plain torch version (_emit_plain).
+// (T << 32) and gid C*N instead. The payload rows are not copied here:
+// csrc/emit_gather.cu gathers them once, in sort order, after the key sort.
+// The cull is the JAX kernel's (binning.py:154-186) in the same operation
+// order; this file is compiled with -fmad=false so that no multiply-add
+// contraction changes a keep/drop decision against the plain torch version
+// (_emit_plain). It reads the six values gx, gy, conic a, b, c and opacity
+// from the front of i's row of the packed payload table ([C*N, F], F a
+// multiple of 8 floats: one 32-byte sector).
 //
-// Bound on the card: bytes. Each entry costs 12 + 4*NF bytes of writes and a
-// few dozen flops (one expf), far under the H100's 67 TFLOP/s f32 for any NF.
-// The design keeps the writes of a warp close together (neighbouring ids
-// write neighbouring ranges) but one thread serialises a large splat's whole
-// rectangle: load imbalance from large splats is left for a later PR.
+// Threads run over positions, not over Gaussians, so the work of a thread
+// is bounded whatever a rectangle's size: a block of kThreads threads takes
+// the run of kRun = kThreads * kPerThread consecutive positions, and a
+// thread handles at most kPerThread (4) of them, kThreads apart, so that
+// neighbouring threads write neighbouring keys and gids. The block's first
+// warp finds the owner of its run's first position and the second warp the
+// owner of its last (segments::owner, a 32-way warp search over starts);
+// each thread then finds the owner of each of its positions by a binary
+// search between those two (segments::owner_in: about log2 of the number of
+// Gaussians that meet the run, ~8 steps at the train shapes).
+//
+// Bound on the card: bytes. Each entry costs 12 bytes of writes (key and
+// gid) and, with the cull, a few dozen flops (one expf) far under the H100's
+// 67 TFLOP/s f32; each live id's rectangle, start, depth and six cull
+// values are read.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "segments.cuh"
+
 namespace {
 
 constexpr float kAlphaCull = 1.0f / 255.0f;
+constexpr int kThreads = 256;
+constexpr int kPerThread = 4;  // positions a thread handles, at most
+constexpr int kRun = kThreads * kPerThread;
 
 __device__ __forceinline__ float quad(float ca, float cb, float cc, float dx, float dy) {
   return 0.5f * (ca * dx * dx + cc * dy * dy) + cb * dx * dy;
@@ -61,67 +81,62 @@ __device__ bool tile_keeps(int tx, int ty, int ts, float gx, float gy, float ca,
   return op * expf(-minq) >= kAlphaCull;
 }
 
-__global__ void emit_kernel(const int* __restrict__ tminx, const int* __restrict__ tminy,
-                            const int* __restrict__ rw, const int* __restrict__ counts,
-                            const long long* __restrict__ woff,
-                            const float* __restrict__ depth,
-                            const float* __restrict__ payload,  // [NF, CN]
-                            int CN, int N, int NF, int n_tiles, int tile_width,
-                            int tile_size, int cull, long long M, long long sentinel,
-                            long long* __restrict__ keys, int* __restrict__ gids,
-                            float* __restrict__ feats) {  // [NF, M]
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= CN) return;
-  const int n = counts[i];
-  if (n == 0) return;
-  const long long base = woff[i];
-  const int x0 = tminx[i];
-  const int y0 = tminy[i];
-  const int w = max(rw[i], 1);
-  const int cam = i / N;
-  // the cull reads the 3DGS layout's first six rows; a custom payload
-  // (cull = 0) may have fewer
-  float gx = 0.0f, gy = 0.0f, ca = 0.0f, cb = 0.0f, cc = 0.0f, op = 0.0f;
-  if (cull) {
-    gx = payload[i];
-    gy = payload[(long long)CN + i];
-    ca = payload[2LL * CN + i];
-    cb = payload[3LL * CN + i];
-    cc = payload[4LL * CN + i];
-    op = payload[5LL * CN + i];
+__global__ void __launch_bounds__(kThreads)
+emit_kernel(const long long* __restrict__ starts,  // [CN + 1]
+            const int* __restrict__ tminx, const int* __restrict__ tminy,
+            const int* __restrict__ rw, const float* __restrict__ depth,
+            const float4* __restrict__ packed,  // [CN, F4] float4
+            int F4, int CN, int N, int n_tiles, int tile_width, int tile_size, int cull,
+            long long M, long long sentinel, long long* __restrict__ keys,
+            int* __restrict__ gids) {
+  __shared__ long long own[2];
+  const long long p0 = (long long)blockIdx.x * kRun;
+  const long long p1 = p0 + kRun < M ? p0 + kRun : M;
+  const int warp = threadIdx.x >> 5;
+  if (warp < 2) {  // warp 0 finds the run's first position's owner, warp 1 its last's
+    const long long g = segments::owner(starts, CN, warp == 0 ? p0 : p1 - 1, threadIdx.x & 31);
+    if ((threadIdx.x & 31) == 0) own[warp] = g;
   }
-  const long long dlow =
-      (long long)(__float_as_uint(depth[i]) ^ 0x80000000u);
-
-  for (int k = 0; k < n; ++k) {
-    const int tx = x0 + k % w;
-    const int ty = y0 + k / w;
-    const bool keep = !cull || tile_keeps(tx, ty, tile_size, gx, gy, ca, cb, cc, op);
-    const long long tile_key = (long long)cam * n_tiles + (long long)ty * tile_width + tx;
-    keys[base + k] = keep ? ((tile_key << 32) | dlow) : sentinel;
-    gids[base + k] = keep ? i : CN;
-  }
-  for (int f = 0; f < NF; ++f) {
-    const float v = payload[(long long)f * CN + i];
-    float* row = feats + (long long)f * M + base;
-    for (int k = 0; k < n; ++k) row[k] = v;
+  __syncthreads();
+  const long long g0 = own[0], g1 = own[1];
+#pragma unroll
+  for (int u = 0; u < kPerThread; ++u) {
+    const long long pos = p0 + u * kThreads + threadIdx.x;
+    if (pos >= p1) break;
+    const int i = (int)segments::owner_in(starts, g0, g1, pos);
+    const int k = (int)(pos - __ldg(starts + i));
+    const int w = max(__ldg(rw + i), 1);
+    const int tx = __ldg(tminx + i) + k % w;
+    const int ty = __ldg(tminy + i) + k / w;
+    bool keep = true;
+    if (cull) {
+      // the 3DGS layout's first six values; a custom payload (cull = 0)
+      // may have fewer
+      const float4 a = __ldg(packed + (long long)i * F4);
+      const float4 b = __ldg(packed + (long long)i * F4 + 1);
+      keep = tile_keeps(tx, ty, tile_size, a.x, a.y, a.z, a.w, b.x, b.y);
+    }
+    const long long dlow = (long long)(__float_as_uint(__ldg(depth + i)) ^ 0x80000000u);
+    const long long tile_key = (long long)(i / N) * n_tiles + (long long)ty * tile_width + tx;
+    keys[pos] = keep ? ((tile_key << 32) | dlow) : sentinel;
+    gids[pos] = keep ? i : CN;
   }
 }
 
 }  // namespace
 
-extern "C" int emit_launch(const void* tminx, const void* tminy, const void* rw,
-                           const void* counts, const void* woff, const void* depth,
-                           const void* payload, int CN, int N, int NF, int n_tiles,
-                           int tile_width, int tile_size, int cull, long long M,
-                           long long sentinel, void* keys, void* gids, void* feats,
+extern "C" int emit_launch(const void* starts, const void* tminx, const void* tminy,
+                           const void* rw, const void* depth, const void* packed, int F, int CN,
+                           int N, int n_tiles, int tile_width, int tile_size, int cull,
+                           long long M, long long sentinel, void* keys, void* gids,
                            void* stream) {
-  const int threads = 256;
-  const int blocks = (CN + threads - 1) / threads;
-  emit_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int*)tminx, (const int*)tminy, (const int*)rw, (const int*)counts,
-      (const long long*)woff, (const float*)depth, (const float*)payload, CN, N, NF,
-      n_tiles, tile_width, tile_size, cull, M, sentinel, (long long*)keys, (int*)gids,
-      (float*)feats);
+  if (M < 0 || CN <= 0 || F % 8 != 0 || (cull && F < 8)) return (int)cudaErrorInvalidValue;
+  if (M > 0) {
+    const long long blocks = (M + kRun - 1) / kRun;
+    emit_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        (const long long*)starts, (const int*)tminx, (const int*)tminy, (const int*)rw,
+        (const float*)depth, (const float4*)packed, F / 4, CN, N, n_tiles, tile_width, tile_size,
+        cull, M, sentinel, (long long*)keys, (int*)gids);
+  }
   return (int)cudaGetLastError();
 }

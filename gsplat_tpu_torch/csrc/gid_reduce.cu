@@ -53,6 +53,8 @@
 
 #include <cuda_runtime.h>
 
+#include "segments.cuh"
+
 namespace {
 
 constexpr int SHORT = 8;   // longest segment one lane sums alone
@@ -108,25 +110,6 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// The Gaussian whose segment holds gid-order position k: the largest g with
-// starts[g] <= k (n_out for positions past starts[n_out]). Called by a
-// whole warp: a 32-way search, each step one load per lane, about five
-// steps over a 4M-Gaussian pool (a binary search's 22 dependent loads would
-// stall every chunk's block on their latency).
-__device__ long long owner(const long long* __restrict__ starts, int n_out, long long k, int lane) {
-  long long lo = 0, hi = n_out;  // the answer lies in [lo, hi]; starts[0] == 0 <= k
-  while (lo < hi) {
-    const long long step = (hi - lo + 31) / 32;
-    const long long q = lo + step * (lane + 1);
-    const unsigned below = __ballot_sync(FULL, q <= hi && starts[q] <= k);
-    const int n = __popc(below);  // the probes at or below k are a prefix
-    const long long top = lo + step * (n + 1) - 1;
-    lo += step * n;
-    hi = top < hi ? top : hi;
-  }
-  return lo;
-}
-
 // Pass 2a: a block of LONG threads per chunk of LONG consecutive gid-order
 // positions, a thread per position. A segment longer than LONG cannot lie
 // inside a chunk, so it holds the chunk's first or its last position: at
@@ -147,7 +130,7 @@ __global__ void __launch_bounds__(LONG) chunk_partials_kernel(const float4* __re
   const long long c0 = (long long)blockIdx.x * LONG;
   const long long c1 = c0 + LONG < M ? c0 + LONG : M;
   if (warp < 2) {  // warp 0 finds the first position's owner, warp 1 the last's
-    const long long g = owner(starts, n_out, warp == 0 ? c0 : c1 - 1, lane);
+    const long long g = segments::owner(starts, n_out, warp == 0 ? c0 : c1 - 1, lane);
     if (lane == 0) own[warp] = g;
   }
   __syncthreads();

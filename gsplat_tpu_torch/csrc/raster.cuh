@@ -2,18 +2,18 @@
 // 2DGS, forward and backward (the four rasterize_*.cu files of each backend
 // are thin C entry points over these).
 //
-// Every kernel runs one block per (camera, tile), one thread per pixel
-// (the backwards and the 2DGS forward: P pixels of a column a thread,
-// Column below):
+// Every kernel runs one block per (camera, tile), P pixels of a tile column
+// a thread (Column below):
 //   T = C*th*tw blocks; cam = t / (th*tw), rem = t % (th*tw), tile row
-//   rem / tw, column rem % tw; thread p at (p % ts, p / ts) of the tile.
+//   rem / tw, column rem % tw; thread i on column i % ts, rows (i / ts) P ..
+//   (i / ts) P + P - 1 of the tile.
 // The block walks its range [offs[t], offs[t] + cnts[t]) of a depth-sorted
 // stream in batches staged in shared memory. The two backends differ only in
 // where a batch comes from, which the staging policy says:
 //   Streamed<B>: the binned stream, [nf, M] rows of the emitted entries in
 //     sort order; the block copies B columns at a time as [nf][B], so feature
-//     f of entry j is sm[f * B + j] (load_rows, for the 2DGS forward: entry
-//     j's row at sm[j * row_floats()], read as float4).
+//     f of entry j is sm[f * B + j] (load_rows, for the forwards: entry j's
+//     row at sm[j * row_floats()], read as float4).
 //   Gathered<B>: the tiled stream, flatten_ids [M] into a packed [C*N, F]
 //     table of per-Gaussian rows (F a multiple of 8 floats, so a row is
 //     32-byte aligned); the block copies the row packed[flatten_ids[i]] of
@@ -70,7 +70,7 @@ struct Streamed {
   }
   __device__ const float* entry(const float* sm, int j) const { return sm + j; }
 
-  // Entry-major staging (the 2DGS forward): entry j's nf values at sm[j *
+  // Entry-major staging (the forwards): entry j's nf values at sm[j *
   // row_floats() ...], zero padded, so a thread reads a row 16 bytes at a
   // time. A thread per entry reads its values coalesced across the warp as
   // load() does and writes them as float4; the row holds an odd number of
@@ -123,28 +123,7 @@ struct Gathered {
   }
 };
 
-// this thread's pixel
-struct Pixel {
-  int cam, x, y;
-  bool inside;   // false past the image edge, in a partial tile
-  float cx, cy;  // the pixel centre (+0.5)
-
-  __device__ Pixel(int th, int tw, int ts, int W, int H) {
-    const int t = blockIdx.x;
-    cam = t / (th * tw);
-    const int rem = t % (th * tw);
-    x = (rem % tw) * ts + threadIdx.x % ts;
-    y = (rem / tw) * ts + threadIdx.x / ts;
-    inside = x < W && y < H;
-    cx = (float)x + 0.5f;
-    cy = (float)y + 0.5f;
-  }
-  // into [C, H, W]; computed where it is used, so it holds no registers
-  // across the compositing loop
-  __device__ long long index(int W, int H) const { return ((long long)cam * H + y) * W + x; }
-};
-
-// this thread's P pixels of one column (bwd_3dgs, fwd_2dgs, bwd_2dgs): a
+// this thread's P pixels of one column (every kernel of this file): a
 // block of TS * TS / P threads per tile; thread i owns column i % TS, rows
 // (i / TS) P .. (i / TS) P + P - 1 of the tile
 template <int TS, int P>
@@ -252,80 +231,6 @@ __device__ __forceinline__ void write_slots(const float* part, int nr, int nb, i
   }
 }
 
-// ---------------------------------------------------------------------------
-// 3DGS forward. Entry rows: mx, my, conic a, b, c, opacity, D colours. Per
-// pixel, in stream order:
-//   sigma = gauss_sigma; alpha = min(0.999, op exp(-sigma)); skipped if
-//   alpha < 1/255 or sigma < 0
-//   T_incl = T (1 - alpha); if T_incl <= 1e-4 the pixel is done and the entry
-//   is NOT accepted; else accumulate T alpha color, T = T_incl, last = index.
-// The block leaves its loop once every pixel is done (__syncthreads_count).
-// Outputs per pixel inside the image: image [C,H,W,D] = accum (+ T bg where
-// bg is given), T_final [C,H,W] and last [C,H,W] (absolute stream index of
-// the last accepted entry, or -1).
-// Bound on the card: operations. Counted from the code: 18 per evaluated
-// (pixel, entry) pair (the offsets, sigma's 9, expf as negate, scale and
-// ex2, the opacity product, the clamp and the two tests) and 2D + 4 more per
-// accepted pair (1 - alpha, T_incl, its test, w, and D multiply-adds).
-template <class Stage, int DMAX>
-__global__ void __launch_bounds__(1024)
-fwd_3dgs(Stage st, const int* __restrict__ offs, const int* __restrict__ cnts, int th, int tw,
-         int ts, int W, int H, int D, const float* __restrict__ bg,  // [C, D] or null
-         float* __restrict__ img, float* __restrict__ T_out, int* __restrict__ last) {
-  extern __shared__ float4 smem[];
-  float* sm = reinterpret_cast<float*>(smem);
-  constexpr int S = Stage::kStride;
-  constexpr int B = Stage::kBatch;
-  const Pixel pix(th, tw, ts, W, H);
-  const int off = offs[blockIdx.x];
-  const int n = cnts[blockIdx.x];
-
-  float acc[DMAX];
-#pragma unroll
-  for (int d = 0; d < DMAX; ++d) acc[d] = 0.0f;
-  float T = 1.0f;
-  int lst = -1;
-  bool done = !pix.inside;  // pixels past the image edge never hold the tile open
-
-  for (int b0 = 0; b0 < n; b0 += B) {
-    // also the barrier that keeps the previous batch's readers ahead of
-    // this batch's loads
-    if (__syncthreads_count(done) == (int)blockDim.x) break;
-    const int nb = min(B, n - b0);
-    st.load(sm, off + b0, nb);
-    __syncthreads();
-    if (!done) {
-      for (int j = 0; j < nb; ++j) {
-        const float* e = st.entry(sm, j);
-        const float dx = pix.cx - e[0];
-        const float dy = pix.cy - e[S];
-        const float sigma = gauss_sigma(e[2 * S], e[3 * S], e[4 * S], dx, dy);
-        const float alpha = fminf(__fmul_rn(e[5 * S], expf(-sigma)), kAlphaMax);
-        if (sigma < 0.0f || alpha < kAlphaMin) continue;
-        const float T_incl = T * (1.0f - alpha);
-        if (T_incl <= kTransmittanceEps) {
-          done = true;
-          break;
-        }
-        const float w = T * alpha;
-#pragma unroll
-        for (int d = 0; d < DMAX; ++d)
-          if (d < D) acc[d] += w * e[(6 + d) * S];
-        T = T_incl;
-        lst = off + b0 + j;
-      }
-    }
-  }
-  if (!pix.inside) return;
-  const long long q = pix.index(W, H);
-#pragma unroll
-  for (int d = 0; d < DMAX; ++d) {
-    if (d < D) img[q * D + d] = bg != nullptr ? acc[d] + T * bg[pix.cam * D + d] : acc[d];
-  }
-  T_out[q] = T;
-  last[q] = lst;
-}
-
 // The least sigma = 0.5 (a dx^2 + c dy^2) + b dx dy over the box [dx0, dx1]
 // x [dy0, dy1] of offsets, for a positive definite conic: 0 if the box holds
 // the centre, else the least of the four edges' minima, each edge's
@@ -347,6 +252,195 @@ __device__ __forceinline__ float box_min_sigma(float a, float b, float c, float 
 // stays below 1/255 by this factor: the margin covers the rounding of the
 // bound against each pixel's sigma, so no pair a pixel accepts is skipped
 constexpr float kSkipMargin = 0.999f;
+
+// Bit w of the result: warp w's pixel box (all TS columns, rows [w RW, w RW
+// + RW) of the tile, RW = TS / NW) may hold a pixel that accepts entry e,
+// whose values gx, gy, conic a, b, c and opacity lie at e[0], e[S], ...,
+// e[5 S]. A warp whose bit is clear skips the entry (bwd_3dgs, fwd_3dgs):
+// opacity x exp(-least sigma over the box) stays below 1/255 by
+// kSkipMargin, so no pixel of the warp would accept it. A conic that is not
+// positive definite has no such bound and keeps every bit.
+template <int TS, int NW, int S>
+__device__ __forceinline__ unsigned warp_reach(const float* e, int th, int tw) {
+  constexpr int RW = TS / NW;
+  const float a = e[2 * S], b = e[3 * S], c = e[4 * S];
+  unsigned m = ~0u;  // not positive definite: no bound, every warp evaluates it
+  if (a > 0.0f && c > 0.0f && a * c - b * b > 0.0f) {
+    m = 0u;
+    // the tile's first pixel centre, recomputed here so that it holds
+    // no registers across the compositing loop
+    const int t = blockIdx.x % (th * tw);
+    const float bx0 = (float)((t % tw) * TS) + 0.5f;
+    const float by0 = (float)((t / tw) * TS) + 0.5f;
+    const float dx0 = bx0 - e[0];
+#pragma unroll
+    for (int w = 0; w < NW; ++w) {
+      const float dy0 = by0 + (float)(w * RW) - e[S];
+      const float smin = box_min_sigma(a, b, c, dx0, dx0 + (TS - 1), dy0, dy0 + (RW - 1));
+      // written as "not below" so that a NaN bound keeps the entry
+      if (!(e[5 * S] * expf(-smin) < kAlphaMin * kSkipMargin)) m |= 1u << w;
+    }
+  }
+  return m;
+}
+
+// float4 q of a staged row (a function of its own, so that a variant can
+// read the row another way)
+__device__ __forceinline__ float4 row4(const float* e, int q) {
+  return reinterpret_cast<const float4*>(e)[q];
+}
+
+// ---------------------------------------------------------------------------
+// 3DGS forward. Entry rows: mx, my, conic a, b, c, opacity, D colours. Per
+// pixel, in stream order:
+//   sigma = gauss_sigma; alpha = min(0.999, op exp(-sigma)); skipped if
+//   alpha < 1/255 or sigma < 0
+//   T_incl = T (1 - alpha); if T_incl <= 1e-4 the pixel is done and the entry
+//   is NOT accepted; else accumulate T alpha color, T = T_incl, last = index.
+// Outputs per pixel inside the image: image [C,H,W,D] = accum (the caller
+// composites the background), T_final [C,H,W] and last [C,H,W] (absolute
+// stream index of the last accepted entry, or -1).
+// Bound on the card: operations. Counted from the code: 18 per evaluated
+// (pixel, entry) pair (the offsets, sigma's 9, expf as negate, scale and
+// ex2, the opacity product, the clamp and the two tests) and 2D + 4 more per
+// accepted pair (1 - alpha, T_incl, its test, w, and D multiply-adds).
+//
+// Layout (Column): a block of TS * TS / P threads per tile, thread i owning
+// the P pixels of column i % TS, rows (i / TS) P .. (i / TS) P + P - 1
+// (fwd3_pixels: 1 for up to 8 channels). The block stages B entries at a
+// time entry-major (Stage::load_rows: each row zero padded to whole
+// float4), then bounds each staged entry's reach over each warp's pixel box
+// (warp_reach, one thread an entry, as bwd_3dgs does) and turns the bits
+// into one word per warp and 32 entries by ballot. A warp then walks only
+// the set bits of its words, in stream order (__ffs): an entry its box
+// cannot reach costs it nothing, not even a test, and most entries of a
+// tile are such for most warps (more so on the tiled stream, which has no
+// cull). Per entry a thread reads the six fixed values as two float4,
+// evaluates sigma, alpha and the test of its P pixels, and only if one
+// accepts reads the colours as float4 and composites each accepting pixel
+// into all DMAX lanes of its array (no lane tests D: the padding lanes are
+// zero and never written out). Each pixel walks the stream in order and
+// rounds every operation as the one-pixel-a-thread design did, and a
+// skipped pair is one every pixel of the warp would have rejected, so
+// image, T and last keep their bits. A thread is done when its P pixels are
+// (pixels past the image edge start done); the block leaves once every
+// pixel is done, that is once every thread is (__syncthreads_count).
+// The per-entry test of a bit in shared memory that the walk replaces
+// (a load and a branch on it before any work) ran 40-60% slower on an H100,
+// and P = 2 35-60% slower than P = 1 (scripts/torch_emit_fwd3_ab.py).
+template <class Stage, int DMAX, int TS, int P>
+__global__ void __launch_bounds__(TS * TS / P)
+fwd_3dgs(Stage st, const int* __restrict__ offs, const int* __restrict__ cnts, int th, int tw,
+         int W, int H, int D, float* __restrict__ img, float* __restrict__ T_out,
+         int* __restrict__ last) {
+  extern __shared__ float4 smem[];
+  float* sm = reinterpret_cast<float*>(smem);
+  constexpr int B = Stage::kBatch;
+  constexpr int NC = (6 + DMAX + 3) / 4;  // float4 of a row up to the last colour lane
+  constexpr int NW = TS * TS / P / 32;    // warps a block
+  static_assert(NW >= 1 && NW <= 32, "a block of whole warps, one bit each");
+  const int rs = st.row_floats();
+  const int nv = 6 + D;  // values a row holds
+  const int warp = threadIdx.x >> 5;
+  const Column<TS, P> pix(th, tw);
+  const int off = offs[blockIdx.x];
+  const int n = cnts[blockIdx.x];
+  // bit i of reach[w * NG + g]: warp w's box may accept entry 32 g + i
+  constexpr int NG = B / 32;
+  __shared__ unsigned reach[NW * NG];
+
+  float acc[P][DMAX];
+  float T[P];
+  int lst[P];
+  bool done[P];
+  bool all_done = true;
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+#pragma unroll
+    for (int d = 0; d < DMAX; ++d) acc[k][d] = 0.0f;
+    T[k] = 1.0f;
+    lst[k] = -1;
+    done[k] = !pix.inside(k, W, H);  // pixels past the image edge never hold the tile open
+    all_done = all_done && done[k];
+  }
+
+  for (int b0 = 0; b0 < n; b0 += B) {
+    // also the barrier that keeps the previous batch's readers ahead of
+    // this batch's loads
+    if (__syncthreads_count(all_done) == (int)blockDim.x) break;
+    const int nb = min(B, n - b0);
+    st.template load_rows<staged_row(6 + DMAX) / 4>(sm, off + b0, nb);
+    __syncthreads();
+    // a thread an entry, whole warps: each warp's bits of 32 entries by ballot
+    for (int j = threadIdx.x; j < (nb + 31) / 32 * 32; j += blockDim.x) {
+      const unsigned m = j < nb ? warp_reach<TS, NW, 1>(sm + j * rs, th, tw) : 0u;
+#pragma unroll
+      for (int w = 0; w < NW; ++w) {
+        const unsigned word = __ballot_sync(0xffffffffu, (m >> w) & 1u);
+        if ((threadIdx.x & 31) == 0) reach[w * NG + (j >> 5)] = word;
+      }
+    }
+    __syncthreads();
+    // the warp walks only the entries its box may accept, in stream order
+    for (int g = 0; 32 * g < nb && !all_done; ++g) {
+      for (unsigned bits = reach[warp * NG + g]; bits != 0u && !all_done; bits &= bits - 1u) {
+        const int j = 32 * g + __ffs(bits) - 1;
+        const float* e = sm + j * rs;
+        const float4 r0 = row4(e, 0), r1 = row4(e, 1);
+        const float dx = pix.px - r0.x;
+        float alpha[P];
+        bool keep[P];
+        bool any = false;
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          const float dy = (float)(pix.y0 + k) + 0.5f - r0.y;
+          const float sigma = gauss_sigma(r0.z, r0.w, r1.x, dx, dy);
+          alpha[k] = fminf(__fmul_rn(r1.y, expf(-sigma)), kAlphaMax);
+          keep[k] = !done[k] && !(sigma < 0.0f || alpha[k] < kAlphaMin);
+          any = any || keep[k];
+        }
+        if (!any) continue;
+        float v[4 * NC];  // the row's values; colour d at v[6 + d]
+#pragma unroll
+        for (int q = 0; q < NC; ++q) {
+          const float4 x = q < 2 ? (q == 0 ? r0 : r1)
+                                 : 4 * q < nv ? row4(e, q) : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          v[4 * q] = x.x;
+          v[4 * q + 1] = x.y;
+          v[4 * q + 2] = x.z;
+          v[4 * q + 3] = x.w;
+        }
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          if (!keep[k]) continue;
+          const float T_incl = T[k] * (1.0f - alpha[k]);
+          if (T_incl <= kTransmittanceEps) {
+            done[k] = true;
+            continue;
+          }
+          const float w = T[k] * alpha[k];
+#pragma unroll
+          for (int d = 0; d < DMAX; ++d) acc[k][d] += w * v[6 + d];
+          T[k] = T_incl;
+          lst[k] = off + b0 + j;
+        }
+        all_done = true;
+#pragma unroll
+        for (int k = 0; k < P; ++k) all_done = all_done && done[k];
+      }
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    if (!pix.inside(k, W, H)) continue;
+    const long long q = pix.index(k, W, H);
+#pragma unroll
+    for (int d = 0; d < DMAX; ++d)
+      if (d < D) img[q * D + d] = acc[k][d];
+    T_out[q] = T[k];
+    last[q] = lst[k];
+  }
+}
 
 // ---------------------------------------------------------------------------
 // 3DGS backward. Each pixel starts from the forward's T_final and `last`.
@@ -436,7 +530,6 @@ bwd_3dgs(Stage st, long long M, const int* __restrict__ offs, const int* __restr
 
   // each warp's pixel box: all TS columns, rows [warp RW, warp RW + RW) of the tile
   constexpr int NW = TS * TS / P / 32;
-  constexpr int RW = TS / NW;
   __shared__ unsigned reach[B];  // bit w: warp w's box may accept the entry
 
   float s_later[P];
@@ -447,28 +540,8 @@ bwd_3dgs(Stage st, long long M, const int* __restrict__ offs, const int* __restr
     __syncthreads();  // the previous batch's readers of sm / part / reach are done
     st.load(sm, off + b0, nb);
     __syncthreads();
-    for (int j = threadIdx.x; j < nb; j += blockDim.x) {
-      const float* e = st.entry(sm, j);
-      const float a = e[2 * S], b = e[3 * S], c = e[4 * S];
-      unsigned m = ~0u;  // not positive definite: no bound, every warp evaluates it
-      if (a > 0.0f && c > 0.0f && a * c - b * b > 0.0f) {
-        m = 0u;
-        // the tile's first pixel centre, recomputed here so that it holds
-        // no registers across the compositing loop
-        const int t = blockIdx.x % (th * tw);
-        const float bx0 = (float)((t % tw) * TS) + 0.5f;
-        const float by0 = (float)((t / tw) * TS) + 0.5f;
-        const float dx0 = bx0 - e[0];
-#pragma unroll
-        for (int w = 0; w < NW; ++w) {
-          const float dy0 = by0 + (float)(w * RW) - e[S];
-          const float smin = box_min_sigma(a, b, c, dx0, dx0 + (TS - 1), dy0, dy0 + (RW - 1));
-          // written as "not below" so that a NaN bound keeps the entry
-          if (!(e[5 * S] * expf(-smin) < kAlphaMin * kSkipMargin)) m |= 1u << w;
-        }
-      }
-      reach[j] = m;
-    }
+    for (int j = threadIdx.x; j < nb; j += blockDim.x)
+      reach[j] = warp_reach<TS, NW, S>(st.entry(sm, j), th, tw);
     __syncthreads();
     for (int j = nb - 1; j >= 0; --j) {
       const int idx = off + b0 + j;
@@ -906,20 +979,52 @@ cudaError_t set_smem(K kernel, size_t smem) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <class Stage>
-cudaError_t launch_fwd_3dgs(const Stage& st, const int* offs, const int* cnts, int C, int th,
-                            int tw, int ts, int W, int H, int D, const float* bg, float* img,
-                            float* T_out, int* last, cudaStream_t stream) {
-  auto kernel = D <= 4    ? &fwd_3dgs<Stage, 4>
-                : D <= 8  ? &fwd_3dgs<Stage, 8>
-                : D <= 16 ? &fwd_3dgs<Stage, 16>
-                          : &fwd_3dgs<Stage, 32>;
-  const size_t smem = (size_t)st.staged_floats() * sizeof(float);
+// P, the pixels a thread of the 3DGS forward owns: kFwd3Pix (P = 2 and 4
+// issued fewer instructions a pair but ran slower on an H100), at most 2
+// at 8x8 tiles (a block keeps a whole warp), and DMAX / 8 for the 16- and
+// 32-wide arrays at 32x32 tiles (1024 threads cap a thread at 64
+// registers; 512 spilled the 32-wide array)
+constexpr int kFwd3Pix = 1;
+
+template <int TS, int DMAX>
+constexpr int fwd3_pixels() {
+  return TS == 8 && kFwd3Pix > 2 ? 2 : TS == 32 && DMAX > 8 && kFwd3Pix < DMAX / 8 ? DMAX / 8 : kFwd3Pix;
+}
+
+template <class Stage, int TS, int DMAX>
+cudaError_t launch_fwd_3dgs_tl(const Stage& st, const int* offs, const int* cnts, int C, int th,
+                               int tw, int W, int H, int D, float* img, float* T_out, int* last,
+                               cudaStream_t stream) {
+  constexpr int P = fwd3_pixels<TS, DMAX>();
+  auto kernel = &fwd_3dgs<Stage, DMAX, TS, P>;
+  const size_t smem = (size_t)Stage::kBatch * st.row_floats() * sizeof(float);
   cudaError_t err = set_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<C * th * tw, ts * ts, smem, stream>>>(st, offs, cnts, th, tw, ts, W, H, D, bg, img,
-                                                 T_out, last);
+  kernel<<<C * th * tw, TS * TS / P, smem, stream>>>(st, offs, cnts, th, tw, W, H, D, img, T_out,
+                                                     last);
   return cudaGetLastError();
+}
+
+// the D instantiations of one tile size
+template <class Stage, int TS>
+cudaError_t launch_fwd_3dgs_t(const Stage& st, const int* offs, const int* cnts, int C, int th,
+                              int tw, int W, int H, int D, float* img, float* T_out, int* last,
+                              cudaStream_t stream) {
+  auto launch = D <= 4    ? &launch_fwd_3dgs_tl<Stage, TS, 4>
+                : D <= 8  ? &launch_fwd_3dgs_tl<Stage, TS, 8>
+                : D <= 16 ? &launch_fwd_3dgs_tl<Stage, TS, 16>
+                          : &launch_fwd_3dgs_tl<Stage, TS, 32>;
+  return launch(st, offs, cnts, C, th, tw, W, H, D, img, T_out, last, stream);
+}
+
+template <class Stage>
+cudaError_t launch_fwd_3dgs(const Stage& st, const int* offs, const int* cnts, int C, int th,
+                            int tw, int ts, int W, int H, int D, float* img, float* T_out,
+                            int* last, cudaStream_t stream) {
+  auto launch = ts == 8    ? &launch_fwd_3dgs_t<Stage, 8>
+                : ts == 16 ? &launch_fwd_3dgs_t<Stage, 16>
+                           : &launch_fwd_3dgs_t<Stage, 32>;
+  return launch(st, offs, cnts, C, th, tw, W, H, D, img, T_out, last, stream);
 }
 
 // P, the pixels a thread of the 3DGS backward owns. kBwd3Pix at 16x16

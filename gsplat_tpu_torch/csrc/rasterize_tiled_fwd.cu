@@ -9,9 +9,11 @@
 // rolls. Here nothing is pre-gathered: the per-Gaussian values are packed
 // once as rows of F floats ([C*N, F], F a multiple of 8: 64 B at D = 3), and
 // a block copies the rows its range names into shared memory, 256 at a time
-// (F * 256 * 4 B <= 40 KB at F = 40). Row layout: mx, my, conic a, b, c,
-// opacity, the D colours, zero padding. The caller adds the background
-// (T bg), as the JAX package does.
+// (F * 256 * 4 B <= 40 KB at F = 40), already entry-major. Row layout: mx,
+// my, conic a, b, c, opacity, the D colours, zero padding. A thread owns P
+// pixels of a tile column, and a warp skips the entries its pixels cannot
+// reach, most of this stream's (it has no cull). The caller adds the
+// background (T bg), as the JAX package does.
 
 #include "raster.cuh"
 
@@ -23,6 +25,6 @@ extern "C" int rasterize_tiled_fwd_launch(const void* packed, int F, const void*
     return (int)cudaErrorInvalidValue;
   const raster::Gathered<256> st{(const float4*)packed, (const int*)ids, F};
   return (int)raster::launch_fwd_3dgs(st, (const int*)offs, (const int*)cnts, C, th, tw, ts, W,
-                                      H, D, nullptr, (float*)img, (float*)T_out, (int*)last,
+                                      H, D, (float*)img, (float*)T_out, (int*)last,
                                       (cudaStream_t)stream);
 }

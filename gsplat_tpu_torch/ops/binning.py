@@ -11,15 +11,21 @@ rasterizer reads carried along.
      where they sit outside the Pallas call. The rule fixes `slab_required`
      and which whole blocks a too-small capacity truncates, so both match
      the JAX package; the port itself sizes its buffers exactly.
+     The sanitised payload is packed once as rows of a [C*N, F] table
+     (`pack_rows`, F a multiple of 8 floats: a row is whole 32-byte
+     sectors).
   2. The emit kernel (csrc/emit.cu; `_emit_plain` is its plain version)
-     writes each entry at an exclusive prefix sum of the counts, so the
-     emission order is ascending flat gid.
-  3. `torch.sort` of the 64-bit key `tile << 32 | depth bits` (stable), one
-     permutation of the gid and payload rows, and `torch.searchsorted` for
-     the tile offsets. A stable sort over gid-ordered emission gives the
-     JAX package's (tile, depth, gid) order exactly, and its permutation is
-     also each slot's place in gid order: the gid reduce of the backward
-     needs no second sort (`Binned.order`).
+     writes each entry's 64-bit key and gid, and nothing of the payload, at
+     an exclusive prefix sum of the counts, so the emission order is
+     ascending flat gid.
+  3. `torch.sort` of the 64-bit key `tile << 32 | depth bits` (stable) and
+     `torch.searchsorted` for the tile offsets; then the gather kernel
+     (csrc/emit_gather.cu; `_gather_plain`) writes the sorted gids and the
+     [NF, M] entry rows from the packed table, zero past n_isects, in one
+     pass. A stable sort over gid-ordered emission gives the JAX package's
+     (tile, depth, gid) order exactly, and its permutation is also each
+     slot's place in gid order: the gid reduce of the backward needs no
+     second sort (`Binned.order`).
 """
 
 from __future__ import annotations
@@ -34,10 +40,23 @@ from .. import _backend
 GB = 1024  # gaussians per emit block (the JAX package's block rule)
 SB = 512  # slab alignment quantum of that rule
 ALPHA_CULL = 1.0 / 255.0
+ROW_ALIGN = 8  # floats: a packed row is a whole number of 32-byte sectors
 
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+def pack_rows(rows: Sequence[torch.Tensor]) -> torch.Tensor:
+    """Per-Gaussian values [C, N] each -> one row per (camera, Gaussian):
+    [C*N, F] f32, F = len(rows) rounded up to ROW_ALIGN, zero-padded."""
+    nf = len(rows)
+    F = -(-nf // ROW_ALIGN) * ROW_ALIGN
+    zero = rows[0].new_zeros(()).expand(rows[0].shape)
+    # stacked as [F, C*N] (contiguous writes), then transposed in one copy;
+    # stacking along a last axis of F writes each value F floats apart
+    packed = torch.stack([r.detach().to(torch.float32) for r in rows] + [zero] * (F - nf))
+    return packed.reshape(F, -1).T.contiguous()
 
 
 class Binned(NamedTuple):
@@ -78,16 +97,18 @@ class Binned(NamedTuple):
 class EmitPlan(NamedTuple):
     """What the emit kernel and its plain version take: per flattened
     (camera, Gaussian) id, its tile rectangle, entry count and write
-    position, plus the sanitised payload."""
+    positions, plus the sanitised payload packed as one row per id (what
+    the gather kernel and the cull read)."""
 
     tminx: torch.Tensor  # [CN] i32
     tminy: torch.Tensor  # [CN] i32
     rw: torch.Tensor  # [CN] i32 rectangle width in tiles
     counts: torch.Tensor  # [CN] i32 entries to emit (0 if dead or truncated)
-    woff: torch.Tensor  # [CN] i64 exclusive prefix sum of counts
+    starts: torch.Tensor  # [CN + 1] i64 exclusive prefix sum of counts, then n_emit
     n_emit: int  # total entries emitted (culled ones included)
     depth: torch.Tensor  # [CN] f32
-    payload: torch.Tensor  # [NF, CN] f32
+    packed: torch.Tensor  # [CN, F] f32 payload rows (pack_rows), F a multiple of 8
+    nf: int  # payload values a row (NF)
     N: int
     tile_size: int
     tile_width: int
@@ -169,26 +190,25 @@ def plan_emit(
     slab_end = torch.cumsum((block_tot + SB - 1) // SB * SB, dim=0)
     fits = slab_end <= capA
     counts = torch.where(fits.repeat_interleave(GB)[:CN], tpg, 0)
-    woff = torch.cumsum(counts.to(torch.int64), dim=0) - counts
+    starts = torch.nn.functional.pad(torch.cumsum(counts.to(torch.int64), dim=0), (1, 0))
     n_emit, slab_required = (
-        torch.stack([counts.sum(dtype=torch.int64), slab_end[-1] if NB else slab_end.new_zeros(())])
-        .tolist()
+        torch.stack([starts[-1], slab_end[-1] if NB else slab_end.new_zeros(())]).tolist()
     )
 
     if payload_rows is None:
         rows = [mean_x, mean_y, con_a, con_b, con_c, opacities] + list(colors.unbind(-1))
     else:
         rows = list(payload_rows)
-    payload = torch.stack([_fin(r).reshape(-1) for r in rows]).to(torch.float32)
     plan = EmitPlan(
         tminx=tminx.reshape(-1).to(torch.int32),
         tminy=tminy.reshape(-1).to(torch.int32),
         rw=rw.reshape(-1),
         counts=counts.to(torch.int32),
-        woff=woff,
+        starts=starts,
         n_emit=int(n_emit),
         depth=_fin(depths).reshape(-1).to(torch.float32),
-        payload=payload.contiguous(),
+        packed=pack_rows([_fin(r).reshape(-1) for r in rows]),
+        nf=len(rows),
         N=N,
         tile_size=tile_size,
         tile_width=tile_width,
@@ -201,14 +221,14 @@ def plan_emit(
 
 def _emit_plain(plan: EmitPlan):
     """Plain torch version of the emit kernel: repeat_interleave + the same
-    cull. Returns (keys [M] i64, gids [M] i32, feats [NF, M] f32)."""
+    cull. Returns (keys [M] i64, gids [M] i32)."""
     dev = plan.counts.device
     CN = plan.counts.shape[0]
     M = plan.n_emit
     src = torch.repeat_interleave(
         torch.arange(CN, device=dev), plan.counts.to(torch.int64), output_size=M
     )
-    local = torch.arange(M, device=dev) - plan.woff[src]
+    local = torch.arange(M, device=dev) - plan.starts[src]
     rwi = plan.rw.to(torch.int64)[src].clamp_min(1)
     tx = plan.tminx.to(torch.int64)[src] + local % rwi
     ty = plan.tminy.to(torch.int64)[src] + local // rwi
@@ -220,7 +240,7 @@ def _emit_plain(plan: EmitPlan):
         # drop entries whose best-case alpha stays below 1/255 (the
         # rasterizer's per-pixel test would reject them anyway)
         ts = plan.tile_size
-        gx, gy, ca, cb, cc, op = (plan.payload[r][src] for r in range(6))
+        gx, gy, ca, cb, cc, op = plan.packed[src, :6].unbind(-1)
         x0 = tx.to(torch.float32) * ts + 0.5 - gx
         x1 = x0 + (ts - 1)
         y0 = ty.to(torch.float32) * ts + 0.5 - gy
@@ -247,46 +267,46 @@ def _emit_plain(plan: EmitPlan):
     dlow = plan.depth.view(torch.int32).to(torch.int64)[src] + (1 << 31)
     keys = torch.where(valid, (tile_key << 32) | dlow, plan.sentinel)
     gids = torch.where(valid, src, CN).to(torch.int32)
-    feats = plan.payload[:, src]
-    return keys, gids, feats
+    return keys, gids
 
 
 _EMIT_ARGS = (
-    [ctypes.c_void_p] * 7  # tminx, tminy, rw, counts, woff, depth, payload
-    + [ctypes.c_int] * 7  # CN, N, NF, n_tiles, tile_width, tile_size, cull
+    [ctypes.c_void_p] * 6  # starts, tminx, tminy, rw, depth, packed
+    + [ctypes.c_int] * 7  # F, CN, N, n_tiles, tile_width, tile_size, cull
     + [ctypes.c_longlong] * 2  # M, sentinel key
-    + [ctypes.c_void_p] * 4  # keys, gids, feats, stream
+    + [ctypes.c_void_p] * 3  # keys, gids, stream
 )
 
 
+def _check_inputs(what: str, dev: torch.device, checks) -> None:
+    for t, dt in checks:
+        if t.dtype != dt or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{what} input of dtype {t.dtype} on {t.device}: expected contiguous {dt} on {dev}")
+
+
 def _emit_cuda(plan: EmitPlan):
-    """Launch csrc/emit.cu: one thread per (camera, Gaussian). Same outputs
-    as `_emit_plain`."""
+    """Launch csrc/emit.cu: threads over emit positions, at most four a
+    thread. Same outputs as `_emit_plain`."""
     dev = plan.counts.device
     if dev.type != "cuda":
         raise ValueError(f"the emit kernel takes CUDA tensors, got {dev}")
-    CN = plan.counts.shape[0]
-    NF = plan.payload.shape[0]
+    CN, F = plan.packed.shape
     M = plan.n_emit
     keys = torch.empty(M, dtype=torch.int64, device=dev)
     gids = torch.empty(M, dtype=torch.int32, device=dev)
-    feats = torch.empty((NF, M), dtype=torch.float32, device=dev)
-    if CN == 0:
-        return keys, gids, feats
-    ins = [plan.tminx, plan.tminy, plan.rw, plan.counts, plan.woff, plan.depth, plan.payload]
-    for t, dt in zip(ins, (torch.int32,) * 4 + (torch.int64, torch.float32, torch.float32)):
-        if t.dtype != dt or not t.is_contiguous() or t.device != dev:
-            raise ValueError(f"emit input of dtype {t.dtype} on {t.device}: expected contiguous {dt} on {dev}")
+    if M == 0:
+        return keys, gids
+    ins = [plan.starts, plan.tminx, plan.tminy, plan.rw, plan.depth, plan.packed]
+    _check_inputs("emit", dev, zip(ins, (torch.int64,) + (torch.int32,) * 3 + (torch.float32,) * 2))
     fn = _backend.kernel("emit", "emit_launch", _EMIT_ARGS)
     code = fn(
         *[t.data_ptr() for t in ins],
-        CN, plan.N, NF, plan.n_tiles, plan.tile_width, plan.tile_size, int(plan.cull),
-        M, plan.sentinel,
-        keys.data_ptr(), gids.data_ptr(), feats.data_ptr(), _backend.stream(dev),
+        F, CN, plan.N, plan.n_tiles, plan.tile_width, plan.tile_size, int(plan.cull),
+        M, plan.sentinel, keys.data_ptr(), gids.data_ptr(), _backend.stream(dev),
     )
     _backend.check_launch(code, "emit")
     _backend.LAUNCHES["emit"] += 1
-    return keys, gids, feats
+    return keys, gids
 
 
 def _emit(plan: EmitPlan):
@@ -296,10 +316,64 @@ def _emit(plan: EmitPlan):
     return _emit_plain(plan)
 
 
+def _gather_plain(packed: torch.Tensor, nf: int, perm: torch.Tensor, gids: torch.Tensor,
+                  n_isects: torch.Tensor):
+    """Plain torch version of the gather kernel. Returns (gids_s [M] i32 =
+    gids[perm], entries [nf, M] f32 = packed[gids_s, :nf] transposed, zero
+    past n_isects)."""
+    gids_s = gids[perm]
+    live = torch.arange(gids_s.shape[0], device=gids_s.device) < n_isects
+    rows = packed[torch.where(live, gids_s, 0).to(torch.int64), :nf]
+    return gids_s, torch.where(live[:, None], rows, 0.0).T.contiguous()
+
+
+_GATHER_ARGS = (
+    [ctypes.c_void_p] * 3  # perm, gids, packed
+    + [ctypes.c_int] * 2  # F, nf
+    + [ctypes.c_void_p, ctypes.c_longlong]  # n_isects (device), M
+    + [ctypes.c_void_p] * 3  # gids_s, entries, stream
+)
+
+
+def _gather_cuda(packed: torch.Tensor, nf: int, perm: torch.Tensor, gids: torch.Tensor,
+                 n_isects: torch.Tensor):
+    """Launch csrc/emit_gather.cu: a thread per slot, n_isects read on the
+    card. Same outputs as `_gather_plain`."""
+    dev = packed.device
+    if dev.type != "cuda":
+        raise ValueError(f"the gather kernel takes CUDA tensors, got {dev}")
+    M = perm.shape[0]
+    F = packed.shape[1]
+    gids_s = torch.empty(M, dtype=torch.int32, device=dev)
+    entries = torch.empty((nf, M), dtype=torch.float32, device=dev)
+    if M == 0:
+        return gids_s, entries
+    if gids.shape != (M,) or n_isects.numel() != 1:
+        raise ValueError(f"gather: perm of {M} slots, gids of shape {tuple(gids.shape)}, "
+                         f"n_isects of {n_isects.numel()} values")
+    _check_inputs("gather", dev, ((perm, torch.int64), (gids, torch.int32), (packed, torch.float32),
+                                  (n_isects, torch.int64)))
+    fn = _backend.kernel("emit_gather", "emit_gather_launch", _GATHER_ARGS)
+    code = fn(
+        perm.data_ptr(), gids.data_ptr(), packed.data_ptr(), F, nf, n_isects.data_ptr(), M,
+        gids_s.data_ptr(), entries.data_ptr(), _backend.stream(dev),
+    )
+    _backend.check_launch(code, "emit_gather")
+    _backend.LAUNCHES["emit_gather"] += 1
+    return gids_s, entries
+
+
+def _gather(packed, nf, perm, gids, n_isects):
+    """The gather kernel for CUDA tensors, its plain version for CPU tensors."""
+    if _backend.use_kernel(packed.device):
+        return _gather_cuda(packed, nf, perm, gids, n_isects)
+    return _gather_plain(packed, nf, perm, gids, n_isects)
+
+
 def segment_starts(plan: EmitPlan) -> torch.Tensor:
     """[CN + 1] i64: each (camera, Gaussian)'s first emit position, then
     the count of emitted entries (its write offsets closed)."""
-    return torch.cat([plan.woff, plan.woff.new_full((1,), plan.n_emit)])
+    return plan.starts
 
 
 def emit_entries(
@@ -316,40 +390,45 @@ def emit_entries(
     cull: bool = True,
     payload_rows=None,
 ):
-    """Emit stage: per-entry rows, unsorted. Returns ``(ops,
-    slab_required)`` with ``ops = (keys, gids, feats)`` ready for
-    :func:`sort_entries`. CUDA tensors go through the emit kernel, CPU
-    tensors through its plain version. ``payload_rows`` as in
-    :func:`plan_emit`."""
+    """Emit stage: keys and gids, unsorted. Returns ``(ops, plan,
+    slab_required)`` with ``ops = (keys, gids)`` ready for
+    :func:`sort_entries` with the plan's packed payload. CUDA tensors go
+    through the emit kernel, CPU tensors through its plain version.
+    ``payload_rows`` as in :func:`plan_emit`."""
     plan, slab_required = plan_emit(
         mean_x, mean_y, con_a, con_b, con_c, opacities, colors, radii,
         depths, tile_size, tile_width, tile_height, capacity, cull,
         payload_rows,
     )
-    return _emit(plan), slab_required
+    return _emit(plan), plan, slab_required
 
 
 def sort_entries(
-    ops: Sequence[torch.Tensor], T: int, slab_required: int, starts: Optional[torch.Tensor] = None
+    ops: Sequence[torch.Tensor],
+    packed: torch.Tensor,
+    nf: int,
+    T: int,
+    slab_required: int,
+    starts: Optional[torch.Tensor] = None,
 ) -> Binned:
-    """Sort the emitted entries by (tile, depth, gid) and build the
-    per-tile offset table (one stable key sort + a searchsorted). With
-    ``starts`` (`segment_starts` of the plan) the result carries the
+    """Sort the emitted entries ``ops = (keys, gids)`` by (tile, depth,
+    gid), build the per-tile offset table (one stable key sort + a
+    searchsorted), then gather the sorted gids and the payload's first
+    ``nf`` values of each live slot from ``packed`` (the plan's table; the
+    gather kernel for CUDA tensors, its plain version for CPU tensors).
+    With ``starts`` (`segment_starts` of the plan) the result carries the
     reduce's order: ``dst``, the sort's permutation, and ``seg_starts``."""
-    keys, gids, feats = ops
+    keys, gids = ops
     keys_s, perm = torch.sort(keys, stable=True)
-    gids_s = gids[perm]
-    entries = feats[:, perm]
     bounds = torch.searchsorted(
         keys_s, torch.arange(T + 1, device=keys.device, dtype=torch.int64) << 32
     ).to(torch.int32)
     offs = bounds[:-1]
     cnts = bounds[1:] - bounds[:-1]
     n_isects = bounds[-1].to(torch.int64)
-    # culled entries sort past n_isects: zero their payload, as the JAX
-    # package zeroes its sentinel tail
-    pos = torch.arange(keys.shape[0], device=keys.device)
-    entries = torch.where(pos[None, :] < n_isects, entries, 0.0)
+    # culled entries sort past n_isects: the gather zeroes their payload, as
+    # the JAX package zeroes its sentinel tail
+    gids_s, entries = _gather(packed, nf, perm, gids, n_isects)
     return Binned(
         entries=entries,
         gids=gids_s,
@@ -386,6 +465,6 @@ def bin_gaussians(
         payload_rows,
     )
     return sort_entries(
-        _emit(plan), mean_x.shape[0] * tile_width * tile_height, slab_required,
-        segment_starts(plan),
+        _emit(plan), plan.packed, plan.nf, mean_x.shape[0] * tile_width * tile_height,
+        slab_required, segment_starts(plan),
     )

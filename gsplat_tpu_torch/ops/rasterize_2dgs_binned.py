@@ -1,9 +1,10 @@
 """2DGS (surfel) rasterizer on the binning engine (port of
 gsplat_tpu/ops/rasterize_2dgs_binned.py).
 
-The emit kernel (ops/binning.py, ``payload_rows``, ``cull=False``) copies
-the surfel rows into the per-entry stream, one key sort orders it by
-(camera-tile, depth, gid), the forward kernel (csrc/rasterize_2dgs_fwd.cu;
+The binning engine (ops/binning.py, ``payload_rows``, ``cull=False``)
+packs the surfel rows, emits the keys and gids, orders them by one key sort
+by (camera-tile, depth, gid) and gathers the rows into the per-entry
+stream; the forward kernel (csrc/rasterize_2dgs_fwd.cu;
 `_fwd2_plain` is its plain version) composites each tile's range, and the
 backward kernel (csrc/rasterize_2dgs_bwd.cu; `_bwd2_plain`) writes one row
 of per-entry gradients per stream slot, which the gid reduce kernel

@@ -3,7 +3,7 @@ gsplat_tpu/ops/rasterize_2dgs_tiled.py).
 
 The surfel rows (``rasterize_2dgs_binned.surfel_payload``: mx, my, the
 ray transform M00..M22, opacity, the D colours with the depth last, the 3
-normals) are packed once as ``[C*N, F]`` (ops/rasterize_tiled.py::pack_rows)
+normals) are packed once as ``[C*N, F]`` (ops/binning.py::pack_rows)
 and the kernels gather the rows each (camera, tile) range names. The
 forward kernel (csrc/rasterize_2dgs_tiled_fwd.cu; `_tiled2_fwd_plain` is
 its plain version) composites the features, T, `last`, the distortion and

@@ -144,7 +144,7 @@ _FWD_ARGS = (
     [ctypes.c_void_p, ctypes.c_longlong]  # entries, M (row stride)
     + [ctypes.c_void_p] * 2  # offs, cnts
     + [ctypes.c_int] * 7  # C, th, tw, ts, W, H, D
-    + [ctypes.c_void_p] * 5  # backgrounds (or null), image, T, last, stream
+    + [ctypes.c_void_p] * 4  # image, T, last, stream
 )
 
 
@@ -156,10 +156,9 @@ def _fwd_cuda(
     image_width: int,
     image_height: int,
     tile_size: int,
-    backgrounds: Optional[torch.Tensor] = None,
 ):
-    """Launch csrc/rasterize_fwd.cu: one block per (camera, tile), one
-    thread per pixel. Returns (image [C,H,W,D] with the background added,
+    """Launch csrc/rasterize_fwd.cu: one block per (camera, tile), P pixels
+    of a tile column a thread. Returns (image [C,H,W,D] without background,
     T_final [C,H,W], last [C,H,W] i32)."""
     dev = entries.device
     if dev.type != "cuda":
@@ -172,11 +171,8 @@ def _fwd_cuda(
     th = -(-image_height // tile_size)
     tw = -(-image_width // tile_size)
     T = n_cams * th * tw
-    checks = [(entries, torch.float32, None), (offs, torch.int32, (T,)), (cnts, torch.int32, (T,))]
-    if backgrounds is not None:
-        backgrounds = backgrounds.to(torch.float32).contiguous()
-        checks.append((backgrounds, torch.float32, (n_cams, D)))
-    _check("forward", dev, checks)
+    _check("forward", dev, [(entries, torch.float32, None), (offs, torch.int32, (T,)),
+                            (cnts, torch.int32, (T,))])
     img = torch.empty((n_cams, image_height, image_width, D), dtype=torch.float32, device=dev)
     T_out = torch.empty((n_cams, image_height, image_width), dtype=torch.float32, device=dev)
     last = torch.empty((n_cams, image_height, image_width), dtype=torch.int32, device=dev)
@@ -186,7 +182,6 @@ def _fwd_cuda(
     code = fn(
         entries.data_ptr(), entries.shape[1], offs.data_ptr(), cnts.data_ptr(),
         n_cams, th, tw, tile_size, image_width, image_height, D,
-        backgrounds.data_ptr() if backgrounds is not None else None,
         img.data_ptr(), T_out.data_ptr(), last.data_ptr(), _backend.stream(dev),
     )
     _backend.check_launch(code, "rasterize_fwd")
@@ -507,11 +502,13 @@ def _raster_binned_fwd(
         mean_x, mean_y, con_a, con_b, con_c, opacities, colors, radii, depths,
         tile_size, tw, th, capacity=capacity,
     )
-    args = (binned.entries, binned.offs, binned.cnts, C, image_width, image_height, tile_size, backgrounds)
+    args = (binned.entries, binned.offs, binned.cnts, C, image_width, image_height, tile_size)
     if _backend.use_kernel(device):
         img, T_out, last = _fwd_cuda(*args)
     else:
         img, T_out, last, _ = _fwd_plain(*args)
+    if backgrounds is not None:
+        img = img + T_out[..., None] * backgrounds[:, None, None, :]
     return img, T_out, last, binned
 
 
@@ -592,8 +589,8 @@ def rasterize_to_pixels_binned(
     grad, the call goes through `_BinnedRaster` (backward and reduce
     kernels); the gradient of ``abs_carrier`` is then the reference's
     absgrad statistic, the sum over tiles of |per-tile d mean2d|. Without a
-    gradient it is the forward alone, with the background composited inside
-    the forward kernel.
+    gradient it is the forward alone. Either way the background is
+    composited after the forward kernel, as in JAX.
     """
     mean_x, mean_y, con_a, con_b, con_c = _split(means2d, conics)
     ins = (mean_x, mean_y, con_a, con_b, con_c, opacities, colors)

@@ -23,12 +23,13 @@ the kernels, as in JAX.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from .. import _backend
+from .binning import ROW_ALIGN, pack_rows
 from .isect import Isect
 from .rasterize_binned import (
     MAX_CHANNELS,
@@ -39,21 +40,6 @@ from .rasterize_binned import (
     _split,
     reduce_by_gid,
 )
-
-ROW_ALIGN = 8  # floats: a packed row is a whole number of 32-byte sectors
-
-
-def pack_rows(rows: Sequence[torch.Tensor]) -> torch.Tensor:
-    """Per-Gaussian values [C, N] each -> one row per (camera, Gaussian):
-    [C*N, F] f32, F = len(rows) rounded up to ROW_ALIGN, zero-padded."""
-    nf = len(rows)
-    F = -(-nf // ROW_ALIGN) * ROW_ALIGN
-    zero = rows[0].new_zeros(()).expand(rows[0].shape)
-    # stacked as [F, C*N] (contiguous writes), then transposed in one copy;
-    # stacking along a last axis of F writes each value F floats apart
-    packed = torch.stack([r.detach().to(torch.float32) for r in rows] + [zero] * (F - nf))
-    return packed.reshape(F, -1).T.contiguous()
-
 
 def stream_ranges(isect: Isect) -> Tuple[torch.Tensor, torch.Tensor]:
     """(offs, cnts) [C*th*tw] i32: each (camera, tile)'s range of the stream."""

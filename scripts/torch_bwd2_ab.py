@@ -265,7 +265,7 @@ def main():
         L = D + 3
         plan, slab = cs.emit_plan_2dgs(binning, r2, s, ts, W, H, runner.isect_capacity)
         T = (-(-W // ts)) * (-(-H // ts))
-        bk = binning.sort_entries(binning._emit_cuda(plan), T, slab)
+        bk = binning.sort_entries(binning._emit_cuda(plan), plan.packed, plan.nf, T, slab)
         fargs = (bk.entries, bk.offs, bk.cnts, 1, W, H, ts)
         ko = r2._fwd2_cuda(*fargs)
         cot = cs.cotangents_2dgs(torch, gen, ko[1], L)

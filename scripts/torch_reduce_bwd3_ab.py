@@ -328,7 +328,7 @@ def main():
         s = cs.shade(rendering, torch, runner.params, runner.live, vm, K, W, H, runner.cfg.sh_degree)
         plan, slab = cs.emit_plan(binning, s, ts, W, H, runner.isect_capacity)
         T = (-(-W // ts)) * (-(-H // ts))
-        bk = binning.sort_entries(binning._emit_cuda(plan), T, slab, binning.segment_starts(plan))
+        bk = binning.sort_entries(binning._emit_cuda(plan), plan.packed, plan.nf, T, slab, binning.segment_starts(plan))
         _, T_k, last_k = rb._fwd_cuda(bk.entries, bk.offs, bk.cnts, 1, W, H, ts)
         D = bk.entries.shape[0] - 6
         v_img, v_T = cs.cotangents(torch, gen, T_k, D)
@@ -353,7 +353,7 @@ def main():
         D2 = s2.colors.shape[-1]
         L = D2 + 3
         plan2, slab2 = cs.emit_plan_2dgs(binning, r2, s2, ts, W, H, runner2.isect_capacity)
-        bk2 = binning.sort_entries(binning._emit_cuda(plan2), T, slab2, binning.segment_starts(plan2))
+        bk2 = binning.sort_entries(binning._emit_cuda(plan2), plan2.packed, plan2.nf, T, slab2, binning.segment_starts(plan2))
         ko = r2._fwd2_cuda(bk2.entries, bk2.offs, bk2.cnts, 1, W, H, ts)
         cot = cs.cotangents_2dgs(torch, gen2, ko[1], L)
         rows2 = r2._bwd2_cuda(bk2.entries, bk2.offs, bk2.cnts, ko[1], ko[2], ko[0][..., D2 - 1].contiguous(), *cot,

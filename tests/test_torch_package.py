@@ -259,6 +259,10 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     )
     with pytest.raises(ValueError, match="CUDA"):
         binning._emit_cuda(plan)
+    keys, gids = binning._emit_plain(plan)
+    with pytest.raises(ValueError, match="CUDA"):
+        binning._gather_cuda(plan.packed, plan.nf, torch.sort(keys, stable=True)[1], gids,
+                             torch.tensor(plan.n_emit))
 
 
 def test_cpu_runs_launch_no_kernel():
@@ -278,7 +282,8 @@ def test_cpu_runs_launch_no_kernel():
     )
     (out[0].sum() + out[4].sum()).backward()
     assert _backend.launch_counts() == {name: 0 for name in (
-        "emit", "rasterize_fwd", "rasterize_bwd", "gid_reduce", "rasterize_2dgs_fwd", "rasterize_2dgs_bwd",
+        "emit", "emit_gather", "rasterize_fwd", "rasterize_bwd", "gid_reduce", "rasterize_2dgs_fwd",
+        "rasterize_2dgs_bwd",
         "rasterize_tiled_fwd", "rasterize_tiled_bwd", "rasterize_2dgs_tiled_fwd", "rasterize_2dgs_tiled_bwd",
     )}
     assert not _backend.BUILD_LOG

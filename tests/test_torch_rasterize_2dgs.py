@@ -224,8 +224,12 @@ def test_custom_payload_needs_no_cull(scene):
         m2d[..., 0], m2d[..., 1], None, None, None, None, None, _T(scene["radii"]),
         _T(scene["depths"]), 16, 4, 3, CAP, cull=False, payload_rows=[m2d[..., 0]],
     )
-    keys, gids, feats = binning._emit_plain(plan)
-    assert feats.shape == (1, plan.n_emit) and (gids < C * N).all()
+    keys, gids = binning._emit_plain(plan)
+    assert keys.shape == gids.shape == (plan.n_emit,) and (gids < C * N).all()
+    assert plan.nf == 1 and plan.packed.shape == (C * N, binning.ROW_ALIGN)
+    b = binning.sort_entries((keys, gids), plan.packed, plan.nf, C * 4 * 3, 0)
+    assert b.entries.shape == (1, plan.n_emit)
+    assert torch.equal(b.entries[0], m2d[..., 0].reshape(-1)[b.gids.to(torch.int64)])
 
 
 def test_rasterize_to_pixels_2dgs_dispatch(scene):
