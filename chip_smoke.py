@@ -111,10 +111,38 @@ non-zero (there is no CPU fallback):
      2DGS shapes as in phases 5-6;
  10. tiled 2DGS serving: rasterization_2dgs(backend="tiled", RGB+ED) on
      phase 9's trained surfels, with phase 8's prints and checks;
- 11. the `kernels` line (all eleven kernels; emit, the gather and the
+ 11. the rest of the op API: fully_fused_projection_packed (with
+     compensations) and fully_fused_projection_2dgs_packed at the serving
+     shapes, at capacity C*N and nnz/2, each live slot and nnz equal to the
+     dense projection bit for bit, truncation keeping the lowest flat
+     indices, timed beside the dense projection; at garden grid1 648x420,
+     rasterize_to_indices_in_range (and _2dgs) chained over depth-rank
+     windows of 1024, then accumulate (accumulate_2dgs) over the pairs:
+     against the windows' own composite (FWD_* gates; 2DGS by the FWD2_*
+     flip gates) and against the binned forward kernel (3DGS: FWD_* gates;
+     2DGS: the FWD2_* gates, every value past FWD2_TOL explained at its
+     pixel by a float64 witness of the pairs whose f32 alpha either side
+     loses, or the phase fails), pair counts and times;
+ 12. MCMC training: simple_trainer.Runner(strategy_name="mcmc") on the
+     training path's scene (2,794,625 points in a 3,002,368-slot pool,
+     cap_max 3,000,000, the reference's MCMC preset init_opa 0.5,
+     init_scale 0.1, opacity_reg and scale_reg 0.01), 12 steps refining at
+     5 and 10: emit, gather, forward, backward and reduce launched in every
+     step, the live count after steps 5 and 10 as the JAX package grows it,
+     the Adam moments zero at the slots step 5 activated, free slots' means
+     unmoved, finiteness, view 0's loss falling, the steady step time
+     beside phase 5's and each refine step's extra time; then on a clone of
+     the final pool with a seeded 1% of live slots at opacity 0.001: the
+     noise moving live means only, one relocate (the draws sum to the dead
+     count, the live count unchanged, no live slot left at or below
+     min_opacity) and compute_relocation over the pool, timed; and
+     compute_relocation against float64 for ratios 1-51, with TF32 allowed
+     by the caller, within the CPU port's error + 2.5e-4;
+ 13. the `kernels` line (all eleven kernels; emit, the gather and the
      reduce also with their times and bounds at the 2DGS train shapes, emit
      and the gather also at the fixture surfels, the four forwards with
-     their SASS instructions per pair), then the result line.
+     their SASS instructions per pair; the five training kernels also with
+     their launches in phase 12), then the result line.
 """
 
 import json
@@ -155,6 +183,19 @@ MAIN_W, MAIN_H = 1920, 1080
 RAGGED_H = 405
 TRAIN_STEPS = 12
 SEED = 0
+# 2DGS oracle semantics (rasterize_to_indices_in_range_2dgs + accumulate_2dgs)
+# against the binned 2DGS kernel (phase 11): the FWD2_* gates, where every
+# value past FWD2_TOL x scale must be explained by a float64 witness at its
+# pixel: the pairs whose f32 alpha (the oracle's cross product or the
+# kernel's arithmetic) lies more than FWD2_TOL from the float64 alpha of the
+# same f32 inputs, with the float64 alpha itself moving at most FWD2_TOL
+# when M moves by half an f32 ulp (WITNESS_PERTURB draws), and the float64
+# composite with only those pairs' alphas taken from each side reproducing
+# that side within FWD2_TOL x scale. An unexplained value fails the phase
+WITNESS_PERTURB = 8
+WITNESS_CHUNK = 64  # pixels a float64 evaluation over all N surfels
+MCMC_CAP_MAX = 3_000_000  # phase 12's pool: the 2,794,625 points grow into it
+INDEX_WINDOW = 1024  # depth ranks a rasterize_to_indices_in_range window (phase 11)
 
 
 def log(msg):
@@ -1301,7 +1342,7 @@ def phase_train(smi):
         f"isect capacity {runner.isect_capacity}; targets {t1 - t0:.1f} s, init (kNN, probe) {t2 - t1:.1f} s")
 
     _backend.reset_launch_counts()
-    losses, step_ms, step_dev = [], [], []
+    losses, step_ms, step_dev, refined_at = [], [], [], []
     for step in range(TRAIN_STEPS):
         before = _backend.launch_counts()
         start = torch.cuda.Event(enable_timing=True)
@@ -1323,6 +1364,8 @@ def phase_train(smi):
         if missing:
             raise AssertionError(f"step {step}: kernels {missing} were not launched")
         losses.append((out["image_ids"][0], loss))
+        if out["refined"]:
+            refined_at.append(step)
         log(f"step {step}: view {out['image_ids'][0]} loss {loss:.6f} live {int(runner.live.sum())}"
             f"{' (refined)' if out['refined'] else ''} slab_required {out['slab_required']}, "
             f"host {step_ms[-1]:.2f} ms, CUDA events {step_dev[-1]:.2f} ms; launches {per_step}")
@@ -1371,7 +1414,9 @@ def phase_train(smi):
     runner.probe_isect_capacity()
     log("train step ms by tile size (CUDA events, after the 12 steps): " + ", ".join(sweep))
 
-    return kernel_table(runner, launches), (views, points, rgb, scene_scale)
+    steady = float(np.median([ms for s, ms in enumerate(step_dev) if s not in refined_at]))
+    log(f"steady train step {steady:.3f} ms (median of the non-refining steps, CUDA events)")
+    return kernel_table(runner, launches), (views, points, rgb, scene_scale), steady
 
 
 def kernel_table(runner, launches):
@@ -2137,6 +2182,452 @@ def phase_train_tiled_2dgs(scene):
     return entries, runner
 
 
+def _packed_matches_dense(torch, packed, dense, n_rows, what):
+    """A packed projection's buffer against the dense projection: nnz the
+    dense valid count, the live slots in camera-major, Gaussian-minor order,
+    each float output equal bit for bit to the dense entry at (camera,
+    gaussian), the slots past nnz padded (ids -1, radii 0). `dense` is
+    (radii, output...) [C, N, ...] and `packed` (camera_ids, gaussian_ids,
+    radii, output..., nnz), each with `n_rows` float outputs. Returns nnz."""
+    cam, gau, radii, nnz = packed[0], packed[1], packed[2], packed[-1]
+    n_valid = int((dense[0] > 0).sum())
+    if int(nnz) != n_valid:
+        raise AssertionError(f"{what}: nnz {int(nnz)} against {n_valid} valid dense entries")
+    live = min(n_valid, cam.shape[0])
+    c, g = cam[:live].long(), gau[:live].long()
+    flat = c * dense[0].shape[1] + g
+    if live > 1 and not bool((flat[1:] > flat[:-1]).all()):
+        raise AssertionError(f"{what}: live slots not in camera-major, Gaussian-minor order")
+    if not torch.equal(radii[:live], dense[0][c, g]) or not bool((radii[:live] > 0).all()):
+        raise AssertionError(f"{what}: radii differ from the dense projection's")
+    for i in range(n_rows):
+        if not torch.equal(packed[3 + i][:live], dense[1 + i][c, g]):
+            raise AssertionError(f"{what}: output {3 + i} differs from the dense projection's bits")
+    pad = slice(live, None)
+    if not (bool((cam[pad] == -1).all()) and bool((gau[pad] == -1).all()) and bool((radii[pad] == 0).all())):
+        raise AssertionError(f"{what}: slots past nnz are not padding")
+    return n_valid
+
+
+def _window_pairs(torch, indices_fn, N, R, C, W, H, feats, *args):
+    """rasterize_to_indices_in_range(_2dgs) chained over depth-rank windows
+    of R, the termination stream passed on. Returns the contributing pairs
+    as (gaussian, pixel, camera) lists grouped by ray, depth-ordered, and
+    the windows' own composite of each [C, N, k] of `feats` and of alpha
+    ([C, H, W, k] each): the oracle's compositing, window by window."""
+    dev = args[0].device
+    T = torch.ones((C, H, W), device=dev)
+    gids, pids, cids = [], [], []
+    comp = [torch.zeros((C, H * W, f.shape[-1]), device=dev) for f in feats]
+    alpha_acc = torch.zeros((C, H * W), device=dev)
+    for start in range(0, N, R):
+        contrib, alpha, sel, new_T = indices_fn(start, min(start + R, N), T, *args, W, H, MAIN_TILE)
+        c, p, r = torch.nonzero(contrib, as_tuple=True)
+        gids.append(sel[c, r])
+        pids.append(p)
+        cids.append(c)
+        T_incl = torch.cumprod(torch.where(contrib, 1.0 - alpha, 1.0), dim=-1)
+        T_excl = T.reshape(C, -1, 1) * torch.cat([torch.ones_like(T_incl[..., :1]), T_incl[..., :-1]], dim=-1)
+        w = torch.where(contrib, alpha * T_excl, 0.0)
+        del contrib, alpha, T_incl, T_excl
+        for acc, f in zip(comp, feats):
+            acc += torch.bmm(w, torch.gather(f, 1, sel[..., None].expand(-1, -1, f.shape[-1])))
+        alpha_acc += w.sum(dim=-1)
+        T = new_T.reshape(C, H, W)
+    gids, pids, cids = (torch.cat(x) for x in (gids, pids, cids))
+    order = torch.sort(cids * (H * W) + pids, stable=True).indices
+    comp = [x.reshape(C, H, W, -1) for x in comp] + [alpha_acc.reshape(C, H, W, 1)]
+    return (gids[order], pids[order], cids[order]), comp
+
+
+def _fwd_gate(torch, got, want, what):
+    """FWD_MAX_ABS / FWD_MEAN_ABS over the pairs of outputs. Returns (max
+    abs, mean abs)."""
+    d = torch.cat([(a - b).abs().reshape(-1) for a, b in zip(got, want)])
+    mx, mean = float(d.max()), float(d.mean())
+    if not all(bool(torch.isfinite(a).all()) for a in got) or mx > FWD_MAX_ABS or mean > FWD_MEAN_ABS:
+        raise AssertionError(f"{what}: max abs {mx:.3e} (limit {FWD_MAX_ABS}), mean abs {mean:.3e} "
+                             f"(limit {FWD_MEAN_ABS})")
+    return mx, mean
+
+
+def _composite(torch, valid, alpha, feats):
+    """The oracle's compositing of pairs [C, P, N] in depth order, in the
+    dtype of `alpha`: each of `feats` [C, N, k] and the alpha, [C, P, k]."""
+    from gsplat_tpu_torch.ops.rasterize_ref import TRANSMITTANCE_EPS
+
+    one_m = torch.where(valid, 1.0 - alpha, 1.0)
+    T_incl = torch.cumprod(one_m, dim=-1)
+    accept = valid & (T_incl > TRANSMITTANCE_EPS)
+    T_excl = torch.cat([torch.ones_like(T_incl[..., :1]), T_incl[..., :-1]], dim=-1)
+    vis = torch.where(accept, T_excl * alpha, 0.0)
+    final_T = torch.prod(torch.where(accept, one_m, 1.0), dim=-1)
+    return [torch.bmm(vis, f.to(alpha.dtype)) for f in feats] + [(1.0 - final_T)[..., None]]
+
+
+def _witness_2dgs(torch, pix, m2, Ms, opc, feats, radii, depths, W, ts, gen):
+    """The float64 witness at pixels `pix` (flat ids, camera 0) over all N
+    surfels in depth order. Each pair's alpha three ways from the same f32
+    inputs: the oracle's cross product in f32 (`surfel_sigma`), the binned
+    kernel's arithmetic in f32 (`_sigma`, its plain version) and float64.
+    The unstable pairs are those where either f32 alpha (or its 1/255
+    acceptance) differs from float64 by more than FWD2_TOL. Returns the
+    composites [P, k] of `feats` and alpha with float64 alphas everywhere
+    (`truth`) and with the unstable pairs' alphas taken from the oracle
+    (`oracle_hat`) and from the kernel (`kernel_hat`), the unstable mask
+    [P, N] (depth order), the depth order `sel` [N], and the largest move
+    of an unstable pair's float64 alpha when M moves by half an f32 ulp."""
+    from gsplat_tpu_torch.ops.rasterize_2dgs_binned import _sigma
+    from gsplat_tpu_torch.ops.rasterize_2dgs_ref import surfel_sigma
+    from gsplat_tpu_torch.ops.rasterize_ref import ALPHA_MAX, depth_rank_window, valid_pairs
+
+    C, N = m2.shape[:2]
+    sel, (m2s, M9, ops, rad, *fs) = depth_rank_window(depths, 0, N, m2, Ms.reshape(C, N, 9), opc, radii, *feats)
+    M3 = M9.reshape(C, N, 3, 3)
+    rows = [r[:, None, :] for r in (m2s[..., 0], m2s[..., 1], *M9.unbind(-1), ops)]
+    out = {k: [] for k in ("truth", "oracle_hat", "kernel_hat", "unstable")}
+    cond = 0.0
+    for chunk in pix.split(WITNESS_CHUNK):
+        px = (chunk % W).float() + 0.5
+        py = (chunk // W).float() + 0.5
+        ptx, pty = (chunk % W).int() // ts, (chunk // W).int() // ts
+
+        def alpha_of(sig, op):
+            a = torch.clamp_max(op[:, None, :] * torch.exp(-sig), ALPHA_MAX)
+            return a, valid_pairs(a, sig, rad, m2s, ptx, pty, ts)
+
+        a64, v64 = alpha_of(surfel_sigma(m2s.double(), M3.double(), px.double(), py.double()), ops.double())
+        a_or, v_or = alpha_of(surfel_sigma(m2s, M3, px, py), ops)
+        a_kf, v_kf = alpha_of(_sigma(rows, px[None, :, None], py[None, :, None])[0], ops)
+
+        def lost(a, v):
+            return (v != v64) | ((v | v64) & ((a.double() - a64).abs() > FWD2_TOL))
+
+        unstable = lost(a_or, v_or) | lost(a_kf, v_kf)
+        out["truth"].append(_composite(torch, v64, a64, fs))
+        for key, a, v in (("oracle_hat", a_or, v_or), ("kernel_hat", a_kf, v_kf)):
+            out[key].append(_composite(torch, torch.where(unstable, v, v64), torch.where(unstable, a.double(), a64), fs))
+        out["unstable"].append(unstable[0])
+        c, p, n = torch.nonzero(unstable, as_tuple=True)
+        if n.numel():
+            Mu, mu = M3[c, n].double(), m2s[c, n].double()
+            for _ in range(WITNESS_PERTURB):
+                step = (torch.rand(Mu.shape, generator=gen, device=Mu.device, dtype=torch.float64) * 2 - 1) * 2.0**-24
+                sig = surfel_sigma(mu[None], (Mu * (1 + step))[None], px[p].double(), py[p].double())
+                # surfel_sigma pairs every pixel with every surfel: take the diagonal
+                sig = sig[0].diagonal()
+                a = torch.clamp_max(ops[c, n].double() * torch.exp(-sig), ALPHA_MAX)
+                cond = max(cond, float((a - a64[c, p, n]).abs().max()))
+    joined = {k: [torch.cat(x, dim=1)[0] for x in zip(*v)] for k, v in out.items() if k != "unstable"}
+    return joined, torch.cat(out["unstable"]), sel[0], cond
+
+
+def _attribute_2dgs(torch, names, got, want, geo, W, ts, what):
+    """The FWD2_* gates between accumulate_2dgs (`got`) and the binned 2DGS
+    kernel (`want`), each a tuple of [1, H, W, k] outputs in `names` order,
+    where every value past FWD2_TOL x scale must be explained by the float64
+    witness at its pixel (`_witness_2dgs`). Returns the printed summary."""
+    flags, scales, flat = [], [], []
+    for a, b in zip(got, want):
+        d = (a - b).abs().reshape(-1, a.shape[-1])
+        scale = max(1.0, float(b.abs().max()))
+        flags.append((d > FWD2_TOL * scale).any(dim=-1))
+        scales.append(scale)
+        flat.append((float((d > FWD2_TOL * scale).float().mean()), float(d.max())))
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{what}: {names[len(flags) - 1]} not finite")
+    pix = torch.nonzero(torch.stack(flags).any(dim=0))[:, 0]
+    summary = ", ".join(f"{n} share past {FWD2_TOL} x scale {f:.3e}, max abs {m:.3e}" for n, (f, m) in zip(names, flat))
+    if pix.numel() == 0:
+        return f"{summary}; nothing to attribute"
+    gen = torch.Generator(device=got[0].device).manual_seed(SEED)
+    hats, unstable, sel, cond = _witness_2dgs(torch, pix, *geo, W, ts, gen)
+    missing = int((~unstable.any(dim=-1)).sum())
+    if missing:
+        raise AssertionError(f"{what}: {missing} of {pix.numel()} pixels past the FWD2 tolerance hold no pair "
+                             f"whose f32 alpha the float64 witness finds lost")
+    if cond > FWD2_TOL:
+        raise AssertionError(f"{what}: the float64 alpha of an unstable pair moves by {cond:.3e} under half-ulp "
+                             f"moves of M: the witness cannot decide")
+    errs = []
+    for i, (n, a, b, scale) in enumerate(zip(names, got, want, scales)):
+        a, b = a.reshape(-1, a.shape[-1])[pix].double(), b.reshape(-1, b.shape[-1])[pix].double()
+        res_o = float((a - hats["oracle_hat"][i]).abs().max())
+        res_k = float((b - hats["kernel_hat"][i]).abs().max())
+        if res_o > FWD2_TOL * scale or res_k > FWD2_TOL * scale:
+            raise AssertionError(f"{what}: {n} at the flagged pixels not reproduced by the float64 composite with "
+                                 f"only the unstable pairs' alphas taken from each side: accumulate off by {res_o:.3e}, "
+                                 f"the kernel off by {res_k:.3e} (limit {FWD2_TOL} x {scale:.3g})")
+        errs.append(f"{n} accumulate {float((a - hats['truth'][i]).abs().max()):.3e} kernel "
+                    f"{float((b - hats['truth'][i]).abs().max()):.3e} (reproduced within {max(res_o, res_k):.1e})")
+    n_idx = torch.nonzero(unstable.any(dim=0))[:, 0]
+    m2, depths = geo[0][0], geo[-1][0]
+    surfels = ", ".join(f"{int(g)} (depth {float(depths[g]):.6g}, mean2d ({float(m2[g, 0]):.7g}, {float(m2[g, 1]):.7g}), "
+                        f"{int(unstable[:, k].sum())} pixels)" for k, g in zip(n_idx.tolist(), sel[n_idx].tolist()))
+    rows, cols = pix // W, pix % W
+    return (f"{summary}; {pix.numel()} pixels past the tolerance (x {int(cols.min())}-{int(cols.max())}, "
+            f"y {int(rows.min())}-{int(rows.max())}), each explained by the float64 witness: "
+            f"{int(unstable.sum())} unstable pairs of the surfels {surfels}; their float64 alpha moves at most "
+            f"{cond:.3e} under half-ulp moves of M; max abs against the float64 composite there: " + ", ".join(errs))
+
+
+def phase_op_api():
+    """The rest of the op API on the card: the packed projections at the
+    serving shapes against the dense ones, and rasterize_to_indices_in_range
+    (3DGS and 2DGS) chained over depth-rank windows, then accumulate over
+    the pairs, against the binned forward kernels at grid1."""
+    import torch
+    from gsplat_tpu_torch import (
+        accumulate, accumulate_2dgs, fully_fused_projection, fully_fused_projection_2dgs,
+        fully_fused_projection_2dgs_packed, fully_fused_projection_packed, load_test_data,
+        rasterize_to_indices_in_range, rasterize_to_indices_in_range_2dgs,
+    )
+    from gsplat_tpu_torch.ops.rasterize import rasterize_to_pixels, rasterize_to_pixels_2dgs
+
+    dev = torch.device("cuda")
+    t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
+    means, quats, scales, opac, colors, viewmats, Ks, W0, _ = load_test_data(scene_grid=MAIN_GRID)
+    Ks = Ks.copy()
+    Ks[:, :2, :] *= MAIN_W / W0
+    W, H = MAIN_W, MAIN_H
+    args = (t(means), t(quats), t(scales), t(viewmats[:1]), t(Ks[:1]), W, H)
+    N = means.shape[0]
+    reps = 5
+    with torch.no_grad():
+        for kind, dense_fn, packed_fn, kw, n_rows in (
+            ("3DGS", fully_fused_projection, fully_fused_projection_packed, dict(calc_compensations=True), 4),
+            ("2DGS", fully_fused_projection_2dgs, fully_fused_projection_2dgs_packed, {}, 4),
+        ):
+            dense = dense_fn(*args, **kw)
+            full = packed_fn(*args, N, **kw)
+            nnz = _packed_matches_dense(torch, full, dense, n_rows, f"{kind} packed projection, capacity C*N")
+            half = packed_fn(*args, nnz // 2, **kw)
+            _packed_matches_dense(torch, half, dense, n_rows, f"{kind} packed projection, capacity nnz/2")
+            for a, b in zip(half[:-1], full[:-1]):
+                if a is not None and not torch.equal(a, b[: nnz // 2]):
+                    raise AssertionError(f"{kind} packed projection: truncation kept other than the lowest flat indices")
+            packed_ms = cuda_ms(torch, lambda: packed_fn(*args, N, **kw), reps)
+            dense_ms = cuda_ms(torch, lambda: dense_fn(*args, **kw), reps)
+            log(f"{kind} packed projection, garden grid{MAIN_GRID} {W}x{H}, C=1, N={N}: nnz {nnz}; live slots equal "
+                f"the dense projection bit for bit at capacity C*N and nnz/2 (truncation keeps the lowest flat "
+                f"indices); packed {packed_ms:.3f} ms, dense {dense_ms:.3f} ms (CUDA events, mean of {reps})")
+
+        # indices in depth-rank windows, then accumulate, against the forward kernels at grid1
+        means, quats, scales, opac, colors, viewmats, Ks, W, H = load_test_data(scene_grid=1)
+        N, C, R, ts = means.shape[0], 1, INDEX_WINDOW, MAIN_TILE
+        geo = (t(means), t(quats), t(scales), t(viewmats[:1]), t(Ks[:1]), W, H)
+        opc, cols = t(opac)[None], t(colors)[None]
+
+        radii, means2d, depths, conics, _ = fully_fused_projection(*geo)
+        ((gids, pids, cids), chain), idx_ms = timed_once(torch, lambda: _window_pairs(
+            torch, rasterize_to_indices_in_range, N, R, C, W, H, [cols], means2d, conics, opc, radii, depths))
+        acc, acc_ms = timed_once(torch, lambda: accumulate(means2d, conics, opc, cols, gids, pids, cids, W, H))
+        cap = rasterize_to_pixels(means2d, conics, cols, opc, radii, depths, W, H, ts, 512,
+                                  backend="binned")[2]["slab_required"] + 1024
+        (img_k, alpha_k, _), fwd_ms = timed_once(torch, lambda: rasterize_to_pixels(
+            means2d, conics, cols, opc, radii, depths, W, H, ts, cap, backend="binned"))
+        what = "3DGS indices + accumulate"
+        cmx, cmean = _fwd_gate(torch, acc, chain, f"{what} vs the windows' own composite")
+        mx, mean = _fwd_gate(torch, acc, (img_k, alpha_k), f"{what} vs the binned forward kernel")
+        log(f"3DGS indices in range (windows of {R}) + accumulate, garden grid1 {W}x{H}, N={N}: "
+            f"{gids.shape[0]} pairs; indices (and the windows' composite) {idx_ms:.1f} ms, accumulate "
+            f"{acc_ms:.1f} ms, binned render {fwd_ms:.3f} ms; image and alpha vs the binned forward kernel max abs "
+            f"{mx:.3e}, mean abs {mean:.3e}; vs the windows' composite max abs {cmx:.3e}, mean abs {cmean:.3e}")
+
+        radii, means2d, depths, Ms, normals = fully_fused_projection_2dgs(*geo)
+        ((gids, pids, cids), chain), idx_ms = timed_once(torch, lambda: _window_pairs(
+            torch, rasterize_to_indices_in_range_2dgs, N, R, C, W, H, [cols, normals],
+            means2d, Ms, opc, radii, depths))
+        acc, acc_ms = timed_once(torch, lambda: accumulate_2dgs(
+            means2d, Ms, opc, cols, normals, gids, pids, cids, W, H))
+        cap = rasterize_to_pixels_2dgs(means2d, Ms, cols, normals, opc, radii, depths, W, H, ts, 512,
+                                       backend="binned")[5]["slab_required"] + 1024
+        ko, fwd_ms = timed_once(torch, lambda: rasterize_to_pixels_2dgs(
+            means2d, Ms, cols, normals, opc, radii, depths, W, H, ts, cap, backend="binned"))
+        what = "2DGS indices + accumulate_2dgs"
+        acc = (acc[0], acc[2], acc[1])  # colors, normals, alpha: the windows' composite order
+        names = ("colors", "normals", "alpha")
+        errs = {n: _flip_gate(torch, n, a, b, f"{what} vs the windows' own composite")
+                for n, a, b in zip(names, acc, chain)}
+        kern = _attribute_2dgs(torch, names, acc, (ko[0], ko[2], ko[1]),
+                               (means2d, Ms, opc, [cols, normals], radii, depths), W, ts,
+                               f"{what} vs the binned 2DGS forward kernel")
+        log(f"2DGS indices in range (windows of {R}) + accumulate_2dgs, garden grid1 {W}x{H}, N={N}: "
+            f"{gids.shape[0]} pairs; indices (and the windows' composite) {idx_ms:.1f} ms, accumulate "
+            f"{acc_ms:.1f} ms, binned render {fwd_ms:.3f} ms; vs the windows' composite max abs "
+            + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+            + f"; vs the binned 2DGS forward kernel (FWD2 gates, float64 witness): {kern}")
+
+
+def _relocation_f64(torch, op, ratios, binoms):
+    """Eq. 9 in float64 on the card: (new opacity, the scale's factor)."""
+    n_max = binoms.shape[0]
+    op = op.double()
+    new = 1.0 - torch.pow(1.0 - op, 1.0 / ratios.double())
+    k = torch.arange(n_max, dtype=torch.float64, device=op.device)
+    sign = 1.0 - 2.0 * (k % 2)
+    term = sign / torch.sqrt(k + 1.0) * new[:, None] ** (k[None, :] + 1.0)
+    denom = torch.cumsum(term @ binoms.double().T, dim=1)
+    return new, op / denom.gather(1, (ratios.long() - 1)[:, None])[:, 0]
+
+
+def phase_train_mcmc(scene, default_steady_ms):
+    """MCMC training: Runner(strategy_name="mcmc") on the training phase's
+    scene, the reference's MCMC preset, 12 steps refining at 5 and 10; then
+    relocate and compute_relocation alone on the final pool, and
+    compute_relocation against float64. Returns the five training kernels'
+    launches over the 12 steps."""
+    import torch
+    from gsplat_tpu_torch import _backend, compute_relocation, make_binoms
+    from gsplat_tpu_torch.simple_trainer import Config, Runner
+    from gsplat_tpu_torch.strategy import ops
+
+    dev = torch.device("cuda")
+    views, points, rgb, scene_scale = scene
+    n0 = points.shape[0]
+    cfg = Config(
+        strategy_name="mcmc", cap_max=MCMC_CAP_MAX, max_steps=TRAIN_STEPS, sh_degree=3, sh_degree_interval=1,
+        refine_start_iter=0, refine_every=5, tile_size=MAIN_TILE, backend="binned", seed=SEED,
+        init_opa=0.5, init_scale=0.1, opacity_reg=0.01, scale_reg=0.01,
+    )
+    t1 = time.perf_counter()
+    runner = Runner(cfg, views, points, rgb, scene_scale, device=dev)
+    runner.probe_isect_capacity()
+    torch.cuda.synchronize()
+    cap = runner.live.shape[0]
+    if cap != -(-MCMC_CAP_MAX // 4096) * 4096 or int(runner.live.sum()) != n0:
+        raise AssertionError(f"MCMC pool {cap} slots with {int(runner.live.sum())} live")
+    log(f"MCMC training path: {n0} points in a {cap}-slot pool (cap_max {MCMC_CAP_MAX}), init_opa 0.5, init_scale "
+        f"0.1, opacity_reg 0.01, scale_reg 0.01, isect capacity {runner.isect_capacity}; init "
+        f"{time.perf_counter() - t1:.1f} s")
+    kernels = ("emit", "emit_gather", "rasterize_fwd", "rasterize_bwd", "gid_reduce")
+    # the JAX package's growth: int(1.05 * n_live) in float32, capped
+    want_live = {5: min(MCMC_CAP_MAX, int(np.float32(1.05) * np.float32(n0)))}
+    want_live[10] = min(MCMC_CAP_MAX, int(np.float32(1.05) * np.float32(want_live[5])))
+    _backend.reset_launch_counts()
+    losses, step_ms, refined_at = [], [], []
+    for step in range(TRAIN_STEPS):
+        before = _backend.launch_counts()
+        live_before = runner.live.clone()
+        dead_means = runner.params["means"].detach()[~live_before].clone()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = runner.train_step(step)
+        end.record()
+        torch.cuda.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        loss = float(out["loss"])
+        after = _backend.launch_counts()
+        per_step = {k: after[k] - before[k] for k in after}
+        if not np.isfinite(loss):
+            raise AssertionError(f"MCMC step {step}: loss {loss}")
+        missing = [k for k in kernels if per_step[k] == 0]
+        other = [k for k, v in per_step.items() if v and k not in kernels]
+        if missing or other:
+            raise AssertionError(f"MCMC step {step}: kernels {missing} not launched, {other} launched")
+        n_live = int(runner.live.sum())
+        if out["refined"]:
+            refined_at.append(step)
+            activated = runner.live & ~live_before
+            for name, opt in runner.optimizers.items():
+                st_ = opt.state[runner.params[name]]
+                if bool(st_["exp_avg"][activated].any()) or bool(st_["exp_avg_sq"][activated].any()):
+                    raise AssertionError(f"MCMC step {step}: {name}'s Adam moments not zero at the activated slots")
+            if n_live != want_live[step]:
+                raise AssertionError(f"MCMC step {step}: live {n_live}, want {want_live[step]}")
+        elif not torch.equal(runner.params["means"].detach()[~live_before], dead_means):
+            raise AssertionError(f"MCMC step {step}: the means of free slots moved")
+        losses.append((out["image_ids"][0], loss))
+        log(f"MCMC step {step}: view {out['image_ids'][0]} loss {loss:.6f} live {n_live}"
+            f"{' (refined)' if out['refined'] else ''}, CUDA events {step_ms[-1]:.2f} ms; launches {per_step}")
+    launches = _backend.launch_counts()
+    if refined_at != [5, 10]:
+        raise AssertionError(f"MCMC refined at {refined_at}, want [5, 10]")
+    for name, p in runner.params.items():
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"MCMC: parameter {name} is not finite after training")
+    view0 = [loss for v, loss in losses if v == 0]
+    if len(view0) < 2 or not view0[-1] < view0[0]:
+        raise AssertionError(f"MCMC: view 0's loss did not fall: {view0}")
+    steady = float(np.median([ms for s, ms in enumerate(step_ms) if s not in refined_at]))
+    log(f"launches in the MCMC training path ({TRAIN_STEPS} steps): {launches}")
+    log(f"MCMC: live {n0} -> {want_live[5]} (step 5) -> {want_live[10]} (step 10), the Adam moments zero at "
+        f"the activated slots, free slots' means unmoved, all parameters finite; view 0 loss {view0[0]:.6f} -> "
+        f"{view0[-1]:.6f}; steady step {steady:.3f} ms (median of the non-refining steps; the default "
+        f"strategy's {default_steady_ms:.3f}), refine steps +{step_ms[5] - steady:.3f} / "
+        f"+{step_ms[10] - steady:.3f} ms")
+
+    # relocate and compute_relocation alone, on a clone of the final pool
+    strat = runner.strategy
+    binoms = runner.strategy_state["binoms"]
+    with torch.no_grad():
+        params = {k: v.detach().clone() for k, v in runner.params.items()}
+        live = runner.live.clone()
+        gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+        idx = torch.nonzero(live)[:, 0]
+        pick = idx[torch.randperm(idx.shape[0], generator=gen, device=dev)[: idx.shape[0] // 100]]
+        params["opacities"][pick] = float(np.log(0.001 / 0.999))
+        # the noise at the first step's learning rate moves live means only
+        # (the gate opens below opacity ~0.01: the slots just set to 0.001)
+        noisy = dict(params, means=params["means"].clone())
+        ops.inject_noise_to_position(noisy, live, cfg.means_lr * runner.scene_scale * strat.noise_lr, gen)
+        moved_rows = (noisy["means"] != params["means"]).any(dim=1)
+        moved = int(moved_rows.sum())
+        if bool((moved_rows & ~live).any()) or moved == 0:
+            raise AssertionError(f"noise: a free slot's mean moved, or no live mean moved ({moved})")
+        del noisy
+        dead = live & (torch.sigmoid(params["opacities"]) <= strat.min_opacity)
+        n_dead, n_live = int(dead.sum()), int(live.sum())
+        counts, reloc_ms = timed_once(torch, lambda: ops.relocate(
+            params, live, dead, binoms, None, strat.min_opacity, gen))
+        if int(counts.sum()) != n_dead or int(live.sum()) != n_live:
+            raise AssertionError(f"relocate: {int(counts.sum())} draws for {n_dead} dead, live {n_live} -> "
+                                 f"{int(live.sum())}")
+        if bool((torch.sigmoid(params["opacities"])[live] <= strat.min_opacity).any()):
+            raise AssertionError("relocate left a live slot at or below min_opacity")
+        op_sig, sc = torch.sigmoid(params["opacities"]), torch.exp(params["scales"])
+        comp_ms = cuda_ms(torch, lambda: compute_relocation(op_sig, sc, counts + 1, binoms), 5)
+        log(f"relocate on the final pool ({cap} slots, {n_live} live, a seeded 1% set to opacity 0.001: {n_dead} "
+            f"dead): one call {reloc_ms:.3f} ms (CUDA events; sampling, Eq. 9 and the moves); draws {n_dead}, "
+            f"live unchanged, no live slot at or below {strat.min_opacity}; compute_relocation over the pool "
+            f"{comp_ms:.3f} ms (mean of 5); before it, the noise at step 0's rate moved {moved} live means "
+            f"and no free one")
+
+        # compute_relocation against float64, ratios 1-51, with TF32 asked for around the call
+        rng = np.random.default_rng(SEED)
+        ops_ = np.concatenate([[0.005, 0.05, 0.5, 0.9, 0.99, 0.999, 0.99999, 0.9999999],
+                               rng.uniform(0.005, 0.999, 56)]).astype(np.float32)
+        op_t = torch.as_tensor(np.repeat(ops_, 51), device=dev)
+        ratios = torch.as_tensor(np.tile(np.arange(1, 52), ops_.size).astype(np.int32), device=dev)
+        ones = torch.ones((op_t.shape[0], 3), device=dev)
+        want_op, want_f = _relocation_f64(torch, op_t, ratios, binoms)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            new_op, new_sc = compute_relocation(op_t, ones, ratios, binoms)
+            tf32_after = torch.backends.cuda.matmul.allow_tf32
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+        cpu_op, cpu_sc = (x.to(dev) for x in compute_relocation(op_t.cpu(), ones.cpu(), ratios.cpu(), binoms.cpu()))
+
+        def rel_err(o, sc):
+            return torch.maximum((o.double() - want_op).abs() / want_op, (sc[:, 0].double() - want_f).abs() / want_f)
+
+        e_card, e_cpu = rel_err(new_op, new_sc), rel_err(cpu_op, cpu_sc)
+        bands = []
+        for lo, hi in ((1, 10), (11, 25), (26, 51)):
+            band = (ratios >= lo) & (ratios <= hi)
+            a, b = float(e_card[band].max()), float(e_cpu[band].max())
+            bands.append(f"ratios {lo}-{hi}: card {a:.3e}, CPU {b:.3e}")
+            if a > b + 2.5e-4:
+                raise AssertionError(f"compute_relocation on the card vs float64, {bands[-1]} (limit CPU + 2.5e-4)")
+        if not tf32_after:
+            raise AssertionError("compute_relocation did not restore the caller's TF32 setting")
+        log("compute_relocation vs float64 (max relative error of opacity and scale; TF32 allowed by the "
+            "caller, off for the product): " + "; ".join(bands))
+    return launches
+
+
 def main():
     smi = phase_device()
     import torch
@@ -2149,7 +2640,7 @@ def main():
     t1 = time.perf_counter()
     phase_serving(smi)
     t2 = time.perf_counter()
-    kernels, scene = phase_train(smi)
+    kernels, scene, default_steady_ms = phase_train(smi)
     t3 = time.perf_counter()
     (shared_2dgs, kernels_2dgs), runner_2dgs = phase_train_2dgs(scene)
     for k in kernels:
@@ -2167,11 +2658,19 @@ def main():
     kernels += kernels_tiled_2dgs
     phase_serving_tiled_2dgs((runner_tiled_2dgs.params, runner_tiled_2dgs.live))
     t6 = time.perf_counter()
+    phase_op_api()
+    t7 = time.perf_counter()
+    mcmc_launches = phase_train_mcmc(scene, default_steady_ms)
+    for k in kernels:
+        if k["name"] in mcmc_launches and k["name"] in ("emit", "emit_gather", "rasterize_fwd", "rasterize_bwd",
+                                                        "gid_reduce"):
+            k["launches_mcmc"] = mcmc_launches[k["name"]]
+    t8 = time.perf_counter()
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))
     log(f"phase wall times: build + kernel vs plain {t1 - t0:.1f} s, serving {t2 - t1:.1f} s, "
         f"training {t3 - t2:.1f} s, 2DGS training {t4 - t3:.1f} s, 2DGS serving {t5 - t4:.1f} s, "
-        f"tiled serving and training {t6 - t5:.1f} s")
+        f"tiled serving and training {t6 - t5:.1f} s, op API {t7 - t6:.1f} s, MCMC training {t8 - t7:.1f} s")
     print(json.dumps({
         "ok": True,
         "device": {

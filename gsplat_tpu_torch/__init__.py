@@ -13,10 +13,14 @@ in-memory views (``simple_trainer.Runner``). Slice 3 is 2DGS (surfels):
 and 2DGS, forward and backward: ``isect_tiles`` and four kernels that
 gather each tile's rows by ``flatten_ids``; ``rasterization(backend="auto")``
 reaches it at scene scale without an ``isect_capacity``, and both trainers
-take ``backend="tiled"``. Functions run on the device of their input
+take ``backend="tiled"``. Slice 9 is the rest of the op API (the packed
+projections, ``proj``, ``rasterize_to_indices_in_range``, ``accumulate``,
+the utilities) and MCMC training (``compute_relocation``,
+``MCMCStrategy``, ``Runner`` with ``strategy_name="mcmc"``), in plain
+PyTorch over the same kernels. Functions run on the device of their input
 tensors: CUDA tensors go through the kernels, CPU tensors through each
-kernel's plain PyTorch version. MCMC and multi-GPU rendering come in later
-slices and raise NotImplementedError until then.
+kernel's plain PyTorch version. Multi-GPU rendering comes in a later slice
+and raises NotImplementedError until then.
 """
 
 from ._helper import load_test_data
@@ -25,12 +29,19 @@ from .checkpoint import splats_from_numpy
 from .losses import l1, psnr, ssim, train_loss
 from .ops import (
     Isect,
+    accumulate,
+    accumulate_2dgs,
     fully_fused_projection,
     fully_fused_projection_2dgs,
+    fully_fused_projection_2dgs_packed,
+    fully_fused_projection_packed,
     fully_fused_projection_soa,
     isect_offset_encode,
     isect_tiles,
+    proj,
     quat_scale_to_covar_preci,
+    rasterize_to_indices_in_range,
+    rasterize_to_indices_in_range_2dgs,
     rasterize_to_pixels,
     rasterize_to_pixels_2dgs,
     rasterize_to_pixels_2dgs_ref,
@@ -43,23 +54,43 @@ from .ops import (
     world_to_cam,
 )
 from .optimizers import SelectiveAdam
+from .relocation import compute_relocation, make_binoms
 from .rendering import rasterization, rasterization_2dgs
 from .simple_trainer import Runner
 from .simple_trainer_2dgs import Runner2DGS
-from .strategy import DefaultStrategy, Strategy
-from .utils import depth_to_normal, depth_to_points
+from .strategy import DefaultStrategy, MCMCStrategy, Strategy
+from .utils import (
+    depth_to_normal,
+    depth_to_points,
+    get_projection_matrix,
+    inverse_log_transform,
+    log_transform,
+    save_ply,
+)
+
+# the reference exports this op under a misspelled name too; keep both so
+# code written against it imports unchanged
+full_fused_projection_2dgs = fully_fused_projection_2dgs
 
 __all__ = [
+    "accumulate",
+    "accumulate_2dgs",
     "rasterization",
     "rasterization_2dgs",
+    "proj",
     "world_to_cam",
     "fully_fused_projection_soa",
     "fully_fused_projection",
+    "fully_fused_projection_packed",
     "fully_fused_projection_2dgs",
+    "fully_fused_projection_2dgs_packed",
+    "full_fused_projection_2dgs",
     "quat_scale_to_covar_preci",
     "rasterize_to_pixels",
     "rasterize_to_pixels_2dgs",
     "rasterize_to_pixels_2dgs_ref",
+    "rasterize_to_indices_in_range",
+    "rasterize_to_indices_in_range_2dgs",
     "rasterize_to_pixels_ref",
     "rasterize_to_pixels_ref_absgrad",
     "rasterize_to_pixels_tiled",
@@ -71,6 +102,10 @@ __all__ = [
     "spherical_harmonics",
     "depth_to_points",
     "depth_to_normal",
+    "log_transform",
+    "inverse_log_transform",
+    "get_projection_matrix",
+    "save_ply",
     "load_test_data",
     "splats_from_numpy",
     "l1",
@@ -80,7 +115,10 @@ __all__ = [
     "SelectiveAdam",
     "Runner",
     "Runner2DGS",
+    "compute_relocation",
+    "make_binoms",
     "Strategy",
     "DefaultStrategy",
+    "MCMCStrategy",
     "__version__",
 ]

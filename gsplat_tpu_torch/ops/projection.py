@@ -10,7 +10,7 @@ here. Gradients come from autograd.
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -349,3 +349,86 @@ def fully_fused_projection(
         conics,
         soa.get("compensation"),
     )
+
+
+def compact_valid(radii: torch.Tensor, rows: Sequence[torch.Tensor], capacity: int):
+    """Move the valid (radii > 0) entries of [C, N] outputs to the front of a
+    ``min(capacity, C*N)`` buffer, camera-major and Gaussian-minor, by one
+    stable sort on the validity key, as the JAX package's packed
+    projections do: the float ``rows`` follow the same permutation (the
+    invalid entries after the valid ones, in flat order) and stay
+    differentiable. Past ``capacity`` the highest flat indices are dropped.
+
+    Returns (camera_ids [cap] i32, gaussian_ids [cap] i32, radii [cap] i32,
+    the permuted rows [cap] each, nnz [] i32 on the device); slots past nnz
+    have ids -1 and radii 0."""
+    C, N = radii.shape
+    flat_radii = radii.reshape(-1)
+    valid = flat_radii > 0
+    cap = min(capacity, C * N)
+    perm = torch.sort((~valid).to(torch.uint8), stable=True).indices[:cap]
+    nnz = valid.sum(dtype=torch.int32)
+    slot_ok = torch.arange(cap, device=radii.device) < nnz
+    camera_ids = torch.where(slot_ok, (perm // N).to(torch.int32), -1)
+    gaussian_ids = torch.where(slot_ok, (perm % N).to(torch.int32), -1)
+    radii_p = torch.where(slot_ok, flat_radii[perm], 0)
+    return camera_ids, gaussian_ids, radii_p, [r.reshape(-1)[perm] for r in rows], nnz
+
+
+def fully_fused_projection_packed(
+    means: torch.Tensor,  # [N, 3]
+    quats: Optional[torch.Tensor],  # [N, 4] or None if covars given
+    scales: Optional[torch.Tensor],  # [N, 3]
+    viewmats: torch.Tensor,  # [C, 4, 4]
+    Ks: torch.Tensor,  # [C, 3, 3]
+    width: int,
+    height: int,
+    capacity: int,
+    eps2d: float = 0.3,
+    near_plane: float = 0.01,
+    far_plane: float = 1e10,
+    radius_clip: float = 0.0,
+    calc_compensations: bool = False,
+    camera_model: str = "pinhole",
+    covars: Optional[torch.Tensor] = None,  # [N, 3, 3]
+):
+    """Packed (COO) fused projection with a static capacity: the valid
+    (camera, gaussian) pairs compacted to the front of the buffer by
+    `compact_valid`.
+
+    Returns (camera_ids [cap] i32, gaussian_ids [cap] i32, radii [cap] i32,
+    means2d [cap, 2], depths [cap], conics [cap, 3], compensations [cap] or
+    None, nnz [] i32). If nnz > capacity the highest-flat-index valid
+    entries are dropped: call again with a larger capacity. The float
+    outputs are differentiable w.r.t. means/quats/scales/covars/viewmats.
+    """
+    soa = fully_fused_projection_soa(
+        means, quats, scales, viewmats, Ks, width, height,
+        eps2d=eps2d, near_plane=near_plane, far_plane=far_plane,
+        radius_clip=radius_clip, calc_compensations=calc_compensations,
+        camera_model=camera_model, covars=covars,
+    )
+    keys = ["mean_x", "mean_y", "depth", "conic_a", "conic_b", "conic_c"]
+    if calc_compensations:
+        keys.append("compensation")
+    cam, gau, radii, rows, nnz = compact_valid(soa["radii"], [soa[k] for k in keys], capacity)
+    means2d = torch.stack(rows[0:2], dim=-1)
+    conics = torch.stack(rows[3:6], dim=-1)
+    compensations = rows[6] if calc_compensations else None
+    return cam, gau, radii, means2d, rows[2], conics, compensations, nnz
+
+
+def proj(
+    means: torch.Tensor,  # [C, N, 3] camera-frame
+    covars: torch.Tensor,  # [C, N, 3, 3] camera-frame
+    Ks: torch.Tensor,  # [C, 3, 3]
+    width: int,
+    height: int,
+    camera_model: str = "pinhole",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Camera-frame -> 2D projection. Returns (means2d [C,N,2], covars2d
+    [C,N,2,2])."""
+    fns = {"pinhole": persp_proj, "ortho": ortho_proj, "fisheye": fisheye_proj}
+    if camera_model not in fns:
+        raise ValueError(f"unknown camera_model {camera_model!r}")
+    return fns[camera_model](means, covars, Ks, width, height)

@@ -14,7 +14,7 @@ from typing import Dict, Tuple
 import torch
 
 from .._backend import common_device
-from .projection import _quat_to_rot_components
+from .projection import _quat_to_rot_components, compact_valid
 
 
 def fully_fused_projection_2dgs_soa(
@@ -113,6 +113,40 @@ def fully_fused_projection_2dgs_soa(
         for i in range(3):
             out[f"m{k}{i}"] = M[(k, i)]
     return out
+
+
+def fully_fused_projection_2dgs_packed(
+    means: torch.Tensor,  # [N, 3]
+    quats: torch.Tensor,  # [N, 4]
+    scales: torch.Tensor,  # [N, 3]
+    viewmats: torch.Tensor,  # [C, 4, 4]
+    Ks: torch.Tensor,  # [C, 3, 3]
+    width: int,
+    height: int,
+    capacity: int,
+    near_plane: float = 0.01,
+    far_plane: float = 1e10,
+    radius_clip: float = 0.0,
+):
+    """Packed (COO) fused 2DGS projection with a static capacity: the 3DGS
+    packed projection's compaction (`compact_valid`) over the surfel rows.
+
+    Returns (camera_ids [cap] i32, gaussian_ids [cap] i32, radii [cap] i32,
+    means2d [cap, 2], depths [cap], ray_transforms [cap, 3, 3], normals
+    [cap, 3], nnz [] i32); slots past nnz have ids -1 and radii 0, and past
+    ``capacity`` the highest flat indices are dropped."""
+    soa = fully_fused_projection_2dgs_soa(
+        means, quats, scales, viewmats, Ks, width, height,
+        near_plane=near_plane, far_plane=far_plane, radius_clip=radius_clip,
+    )
+    keys = ["mean_x", "mean_y", "depth"] + [f"m{k}{i}" for k in range(3) for i in range(3)]
+    keys += [f"normal_{a}" for a in ("x", "y", "z")]
+    cam, gau, radii, rows, nnz = compact_valid(soa["radii"], [soa[k] for k in keys], capacity)
+    cap = radii.shape[0]
+    means2d = torch.stack(rows[0:2], dim=-1)
+    ray_transforms = torch.stack(rows[3:12], dim=-1).reshape(cap, 3, 3)
+    normals = torch.stack(rows[12:15], dim=-1)
+    return cam, gau, radii, means2d, rows[2], ray_transforms, normals, nnz
 
 
 def fully_fused_projection_2dgs(

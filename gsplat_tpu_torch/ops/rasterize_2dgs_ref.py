@@ -16,7 +16,33 @@ from typing import Optional, Tuple
 import torch
 
 from .._backend import common_device
-from .rasterize_ref import ALPHA_MAX, ALPHA_MIN, TRANSMITTANCE_EPS
+from .rasterize_ref import (
+    ALPHA_MAX,
+    TRANSMITTANCE_EPS,
+    depth_rank_window,
+    pixel_grid,
+    valid_pairs,
+    window_contrib,
+)
+
+
+def surfel_sigma(means2d, M, px, py):
+    """The surfel exponent of every (pixel, Gaussian) pair [C, P, N]: the
+    ray-plane intersection, h_u = -M[0] + px M[2] and h_v = -M[1] + py M[2],
+    min'd with the 2D low-pass filter."""
+    Mx = M[:, None, :, 0, :]  # [C, 1, N, 3]
+    My = M[:, None, :, 1, :]
+    Mz = M[:, None, :, 2, :]
+    h_u = -Mx + Mz * px[None, :, None, None]  # [C, P, N, 3]
+    h_v = -My + Mz * py[None, :, None, None]
+    cr = torch.linalg.cross(h_u, h_v, dim=-1)
+    crz = torch.where(torch.abs(cr[..., 2]) < 1e-12, 1e-12, cr[..., 2])
+    us = cr[..., 0] / crz
+    vs = cr[..., 1] / crz
+    sigma_3d = us * us + vs * vs
+    dx = px[None, :, None] - means2d[:, None, :, 0]
+    dy = py[None, :, None] - means2d[:, None, :, 1]
+    return 0.5 * torch.minimum(sigma_3d, 2.0 * (dx * dx + dy * dy))
 
 
 def rasterize_to_pixels_2dgs_ref(
@@ -39,63 +65,14 @@ def rasterize_to_pixels_2dgs_ref(
     )
     C, N, _ = means2d.shape
     D = colors.shape[-1]
-
-    # stable sort by the depth's int32 bit pattern, as the JAX package
-    order = torch.argsort(depths.detach().contiguous().view(torch.int32), dim=-1, stable=True)
-
-    def take(x):
-        idx = order.reshape(order.shape + (1,) * (x.dim() - 2)).expand(order.shape + x.shape[2:])
-        return torch.gather(x, 1, idx)
-
-    means2d = take(means2d)
-    M = take(ray_transforms.reshape(C, N, 9)).reshape(C, N, 3, 3)
-    colors = take(colors)
-    normals = take(normals)
-    opacities = take(opacities)
-    radii = take(radii)
-
-    # tile-rect culling, identical to isect_tiles
-    tile_means = means2d.detach() / tile_size
-    tile_r = (radii / tile_size)[..., None]
-    tmin = torch.floor(tile_means - tile_r).to(torch.int32)
-    tmax = torch.ceil(tile_means + tile_r).to(torch.int32)
-
-    py, px = torch.meshgrid(
-        torch.arange(image_height, device=dev), torch.arange(image_width, device=dev), indexing="ij"
+    _, (means2d, M, colors, normals, opacities, radii) = depth_rank_window(
+        depths, 0, N, means2d, ray_transforms.reshape(C, N, 9), colors, normals, opacities, radii
     )
-    px = px.reshape(-1).to(torch.float32) + 0.5  # [P]
-    py = py.reshape(-1).to(torch.float32) + 0.5
-    ptx = (px - 0.5).to(torch.int32) // tile_size
-    pty = (py - 0.5).to(torch.int32) // tile_size
-
-    # sigma from the ray-plane intersection: h_u = -M[0] + px M[2],
-    # h_v = -M[1] + py M[2]
-    Mx = M[:, None, :, 0, :]  # [C, 1, N, 3]
-    My = M[:, None, :, 1, :]
-    Mz = M[:, None, :, 2, :]
-    pxb = px[None, :, None, None]
-    pyb = py[None, :, None, None]
-    h_u = -Mx + Mz * pxb  # [C, P, N, 3]
-    h_v = -My + Mz * pyb
-    cr = torch.linalg.cross(h_u, h_v, dim=-1)
-    crz = torch.where(torch.abs(cr[..., 2]) < 1e-12, 1e-12, cr[..., 2])
-    us = cr[..., 0] / crz
-    vs = cr[..., 1] / crz
-    sigma_3d = us * us + vs * vs  # [C, P, N]
-    dx = px[None, :, None] - means2d[:, None, :, 0]
-    dy = py[None, :, None] - means2d[:, None, :, 1]
-    sigma_2d = 2.0 * (dx * dx + dy * dy)
-    sigma = 0.5 * torch.minimum(sigma_3d, sigma_2d)
-
+    M = M.reshape(C, N, 3, 3)
+    px, py, ptx, pty = pixel_grid(image_width, image_height, tile_size, dev)
+    sigma = surfel_sigma(means2d, M, px, py)  # [C, P, N]
     alpha = torch.clamp_max(opacities[:, None, :] * torch.exp(-sigma), ALPHA_MAX)
-
-    in_rect = (
-        (ptx[None, :, None] >= tmin[:, None, :, 0])
-        & (ptx[None, :, None] < tmax[:, None, :, 0])
-        & (pty[None, :, None] >= tmin[:, None, :, 1])
-        & (pty[None, :, None] < tmax[:, None, :, 1])
-    )
-    valid = (alpha >= ALPHA_MIN) & (sigma >= 0.0) & (radii[:, None, :] > 0) & in_rect
+    valid = valid_pairs(alpha, sigma, radii, means2d, ptx, pty, tile_size)
 
     one_m = torch.where(valid, 1.0 - alpha, 1.0)
     T_incl = torch.cumprod(one_m, dim=-1)
@@ -133,3 +110,34 @@ def rasterize_to_pixels_2dgs_ref(
         distort.reshape(C, H, W, 1),
         median.reshape(C, H, W, 1),
     )
+
+
+def rasterize_to_indices_in_range_2dgs(
+    range_start: int,
+    range_end: int,
+    transmittances: torch.Tensor,  # [C, H, W]
+    means2d: torch.Tensor,  # [C, N, 2]
+    ray_transforms: torch.Tensor,  # [C, N, 3, 3]
+    opacities: torch.Tensor,  # [C, N]
+    radii: torch.Tensor,  # [C, N]
+    depths: torch.Tensor,  # [C, N]
+    image_width: int,
+    image_height: int,
+    tile_size: int = 16,
+):
+    """2DGS variant of rasterize_to_indices_in_range, with the oracle's
+    surfel sigma. Returns (contrib [C, H*W, R] bool, alpha [C, H*W, R],
+    sel [C, R], new_transmittances [C, H*W]), the last the termination
+    stream to pass to the next window."""
+    dev = common_device(transmittances, means2d, ray_transforms, opacities, radii, depths)
+    C, N, _ = means2d.shape
+    sel, (means2d, M, opacities, radii) = depth_rank_window(
+        depths, range_start, range_end, means2d, ray_transforms.reshape(C, N, 9), opacities, radii
+    )
+    M = M.reshape(C, sel.shape[1], 3, 3)
+    px, py, ptx, pty = pixel_grid(image_width, image_height, tile_size, dev)
+    sigma = surfel_sigma(means2d, M, px, py)
+    alpha = torch.clamp_max(opacities[:, None, :] * torch.exp(-sigma), ALPHA_MAX)
+    valid = valid_pairs(alpha, sigma, radii, means2d, ptx, pty, tile_size)
+    contrib, new_T = window_contrib(valid, alpha, transmittances)
+    return contrib, alpha, sel, new_T

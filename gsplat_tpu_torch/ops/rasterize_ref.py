@@ -30,6 +30,72 @@ ALPHA_MAX = 0.999
 TRANSMITTANCE_EPS = 1e-4
 
 
+def pixel_grid(image_width: int, image_height: int, tile_size: int, device):
+    """Pixel centres (px, py) [P] (+0.5) and their tiles (ptx, pty) [P]."""
+    py, px = torch.meshgrid(
+        torch.arange(image_height, device=device),
+        torch.arange(image_width, device=device),
+        indexing="ij",
+    )
+    px = px.reshape(-1).to(torch.float32) + 0.5
+    py = py.reshape(-1).to(torch.float32) + 0.5
+    return px, py, (px - 0.5).to(torch.int32) // tile_size, (py - 0.5).to(torch.int32) // tile_size
+
+
+def depth_rank_window(depths: torch.Tensor, range_start: int, range_end: int, *xs):
+    """The Gaussians of depth ranks [range_start, range_end) of each camera
+    (a stable sort of the depths' int32 bit patterns, as the JAX package
+    sorts them: ties keep index order, negative depths come before the
+    positive ones, in reverse) and each [C, N, ...] input of `xs` gathered
+    at them. Returns (sel [C, R], the gathered inputs)."""
+    order = torch.argsort(depths.detach().contiguous().view(torch.int32), dim=-1, stable=True)
+    sel = order[:, range_start:range_end]
+
+    def take(x):
+        idx = sel.reshape(sel.shape + (1,) * (x.dim() - 2)).expand(sel.shape + x.shape[2:])
+        return torch.gather(x, 1, idx)
+
+    return sel, [take(x) for x in xs]
+
+
+def gauss_sigma(means2d, conics, px, py):
+    """The Gaussian exponent of every (pixel, Gaussian) pair [C, P, N]."""
+    dx = px[None, :, None] - means2d[:, None, :, 0]
+    dy = py[None, :, None] - means2d[:, None, :, 1]
+    a, b, c = (conics[:, None, :, i] for i in range(3))
+    return 0.5 * (a * dx * dx + c * dy * dy) + b * dx * dy
+
+
+def valid_pairs(alpha, sigma, radii, means2d, ptx, pty, tile_size):
+    """The pairs [C, P, N] that may composite: alpha >= 1/255, sigma >= 0,
+    radius > 0 and the pixel's tile inside the Gaussian's tile rectangle
+    (the binning's cull=False rectangle)."""
+    tile_means = means2d.detach() / tile_size
+    tile_r = (radii / tile_size)[..., None]
+    tmin = torch.floor(tile_means - tile_r).to(torch.int32)
+    tmax = torch.ceil(tile_means + tile_r).to(torch.int32)
+    in_rect = (
+        (ptx[None, :, None] >= tmin[:, None, :, 0])
+        & (ptx[None, :, None] < tmax[:, None, :, 0])
+        & (pty[None, :, None] >= tmin[:, None, :, 1])
+        & (pty[None, :, None] < tmax[:, None, :, 1])
+    )
+    return (alpha >= ALPHA_MIN) & (sigma >= 0.0) & (radii[:, None, :] > 0) & in_rect
+
+
+def window_contrib(valid, alpha, transmittances):
+    """The accepted pairs of a depth-rank window [C, P, R] after a start
+    transmittance [C, H, W], and the window's termination stream (the
+    product over all valid pairs). Returns (contrib, new_T [C, P])."""
+    C = alpha.shape[0]
+    T0 = transmittances.reshape(C, -1)[..., None]
+    one_m = torch.where(valid, 1.0 - alpha, 1.0)
+    T_incl = T0 * torch.cumprod(one_m, dim=-1)
+    contrib = valid & (T_incl > TRANSMITTANCE_EPS)
+    new_T = T0[..., 0] * torch.prod(one_m, dim=-1)
+    return contrib, new_T
+
+
 def rasterize_to_pixels_ref(
     means2d: torch.Tensor,  # [C, N, 2]
     conics: torch.Tensor,  # [C, N, 3]
@@ -49,57 +115,13 @@ def rasterize_to_pixels_ref(
     device = common_device(means2d, conics, colors, opacities, radii, depths, backgrounds)
     C, N, _ = means2d.shape
     D = colors.shape[-1]
-
-    # depth order by f32 bit pattern, stable => ties resolved by index
-    order = torch.argsort(depths.detach().contiguous().view(torch.int32), dim=-1, stable=True)
-
-    def take(x):
-        idx = order.reshape(order.shape + (1,) * (x.ndim - 2))
-        return torch.gather(x, 1, idx.expand((C, N) + x.shape[2:]))
-
-    means2d = take(means2d)
-    conics = take(conics)
-    colors = take(colors)
-    opacities = take(opacities[..., None])[..., 0]
-    radii = take(radii[..., None])[..., 0]
-
-    # tile rectangle per (cam, gaussian), identical to the binning's cull=False rect
-    tile_means = means2d.detach() / tile_size
-    tile_r = (radii / tile_size)[..., None]
-    tmin = torch.floor(tile_means - tile_r).to(torch.int32)
-    tmax = torch.ceil(tile_means + tile_r).to(torch.int32)
-
-    # pixel coordinates (+0.5 centre convention)
-    py, px = torch.meshgrid(
-        torch.arange(image_height, device=device),
-        torch.arange(image_width, device=device),
-        indexing="ij",
+    _, (means2d, conics, colors, opacities, radii) = depth_rank_window(
+        depths, 0, N, means2d, conics, colors, opacities, radii
     )
-    px = px.reshape(-1).to(torch.float32) + 0.5
-    py = py.reshape(-1).to(torch.float32) + 0.5
-    ptx = (px - 0.5).to(torch.int32) // tile_size  # [P]
-    pty = (py - 0.5).to(torch.int32) // tile_size
-
-    dx = px[None, :, None] - means2d[:, None, :, 0]  # [C, P, N]
-    dy = py[None, :, None] - means2d[:, None, :, 1]
-    a = conics[:, None, :, 0]
-    bq = conics[:, None, :, 1]
-    c = conics[:, None, :, 2]
-    sigma = 0.5 * (a * dx * dx + c * dy * dy) + bq * dx * dy
+    px, py, ptx, pty = pixel_grid(image_width, image_height, tile_size, device)
+    sigma = gauss_sigma(means2d, conics, px, py)  # [C, P, N]
     alpha = torch.clamp_max(opacities[:, None, :] * torch.exp(-sigma), ALPHA_MAX)
-
-    in_rect = (
-        (ptx[None, :, None] >= tmin[:, None, :, 0])
-        & (ptx[None, :, None] < tmax[:, None, :, 0])
-        & (pty[None, :, None] >= tmin[:, None, :, 1])
-        & (pty[None, :, None] < tmax[:, None, :, 1])
-    )
-    valid = (
-        (alpha >= ALPHA_MIN)
-        & (sigma >= 0.0)
-        & (radii[:, None, :] > 0)
-        & in_rect
-    )
+    valid = valid_pairs(alpha, sigma, radii, means2d, ptx, pty, tile_size)
 
     # multiplicative transmittance chain (progressive T *= (1 - alpha))
     one_m = torch.where(valid, 1.0 - alpha, 1.0)
@@ -186,3 +208,37 @@ def rasterize_to_pixels_ref_absgrad(
         means2d, conics, colors, opacities, backgrounds, abs_carrier,
         radii, depths, image_width, image_height, tile_size,
     )
+
+
+def rasterize_to_indices_in_range(
+    range_start: int,
+    range_end: int,
+    transmittances: torch.Tensor,  # [C, H, W] current per-pixel transmittance
+    means2d: torch.Tensor,  # [C, N, 2]
+    conics: torch.Tensor,  # [C, N, 3]
+    opacities: torch.Tensor,  # [C, N]
+    radii: torch.Tensor,  # [C, N]
+    depths: torch.Tensor,  # [C, N]
+    image_width: int,
+    image_height: int,
+    tile_size: int = 16,
+):
+    """Which (pixel, Gaussian) pairs contribute within a depth-rank window.
+
+    Returns (contrib [C, H*W, R] bool, alpha [C, H*W, R], sel [C, R] the
+    Gaussians of the window, new_transmittances [C, H*W]), dense like the
+    JAX package's. Chain windows by passing ``new_transmittances`` as the
+    next window's ``transmittances``: it is the fused kernel's termination
+    stream (the product over all valid pairs, accepted or not), so chaining
+    every window reproduces rasterize_to_pixels_ref.
+    """
+    device = common_device(transmittances, means2d, conics, opacities, radii, depths)
+    sel, (means2d, conics, opacities, radii) = depth_rank_window(
+        depths, range_start, range_end, means2d, conics, opacities, radii
+    )
+    px, py, ptx, pty = pixel_grid(image_width, image_height, tile_size, device)
+    sigma = gauss_sigma(means2d, conics, px, py)
+    alpha = torch.clamp_max(opacities[:, None, :] * torch.exp(-sigma), ALPHA_MAX)
+    valid = valid_pairs(alpha, sigma, radii, means2d, ptx, pty, tile_size)
+    contrib, new_T = window_contrib(valid, alpha, transmittances)
+    return contrib, alpha, sel, new_T

@@ -12,14 +12,17 @@ and ``masks=live``, composites the background, takes ``train_loss`` plus
 the opacity and scale regularisers, runs ``backward`` (on the binned or
 tiled backend: its backward and the gradient-reduce kernels), steps one
 ``SelectiveAdam`` per parameter with visibility = any camera's radii > 0,
-and hands the carrier's gradient to ``DefaultStrategy.step_post_backward``.
+and hands the carrier's gradient to ``DefaultStrategy.step_post_backward``
+(or the means' learning rate to ``MCMCStrategy.step_post_backward``).
 The pool has a fixed capacity and a ``live`` mask, as in the JAX trainer;
 the intersection capacity comes from a probe render and grows from
-``slab_required`` (the binned backend) or ``n_isects`` (the tiled one).
+``slab_required`` (the binned backend) or ``n_isects`` (the tiled one). With ``strategy_name="mcmc"`` the pool holds
+``round_up(cap_max, 4096)`` slots and ``MCMCStrategy`` relocates, grows
+and perturbs it with the means' current learning rate.
 
 Not ported yet: the COLMAP datasets and the command line, the pose,
-appearance and bilateral-grid modules, the depth loss, pool growth, MCMC,
-and multi-GPU training. The 2DGS trainer (simple_trainer_2dgs.py)
+appearance and bilateral-grid modules, the depth loss, pool growth, and
+multi-GPU training. The 2DGS trainer (simple_trainer_2dgs.py)
 overrides the render and geometry-loss hooks of `Runner`.
 """
 
@@ -40,7 +43,8 @@ from .losses import train_loss
 from .modules import knn_distances, rgb_to_sh
 from .optimizers import SelectiveAdam
 from .rendering import rasterization
-from .strategy import DefaultStrategy
+from .strategy import DefaultStrategy, MCMCStrategy
+from .strategy.mcmc import check_pool
 
 
 @dataclass
@@ -73,17 +77,36 @@ class Config:
     opacities_lr: float = 5e-2
     sh0_lr: float = 2.5e-3
     shN_lr: float = 2.5e-3 / 20
+    strategy_name: str = "default"  # or "mcmc"
+    # DefaultStrategy's
     grow_grad2d: float = 0.0002
     refine_start_iter: int = 500
     refine_stop_iter: int = 15_000
     refine_every: int = 100
     reset_every: int = 3000
     absgrad: bool = False
+    # MCMCStrategy's
+    cap_max: int = 1_000_000
+    noise_lr: float = 5e5
     pool_headroom: float = 2.0  # capacity = N0 * headroom, rounded up to 4096
     isect_headroom: float = 1.5
     isect_capacity_init: int = 0  # 0: from the probe render
     tile_size: int = 16  # the port's measured best on the H100 (PERF.md)
+    steps_scaler: float = 1.0
     seed: int = 42
+
+    def scale_steps(self):
+        """Scale the step counts by ``steps_scaler``, as the JAX trainer's
+        command line does before it builds the Runner."""
+        if self.steps_scaler != 1.0:
+            s = self.steps_scaler
+            self.max_steps = int(self.max_steps * s)
+            self.eval_steps = [int(v * s) for v in self.eval_steps]
+            self.refine_start_iter = int(self.refine_start_iter * s)
+            self.refine_stop_iter = int(self.refine_stop_iter * s)
+            self.reset_every = int(self.reset_every * s)
+            self.refine_every = int(self.refine_every * s)
+            self.sh_degree_interval = int(self.sh_degree_interval * s)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -114,6 +137,8 @@ def create_splats(
         rgbs = rng.random((cfg.init_num_pts, 3)).astype(np.float32)
 
     n0 = points.shape[0]
+    if n0 > cap:
+        raise ValueError(f"{n0} initial points do not fit in a pool of {cap} slots")
     dist = knn_distances(points, k=4)[:, 1:]  # exclude self
     dist_avg = np.sqrt(np.mean(dist**2, axis=-1))
     scales = np.log(np.clip(dist_avg, 1e-7, None) * cfg.init_scale)[:, None]
@@ -146,9 +171,9 @@ def create_splats(
 
 
 class Runner:
-    """The JAX trainer's ``Runner`` for the default strategy, on in-memory
-    views. Runs on CUDA unless ``device="cpu"`` (the kernels' plain
-    versions)."""
+    """The JAX trainer's ``Runner`` for the default or the MCMC strategy, on
+    in-memory views. Runs on CUDA unless ``device="cpu"`` (the kernels'
+    plain versions)."""
 
     def __init__(
         self,
@@ -162,22 +187,37 @@ class Runner:
     ):
         if cfg.backend not in ("binned", "tiled", "oracle"):
             raise ValueError(f"backend must be 'binned', 'tiled' or 'oracle', got {cfg.backend!r}")
+        if cfg.strategy_name not in ("default", "mcmc"):
+            raise ValueError(f"strategy_name must be 'default' or 'mcmc', got {cfg.strategy_name!r}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.trainset = list(train_views)
         self.valset = list(val_views)
         self.scene_scale = scene_scale * 1.1
         n0 = points.shape[0] if cfg.init_type == "sfm" else cfg.init_num_pts
-        cap = _round_up(int(n0 * cfg.pool_headroom), 4096)
+        if cfg.strategy_name == "mcmc":
+            cap = _round_up(cfg.cap_max, 4096)
+            check_pool(cap)
+        else:
+            cap = _round_up(int(n0 * cfg.pool_headroom), 4096)
         self.params, self.live = create_splats(cfg, points, points_rgb, scene_scale, cap, self.device)
-        self.strategy = DefaultStrategy(
-            grow_grad2d=cfg.grow_grad2d,
-            refine_start_iter=cfg.refine_start_iter,
-            refine_stop_iter=cfg.refine_stop_iter,
-            refine_every=cfg.refine_every,
-            reset_every=cfg.reset_every,
-            absgrad=cfg.absgrad,
-        )
+        if cfg.strategy_name == "mcmc":
+            self.strategy = MCMCStrategy(
+                cap_max=cfg.cap_max,
+                noise_lr=cfg.noise_lr,
+                refine_start_iter=cfg.refine_start_iter,
+                refine_stop_iter=int(25_000 * cfg.steps_scaler),
+                refine_every=cfg.refine_every,
+            )
+        else:
+            self.strategy = DefaultStrategy(
+                grow_grad2d=cfg.grow_grad2d,
+                refine_start_iter=cfg.refine_start_iter,
+                refine_stop_iter=cfg.refine_stop_iter,
+                refine_every=cfg.refine_every,
+                reset_every=cfg.reset_every,
+                absgrad=cfg.absgrad,
+            )
         self.strategy_state = self.strategy.initialize_state(
             cap, scene_scale=self.scene_scale, device=self.device
         )
@@ -316,13 +356,20 @@ class Runner:
         for opt in self.optimizers.values():
             opt.step(visibility)
             opt.zero_grad(set_to_none=True)
-        # n_cameras is the batch: the reference normalises the
-        # densification gradients per camera and multiplies by the batch
-        refined = self.strategy.step_post_backward(
-            self.params, self.live, self.optimizers, self.strategy_state, step,
-            {"radii": meta["radii"], "width": W, "height": H, "n_cameras": B},
-            carrier.grad, generator=self.generator,
-        )
+        if isinstance(self.strategy, MCMCStrategy):
+            lr = cfg.means_lr * self.scene_scale * 0.01 ** (step / cfg.max_steps)
+            refined = self.strategy.step_post_backward(
+                self.params, self.live, self.optimizers, self.strategy_state, step, lr,
+                generator=self.generator,
+            )
+        else:
+            # n_cameras is the batch: the reference normalises the
+            # densification gradients per camera and multiplies by the batch
+            refined = self.strategy.step_post_backward(
+                self.params, self.live, self.optimizers, self.strategy_state, step,
+                {"radii": meta["radii"], "width": W, "height": H, "n_cameras": B},
+                carrier.grad, generator=self.generator,
+            )
         need = int(meta.get("slab_required", meta.get("n_isects", 0)))
         self._grow_isect(need)
         return {

@@ -7,7 +7,8 @@ loss needs the expected depth) and the two geometry losses added after
 their warm-ups. Every render of the runner goes through the surfel
 rasterizer, so the intersection-capacity probe sizes the budget from a
 surfel render: a 2DGS stream is many times longer than a 3DGS one of the
-same points (no tight cull). Multi-GPU training comes with the port's
+same points (no tight cull). It trains with the default strategy only, as
+the JAX 2DGS trainer does. Multi-GPU training comes with the port's
 multi-GPU slice.
 """
 
@@ -41,6 +42,8 @@ class Runner2DGS(Runner):
         normal_start: int = 7000,
         dist_start: int = 3000,
     ):
+        if cfg.strategy_name != "default":
+            raise ValueError(f"Runner2DGS trains with the default strategy only, got {cfg.strategy_name!r}")
         self.normal_lambda = normal_lambda
         self.dist_lambda = dist_lambda
         self.normal_start = normal_start

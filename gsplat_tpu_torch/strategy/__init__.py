@@ -1,4 +1,5 @@
 from .base import Strategy
 from .default import DefaultStrategy
+from .mcmc import MCMCStrategy
 
-__all__ = ["Strategy", "DefaultStrategy"]
+__all__ = ["Strategy", "DefaultStrategy", "MCMCStrategy"]

@@ -1,9 +1,24 @@
-"""Depth maps to world points and normals (port of the depth part of
-gsplat_tpu/utils.py)."""
+"""Library utilities (port of gsplat_tpu/utils.py): the log transforms,
+depth maps to world points and normals, the OpenGL projection matrix and
+the binary PLY writer."""
 
 from __future__ import annotations
 
+import math
+from typing import Dict, Optional
+
+import numpy as np
 import torch
+
+from ._backend import resolve_device
+
+
+def log_transform(x: torch.Tensor) -> torch.Tensor:
+    return torch.sign(x) * torch.log1p(torch.abs(x))
+
+
+def inverse_log_transform(y: torch.Tensor) -> torch.Tensor:
+    return torch.sign(y) * torch.expm1(torch.abs(y))
 
 
 def depth_to_points(
@@ -49,3 +64,80 @@ def depth_to_normal(
     normals = torch.linalg.cross(dx, dy, dim=-1)
     normals = normals / torch.linalg.norm(normals, dim=-1, keepdim=True).clamp_min(1e-12)
     return torch.nn.functional.pad(normals, (0, 0, 1, 1, 1, 1))
+
+
+def get_projection_matrix(znear, zfar, fovX, fovY, device="cuda") -> torch.Tensor:
+    """OpenGL-style projection matrix [4, 4], on the card unless the caller
+    asks for the CPU (``device="cpu"``)."""
+    tan_y = math.tan(fovY / 2)
+    tan_x = math.tan(fovX / 2)
+    top, right = tan_y * znear, tan_x * znear
+    P = np.zeros((4, 4), np.float32)
+    P[0, 0] = znear / right
+    P[1, 1] = znear / top
+    P[3, 2] = 1.0
+    P[2, 2] = zfar / (zfar - znear)
+    P[2, 3] = -(zfar * znear) / (zfar - znear)
+    return torch.as_tensor(P, device=resolve_device(device))
+
+
+def _host(x) -> np.ndarray:
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def save_ply(
+    splats: Dict[str, torch.Tensor],
+    path: str,
+    live: Optional[torch.Tensor] = None,
+) -> int:
+    """Write splats to a binary little-endian PLY, the JAX package's layout:
+    x y z, nx ny nz (zeros), f_dc_*, f_rest_* (channel-major), opacity,
+    scale_0-2, rot_0-3, all float32.
+
+    Keys: means [N,3], scales [N,3], quats [N,4], opacities [N], sh0
+    [N,1,3], shN [N,B,3] (tensors or arrays). ``live`` filters a pool's
+    free slots; rows with a NaN or Inf are dropped. Returns the number of
+    points written."""
+    data = {k: _host(v) for k, v in splats.items()}
+    if live is not None:
+        keep = _host(live)
+        data = {k: v[keep] for k, v in data.items()}
+
+    means = data["means"]
+    scales = data["scales"]
+    quats = data["quats"]
+    opacities = data["opacities"].reshape(-1)
+    n = means.shape[0]
+    sh0 = data.get("sh0", np.zeros((n, 1, 3), np.float32))
+    shN = data.get("shN", np.zeros((n, 0, 3), np.float32))
+    sh0 = sh0.transpose(0, 2, 1).reshape(n, -1)
+    shN = shN.transpose(0, 2, 1).reshape(n, -1)
+
+    cols = [means, scales, quats, opacities[:, None], sh0, shN]
+    keep = np.ones(n, bool)
+    for c in cols:
+        keep &= np.isfinite(c).all(axis=1)
+    means, scales, quats, opacities = means[keep], scales[keep], quats[keep], opacities[keep]
+    sh0, shN = sh0[keep], shN[keep]
+    num = means.shape[0]
+
+    props = (
+        ["x", "y", "z", "nx", "ny", "nz"]
+        + [f"f_dc_{i}" for i in range(sh0.shape[1])]
+        + [f"f_rest_{i}" for i in range(shN.shape[1])]
+        + ["opacity"]
+        + [f"scale_{i}" for i in range(3)]
+        + [f"rot_{i}" for i in range(4)]
+    )
+    payload = np.concatenate(
+        [means, np.zeros_like(means), sh0, shN, opacities[:, None], scales, quats], axis=1
+    ).astype("<f4")
+
+    with open(path, "wb") as f:
+        f.write(b"ply\nformat binary_little_endian 1.0\n")
+        f.write(f"element vertex {num}\n".encode())
+        for p in props:
+            f.write(f"property float {p}\n".encode())
+        f.write(b"end_header\n")
+        f.write(payload.tobytes())
+    return num

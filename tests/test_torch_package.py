@@ -2,7 +2,7 @@
 
 - importing gsplat_tpu_torch loads neither jax nor gsplat_tpu, and no source
   of the package, chip_smoke.py or the port's scripts/torch_*.py imports
-  them;
+  them; the package exports the JAX package's names;
 - functions run on the device of their inputs and refuse mixed devices;
   splats_from_numpy defaults to CUDA and raises without it;
 - paths not ported yet (multi-GPU) raise NotImplementedError instead of
@@ -10,7 +10,7 @@
   backend="auto" reaches it at scene scale without a capacity;
 - the binned backend differentiates (the training slice), 3DGS and 2DGS;
 - CPU runs take the kernels' plain versions and launch no kernel, forward
-  and backward;
+  and backward, and through an MCMC training step;
 - the trainer runs on CUDA unless told device="cpu";
 - checkpoint arrays (the JAX trainer's layout and the viewer's) render the
   same image in both packages through the trainer's render transform.
@@ -48,7 +48,8 @@ def test_import_loads_no_jax():
         "import gsplat_tpu_torch.optimizers, gsplat_tpu_torch.strategy.ops\n"
         "import gsplat_tpu_torch.simple_trainer_2dgs, gsplat_tpu_torch.ops.rasterize_2dgs_binned\n"
         "import gsplat_tpu_torch.ops.isect, gsplat_tpu_torch.ops.rasterize_tiled\n"
-        "import gsplat_tpu_torch.ops.rasterize_2dgs_tiled\n"
+        "import gsplat_tpu_torch.ops.rasterize_2dgs_tiled, gsplat_tpu_torch.ops.accumulate\n"
+        "import gsplat_tpu_torch.relocation, gsplat_tpu_torch.strategy.mcmc, gsplat_tpu_torch.utils\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'gsplat_tpu' or m.startswith('gsplat_tpu.'))\n"
         "assert not bad, bad\n"
@@ -85,6 +86,16 @@ def test_source_imports_no_jax(path):
     for name in _imports(path):
         top = name.split(".")[0]
         assert top not in ("jax", "jaxlib", "gsplat_tpu"), f"{path} imports {name}"
+
+
+def test_exports_match_jax_names():
+    """Every name the JAX package exports, under the same name, but the PNG
+    compression (ROADMAP Queue 1 item 6); the reference's misspelled
+    `full_fused_projection_2dgs` is the same function."""
+    missing = [n for n in gsplat_tpu.__all__ if n != "PngCompression" and not hasattr(gsplat_tpu_torch, n)]
+    assert not missing, missing
+    assert set(gsplat_tpu.__all__) - {"PngCompression"} <= set(gsplat_tpu_torch.__all__)
+    assert gsplat_tpu_torch.full_fused_projection_2dgs is gsplat_tpu_torch.fully_fused_projection_2dgs
 
 
 def test_kernel_sources_ship():
@@ -281,6 +292,15 @@ def test_cpu_runs_launch_no_kernel():
         *_tiny(requires_grad=True), backend="tiled", isect_capacity=4096, render_mode="RGB+ED", distloss=True
     )
     (out[0].sum() + out[4].sum()).backward()
+    from gsplat_tpu_torch import simple_trainer
+
+    pts = np.random.default_rng(0).standard_normal((50, 3)).astype(np.float32)
+    view = {"image": np.zeros((16, 16, 3), np.float32), "K": np.array([[16.0, 0, 8], [0, 16, 8], [0, 0, 1]], np.float32),
+            "camtoworld": np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, -4], [0, 0, 0, 1]], np.float32), "image_id": 0}
+    cfg = simple_trainer.Config(strategy_name="mcmc", cap_max=100, refine_start_iter=0, refine_every=1,
+                                sh_degree=0, isect_capacity_init=4096)
+    runner = simple_trainer.Runner(cfg, [view], pts, np.full((50, 3), 128, np.uint8), 1.0, device="cpu")
+    assert runner.train_step(1)["refined"] and int(runner.live.sum()) == 52
     assert _backend.launch_counts() == {name: 0 for name in (
         "emit", "emit_gather", "rasterize_fwd", "rasterize_bwd", "gid_reduce", "rasterize_2dgs_fwd",
         "rasterize_2dgs_bwd",
