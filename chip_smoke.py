@@ -138,11 +138,45 @@ non-zero (there is no CPU fallback):
      min_opacity) and compute_relocation over the pool, timed; and
      compute_relocation against float64 for ratios 1-51, with TF32 allowed
      by the caller, within the CPU port's error + 2.5e-4;
- 13. the `kernels` line (all eleven kernels; emit, the gather and the
+ 13. the COLMAP trainer end to end: datasets/synth.py writes the training
+     path's 2,794,625 splats, rendered at 1920x1080 from 10 views on a
+     circle (views 0 and 8 validate), as a COLMAP scene with 1,000,000
+     seeded initial points and each view's observations (render and write
+     times, bytes on disk, Parser's read time); simple_trainer.main on it
+     in this process (so that the launch counts can be read), 24 steps
+     with the depth loss, pose, appearance and bilateral-grid modules,
+     pool headroom 1.0 (the pool grows at step 0), refines at 8 and 16,
+     checkpoints at 12 and 24 and the fly-through: emit, the gather, the
+     binned forward and backward and the reduce launched in every step,
+     the Adam moments at the old slots unchanged by the growth and zero in
+     the new ones, the depth term non-zero and finite, every parameter
+     finite, the first train view's loss falling, the result files, the
+     steady step beside phase 5's, the growth step, a view's load on the
+     host and one profiled step; emit, the gather, the forward, the
+     backward and the reduce against their plain versions on the path's
+     own inputs (the first train view through the pose module, the
+     appearance module's per-camera colours, RGB+ED for the depth loss,
+     the grown pool and its intersection budget) by phase 3's gates; the
+     host's read of that frame as an Up-, a Paeth- and an
+     Average-filtered PNG; the checkpoint's arrays the same bits
+     after save -> load -> save; a second main resumed from ckpt_12 whose
+     losses at steps 12-23 (a refine at 16 among them) lie within 1e-3
+     relative of the first run's with equal live counts (not bit-equal on
+     the card: the bilateral grid's gradient accumulates with atomic adds
+     and SSIM's cuDNN convolutions pick their algorithms per call);
+     simple_trainer_2dgs.main for 8 steps (emit, both 2DGS kernels and
+     the reduce in every step, finite, val_step8.json; emit, the gather,
+     both 2DGS kernels and the reduce against their plain versions on its
+     first train view by phase 3's gates); image fitting at
+     its defaults for 300 steps on the binned backend (steps/s, PSNR
+     rising). Every time printed beside the card's name and power limit;
+ 14. the `kernels` line (all eleven kernels; emit, the gather and the
      reduce also with their times and bounds at the 2DGS train shapes, emit
      and the gather also at the fixture surfels, the four forwards with
      their SASS instructions per pair; the five training kernels also with
-     their launches in phase 12), then the result line.
+     their launches in phase 12 and in phase 13's 3DGS and 2DGS runs and
+     their largest error against the plain version on phase 13's inputs),
+     then the result line.
 """
 
 import json
@@ -196,6 +230,12 @@ WITNESS_PERTURB = 8
 WITNESS_CHUNK = 64  # pixels a float64 evaluation over all N surfels
 MCMC_CAP_MAX = 3_000_000  # phase 12's pool: the 2,794,625 points grow into it
 INDEX_WINDOW = 1024  # depth ranks a rasterize_to_indices_in_range window (phase 11)
+# phase 13: the COLMAP trainer
+COLMAP_VIEWS = 10  # views 0 and 8 validate (test_every 8)
+COLMAP_POINTS = 1_000_000
+COLMAP_STEPS = 24
+COLMAP_2DGS_STEPS = 8
+FIT_STEPS = 300
 
 
 def log(msg):
@@ -2628,6 +2668,340 @@ def phase_train_mcmc(scene, default_steady_ms):
     return launches
 
 
+def _record_steps(torch, _backend, runner_cls, record):
+    """Wrap runner_cls.train_step and _grow_pool: per step its launches,
+    CUDA-event and host ms, loss, depth term, image ids and live count;
+    per growth the old and new capacity and whether each optimizer's state
+    at the old slots came through unchanged. Returns the restore
+    function."""
+    train_step, grow_pool = runner_cls.train_step, runner_cls._grow_pool
+
+    def step(self, i):
+        before = _backend.launch_counts()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        h0 = time.perf_counter()
+        start.record()
+        out = train_step(self, i)
+        end.record()
+        torch.cuda.synchronize()
+        after = _backend.launch_counts()
+        record["steps"].append({
+            "step": i, "ms": start.elapsed_time(end), "host_ms": (time.perf_counter() - h0) * 1e3,
+            "loss": float(out["loss"]), "depth": None if out["depth"] is None else float(out["depth"]),
+            "view": out["image_ids"][0], "live": int(self.live.sum()), "refined": out["refined"],
+            "grew": out["pool_grew"], "launches": {k: after[k] - before[k] for k in after},
+        })
+        return out
+
+    def grow(self, new_cap):
+        cap = self.live.shape[0]
+        old = {k: {n: v.clone() for n, v in opt.state[self.params[k]].items() if torch.is_tensor(v)}
+               for k, opt in self.optimizers.items()}
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        grow_pool(self, new_cap)
+        end.record()
+        torch.cuda.synchronize()
+        same = all(torch.equal(v, self.optimizers[k].state[self.params[k]][n][:cap])
+                   for k, st_ in old.items() for n, v in st_.items())
+        fresh = all(not self.optimizers[k].state[self.params[k]][n][cap:].any() for k, st_ in old.items() for n in st_)
+        record["growths"].append({"old": cap, "new": new_cap, "moments_kept": same, "new_slots_zero": fresh,
+                                  "ms": start.elapsed_time(end)})
+
+    runner_cls.train_step, runner_cls._grow_pool = step, grow
+
+    def restore():
+        runner_cls.train_step, runner_cls._grow_pool = train_step, grow_pool
+
+    return restore
+
+
+def _colmap_view(torch, runner):
+    """The first train view of a COLMAP runner as its last step saw it: the
+    pose module's camera, the step's colours (the appearance module's
+    per-camera colours where it is on) and SH degree. Returns (colours,
+    sh_degree for the render, viewmats [1,4,4], Ks [1,3,3], W, H)."""
+    cfg = runner.cfg
+    view = runner.trainset[0]
+    pixels, c2w, K = runner._as_batch([view])
+    ids = torch.tensor([int(view["image_id"])], device=runner.device)
+    if "pose" in runner.aux:
+        c2w = runner.aux["pose"](c2w, ids)
+    sh_degree = min((cfg.max_steps - 1) // cfg.sh_degree_interval, cfg.sh_degree)
+    colors, sh = runner._colors(c2w, ids, sh_degree)
+    return colors, sh, torch.linalg.inv(c2w), K, pixels.shape[2], pixels.shape[1]
+
+
+def check_colmap_kernels(runner, what):
+    """The 3DGS path's kernels against their plain versions on a COLMAP
+    runner's own inputs: its first train view rendered as its step renders
+    it (_colmap_view; RGB+ED where the depth loss is on), over the whole
+    pool and at its intersection budget. Emit and the gather equal, the
+    forward by the FWD_* gates, the backward (seeded cotangents) by the
+    BWD_* gates and the same bits twice, the reduce against index_add_ on
+    the stream's order and through a gid sort (compare_reduce). Returns
+    {kernel name: max abs error}."""
+    import torch
+    from gsplat_tpu_torch import rendering
+    from gsplat_tpu_torch.ops import binning, rasterize_binned as rb
+
+    cfg = runner.cfg
+    ts = cfg.tile_size
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 13)
+    with torch.no_grad():
+        colors, sh, vm, K, W, H = _colmap_view(torch, runner)
+        p = runner.params
+        s = rendering.project_and_shade(
+            p["means"], p["quats"], torch.exp(p["scales"]), torch.sigmoid(p["opacities"]), colors, vm, K, W, H,
+            near_plane=cfg.near_plane, far_plane=cfg.far_plane, sh_degree=sh,
+            render_mode="RGB+ED" if cfg.depth_loss else "RGB",
+            rasterize_mode="antialiased" if cfg.antialiased else "classic", camera_model=cfg.camera_model,
+            masks=runner.live,
+        )
+        plan, slab = emit_plan(binning, s, ts, W, H, runner.isect_capacity)
+        bk, emit_err = compare_emit(torch, binning, plan, slab, (-(-W // ts)) * (-(-H // ts)))
+        fmx, fmean, same_last, n_off, _, (_, T_k, last_k) = compare_fwd(torch, rb, bk, 1, W, H, ts)
+        D = bk.entries.shape[0] - 6
+        v_img, v_T = cotangents(torch, gen, T_k, D)
+        rows_k, _, bmx, berrs, _ = compare_bwd(torch, rb, bk, T_k, last_k, v_img, v_T, 1, W, H, ts, cfg.absgrad)
+        CN = plan.counts.shape[0]
+        rmx, _ = compare_reduce(torch, rb, rows_k, bk.gids, CN, bk.order)
+    log(f"{what}: kernels vs plain on the path's inputs (first train view, D = {D}, "
+        f"{'per-camera colours' if sh is None else f'SH degree {sh}'}, {int(runner.live.sum())} live of {CN} "
+        f"slots, {int(bk.n_isects)} entries of a {runner.isect_capacity} budget): emit and gather equal; fwd max "
+        f"abs {fmx:.3e} mean abs {fmean:.3e} ({n_off} > 1e-5), last equal at {same_last:.6f}; bwd max abs per "
+        f"row " + " ".join(f"{e:.2e}" for e in berrs) + f"; reduce vs index_add_ max abs {rmx:.3e}")
+    return {"emit": 0.0, "emit_gather": emit_err, "rasterize_fwd": fmx, "rasterize_bwd": bmx, "gid_reduce": rmx}
+
+
+def check_colmap_kernels_2dgs(runner, what):
+    """check_colmap_kernels for a COLMAP Runner2DGS: its first train view
+    through the surfel projection (RGB+ED, as its step renders), emit and
+    the gather equal, the 2DGS forward by the FWD2_* gates, the 2DGS
+    backward (seeded cotangents) by the BWD2_* gates, the reduce against
+    index_add_. Returns {kernel name: max abs error}."""
+    import torch
+    from gsplat_tpu_torch import rendering
+    from gsplat_tpu_torch.ops import binning, rasterize_2dgs_binned as r2, rasterize_binned as rb
+
+    cfg = runner.cfg
+    ts = cfg.tile_size
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 14)
+    with torch.no_grad():
+        colors, sh, vm, K, W, H = _colmap_view(torch, runner)
+        p = runner.params
+        s = rendering.project_and_shade_2dgs(
+            p["means"], p["quats"], torch.exp(p["scales"]), torch.sigmoid(p["opacities"]), colors, vm, K, W, H,
+            near_plane=cfg.near_plane, far_plane=cfg.far_plane, sh_degree=sh, render_mode="RGB+ED",
+            masks=runner.live,
+        )
+        D = s.colors.shape[-1]
+        plan, slab = emit_plan_2dgs(binning, r2, s, ts, W, H, runner.isect_capacity)
+        bk, emit_err = compare_emit(torch, binning, plan, slab, (-(-W // ts)) * (-(-H // ts)))
+        ferrs, med_off, same_last, _, ko = compare_fwd2(torch, r2, bk, 1, W, H, ts, what)
+        cot = cotangents_2dgs(torch, gen, ko[1], D + 3)
+        rows_k, bmx, berrs, _, n_past = compare_bwd2(torch, r2, bk, ko, cot, D, 1, W, H, ts, what)
+        CN = plan.counts.shape[0]
+        rmx, _ = compare_reduce(torch, rb, rows_k, bk.gids, CN, bk.order)
+    log(f"{what}: kernels vs plain on the path's inputs (first train view, RGB+ED, {int(runner.live.sum())} live "
+        f"of {CN} slots, {int(bk.n_isects)} entries of a {runner.isect_capacity} budget): emit and gather equal; "
+        f"2DGS forward max abs " + ", ".join(f"{k} {v:.3e}" for k, v in ferrs.items())
+        + f", median off at {med_off:.2e}, last equal at {same_last:.6f}; backward max abs per row "
+        + " ".join(f"{e:.2e}" for e in berrs) + f" ({n_past} values past the per-slot tolerance); reduce vs "
+        f"index_add_ max abs {rmx:.3e}")
+    return {"emit": 0.0, "emit_gather": emit_err, "rasterize_2dgs_fwd": max(ferrs.values()),
+            "rasterize_2dgs_bwd": bmx, "gid_reduce": rmx}
+
+
+def phase_colmap(smi, default_steady_ms):
+    """The COLMAP trainer end to end: a synthetic scene written by
+    datasets/synth.py (the training path's 2,794,625 splats at 1920x1080,
+    10 views, 1,000,000 initial points with their observations), then
+    simple_trainer.main with every aux module, the depth loss, pool growth,
+    checkpoints and the fly-through; a resumed run; the 2DGS command line;
+    image fitting. Returns the launches of the 3DGS and 2DGS runs."""
+    import shutil
+
+    import torch
+    from gsplat_tpu_torch import _backend, image_fitting, load_test_data
+    from gsplat_tpu_torch import simple_trainer as st
+    from gsplat_tpu_torch import simple_trainer_2dgs as st2
+    from gsplat_tpu_torch.datasets import Parser, image_io, synth
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_colmap")
+    shutil.rmtree(root, ignore_errors=True)
+    data, res, res2, rt_dir, res_2dgs = (os.path.join(root, d) for d in ("scene", "r", "r_resumed", "r_rt", "r_2dgs"))
+    means, quats, scales, opac, colors, *_ = load_test_data(scene_grid=MAIN_GRID)
+    splats = {"means": means, "quats": quats, "scales": scales, "opacities": opac, "colors": colors}
+    info = synth.write_scene(data, splats, COLMAP_VIEWS, MAIN_W, MAIN_H, COLMAP_POINTS, seed=SEED, device="cuda",
+                             tile_size=MAIN_TILE)
+    t0 = time.perf_counter()
+    parser = Parser(data, normalize=True, test_every=8)
+    parse_s = time.perf_counter() - t0
+    log(f"COLMAP scene: {len(means)} splats rendered at {MAIN_W}x{MAIN_H} from {COLMAP_VIEWS} views "
+        f"({info['render_s']:.2f} s), {parser.points.shape[0]} points with {info['observations']} observations; "
+        f"written {info['write_s']:.2f} s, {info['bytes']} bytes on disk; Parser read {parse_s:.2f} s "
+        f"(card: {smi})")
+    del parser
+
+    half = COLMAP_STEPS // 2
+    ckpt = os.path.join(res, f"ckpt_{half}.npz")
+
+    def colmap_argv(result_dir, *extra):
+        return ["default", "--data-dir", data, "--data-factor", "1", "--result-dir", result_dir, "--max-steps",
+                str(COLMAP_STEPS), "--eval-steps", str(COLMAP_STEPS), "--save-steps", str(half), str(COLMAP_STEPS),
+                "--refine-start-iter", "4", "--refine-every", "8", "--pool-headroom", "1.0", "--depth-loss",
+                "--pose-opt", "--app-opt", "--use-bilateral-grid", "--white-bkgd", "--tile-size", str(MAIN_TILE),
+                "--seed", str(SEED), *extra]
+
+    kernels = ("emit", "emit_gather", "rasterize_fwd", "rasterize_bwd", "gid_reduce")
+    record = {"steps": [], "growths": []}
+    restore = _record_steps(torch, _backend, st.Runner, record)
+    try:
+        _backend.reset_launch_counts()
+        t0 = time.perf_counter()
+        runner = st.main(colmap_argv(res, "--render-traj"))
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = _backend.launch_counts()
+        first = record
+        record = {"steps": [], "growths": []}
+        restore()
+        # where a steady step's time goes: the host's view load (PNG
+        # decode, the depth points' projection), one profiled step
+        load_ms = [timed_once(torch, lambda: runner.trainset[i])[1] for i in range(3)]
+        step_ms = cuda_ms(torch, lambda: runner.train_step(COLMAP_STEPS), 2)
+        kern = device_time_by_kernel(torch, lambda: runner.train_step(COLMAP_STEPS + 1))
+        errs = check_colmap_kernels(runner, "COLMAP trainer")
+        # the first train frame as Up-, Paeth- and Average-filtered PNGs
+        # (encoders such as libpng choose Paeth and Average rows for
+        # photographs), each read back by the port's reader on the host
+        frame = image_io.read_png(runner.parser.image_paths[1])
+        png_ms = {}
+        for ft, name in ((2, "Up"), (4, "Paeth"), (3, "Average")):
+            path = os.path.join(root, f"frame_{name}.png")
+            image_io.write_png(path, frame, filter_type=ft)
+            h0 = time.perf_counter()
+            got = image_io.read_png(path)
+            png_ms[name] = (time.perf_counter() - h0) * 1e3
+            if not np.array_equal(got, frame):
+                raise AssertionError(f"the {name}-filtered frame does not read back")
+        restore = _record_steps(torch, _backend, st.Runner, record)
+        # the checkpoint's arrays: save -> load -> save
+        rt = st.Runner.from_colmap(st.parse_config(colmap_argv(rt_dir)))
+        rt.load(ckpt)
+        rt.save(half)
+        del rt
+        t1 = time.perf_counter()
+        resumed = st.main(colmap_argv(res2, "--resume", ckpt))
+        resumed_s = time.perf_counter() - t1
+        second = record
+    finally:
+        restore()
+
+    steps = first["steps"]
+    for s in steps:
+        missing = [k for k in kernels if s["launches"][k] == 0]
+        if missing:
+            raise AssertionError(f"COLMAP step {s['step']}: kernels {missing} were not launched")
+        if not (s["depth"] is not None and np.isfinite(s["depth"]) and s["depth"] > 0):
+            raise AssertionError(f"COLMAP step {s['step']}: depth term {s['depth']}")
+        if not np.isfinite(s["loss"]):
+            raise AssertionError(f"COLMAP step {s['step']}: loss {s['loss']}")
+        log(f"COLMAP step {s['step']}: view {s['view']} loss {s['loss']:.6f} depth {s['depth']:.6f} live {s['live']}"
+            f"{' (refined)' if s['refined'] else ''}{' (pool grew)' if s['grew'] else ''}, CUDA events "
+            f"{s['ms']:.2f} ms, host {s['host_ms']:.2f} ms")
+    if not first["growths"] or not all(g["moments_kept"] and g["new_slots_zero"] for g in first["growths"]):
+        raise AssertionError(f"pool growth: {first['growths']}")
+    for name, p in list(runner.params.items()) + [(f"{m}.{n}", p) for m, mod in runner.aux.items()
+                                                   for n, p in mod.named_parameters()]:
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"COLMAP: parameter {name} is not finite after training")
+    view = min(s["view"] for s in steps)
+    visits = [s["loss"] for s in steps if s["view"] == view]
+    if len(visits) < 2 or not visits[-1] < visits[0]:
+        raise AssertionError(f"COLMAP: view {view}'s loss did not fall: {visits}")
+    want_files = ["cfg.json", "stats.jsonl", f"val_step{COLMAP_STEPS}.json", f"ckpt_{half}.npz",
+                  f"ckpt_{COLMAP_STEPS}.npz", f"splats_{COLMAP_STEPS}.ply"]
+    missing = [f for f in want_files if not os.path.exists(os.path.join(res, f))]
+    traj = os.listdir(os.path.join(res, "videos")) if os.path.isdir(os.path.join(res, "videos")) else []
+    if missing or not traj:
+        raise AssertionError(f"COLMAP results missing {missing}, fly-through {traj}")
+    val = json.load(open(os.path.join(res, f"val_step{COLMAP_STEPS}.json")))
+    grow_steps = [s for s in steps if s["grew"]]
+    grow_ms = ", ".join(f"{s['ms']:.2f} ms, of it the growth {g['ms']:.2f}" for s, g in zip(grow_steps, first["growths"]))
+    steady = float(np.median([s["ms"] for s in steps if not (s["grew"] or s["refined"] or s["step"] == 0)]))
+    log(f"launches in the COLMAP training path ({COLMAP_STEPS} steps): {launches}")
+    log(f"COLMAP trainer (main, {run_s:.1f} s): pool growths "
+        + "; ".join(f"{g['old']} -> {g['new']} slots (moments at the old slots kept, new slots zero)"
+                    for g in first["growths"])
+        + f" at steps {[s['step'] for s in grow_steps]} ({grow_ms}); "
+        f"view {view} loss {visits[0]:.6f} -> {visits[-1]:.6f}; every parameter and aux parameter finite; "
+        f"val PSNR {val['psnr']:.3f} SSIM {val['ssim']:.4f} at {val['num_GS']} splats; files {want_files} and "
+        f"videos/{traj[0]}; steady step with pose, appearance, grid and depth {steady:.3f} ms (median, CUDA "
+        f"events; phase 5's default step {default_steady_ms:.3f} ms; card: {smi})")
+
+    log(f"a train view's load (PNG decode, depth points) {np.mean(load_ms):.2f} ms on the host (mean of 3); "
+        f"read_png of a {frame.shape[1]}x{frame.shape[0]} frame on the host: "
+        + ", ".join(f"{k}-filtered {v:.2f} ms" for k, v in png_ms.items()) + f" (card: {smi})")
+    log_profile("COLMAP train step (all aux modules)", kern, step_ms)
+
+    # the checkpoint round trip and the resumed run
+    a, b = np.load(ckpt), np.load(os.path.join(rt_dir, f"ckpt_{half}.npz"))
+    if sorted(a.files) != sorted(b.files) or not all(np.array_equal(a[k], b[k]) for k in a.files):
+        raise AssertionError("checkpoint arrays differ after save -> load -> save")
+    by_step = {s["step"]: s for s in steps}
+    rel, lives = [], []
+    for s in second["steps"]:
+        w = by_step[s["step"]]
+        rel.append(abs(s["loss"] - w["loss"]) / abs(w["loss"]))
+        lives.append((s["live"], w["live"]))
+    if [s["step"] for s in second["steps"]] != list(range(half, COLMAP_STEPS)):
+        raise AssertionError(f"resumed steps {[s['step'] for s in second['steps']]}")
+    if max(rel) > 1e-3 or any(x != y for x, y in lives):
+        raise AssertionError(f"resumed run: loss rel diffs {rel}, live (resumed, uninterrupted) {lives}")
+    log(f"checkpoint ckpt_{half}.npz: {len(a.files)} arrays the same bits after save -> load -> save; resumed run "
+        f"({resumed_s:.1f} s) steps {half}-{COLMAP_STEPS - 1} (refines at "
+        f"{[s['step'] for s in second['steps'] if s['refined']]}): largest loss difference {max(rel):.3e} relative "
+        f"to the uninterrupted run, live counts equal ({lives[-1][0]})")
+    del runner, resumed
+
+    # the 2DGS command line
+    kernels_2dgs = ("emit", "rasterize_2dgs_fwd", "rasterize_2dgs_bwd", "gid_reduce")
+    record = {"steps": [], "growths": []}
+    restore = _record_steps(torch, _backend, st.Runner, record)
+    try:
+        _backend.reset_launch_counts()
+        runner2 = st2.main(["--data-dir", data, "--data-factor", "1", "--result-dir", res_2dgs, "--max-steps",
+                            str(COLMAP_2DGS_STEPS), "--eval-steps", str(COLMAP_2DGS_STEPS), "--save-steps",
+                            "--white-bkgd", "--seed", str(SEED)])
+        launches_2dgs = _backend.launch_counts()
+    finally:
+        restore()
+    for s in record["steps"]:
+        missing = [k for k in kernels_2dgs if s["launches"][k] == 0]
+        if missing or not np.isfinite(s["loss"]):
+            raise AssertionError(f"2DGS COLMAP step {s['step']}: kernels {missing} not launched, loss {s['loss']}")
+    for name, p in runner2.params.items():
+        if not bool(torch.isfinite(p).all()):
+            raise AssertionError(f"2DGS COLMAP: parameter {name} is not finite")
+    errs_2dgs = check_colmap_kernels_2dgs(runner2, "2DGS command line")
+    val2 = json.load(open(os.path.join(res_2dgs, f"val_step{COLMAP_2DGS_STEPS}.json")))
+    steady2 = float(np.median([s["ms"] for s in record["steps"][1:]]))
+    log(f"2DGS command line ({COLMAP_2DGS_STEPS} steps, launches {launches_2dgs}): steady step {steady2:.3f} ms "
+        f"(median after step 0, CUDA events), val PSNR {val2['psnr']:.3f} at {val2['num_GS']} surfels (card: {smi})")
+    del runner2
+
+    # image fitting at its defaults, FIT_STEPS steps, binned on the card
+    fit = image_fitting.main(["--max-steps", str(FIT_STEPS)])
+    if not fit["psnr"] > fit["psnr0"]:
+        raise AssertionError(f"image fitting: PSNR {fit['psnr0']:.3f} -> {fit['psnr']:.3f}")
+    log(f"image fitting (256x256, 2000 points, binned): {FIT_STEPS} steps in {fit['seconds']:.2f} s, "
+        f"{fit['steps_per_s']:.1f} steps/s, PSNR {fit['psnr0']:.3f} -> {fit['psnr']:.3f} (card: {smi})")
+    shutil.rmtree(root, ignore_errors=True)
+    return launches, launches_2dgs, errs, errs_2dgs
+
+
 def main():
     smi = phase_device()
     import torch
@@ -2666,11 +3040,21 @@ def main():
                                                         "gid_reduce"):
             k["launches_mcmc"] = mcmc_launches[k["name"]]
     t8 = time.perf_counter()
+    colmap_launches, colmap_launches_2dgs, colmap_errs, colmap_errs_2dgs = phase_colmap(smi, default_steady_ms)
+    for k in kernels:
+        if k["name"] in colmap_errs:
+            k["launches_colmap"] = colmap_launches[k["name"]]
+            k["max_abs_err_colmap"] = colmap_errs[k["name"]]
+        if k["name"] in colmap_errs_2dgs:
+            k["launches_colmap_2dgs"] = colmap_launches_2dgs[k["name"]]
+            k["max_abs_err_colmap_2dgs"] = colmap_errs_2dgs[k["name"]]
+    t9 = time.perf_counter()
     log(f"card: {smi}")
     log(json.dumps({"kernels": kernels}))
     log(f"phase wall times: build + kernel vs plain {t1 - t0:.1f} s, serving {t2 - t1:.1f} s, "
         f"training {t3 - t2:.1f} s, 2DGS training {t4 - t3:.1f} s, 2DGS serving {t5 - t4:.1f} s, "
-        f"tiled serving and training {t6 - t5:.1f} s, op API {t7 - t6:.1f} s, MCMC training {t8 - t7:.1f} s")
+        f"tiled serving and training {t6 - t5:.1f} s, op API {t7 - t6:.1f} s, MCMC training {t8 - t7:.1f} s, "
+        f"COLMAP trainer {t9 - t8:.1f} s")
     print(json.dumps({
         "ok": True,
         "device": {

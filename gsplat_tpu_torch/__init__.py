@@ -17,10 +17,20 @@ take ``backend="tiled"``. Slice 9 is the rest of the op API (the packed
 projections, ``proj``, ``rasterize_to_indices_in_range``, ``accumulate``,
 the utilities) and MCMC training (``compute_relocation``,
 ``MCMCStrategy``, ``Runner`` with ``strategy_name="mcmc"``), in plain
-PyTorch over the same kernels. Functions run on the device of their input
-tensors: CUDA tensors go through the kernels, CPU tensors through each
-kernel's plain PyTorch version. Multi-GPU rendering comes in a later slice
-and raises NotImplementedError until then.
+PyTorch over the same kernels. Slice 10 is the rest of the trainer, plain
+PyTorch and numpy over the same kernels: the COLMAP datasets
+(``datasets/``: the numpy model reader, normalisation, trajectories, a PNG
+reader and writer, ``Parser`` / ``Dataset``, a synthetic-scene writer),
+the pose and appearance modules (``modules.py``) and the bilateral grid
+(``bilagrid.py``), the depth loss, pool growth, checkpoints and resume,
+the trainers' command lines (``python -m gsplat_tpu_torch.simple_trainer``,
+``simple_trainer_2dgs``) and ``image_fitting``. Functions run on the
+device of their input tensors: CUDA tensors go through the kernels, CPU
+tensors through each kernel's plain PyTorch version; entry points that
+make tensors run on the card unless asked for the CPU. Not ported yet, and
+raising NotImplementedError: multi-GPU rendering and training, the
+trainer's LPIPS metric and PNG compression, undistortion and resizing in
+the dataset.
 """
 
 from ._helper import load_test_data

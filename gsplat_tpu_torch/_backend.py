@@ -17,6 +17,7 @@ kernels.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -119,6 +120,47 @@ def use_kernel(device: torch.device) -> bool:
 
 def stream(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@contextlib.contextmanager
+def full_f32_matmul():
+    """TF32 off for cuBLAS float32 products inside the block, the caller's
+    setting restored after it. Only ``torch.backends.cuda.matmul.allow_tf32``
+    is read and set: on some torch releases
+    ``torch.get_float32_matmul_precision()`` raises once a process has set
+    both that switch and ``torch.set_float32_matmul_precision``."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+class _F32Matmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        with full_f32_matmul():
+            return a @ b
+
+    @staticmethod
+    def backward(ctx, g):
+        a, b = ctx.saved_tensors
+        ga = gb = None
+        with full_f32_matmul():
+            if ctx.needs_input_grad[0]:
+                ga = g @ b.mT
+            if ctx.needs_input_grad[1]:
+                gb = a.mT @ g if b.dim() > 2 else a.reshape(-1, a.shape[-1]).mT @ g.reshape(-1, g.shape[-1])
+        return ga, gb
+
+
+def f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a [..., k] @ b [k, n] (or b [..., k, n] of a's batch shape) with
+    TF32 off (`full_f32_matmul`), in the forward and in the products of its
+    gradient."""
+    return _F32Matmul.apply(a, b)
 
 
 def _nvcc() -> str:

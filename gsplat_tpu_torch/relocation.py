@@ -14,7 +14,7 @@ from typing import Tuple
 
 import torch
 
-from ._backend import common_device, resolve_device
+from ._backend import common_device, f32_matmul, resolve_device
 
 N_MAX = 51
 
@@ -24,19 +24,6 @@ def make_binoms(n_max: int = N_MAX, device="cuda") -> torch.Tensor:
     (0 for k > n), on the card unless the caller asks for the CPU."""
     table = [[math.comb(n, k) if k <= n else 0 for k in range(n_max)] for n in range(n_max)]
     return torch.tensor(table, dtype=torch.float32, device=resolve_device(device))
-
-
-def _f32_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a @ b in full float32: on the card TF32 is switched off for the call
-    (and the caller's setting restored)."""
-    if a.device.type != "cuda":
-        return a @ b
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        return a @ b
-    finally:
-        torch.set_float32_matmul_precision(prev)
 
 
 def compute_relocation(
@@ -60,7 +47,7 @@ def compute_relocation(
     k = torch.arange(n_max, dtype=torch.float32, device=opacities.device)
     sign = torch.where(torch.arange(n_max, device=opacities.device) % 2 == 0, 1.0, -1.0)
     term = sign / torch.sqrt(k + 1.0) * torch.pow(new_op[:, None], k[None, :] + 1.0)  # [M, n_max]
-    inner = _f32_matmul(term, binoms.T)  # inner[:, i-1] = sum_k C(i-1,k) term_k
+    inner = f32_matmul(term, binoms.T)  # inner[:, i-1] = sum_k C(i-1,k) term_k
     denom = torch.cumsum(inner, dim=1)  # denom[:, n-1] = sum_{i<=n} inner_{i-1}
     denom_n = torch.gather(denom, 1, (ratios - 1).long()[:, None])[:, 0]
     coeff = opacities / denom_n

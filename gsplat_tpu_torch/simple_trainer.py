@@ -1,34 +1,53 @@
-"""Gaussian-splatting trainer over in-memory views (port of the training
-step of examples/simple_trainer.py).
+"""Gaussian-splatting trainer (port of examples/simple_trainer.py).
 
-A view is a dict with the keys the JAX package's ``Dataset.__getitem__``
-returns: ``image`` (float [H, W, 3] in [0, 1]), ``camtoworld`` [4, 4],
-``K`` [3, 3] and ``image_id``. The initial points come as arrays (what
-the JAX package's COLMAP ``Parser`` reads from disk): ``points`` [N, 3],
-``points_rgb`` uint8 [N, 3] and the scene scale.
+    python -m gsplat_tpu_torch.simple_trainer default --data-dir DIR --data-factor 1
+    python -m gsplat_tpu_torch.simple_trainer mcmc --data-dir DIR --cap-max 1000000
+
+The command line (`parse_config`, `main`) is the JAX trainer's: every
+``Config`` field is a flag, the positional argument picks the strategy,
+and ``scale_steps()`` applies ``--steps-scaler``. `Runner.from_colmap`
+reads a COLMAP directory (``datasets.Parser`` / ``Dataset``, the split
+``image % test_every``) and writes the JAX trainer's results into
+``result_dir``: ``cfg.json``, ``stats.jsonl`` every 100 steps,
+``val_step{N}.json`` at ``eval_steps``, ``ckpt_{N}.npz`` and
+``splats_{N}.ply`` at ``save_steps``, and with ``render_traj`` a
+fly-through (an mp4 where imageio can write one, else ``_frames.npz``).
+The `Runner` constructor itself takes in-memory views, each a dict with
+the keys ``Dataset`` items have (``image`` float [H, W, 3] in [0, 1],
+``camtoworld`` [4, 4], ``K`` [3, 3], ``image_id``; ``points`` /
+``depths`` for the depth loss).
 
 One step renders through ``rasterization`` with the ``means2d_carrier``
-and ``masks=live``, composites the background, takes ``train_loss`` plus
-the opacity and scale regularisers, runs ``backward`` (on the binned or
-tiled backend: its backward and the gradient-reduce kernels), steps one
-``SelectiveAdam`` per parameter with visibility = any camera's radii > 0,
-and hands the carrier's gradient to ``DefaultStrategy.step_post_backward``
-(or the means' learning rate to ``MCMCStrategy.step_post_backward``).
-The pool has a fixed capacity and a ``live`` mask, as in the JAX trainer;
-the intersection capacity comes from a probe render and grows from
-``slab_required`` (the binned backend) or ``n_isects`` (the tiled one). With ``strategy_name="mcmc"`` the pool holds
-``round_up(cap_max, 4096)`` slots and ``MCMCStrategy`` relocates, grows
-and perturbs it with the means' current learning rate.
+and ``masks=live`` (``render_mode="RGB+ED"`` with the depth loss), after
+the pose module's correction of the cameras and with the appearance
+module's colours where those are on; masks the render with a view's
+pixel mask, slices the bilateral grid, composites the background, takes
+``train_loss`` plus the depth, grid-TV and regulariser terms, runs
+``backward`` (on the binned or tiled backend: its backward and
+gradient-reduce kernels), steps one ``SelectiveAdam`` per splat parameter
+(visibility = any camera's radii > 0) and the aux modules' optimizers
+(``AdamW`` for pose and appearance, ``Adam`` for the grid), and hands the
+carrier's gradient to ``DefaultStrategy`` (or the means' learning rate to
+``MCMCStrategy``). After the step the pool grows when its live share
+passes ``pool_grow_at`` (default strategy), and the intersection budget
+when a step's ``slab_required`` (tiled: ``n_isects``) nears it. Every
+random draw of a step comes from a generator seeded by (seed, step), so a
+resumed run draws what the uninterrupted one drew.
 
-Not ported yet: the COLMAP datasets and the command line, the pose,
-appearance and bilateral-grid modules, the depth loss, pool growth, and
-multi-GPU training. The 2DGS trainer (simple_trainer_2dgs.py)
+Not ported yet, and refused with NotImplementedError: ``distributed`` and
+``packed`` (multi-GPU), ``lpips_weights`` and ``compression``.
+``tb_every`` / ``tb_save_image`` are accepted and write nothing, as the
+JAX trainer does where TensorBoard cannot be imported; the port does not
+depend on it. The 2DGS trainer (simple_trainer_2dgs.py)
 overrides the render and geometry-loss hooks of `Runner`.
 """
 
 from __future__ import annotations
 
+import argparse
+import json
 import math
+import os
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Mapping, Optional, Sequence
@@ -37,22 +56,33 @@ import numpy as np
 import torch
 
 from ._backend import resolve_device
+from .bilagrid import BilateralGrid
+from .checkpoint import aux_modules_from_numpy, splats_from_numpy
 from .losses import psnr as psnr_fn
 from .losses import ssim as ssim_fn
 from .losses import train_loss
-from .modules import knn_distances, rgb_to_sh
+from .modules import AppearanceOptModule, CameraOptModule, knn_distances, rgb_to_sh
 from .optimizers import SelectiveAdam
 from .rendering import rasterization
 from .strategy import DefaultStrategy, MCMCStrategy
 from .strategy.mcmc import check_pool
+from .utils import save_ply
+
+P_MAX = 4096  # a view's points read by the depth loss
 
 
 @dataclass
 class Config:
-    """The JAX trainer's ``Config`` fields that this path reads."""
+    """The JAX trainer's ``Config``: its fields, names and defaults, but
+    ``tile_size`` (16, the port's measured best on the H100)."""
 
+    data_dir: str = "data/360_v2/garden"
+    data_factor: int = 4
+    result_dir: str = "results/garden"
+    test_every: int = 8
     max_steps: int = 30_000
     eval_steps: List[int] = field(default_factory=lambda: [7_000, 30_000])
+    save_steps: List[int] = field(default_factory=lambda: [7_000, 30_000])
     batch_size: int = 1
     init_type: str = "sfm"  # or "random"
     init_num_pts: int = 100_000
@@ -66,9 +96,13 @@ class Config:
     far_plane: float = 1e10
     antialiased: bool = False
     camera_model: str = "pinhole"
-    backend: str = "binned"  # or "tiled", or "oracle" (O(N * pixels) memory: toy scenes)
+    # auto: binned on the card, the oracle (O(N * pixels) memory: toy
+    # scenes) on the CPU; or binned, tiled, oracle
+    backend: str = "auto"
     random_bkgd: bool = False
     white_bkgd: bool = False
+    lpips_weights: str = ""  # not ported yet: must stay empty
+    lpips_net: str = "alex"
     opacity_reg: float = 0.0
     scale_reg: float = 0.0
     means_lr: float = 1.6e-4
@@ -88,20 +122,48 @@ class Config:
     # MCMCStrategy's
     cap_max: int = 1_000_000
     noise_lr: float = 5e5
-    pool_headroom: float = 2.0  # capacity = N0 * headroom, rounded up to 4096
+    # aux modules
+    pose_opt: bool = False
+    pose_opt_lr: float = 1e-5
+    pose_opt_reg: float = 1e-6
+    # read nowhere, as in the JAX trainer (which only makes a key for it)
+    pose_noise: float = 0.0
+    app_opt: bool = False
+    app_opt_lr: float = 1e-3
+    app_opt_reg: float = 1e-6
+    app_embed_dim: int = 16
+    app_feature_dim: int = 32
+    use_bilateral_grid: bool = False
+    bilateral_grid_lr: float = 2e-3
+    bilateral_tv_lambda: float = 10.0
+    depth_loss: bool = False
+    depth_lambda: float = 1e-2
+    distributed: bool = False  # not ported yet: multi-GPU
+    packed: bool = False  # not ported yet: multi-GPU
+    resume: str = ""  # a ckpt_*.npz to resume from
+    render_traj: bool = False
+    render_traj_path: str = "interp"  # or "ellipse"
+    compression: str = ""  # not ported yet: must stay empty
+    tb_every: int = 100  # no TensorBoard writer: inert
+    tb_save_image: bool = False  # no TensorBoard writer: inert
+    # pool management
+    pool_headroom: float = 2.0  # initial capacity = N0 * headroom, rounded up to 4096
+    pool_grow_at: float = 0.9  # grow the pool when the live share passes this
     isect_headroom: float = 1.5
+    pool_grow_max: float = 8.0  # at most this factor per growth
     isect_capacity_init: int = 0  # 0: from the probe render
-    tile_size: int = 16  # the port's measured best on the H100 (PERF.md)
     steps_scaler: float = 1.0
+    tile_size: int = 16
     seed: int = 42
 
     def scale_steps(self):
-        """Scale the step counts by ``steps_scaler``, as the JAX trainer's
-        command line does before it builds the Runner."""
+        """Scale the step counts by ``steps_scaler``, as the command line
+        does before it builds the Runner."""
         if self.steps_scaler != 1.0:
             s = self.steps_scaler
             self.max_steps = int(self.max_steps * s)
             self.eval_steps = [int(v * s) for v in self.eval_steps]
+            self.save_steps = [int(v * s) for v in self.save_steps]
             self.refine_start_iter = int(self.refine_start_iter * s)
             self.refine_stop_iter = int(self.refine_stop_iter * s)
             self.reset_every = int(self.reset_every * s)
@@ -109,8 +171,45 @@ class Config:
             self.sh_degree_interval = int(self.sh_degree_interval * s)
 
 
+# fields whose paths are not ported yet: a set value raises
+NOT_PORTED = {
+    "distributed": "multi-GPU training (ROADMAP Queue 1 item 5)",
+    "packed": "the packed multi-GPU exchange (ROADMAP Queue 1 item 5)",
+    "lpips_weights": "the LPIPS metric (ROADMAP Queue 1 item 6)",
+    "compression": "PNG compression (ROADMAP Queue 1 item 6)",
+}
+
+
+def parse_config(argv: Optional[Sequence[str]] = None) -> Config:
+    """The JAX trainer's command line: a flag per field, the strategy as
+    the positional argument, then ``scale_steps()``."""
+    cfg = Config()
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("strategy", nargs="?", default="default", choices=["default", "mcmc"])
+    for f_ in cfg.__dataclass_fields__.values():
+        if f_.name == "strategy_name":
+            continue
+        flag = "--" + f_.name.replace("_", "-")
+        value = getattr(cfg, f_.name)
+        if isinstance(value, bool):
+            ap.add_argument(flag, action="store_true", default=value)
+        elif isinstance(value, list):
+            ap.add_argument(flag, type=int, nargs="*", default=value)
+        else:
+            ap.add_argument(flag, type=type(value), default=value)
+    for k, v in vars(ap.parse_args(argv)).items():
+        setattr(cfg, "strategy_name" if k == "strategy" else k, v)
+    cfg.scale_steps()
+    return cfg
+
+
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+def step_seed(seed: int, step: int) -> int:
+    """The seed of a step's random draws: a function of (seed, step) only."""
+    return int(np.random.SeedSequence([seed, step]).generate_state(1, np.uint64)[0] >> 1)
 
 
 def create_splats(
@@ -123,9 +222,10 @@ def create_splats(
 ):
     """Initial splats from the points (or random ones) in a `cap`-slot pool,
     as the JAX trainer's ``create_splats``: kNN scales, logit ``init_opa``,
-    random quaternions, sh0 from the colours, zero shN. Dead slots hold
-    log-scale and opacity logit -10. Returns (params: dict of leaf tensors
-    that require grad, live [cap] bool)."""
+    random quaternions, sh0 from the colours and zero shN (with
+    ``app_opt``: colour logits and random features instead). Dead slots
+    hold log-scale and opacity logit -10. Returns (params: dict of leaf
+    tensors that require grad, live [cap] bool)."""
     device = resolve_device(device)
     if cfg.init_type == "sfm":
         rgbs = points_rgb.astype(np.float32) / 255.0
@@ -160,9 +260,14 @@ def create_splats(
             np.full((n0,), float(np.log(cfg.init_opa / (1 - cfg.init_opa))), np.float32),
             fill=-10.0,
         ),
-        "sh0": pad(rgb_to_sh(rgbs)[:, None, :].astype(np.float32)),
-        "shN": np.zeros((cap, K - 1, 3), np.float32),
     }
+    if cfg.app_opt:
+        rgbs_c = np.clip(rgbs, 1e-3, 1 - 1e-3)
+        arrays["colors"] = pad(np.log(rgbs_c / (1 - rgbs_c)))
+        arrays["features"] = rng.standard_normal((cap, cfg.app_feature_dim)).astype(np.float32)
+    else:
+        arrays["sh0"] = pad(rgb_to_sh(rgbs)[:, None, :].astype(np.float32))
+        arrays["shN"] = np.zeros((cap, K - 1, 3), np.float32)
     params = {
         k: torch.as_tensor(v, device=device).requires_grad_(True) for k, v in arrays.items()
     }
@@ -170,10 +275,32 @@ def create_splats(
     return params, live
 
 
+def depth_loss_term(
+    depths_map: torch.Tensor,  # [B, H, W, 1] expected depth
+    pts: torch.Tensor,  # [B, P, 2] pixel coordinates
+    pt_depths: torch.Tensor,  # [B, P], 0 where padded
+    depth_lambda: float,
+    scene_scale: float,
+) -> torch.Tensor:
+    """The JAX trainer's disparity L1 at the points' pixels:
+    depth_lambda * sum |1/clip(d_pred) - 1/clip(d_gt)| / max(n_valid, 1) *
+    scene_scale. The pixel is the coordinate truncated toward zero (JAX's
+    ``astype(int32)``), then clipped into the image."""
+    B, H, W = depths_map.shape[:3]
+    xi = pts[..., 0].to(torch.int32).clamp(0, W - 1).long()
+    yi = pts[..., 1].to(torch.int32).clamp(0, H - 1).long()
+    d_pred = depths_map[torch.arange(B, device=pts.device)[:, None], yi, xi, 0]  # [B, P]
+    valid = pt_depths > 0
+    disp = torch.where(valid, 1.0 / torch.clamp_min(d_pred, 1e-6), 0.0)
+    disp_gt = torch.where(valid, 1.0 / torch.clamp_min(pt_depths, 1e-6), 0.0)
+    n_valid = torch.clamp_min(valid.sum(), 1)
+    return depth_lambda * (disp - disp_gt).abs().sum() / n_valid * scene_scale
+
+
 class Runner:
-    """The JAX trainer's ``Runner`` for the default or the MCMC strategy, on
-    in-memory views. Runs on CUDA unless ``device="cpu"`` (the kernels'
-    plain versions)."""
+    """The JAX trainer's ``Runner``, for the default or the MCMC strategy,
+    on in-memory views (`from_colmap` for a COLMAP directory). Runs on
+    CUDA unless ``device="cpu"`` (the kernels' plain versions)."""
 
     def __init__(
         self,
@@ -185,14 +312,22 @@ class Runner:
         val_views: Sequence[Mapping] = (),
         device="cuda",
     ):
-        if cfg.backend not in ("binned", "tiled", "oracle"):
-            raise ValueError(f"backend must be 'binned', 'tiled' or 'oracle', got {cfg.backend!r}")
+        if cfg.backend not in ("auto", "binned", "tiled", "oracle"):
+            raise ValueError(f"backend must be 'auto', 'binned', 'tiled' or 'oracle', got {cfg.backend!r}")
         if cfg.strategy_name not in ("default", "mcmc"):
             raise ValueError(f"strategy_name must be 'default' or 'mcmc', got {cfg.strategy_name!r}")
+        for name, what in NOT_PORTED.items():
+            if getattr(cfg, name):
+                raise NotImplementedError(f"--{name.replace('_', '-')}: {what} is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.trainset = list(train_views)
-        self.valset = list(val_views)
+        self.backend = cfg.backend
+        if cfg.backend == "auto":
+            self.backend = "binned" if self.device.type == "cuda" else "oracle"
+        self.trainset = train_views
+        self.valset = val_views
+        self.parser = None  # set by from_colmap
+        self.result_dir = None  # set by from_colmap: no files are written without one
         self.scene_scale = scene_scale * 1.1
         n0 = points.shape[0] if cfg.init_type == "sfm" else cfg.init_num_pts
         if cfg.strategy_name == "mcmc":
@@ -222,10 +357,47 @@ class Runner:
             cap, scene_scale=self.scene_scale, device=self.device
         )
         self._build_optimizers()
+
+        n_imgs = len(self.trainset)
+        self.aux = {}
+        if cfg.pose_opt:
+            self.aux["pose"] = CameraOptModule(n_imgs, device=self.device)
+        if cfg.app_opt:
+            self.aux["app"] = AppearanceOptModule(
+                n_imgs, cfg.app_feature_dim, embed_dim=cfg.app_embed_dim, sh_degree=cfg.sh_degree,
+                device=self.device, generator=torch.Generator().manual_seed(cfg.seed + 1),
+            )
+        if cfg.use_bilateral_grid:
+            self.aux["bilagrid"] = BilateralGrid(n_imgs, device=self.device)
+        self._build_aux_optimizers()
+
         self.isect_capacity = None
-        if cfg.backend != "oracle":
+        if self.backend != "oracle":
             self.isect_capacity = _round_up(cfg.isect_capacity_init or int(4e6), 4096)
+        self._live_hist = []  # (step, n_live) whenever the count changed, for the growth projection
+        self._resumed_budget = False  # True once `load` restored a checkpoint's intersection budget
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+
+    @classmethod
+    def from_colmap(cls, cfg: Config, device="cuda") -> "Runner":
+        """A Runner on the COLMAP scene at ``cfg.data_dir`` (normalised, the
+        split ``image % test_every``), writing its results into
+        ``cfg.result_dir``, starting with ``cfg.json``."""
+        from .datasets import Dataset, Parser
+
+        os.makedirs(cfg.result_dir, exist_ok=True)
+        parser = Parser(cfg.data_dir, factor=cfg.data_factor, normalize=True, test_every=cfg.test_every)
+        trainset = Dataset(parser, split="train", load_depths=cfg.depth_loss)
+        valset = Dataset(parser, split="val")
+        runner = cls(cfg, trainset, parser.points, parser.points_rgb, parser.scene_scale, valset, device=device)
+        runner.parser = parser
+        runner.result_dir = cfg.result_dir
+        with open(os.path.join(cfg.result_dir, "cfg.json"), "w") as f:
+            json.dump({k: v for k, v in vars(runner.cfg).items()
+                       if isinstance(v, (int, float, str, bool, list, type(None)))}, f, indent=1, default=str)
+        print(f"scene scale: {runner.scene_scale:.3f}; {len(trainset)} train / {len(valset)} val images; "
+              f"initialized {int(runner.live.sum())} splats in a {runner.live.shape[0]}-slot pool")
+        return runner
 
     def _build_optimizers(self):
         cfg = self.cfg
@@ -243,33 +415,78 @@ class Runner:
             "opacities": cfg.opacities_lr,
             "sh0": cfg.sh0_lr,
             "shN": cfg.shN_lr,
+            "colors": cfg.sh0_lr,
+            "features": cfg.sh0_lr,
         }
         self.optimizers = {
             k: SelectiveAdam([self.params[k]], lr=lrs[k], eps=1e-15) for k in self.params
         }
 
-    def _rasterize(self, camtoworlds, Ks, width, height, sh_degree, capacity, carrier=None):
+    def _build_aux_optimizers(self):
+        cfg = self.cfg
+        self.aux_optimizers = {}
+        for name, m in self.aux.items():
+            if name == "bilagrid":
+                self.aux_optimizers[name] = torch.optim.Adam(m.parameters(), lr=cfg.bilateral_grid_lr, eps=1e-8)
+            else:
+                lr, reg = (cfg.pose_opt_lr, cfg.pose_opt_reg) if name == "pose" else (cfg.app_opt_lr, cfg.app_opt_reg)
+                self.aux_optimizers[name] = torch.optim.AdamW(m.parameters(), lr=lr, weight_decay=reg, eps=1e-8)
+
+    def set_state(self, params: Mapping[str, np.ndarray], live: np.ndarray,
+                  aux_params: Optional[Mapping[str, Mapping[str, np.ndarray]]] = None) -> None:
+        """Start from the given splats (the JAX trainer's ``params`` as numpy
+        arrays, same keys), live mask and aux-module parameters: the pool
+        takes their capacity, the optimizers and the strategy start anew."""
+        splats, live_t = splats_from_numpy({**params, "live": live}, device=self.device)
+        if set(splats) != set(self.params):
+            raise KeyError(f"params hold {sorted(splats)}, the runner {sorted(self.params)}")
+        self.params = {k: splats[k].requires_grad_(True) for k in self.params}
+        self.live = live_t
+        self.strategy_state = self.strategy.initialize_state(
+            live_t.shape[0], scene_scale=self.scene_scale, device=self.device
+        )
+        self._build_optimizers()
+        if aux_params:
+            feature_dim = self.params["features"].shape[1] if "features" in self.params else None
+            self.aux = aux_modules_from_numpy(aux_params, feature_dim, device=self.device)
+            self._build_aux_optimizers()
+
+    def _colors(self, camtoworlds, image_ids, sh_degree):
+        """(colors, sh_degree for rasterization): the appearance module's
+        per-camera colours (sh_degree None) or the SH coefficients."""
+        p = self.params
+        if self.cfg.app_opt:
+            dirs = p["means"][None, :, :] - camtoworlds[:, None, :3, 3]
+            colors = self.aux["app"](p["features"], image_ids, dirs, sh_degree)
+            return torch.sigmoid(colors + p["colors"][None]), None
+        return torch.cat([p["sh0"], p["shN"]], dim=1), sh_degree
+
+    def _rasterize(self, viewmats, Ks, width, height, colors, sh_degree, capacity, carrier=None,
+                   render_mode="RGB"):
         cfg = self.cfg
         p = self.params
         return rasterization(
-            p["means"], p["quats"], torch.exp(p["scales"]), torch.sigmoid(p["opacities"]),
-            torch.cat([p["sh0"], p["shN"]], dim=1),
-            torch.linalg.inv(camtoworlds), Ks, width, height,
+            p["means"], p["quats"], torch.exp(p["scales"]), torch.sigmoid(p["opacities"]), colors,
+            viewmats, Ks, width, height,
             sh_degree=sh_degree, near_plane=cfg.near_plane, far_plane=cfg.far_plane,
-            rasterize_mode="antialiased" if cfg.antialiased else "classic",
-            backend=cfg.backend, isect_capacity=capacity, means2d_carrier=carrier,
+            rasterize_mode="antialiased" if cfg.antialiased else "classic", render_mode=render_mode,
+            backend=self.backend, isect_capacity=capacity, means2d_carrier=carrier,
             masks=self.live, tile_size=cfg.tile_size, absgrad=cfg.absgrad,
             camera_model=cfg.camera_model,
         )
 
-    def _raster_train(self, step, camtoworlds, Ks, width, height, sh_degree, carrier):
-        """The training step's render. Returns (rgb, alphas, meta, geom),
-        `geom` holding what `_geom_losses` reads; the 2DGS runner overrides
-        both."""
+    def _raster_train(self, step, viewmats, Ks, width, height, colors, sh_degree, carrier):
+        """The training step's render. Returns (rgb, alphas, depths or
+        None, meta, geom), `geom` holding what `_geom_losses` reads; the
+        2DGS runner overrides both."""
+        depth = self.cfg.depth_loss
         render, alphas, meta = self._rasterize(
-            camtoworlds, Ks, width, height, sh_degree, self.isect_capacity, carrier
+            viewmats, Ks, width, height, colors, sh_degree, self.isect_capacity, carrier,
+            render_mode="RGB+ED" if depth else "RGB",
         )
-        return render, alphas, meta, {}
+        if depth:
+            return render[..., :-1], alphas, render[..., -1:], meta, {}
+        return render, alphas, None, meta, {}
 
     def _geom_losses(self, step, loss, geom, alphas):
         """Geometry loss terms added to the photometric loss (none here)."""
@@ -290,12 +507,13 @@ class Runner:
         first view (its ``slab_required``, or on the tiled backend its
         ``n_isects``, is computed before truncation), as the JAX trainer
         does."""
-        if self.cfg.backend == "oracle" or self.cfg.isect_capacity_init > 0:
+        if self.backend == "oracle" or self.cfg.isect_capacity_init > 0:
             return
-        pixels, camtoworlds, Ks = self._as_batch(self.trainset[:1])
+        pixels, camtoworlds, Ks = self._as_batch([self.trainset[0]])
         H, W = pixels.shape[1:3]
         with torch.no_grad():
-            _, _, meta = self._rasterize(camtoworlds, Ks, W, H, self.cfg.sh_degree, 4096)
+            colors, sh = self._colors(camtoworlds, None, self.cfg.sh_degree)
+            _, _, meta = self._rasterize(torch.linalg.inv(camtoworlds), Ks, W, H, colors, sh, 4096)
         need = int(meta.get("slab_required", meta["n_isects"]))
         if need > 0:
             self.isect_capacity = _round_up(
@@ -313,6 +531,80 @@ class Runner:
             print(f"[isect] need {need} exceeded capacity {cap}; this step was truncated")
         self.isect_capacity = _round_up(max(int(need * self.cfg.isect_headroom), 2 * cap), 4096)
 
+    def _projected_final_live(self, step: Optional[int], n_live: int) -> Optional[float]:
+        """The live count at densification stop, extrapolated log-linearly
+        from the growth history's recent window (the last ~5 records); None
+        without a usable history (the JAX trainer's projection)."""
+        cfg = self.cfg
+        stop = min(cfg.refine_stop_iter, cfg.max_steps)
+        hist = self._live_hist
+        if step is None or step >= stop or not hist:
+            return None
+        s0, l0 = hist[-min(len(hist), 6)]
+        if l0 <= 0 or n_live <= l0 or step <= s0:
+            return None
+        rate = (n_live / l0) ** (1.0 / (step - s0))  # per-step factor
+        return n_live * rate ** (stop - step)
+
+    @torch.no_grad()
+    def _grow_pool(self, new_cap: int) -> None:
+        """Pad the pool to `new_cap` slots as the JAX trainer does: zeros for
+        the parameters, False for `live`, zeros for the Adam moments and the
+        strategy's per-slot state. Each parameter becomes a new leaf
+        tensor; its optimizer takes it, with its state (step count kept)."""
+        cap = self.live.shape[0]
+
+        def grow(x):
+            return torch.cat([x, x.new_zeros((new_cap - cap,) + tuple(x.shape[1:]))])
+
+        def grow_cap(v):
+            return grow(v) if isinstance(v, torch.Tensor) and v.dim() >= 1 and v.shape[0] == cap else v
+
+        for k, p in list(self.params.items()):
+            new = grow(p.detach()).requires_grad_(True)
+            opt = self.optimizers[k]
+            state = opt.state.pop(p, None)
+            opt.param_groups[0]["params"] = [new]
+            if state:
+                opt.state[new] = {name: grow_cap(v) for name, v in state.items()}
+            self.params[k] = new
+        self.live = grow(self.live)
+        for k, v in list(self.strategy_state.items()):
+            self.strategy_state[k] = grow_cap(v)
+
+    def _maybe_grow(self, n_isects: int, step: Optional[int] = None) -> bool:
+        """After a step: record the live count, grow the pool when the
+        default strategy's live share passes ``pool_grow_at`` (to the
+        projected need x 1.2 / pool_grow_at, at least double, at most
+        ``pool_grow_max`` x; double without a projection), pre-scaling the
+        intersection budget in the same event, then grow the budget from
+        ``n_isects``. Returns whether the pool grew."""
+        cfg = self.cfg
+        cap = self.live.shape[0]
+        n_live = int(self.live.sum())
+        hist = self._live_hist
+        if step is not None and n_live > 0 and (not hist or n_live != hist[-1][1]):
+            hist.append((step, n_live))
+        grew = False
+        if cfg.strategy_name != "mcmc" and n_live > cfg.pool_grow_at * cap:
+            proj = self._projected_final_live(step, n_live)
+            if proj is not None:
+                target = min(max(proj * 1.2 / cfg.pool_grow_at, cap * 2.0), cap * cfg.pool_grow_max)
+            else:
+                target = cap * 2.0
+            new_cap = _round_up(int(target), 4096)
+            print(f"[pool] {n_live}/{cap} live -> growing to {new_cap} "
+                  f"(projected stop-time live: {int(proj) if proj else 'n/a'})")
+            self._grow_pool(new_cap)
+            grew = True
+            if self.isect_capacity is not None and n_isects > 0:
+                need = int(n_isects * (new_cap / cap) * cfg.pool_grow_at * cfg.isect_headroom)
+                if need > self.isect_capacity:
+                    self.isect_capacity = _round_up(need, 4096)
+                    print(f"[isect] pre-scaled with pool growth -> capacity {self.isect_capacity}")
+        self._grow_isect(n_isects)
+        return grew
+
     def data_index(self, step: int, slot: int) -> int:
         """The view of batch slot `slot` at `step`: one permutation of the
         views per epoch, as the JAX trainer draws it."""
@@ -321,28 +613,58 @@ class Runner:
         perm = np.random.default_rng(self.cfg.seed + 7919 * epoch).permutation(len(self.trainset))
         return int(perm[pos])
 
+    def _depth_inputs(self, views):
+        """Each view's first P_MAX points and depths, zero-padded."""
+        B = len(views)
+        pts = np.zeros((B, P_MAX, 2), np.float32)
+        dep = np.zeros((B, P_MAX), np.float32)
+        for bi, v in enumerate(views):
+            if "points" in v:
+                n = min(len(v["points"]), P_MAX)
+                pts[bi, :n] = v["points"][:n]
+                dep[bi, :n] = v["depths"][:n]
+        return torch.as_tensor(pts, device=self.device), torch.as_tensor(dep, device=self.device)
+
     def train_step(self, step: int) -> Dict:
         """One training step. Returns {"loss" (a 0-d tensor on the device),
-        "image_ids", "refined", "slab_required"}; "slab_required" is the
-        capacity the step needed (``n_isects`` on the tiled backend, 0 on
-        the oracle)."""
+        "depth" (the depth term, or None), "image_ids", "refined",
+        "slab_required", "pool_grew"}; "slab_required" is the capacity the
+        step needed (``n_isects`` on the tiled backend, 0 on the oracle)."""
         cfg = self.cfg
+        self.generator.manual_seed(step_seed(cfg.seed, step))
         views = [self.trainset[self.data_index(step, i)] for i in range(cfg.batch_size)]
         pixels, camtoworlds, Ks = self._as_batch(views)
         B, H, W = pixels.shape[:3]
+        image_ids = torch.tensor([int(v["image_id"]) for v in views], device=self.device)
         sh_degree = min(step // cfg.sh_degree_interval, cfg.sh_degree)
         cap = self.live.shape[0]
 
         carrier = torch.zeros((B, cap, 2), device=self.device, requires_grad=True)
-        render, alphas, meta, geom = self._raster_train(
-            step, camtoworlds, Ks, W, H, sh_degree, carrier
+        c2w = self.aux["pose"](camtoworlds, image_ids) if "pose" in self.aux else camtoworlds
+        colors, sh_arg = self._colors(c2w, image_ids, sh_degree)
+        render, alphas, depths, meta, geom = self._raster_train(
+            step, torch.linalg.inv(c2w), Ks, W, H, colors, sh_arg, carrier
         )
+        if any("mask" in v for v in views):
+            pm = torch.stack([
+                torch.as_tensor(v["mask"], dtype=torch.float32, device=self.device) if "mask" in v
+                else torch.ones((H, W), device=self.device) for v in views
+            ])[..., None]
+            render = render * pm
+        if "bilagrid" in self.aux:
+            render = self.aux["bilagrid"](render, image_ids)
         if cfg.random_bkgd:
             render = render + torch.rand((1, 1, 1, 3), generator=self.generator, device=self.device) * (1.0 - alphas)
         elif cfg.white_bkgd:
             render = render + (1.0 - alphas)
         loss = train_loss(render, pixels, cfg.ssim_lambda)
         loss = self._geom_losses(step, loss, geom, alphas)
+        depth_term = None
+        if cfg.depth_loss:
+            depth_term = depth_loss_term(depths, *self._depth_inputs(views), cfg.depth_lambda, self.scene_scale)
+            loss = loss + depth_term
+        if "bilagrid" in self.aux:
+            loss = loss + cfg.bilateral_tv_lambda * self.aux["bilagrid"].tv_loss()
         live = self.live
         if cfg.opacity_reg > 0.0:
             op = torch.where(live, torch.sigmoid(self.params["opacities"]), 0.0)
@@ -355,6 +677,9 @@ class Runner:
         visibility = (meta["radii"] > 0).any(dim=0)  # [cap]
         for opt in self.optimizers.values():
             opt.step(visibility)
+            opt.zero_grad(set_to_none=True)
+        for opt in self.aux_optimizers.values():
+            opt.step()
             opt.zero_grad(set_to_none=True)
         if isinstance(self.strategy, MCMCStrategy):
             lr = cfg.means_lr * self.scene_scale * 0.01 ** (step / cfg.max_steps)
@@ -371,39 +696,66 @@ class Runner:
                 carrier.grad, generator=self.generator,
             )
         need = int(meta.get("slab_required", meta.get("n_isects", 0)))
-        self._grow_isect(need)
+        grew = self._maybe_grow(need, step)
         return {
             "loss": loss.detach(),
-            "image_ids": [v["image_id"] for v in views],
+            "depth": None if depth_term is None else depth_term.detach(),
+            "image_ids": [int(v["image_id"]) for v in views],
             "refined": refined,
             "slab_required": need,
+            "pool_grew": grew,
         }
 
     def train(self, log_every: int = 100) -> List[Dict]:
-        """Probe the intersection budget, then ``max_steps`` steps with
-        evaluations at ``eval_steps``. Returns each step's output."""
-        self.probe_isect_capacity()
+        """Resume from ``cfg.resume`` if set, probe the intersection budget
+        (unless the checkpoint held one), then the steps up to
+        ``max_steps``, with evaluations (and the fly-through) at
+        ``eval_steps`` and checkpoints at ``save_steps``. A checkpoint at or
+        past ``max_steps`` only renders the fly-through. Returns each
+        step's output."""
+        cfg = self.cfg
+        start_step = self.load(cfg.resume) if cfg.resume else 0
+        if not self._resumed_budget:
+            self.probe_isect_capacity()
+        if start_step >= cfg.max_steps:
+            print(f"resume step {start_step} >= max_steps: eval-only mode")
+            if cfg.render_traj:
+                self.render_traj(start_step)
+            return []
         t0 = time.time()
         outs = []
-        for step in range(self.cfg.max_steps):
+        for step in range(start_step, cfg.max_steps):
             outs.append(self.train_step(step))
             if step % log_every == 0:
-                print(
-                    f"step {step}: loss={float(outs[-1]['loss']):.4f} "
-                    f"n_live={int(self.live.sum())} ({time.time() - t0:.0f}s)"
-                )
-            if step + 1 in self.cfg.eval_steps and self.valset:
-                print("EVAL", self.eval(step + 1))
+                n_live = int(self.live.sum())
+                loss = float(outs[-1]["loss"])
+                print(f"step {step}: loss={loss:.4f} n_live={n_live} ({time.time() - t0:.0f}s)")
+                if self.result_dir is not None:
+                    with open(os.path.join(self.result_dir, "stats.jsonl"), "a") as f:
+                        f.write(json.dumps({"step": step, "loss": loss, "n_live": n_live,
+                                            "elapsed_s": time.time() - t0}) + "\n")
+            if step + 1 in cfg.eval_steps:
+                if len(self.valset):
+                    self.eval(step + 1)
+                if cfg.render_traj:
+                    self.render_traj(step + 1)
+            if step + 1 in cfg.save_steps and self.result_dir is not None:
+                self.save(step + 1)
+        print(f"training done in {(time.time() - t0) / 60:.1f} min")
         return outs
 
     @torch.no_grad()
     def render(self, camtoworlds, Ks, width, height, sh_degree=None):
+        """(rgb, alphas, meta) of the cameras, the appearance module with no
+        embedding (``embed_ids=None``) where it is on."""
         sh = self.cfg.sh_degree if sh_degree is None else sh_degree
-        return self._rasterize(camtoworlds, Ks, width, height, sh, self.isect_capacity)
+        colors, sh = self._colors(camtoworlds, None, sh)
+        return self._rasterize(torch.linalg.inv(camtoworlds), Ks, width, height, colors, sh, self.isect_capacity)
 
     @torch.no_grad()
     def eval(self, step: int) -> Dict:
-        """PSNR and SSIM over the validation views."""
+        """PSNR and SSIM over the validation views (a view's pixel mask
+        applied to the render); written to ``val_step{step}.json``."""
         psnrs, ssims = [], []
         t0 = time.time()
         for view in self.valset:
@@ -412,13 +764,161 @@ class Runner:
             render, alphas, _ = self.render(camtoworlds, Ks, W, H)
             if self.cfg.white_bkgd:
                 render = render + (1.0 - alphas)
+            if "mask" in view:
+                render = render * torch.as_tensor(view["mask"], dtype=torch.float32, device=self.device)[None, :, :, None]
             render = torch.clamp(render, 0.0, 1.0)
             psnrs.append(float(psnr_fn(render, pixels)))
             ssims.append(float(ssim_fn(render, pixels)))
-        return {
+        stats = {
             "step": step,
             "psnr": float(np.mean(psnrs)) if psnrs else math.nan,
             "ssim": float(np.mean(ssims)) if ssims else math.nan,
             "num_GS": int(self.live.sum()),
             "per_image_s": (time.time() - t0) / max(len(self.valset), 1),
         }
+        print("EVAL", json.dumps(stats))
+        if self.result_dir is not None:
+            with open(os.path.join(self.result_dir, f"val_step{step}.json"), "w") as f:
+                json.dump(stats, f)
+        return stats
+
+    @torch.no_grad()
+    def render_traj(self, step: int) -> str:
+        """A fly-through along a path fit to the scene's cameras (``interp``
+        or ``ellipse``), at the first validation view's intrinsics and
+        size: ``videos/traj_{path}_{step}.mp4`` where imageio can write an
+        mp4, else the frames as ``traj_{path}_{step}_frames.npz``. Returns
+        the path written."""
+        from .datasets.traj import generate_ellipse_path_z, generate_interpolated_path
+
+        cfg = self.cfg
+        if self.parser is None or self.result_dir is None:
+            raise ValueError("render_traj needs a COLMAP scene and a result directory (Runner.from_colmap)")
+        c2w_all = self.parser.camtoworlds[:, :3, :4]
+        if cfg.render_traj_path == "ellipse":
+            path = generate_ellipse_path_z(c2w_all, height=float(np.mean(c2w_all[:, 2, 3])))
+        else:
+            path = generate_interpolated_path(c2w_all, 1)
+        data = self.valset[0]
+        K = torch.as_tensor(data["K"], dtype=torch.float32, device=self.device)[None]
+        H, W = data["image"].shape[:2]
+        frames = []
+        for c2w34 in path:
+            c2w = np.eye(4, dtype=np.float32)
+            c2w[:3, :4] = c2w34
+            rgb, alphas, _ = self.render(torch.as_tensor(c2w, device=self.device)[None], K, W, H)
+            if cfg.white_bkgd:
+                rgb = rgb + (1.0 - alphas)
+            frames.append((torch.clamp(rgb[0], 0, 1) * 255).to(torch.uint8).cpu().numpy())
+        vdir = os.path.join(self.result_dir, "videos")
+        os.makedirs(vdir, exist_ok=True)
+        out = os.path.join(vdir, f"traj_{cfg.render_traj_path}_{step}.mp4")
+        try:
+            import imageio.v2 as imageio
+
+            imageio.mimwrite(out, frames, fps=30)
+            print(f"wrote {out} ({len(frames)} frames)")
+        except (ImportError, ValueError) as e:  # no imageio, or no mp4 writer for it
+            out = out.replace(".mp4", "_frames.npz")
+            np.savez_compressed(out, frames=np.stack(frames))
+            print(f"mp4 writer unavailable ({str(e).splitlines()[0]}); wrote {out} ({len(frames)} frames)")
+        return out
+
+    def save(self, step: int) -> str:
+        """``ckpt_{step}.npz`` and ``splats_{step}.ply`` in the result
+        directory. The npz holds ``step``, ``live`` and ``splat/{name}``
+        (the JAX trainer's keys, which ``splats_from_numpy`` and the
+        viewers read), then the port's own state: ``adam/{name}/...`` (step
+        count and moments), ``strategy/{key}``, ``aux/{module}/{param}``,
+        ``aux_adam/{module}/{index}/{key}`` and ``pool/isect_capacity``,
+        ``pool/live_hist``. Returns the npz's path."""
+        def host(x):
+            return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+        path = os.path.join(self.result_dir, f"ckpt_{step}.npz")
+        blob = {"step": np.asarray(step), "live": host(self.live)}
+        blob.update({f"splat/{k}": host(v) for k, v in self.params.items()})
+        for k, opt in self.optimizers.items():
+            for name, v in opt.state.get(self.params[k], {}).items():
+                blob[f"adam/{k}/{name}"] = host(v)
+        for k, v in self.strategy_state.items():
+            blob[f"strategy/{k}"] = host(v)
+        for name, m in self.aux.items():
+            for pn, p in m.named_parameters():
+                blob[f"aux/{name}/{pn}"] = host(p)
+            for idx, st in self.aux_optimizers[name].state_dict()["state"].items():
+                for key, v in st.items():
+                    blob[f"aux_adam/{name}/{idx}/{key}"] = host(v)
+        blob["pool/isect_capacity"] = np.asarray(self.isect_capacity or 0)
+        blob["pool/live_hist"] = np.asarray(self._live_hist, np.int64).reshape(-1, 2)
+        np.savez(path, **blob)
+        save_ply(self.params, os.path.join(self.result_dir, f"splats_{step}.ply"), live=self.live)
+        print("saved", path)
+        return path
+
+    def load(self, path: str) -> int:
+        """Restore a checkpoint written by `save`: the pool takes the
+        checkpoint's capacity (it may have grown), then every array is set.
+        A checkpoint of the JAX trainer loads its splats, live mask and aux
+        parameters (``auxp/``, the JAX tree's leaf order); its optax state
+        (``opt/``, ``auxs/``) and strategy state are not read, so it suits
+        the evaluation-only mode (``start_step >= max_steps``). Returns the
+        step to resume from."""
+        ckpt = np.load(path)
+        files = set(ckpt.files)
+        arrays = {k[len("splat/"):]: ckpt[k] for k in files if k.startswith("splat/")}
+        self.set_state(arrays, ckpt["live"])
+        dev = self.device
+        own = any(k.startswith("adam/") for k in files)
+        self._resumed_budget = own
+        with torch.no_grad():
+            if own:
+                for k, opt in self.optimizers.items():
+                    if f"adam/{k}/step" in files:
+                        opt.state[self.params[k]] = {
+                            "step": int(ckpt[f"adam/{k}/step"]),
+                            "exp_avg": torch.as_tensor(ckpt[f"adam/{k}/exp_avg"], device=dev),
+                            "exp_avg_sq": torch.as_tensor(ckpt[f"adam/{k}/exp_avg_sq"], device=dev),
+                        }
+                for k in sorted(f for f in files if f.startswith("strategy/")):
+                    v = ckpt[k]
+                    self.strategy_state[k[len("strategy/"):]] = float(v) if v.ndim == 0 else torch.as_tensor(v, device=dev)
+                for name, m in self.aux.items():
+                    for pn, p in m.named_parameters():
+                        p.copy_(torch.as_tensor(ckpt[f"aux/{name}/{pn}"]))
+                    opt = self.aux_optimizers[name]
+                    state = {}
+                    prefix = f"aux_adam/{name}/"
+                    for k in (f for f in files if f.startswith(prefix)):
+                        idx, key = k[len(prefix):].split("/")
+                        state.setdefault(int(idx), {})[key] = torch.as_tensor(ckpt[k])
+                    opt.load_state_dict({"state": state, "param_groups": opt.state_dict()["param_groups"]})
+                cap = int(ckpt["pool/isect_capacity"])
+                self.isect_capacity = cap or None
+                self._live_hist = [tuple(int(x) for x in r) for r in ckpt["pool/live_hist"]]
+            else:
+                leaves = sorted(k for k in files if k.startswith("auxp/"))
+                names = [(m, pn) for m in sorted(self.aux) for pn, _ in sorted(self.aux[m].named_parameters())]
+                if leaves and len(leaves) != len(names):
+                    raise ValueError(f"{path}: {len(leaves)} aux leaves, the runner's modules have {len(names)}")
+                for k, (m, pn) in zip(leaves, names):
+                    getattr(self.aux[m], pn).copy_(torch.as_tensor(ckpt[k]))
+                print(f"{path} is a JAX trainer checkpoint: splats, live mask and aux parameters loaded; its "
+                      "optax and strategy state are not read")
+        step = int(ckpt["step"]) if "step" in files else 0
+        print(f"resumed from {path} at step {step} (pool cap {self.live.shape[0]})")
+        return step
+
+
+def main(argv: Optional[Sequence[str]] = None, device="cuda") -> Runner:
+    """The JAX trainer's ``main``: parse the command line, train from the
+    COLMAP scene, evaluate at ``max_steps``. Returns the Runner."""
+    cfg = parse_config(argv)
+    runner = Runner.from_colmap(cfg, device=device)
+    runner.train()
+    runner.eval(cfg.max_steps)
+    return runner
+
+
+if __name__ == "__main__":
+    main()

@@ -1,15 +1,19 @@
 """2DGS (surfel) trainer with the normal-consistency and distortion losses
 (port of examples/simple_trainer_2dgs.py).
 
-`Runner2DGS` is the 3DGS `Runner` with the render hooks swapped for
+    python -m gsplat_tpu_torch.simple_trainer_2dgs --data-dir DIR --data-factor 1
+
+`Runner2DGS` is the 3DGS `Runner` (pose, appearance and bilateral-grid
+modules, the depth loss, pool growth, checkpoints and resume, the COLMAP
+scene and its result directory) with the render hooks swapped for
 ``rasterization_2dgs`` (``render_mode="RGB+ED"``: the normal-consistency
-loss needs the expected depth) and the two geometry losses added after
-their warm-ups. Every render of the runner goes through the surfel
-rasterizer, so the intersection-capacity probe sizes the budget from a
-surfel render: a 2DGS stream is many times longer than a 3DGS one of the
-same points (no tight cull). It trains with the default strategy only, as
-the JAX 2DGS trainer does. Multi-GPU training comes with the port's
-multi-GPU slice.
+loss needs the expected depth, which is also the depth loss's) and the two
+geometry losses added after their warm-ups. Every render of the runner
+goes through the surfel rasterizer, so the intersection-capacity probe
+sizes the budget from a surfel render: a 2DGS stream is many times longer
+than a 3DGS one of the same points (no tight cull). It trains with the
+default strategy only, as the JAX 2DGS trainer does. Multi-GPU training
+comes with the port's multi-GPU slice.
 """
 
 from __future__ import annotations
@@ -21,7 +25,7 @@ import numpy as np
 import torch
 
 from .rendering import rasterization_2dgs
-from .simple_trainer import Config, Runner
+from .simple_trainer import Config, Runner, parse_config
 
 
 class Runner2DGS(Runner):
@@ -52,33 +56,33 @@ class Runner2DGS(Runner):
         cfg = dataclasses.replace(cfg, tile_size=min(cfg.tile_size, 16))
         super().__init__(cfg, train_views, points, points_rgb, scene_scale, val_views, device)
 
-    def _render_2dgs(self, camtoworlds, Ks, width, height, sh_degree, capacity,
+    def _render_2dgs(self, viewmats, Ks, width, height, colors, sh_degree, capacity,
                      carrier=None, distloss=False):
         cfg = self.cfg
         p = self.params
         return rasterization_2dgs(
-            p["means"], p["quats"], torch.exp(p["scales"]), torch.sigmoid(p["opacities"]),
-            torch.cat([p["sh0"], p["shN"]], dim=1),
-            torch.linalg.inv(camtoworlds), Ks, width, height,
+            p["means"], p["quats"], torch.exp(p["scales"]), torch.sigmoid(p["opacities"]), colors,
+            viewmats, Ks, width, height,
             sh_degree=sh_degree, near_plane=cfg.near_plane, far_plane=cfg.far_plane,
             densify_carrier=carrier, masks=self.live, tile_size=cfg.tile_size,
-            backend=cfg.backend, isect_capacity=capacity, render_mode="RGB+ED",
+            backend=self.backend, isect_capacity=capacity, render_mode="RGB+ED",
             distloss=distloss,
         )
 
-    def _rasterize(self, camtoworlds, Ks, width, height, sh_degree, capacity, carrier=None):
+    def _rasterize(self, viewmats, Ks, width, height, colors, sh_degree, capacity, carrier=None,
+                   render_mode="RGB"):
         """Surfel render for the probe, `render` and `eval`: (rgb, alphas,
         meta)."""
-        out = self._render_2dgs(camtoworlds, Ks, width, height, sh_degree, capacity, carrier)
+        out = self._render_2dgs(viewmats, Ks, width, height, colors, sh_degree, capacity, carrier)
         return out[0][..., :3], out[1], out[6]
 
-    def _raster_train(self, step, camtoworlds, Ks, width, height, sh_degree, carrier):
+    def _raster_train(self, step, viewmats, Ks, width, height, colors, sh_degree, carrier):
         render, alphas, normals, normals_depth, distort, _, meta = self._render_2dgs(
-            camtoworlds, Ks, width, height, sh_degree, self.isect_capacity, carrier,
+            viewmats, Ks, width, height, colors, sh_degree, self.isect_capacity, carrier,
             distloss=step >= self.dist_start,
         )
         geom = {"normals": normals, "normals_depth": normals_depth, "distort": distort}
-        return render[..., :3], alphas, meta, geom
+        return render[..., :3], alphas, render[..., -1:], meta, geom
 
     def _geom_losses(self, step, loss, geom, alphas):
         if step >= self.normal_start:
@@ -102,14 +106,32 @@ class Runner2DGS(Runner):
         for view in self.valset:
             pixels, camtoworlds, Ks = self._as_batch([view])
             H, W = pixels.shape[1:3]
+            colors, sh = self._colors(camtoworlds, None, self.cfg.sh_degree)
             _, alphas, normals, normals_depth, distort, _, _ = self._render_2dgs(
-                camtoworlds, Ks, W, H, self.cfg.sh_degree, self.isect_capacity
+                torch.linalg.inv(camtoworlds), Ks, W, H, colors, sh, self.isect_capacity
             )
             n = normals / torch.clamp_min(torch.linalg.norm(normals, dim=-1, keepdim=True), 1e-6)
             ncs.append(float((1.0 - (n * normals_depth * alphas).sum(dim=-1)).mean()))
             dists.append(float(distort.mean()))
-        return {
+        stats = {
             "step": step,
             "normal_consistency": float(np.mean(ncs)) if ncs else float("nan"),
             "distortion": float(np.mean(dists)) if dists else float("nan"),
         }
+        print("EVAL_GEOM", stats)
+        return stats
+
+
+def main(argv: Optional[Sequence[str]] = None, device="cuda") -> Runner2DGS:
+    """The JAX 2DGS trainer's ``main``: train from the COLMAP scene, then
+    ``eval`` and ``eval_geometry`` at ``max_steps``. Returns the Runner."""
+    cfg = parse_config(argv)
+    runner = Runner2DGS.from_colmap(cfg, device=device)
+    runner.train()
+    runner.eval(cfg.max_steps)
+    runner.eval_geometry(cfg.max_steps)
+    return runner
+
+
+if __name__ == "__main__":
+    main()

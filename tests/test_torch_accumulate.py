@@ -16,6 +16,7 @@ depth ranks, grouped by (camera, pixel) and depth-ordered.
   within the same tolerance of JAX and of a float64 sequential product.
 """
 
+import functools
 import importlib
 
 import numpy as np
@@ -34,7 +35,7 @@ from gsplat_tpu.ops.rasterize_2dgs_ref import rasterize_to_indices_in_range_2dgs
 from gsplat_tpu.ops.rasterize_ref import rasterize_to_indices_in_range
 from gsplat_tpu_torch.ops.accumulate import accumulate, accumulate_2dgs
 
-from torch_exp_warmup import warm_exp
+from torch_exp_warmup import one_torch_thread, warm_exp  # noqa: F401 (one_torch_thread: an autouse fixture)
 
 # the module (gsplat_tpu.ops exports the function under the same name)
 jax_accumulate_module = importlib.import_module("gsplat_tpu.ops.accumulate")
@@ -56,8 +57,11 @@ def _coo(contrib, sel):
     return [np.concatenate(x).astype(np.int32) for x in (gs, pix, cam)]
 
 
-@pytest.fixture(scope="module")
-def scene():
+@functools.lru_cache(maxsize=None)
+def _lists():
+    """The scene's inputs and COO lists, built once per process (under
+    `--dist load` a worker runs this module's tests between other modules',
+    and a module-scoped fixture would rebuild them each time)."""
     warm_exp()
     means, quats, scales, opacities, colors, viewmats, Ks, w0, h0 = load_test_data()
     Ks = Ks.copy()
@@ -66,18 +70,20 @@ def scene():
     args = tuple(map(jnp.asarray, (means[:N], quats[:N], scales[:N] * 2.0, viewmats, Ks)))
     C = viewmats.shape[0]
     out = {}
-    radii, means2d, depths, conics, _ = fully_fused_projection(*args, W, H)
+    # the lists are both packages' inputs, so the JAX calls that build them
+    # are jitted (eagerly each op compiles on its own, ~10 s a build)
+    radii, means2d, depths, conics, _ = jax.jit(fully_fused_projection, static_argnums=(5, 6))(*args, W, H)
     opac = jnp.broadcast_to(jnp.asarray(opacities[:N])[None], radii.shape)
     colors = jnp.broadcast_to(jnp.asarray(colors[:N])[None], (C, N, 3))
-    contrib, _, sel, _ = rasterize_to_indices_in_range(
+    contrib, _, sel, _ = jax.jit(rasterize_to_indices_in_range, static_argnums=(0, 1, 8, 9))(
         0, N, jnp.ones((C, H, W)), means2d, conics, opac, radii, depths, W, H
     )
     out["3dgs"] = dict(
         ins=[np.array(x) for x in (means2d, conics, opac, colors)],
         ids=_coo(np.array(contrib), np.array(sel)),
     )
-    radii, means2d, depths, M, normals = fully_fused_projection_2dgs(*args, W, H)
-    contrib, _, sel, _ = rasterize_to_indices_in_range_2dgs(
+    radii, means2d, depths, M, normals = jax.jit(fully_fused_projection_2dgs, static_argnums=(5, 6))(*args, W, H)
+    contrib, _, sel, _ = jax.jit(rasterize_to_indices_in_range_2dgs, static_argnums=(0, 1, 8, 9))(
         0, N, jnp.ones((C, H, W)), means2d, M, opac, radii, depths, W, H
     )
     out["2dgs"] = dict(
@@ -87,19 +93,28 @@ def scene():
     return out
 
 
+@pytest.fixture
+def scene():
+    return _lists()
+
+
 FNS = {"3dgs": (jax_acc, accumulate), "2dgs": (jax_acc2, accumulate_2dgs)}
 
 
-@pytest.fixture(scope="module", autouse=True)
-def jitted_jax_scan():
+@functools.lru_cache(maxsize=None)
+def _jitted_scan():
+    return jax.jit(jax_accumulate_module._segmented_weights)
+
+
+@pytest.fixture(autouse=True)
+def jitted_jax_scan(monkeypatch):
     """The JAX functions run eagerly, as a caller runs them, except their
-    segmented scan, which is jitted: eagerly each level of the associative
-    scan compiles its own ops (~12 s a call). The scan only multiplies, so
-    jit changes none of its roundings; jitting the whole function would
-    let XLA contract the 2DGS cross products into multiply-adds."""
-    with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jax_accumulate_module, "_segmented_weights", jax.jit(jax_accumulate_module._segmented_weights))
-        yield
+    segmented scan, which is jitted (once per process): eagerly each level
+    of the associative scan compiles its own ops (~12 s a call). The scan
+    only multiplies, so jit changes none of its roundings; jitting the
+    whole function would let XLA contract the 2DGS cross products into
+    multiply-adds."""
+    monkeypatch.setattr(jax_accumulate_module, "_segmented_weights", _jitted_scan())
 
 
 def _both(kind, ins, ids, valid=None):
@@ -111,11 +126,19 @@ def _both(kind, ins, ids, valid=None):
     return [np.array(w) for w in want], [g.detach().numpy() for g in got]
 
 
+@functools.lru_cache(maxsize=None)
+def _unpadded(kind):
+    """Both packages on the scene's lists, once per process: the padding
+    tests compare against it too."""
+    s = _lists()[kind]
+    return _both(kind, s["ins"], s["ids"])
+
+
 @pytest.mark.parametrize("kind", ["3dgs", "2dgs"])
 def test_accumulate_matches_jax(scene, kind):
     s = scene[kind]
     assert s["ids"][0].size > 1000  # the scene hits pixels
-    want, got = _both(kind, s["ins"], s["ids"])
+    want, got = _unpadded(kind)
     assert len(got) == (2 if kind == "3dgs" else 3)
     for g, w in zip(got, want):
         assert g.shape == w.shape
@@ -164,7 +187,7 @@ def test_accumulate_padding(scene, kind, how):
         extra = [gpad, np.arange(pad, dtype=np.int32) % (H * W), np.full(pad, C, np.int32)]
         valid = None
     ids = [np.concatenate([a, b]) for a, b in zip((g, p, c), extra)]
-    want0, got0 = _both(kind, s["ins"], s["ids"])
+    want0, got0 = _unpadded(kind)
     want, got = _both(kind, s["ins"], ids, valid)
     for a, b, w in zip(got, got0, want):
         np.testing.assert_allclose(a, b, **TOL)

@@ -24,6 +24,7 @@ from gsplat_tpu.ops.binning import bin_gaussians as jax_bin
 from gsplat_tpu.ops.projection import fully_fused_projection
 from gsplat_tpu_torch import _backend
 from gsplat_tpu_torch.ops import binning
+from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 
 def _projected(seed=0, N=250, C=2, W=64, H=48, D=3):

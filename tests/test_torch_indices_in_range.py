@@ -18,9 +18,12 @@ atol 2e-4 and rtol 1e-4, the JAX package's tolerance for its own chaining,
 3DGS and 2DGS.
 """
 
+import functools
+
 import numpy as np
 import pytest
 
+import jax
 import jax.numpy as jnp
 import torch
 
@@ -37,7 +40,7 @@ from gsplat_tpu_torch.ops.rasterize_ref import (
     rasterize_to_pixels_ref,
 )
 
-from torch_exp_warmup import warm_exp
+from torch_exp_warmup import one_torch_thread, warm_exp  # noqa: F401 (one_torch_thread: an autouse fixture)
 
 N, C, W, H = 200, 2, 64, 48
 N_WINDOWS = 5
@@ -59,18 +62,27 @@ def _scene():
     return means, quats, scales, opac, colors, viewmats, Ks
 
 
-@pytest.fixture(scope="module", params=["3dgs", "2dgs"])
+@pytest.fixture(params=["3dgs", "2dgs"])
 def case(request):
-    """Both packages' windows on the JAX projection of the scene."""
+    return _windows(request.param)
+
+
+@functools.lru_cache(maxsize=None)
+def _windows(kind):
+    """Both packages' windows on the JAX projection of the scene, built once
+    per process and kind (under `--dist load` a module-scoped fixture is
+    rebuilt whenever a worker comes back to this module)."""
     warm_exp()
     means, quats, scales, opac, colors, viewmats, Ks = _scene()
     args = tuple(map(jnp.asarray, (means, quats, scales, viewmats, Ks)))
-    if request.param == "3dgs":
-        radii, means2d, depths, geom, _ = jax_proj(*args, W, H)
+    # the projection's outputs are both packages' inputs: jitted (eagerly
+    # each op compiles on its own); the windows stay eager
+    if kind == "3dgs":
+        radii, means2d, depths, geom, _ = jax.jit(jax_proj, static_argnums=(5, 6))(*args, W, H)
         jfn, tfn = jax_idx, rasterize_to_indices_in_range
         normals = None
     else:
-        radii, means2d, depths, geom, normals = jax_proj2(*args, W, H)
+        radii, means2d, depths, geom, normals = jax.jit(jax_proj2, static_argnums=(5, 6))(*args, W, H)
         jfn, tfn = jax_idx2, rasterize_to_indices_in_range_2dgs
     opc = np.broadcast_to(opac[None], (C, N)).copy()
     ins = [np.array(x) for x in (means2d, geom, opc, radii, depths)]
@@ -83,7 +95,7 @@ def case(request):
         got = tfn(int(s), int(e), torch.from_numpy(T), *map(torch.from_numpy, ins), W, H, 16)
         windows.append((want, [g.numpy() for g in got]))
         T = want[3].reshape(C, H, W).copy()
-    return dict(kind=request.param, ins=ins, colors=colors, normals=normals, windows=windows, tfn=tfn)
+    return dict(kind=kind, ins=ins, colors=colors, normals=normals, windows=windows, tfn=tfn)
 
 
 def test_sel_matches_jax(case):

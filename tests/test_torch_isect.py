@@ -21,6 +21,7 @@ from gsplat_tpu.ops.isect import suggest_capacity as jax_suggest
 from gsplat_tpu_torch.ops.isect import isect_offset_encode, isect_tiles, suggest_capacity
 
 from test_rasterize_tiled import _scene
+from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 TS, TW, TH = 16, 4, 3  # 64x48 at tile size 16
 

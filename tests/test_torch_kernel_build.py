@@ -18,6 +18,7 @@ import os
 import pytest
 
 from gsplat_tpu_torch import _backend
+from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 NO_FMAD = {"emit", "rasterize_2dgs_fwd", "rasterize_2dgs_tiled_fwd"}
 EXPLICIT_DECISIONS = {"rasterize_2dgs_bwd", "rasterize_2dgs_tiled_bwd"}

@@ -15,6 +15,7 @@ import torch
 
 from gsplat_tpu import losses as jl
 from gsplat_tpu_torch import losses as tl
+from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 FNS = ["l1", "ssim", "psnr", "train_loss"]
 

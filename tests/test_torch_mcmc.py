@@ -12,7 +12,9 @@ k_rel, k_add = split(k_ref)), recorded while JAX's strategy runs.
   for ratios 1-51 each package's largest relative error against a float64
   evaluation of Eq. 9 is printed, and the port's is at most JAX's + 2.5e-4
   in each band of ratios (both sum the cancelling terms in float32 in other
-  orders: up to ~1e-3 each at ratios 26-51 and opacity 1 - 1e-7);
+  orders: up to ~1e-3 each at ratios 26-51 and opacity 1 - 1e-7); its
+  product runs with TF32 off and leaves the caller's switch as it was,
+  the same bits whatever the caller set;
 - relocate, sample_add, inject_noise_to_position and
   MCMCStrategy.step_post_backward over a schedule, on tests/
   test_strategy.py's pool: parameters within rtol 1e-5 and atol 1e-6,
@@ -55,9 +57,14 @@ from test_strategy import CAP
 from test_strategy import _pool as _jax_pool
 from test_torch_strategy import _jax, _torch
 from test_torch_trainer import W, H, _scene
-from torch_exp_warmup import warm_exp
+from torch_exp_warmup import one_torch_thread, warm_exp  # noqa: F401 (one_torch_thread: an autouse fixture)
 
 TOL = dict(rtol=1e-5, atol=1e-6)
+# the JAX step's photometric loss, jitted: eagerly each of its ops compiles
+# on its own (~10 of test_runner_mcmc_three_steps_match_jax's ~45 s). The
+# rasterization stays eager: jitted, XLA's fusions move its gradients by an
+# ulp, and Adam's first step turns a near-zero gradient's sign into +-lr
+_JIT_LOSS = jax.jit(jax_train_loss, static_argnums=2)
 
 
 def _pool(seed, n_live=64, n_dead=10):
@@ -138,6 +145,45 @@ def test_compute_relocation_matches_jax_for_small_ratios():
     got = compute_relocation(*map(torch.from_numpy, (op, scales, ratios)), make_binoms(device="cpu"))
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=1e-7)
+
+
+def _spy_tf32(monkeypatch):
+    """The TF32 switch as each float32 product (Tensor.__matmul__) sees it."""
+    seen = []
+    real = torch.Tensor.__matmul__
+
+    def spy(a, b):
+        seen.append(torch.backends.cuda.matmul.allow_tf32)
+        return real(a, b)
+
+    monkeypatch.setattr(torch.Tensor, "__matmul__", spy)
+    return seen
+
+
+def test_compute_relocation_keeps_the_callers_tf32_switch(monkeypatch):
+    """compute_relocation's product runs with TF32 off through allow_tf32
+    alone and restores the caller's setting: a caller that has set the
+    precision and then sets allow_tf32 between calls (a mix after which
+    torch.get_float32_matmul_precision may raise) reads back its own
+    setting each time, and the results do not move."""
+    op, scales, ratios = (torch.from_numpy(x) for x in _reloc_inputs())
+    binoms = make_binoms(device="cpu")
+    before = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)
+    seen = _spy_tf32(monkeypatch)
+    outs = []
+    try:
+        torch.set_float32_matmul_precision("high")
+        for allow in (True, False, True):
+            torch.backends.cuda.matmul.allow_tf32 = allow
+            outs.append(compute_relocation(op, scales, ratios, binoms))
+            assert torch.backends.cuda.matmul.allow_tf32 is allow
+    finally:
+        torch.set_float32_matmul_precision(before[0])
+        torch.backends.cuda.matmul.allow_tf32 = before[1]
+    assert seen == [False] * 3
+    for o in outs[1:]:
+        for g, w in zip(o, outs[0]):
+            assert torch.equal(g, w)
 
 
 def test_compute_relocation_error_against_float64():
@@ -289,6 +335,7 @@ def _jax_mcmc_steps(runner0, n_steps, monkeypatch):
     }
     opts = {k: JaxAdam(lrs[k], eps=1e-15) for k in params}
     states = {k: opts[k].init(v) for k, v in params.items()}
+    updates = {k: jax.jit(opt.update) for k, opt in opts.items()}  # elementwise: eagerly ~1 s a step
     strat = JaxMCMC(cap_max=cfg.cap_max, noise_lr=cfg.noise_lr, refine_start_iter=cfg.refine_start_iter,
                     refine_stop_iter=25_000, refine_every=cfg.refine_every)
     sstate = strat.initialize_state(live.shape[0])
@@ -306,12 +353,12 @@ def _jax_mcmc_steps(runner0, n_steps, monkeypatch):
                 jnp.linalg.inv(jnp.asarray(view["camtoworld"]))[None], jnp.asarray(view["K"])[None],
                 W, H, sh_degree=sh_degree, backend="oracle", masks=live, tile_size=cfg.tile_size,
             )
-            return jax_train_loss(render, pixels, cfg.ssim_lambda), meta["radii"]
+            return _JIT_LOSS(render, pixels, cfg.ssim_lambda), meta["radii"]
 
         (_, radii), g = jax.value_and_grad(loss_fn, has_aux=True)(params)
         vis = jnp.any(radii > 0, axis=0)
         for k in params:
-            upd, states[k] = opts[k].update(g[k], states[k], params[k], vis)
+            upd, states[k] = updates[k](g[k], states[k], params[k], vis)
             params = {**params, k: params[k] + upd}
         key = jax.random.PRNGKey(100 + step)
         noise = np.array(jax.random.normal(jax.random.split(key)[1], params["means"].shape, jnp.float32))
@@ -413,6 +460,6 @@ def test_scale_steps_matches_jax():
     tcfg = st.Config(steps_scaler=0.25)
     jcfg.scale_steps()
     tcfg.scale_steps()
-    for name in ("max_steps", "eval_steps", "refine_start_iter", "refine_stop_iter", "reset_every",
+    for name in ("max_steps", "eval_steps", "save_steps", "refine_start_iter", "refine_stop_iter", "reset_every",
                  "refine_every", "sh_degree_interval"):
         assert getattr(tcfg, name) == getattr(jcfg, name), name

@@ -1,8 +1,8 @@
 """The port as a package: what it imports, where it runs, what it refuses.
 
 - importing gsplat_tpu_torch loads neither jax nor gsplat_tpu, and no source
-  of the package, chip_smoke.py or the port's scripts/torch_*.py imports
-  them; the package exports the JAX package's names;
+  of the package (datasets/ included), chip_smoke.py or the port's
+  scripts/torch_*.py imports them; the package exports the JAX package's names;
 - functions run on the device of their inputs and refuse mixed devices;
   splats_from_numpy defaults to CUDA and raises without it;
 - paths not ported yet (multi-GPU) raise NotImplementedError instead of
@@ -36,6 +36,7 @@ from gsplat_tpu_torch.ops import rasterize_binned as trb
 from gsplat_tpu_torch.ops.rasterize import rasterize_to_pixels, resolve_auto_backend
 
 from test_torch_rendering import CAP, _compare, _garden
+from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "gsplat_tpu_torch")
@@ -50,6 +51,7 @@ def test_import_loads_no_jax():
         "import gsplat_tpu_torch.ops.isect, gsplat_tpu_torch.ops.rasterize_tiled\n"
         "import gsplat_tpu_torch.ops.rasterize_2dgs_tiled, gsplat_tpu_torch.ops.accumulate\n"
         "import gsplat_tpu_torch.relocation, gsplat_tpu_torch.strategy.mcmc, gsplat_tpu_torch.utils\n"
+        "import gsplat_tpu_torch.datasets.synth, gsplat_tpu_torch.bilagrid, gsplat_tpu_torch.image_fitting\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'gsplat_tpu' or m.startswith('gsplat_tpu.'))\n"
         "assert not bad, bad\n"
@@ -298,7 +300,7 @@ def test_cpu_runs_launch_no_kernel():
     view = {"image": np.zeros((16, 16, 3), np.float32), "K": np.array([[16.0, 0, 8], [0, 16, 8], [0, 0, 1]], np.float32),
             "camtoworld": np.array([[1, 0, 0, 0], [0, 1, 0, 0], [0, 0, 1, -4], [0, 0, 0, 1]], np.float32), "image_id": 0}
     cfg = simple_trainer.Config(strategy_name="mcmc", cap_max=100, refine_start_iter=0, refine_every=1,
-                                sh_degree=0, isect_capacity_init=4096)
+                                sh_degree=0, isect_capacity_init=4096, backend="binned")
     runner = simple_trainer.Runner(cfg, [view], pts, np.full((50, 3), 128, np.uint8), 1.0, device="cpu")
     assert runner.train_step(1)["refined"] and int(runner.live.sum()) == 52
     assert _backend.launch_counts() == {name: 0 for name in (

@@ -18,6 +18,7 @@ import torch
 from gsplat_tpu.ops import projection as jproj
 from gsplat_tpu_torch import load_test_data
 from gsplat_tpu_torch.ops import projection as tproj
+from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

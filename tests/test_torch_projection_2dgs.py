@@ -24,6 +24,7 @@ from gsplat_tpu_torch.ops.projection_2dgs import (
     fully_fused_projection_2dgs,
     fully_fused_projection_2dgs_soa,
 )
+from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 W, H = 64, 48
 

@@ -30,6 +30,7 @@ from gsplat_tpu_torch.ops import projection_2dgs as tproj2
 
 from test_torch_projection import TOL, _scene
 from test_torch_projection_2dgs import _inputs as _inputs_2dgs
+from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CASES = {
     "pinhole": dict(),

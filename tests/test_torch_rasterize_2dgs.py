@@ -41,6 +41,7 @@ from gsplat_tpu_torch.ops import rasterize_2dgs_binned as r2
 from gsplat_tpu_torch.ops import rasterize_binned as trb
 from gsplat_tpu_torch.ops.rasterize import rasterize_to_pixels_2dgs
 from gsplat_tpu_torch.ops.rasterize_2dgs_ref import rasterize_to_pixels_2dgs_ref
+from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 N, C, W, H, CAP = 300, 2, 64, 48, 16384
 # a ragged image: the last tile row holds 45 % ts pixel rows (5 at tile 8,

@@ -42,6 +42,7 @@ from test_torch_rendering_2dgs import H as R2_H
 from test_torch_rendering_2dgs import OUTS as R2_OUTS
 from test_torch_rendering_2dgs import W as R2_W
 from test_torch_rendering_2dgs import _flip_gate as _r2_flip_gate
+from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 TS, TW, TH, CAP = 16, 4, 3, 16384
 # per output: atol, max abs (tests/test_rasterize_2dgs_tiled.py)

@@ -21,6 +21,7 @@ from gsplat_tpu.ops.rasterize_ref import rasterize_to_pixels_ref as jax_ref
 from gsplat_tpu_torch.ops import rasterize_binned as trb
 from gsplat_tpu_torch.ops.rasterize import rasterize_to_pixels
 from gsplat_tpu_torch.ops.rasterize_ref import rasterize_to_pixels_ref
+from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 C, W, H, CAP = 2, 64, 48, 8192

@@ -34,6 +34,7 @@ from gsplat_tpu_torch.ops.rasterize_ref import (
     rasterize_to_pixels_ref,
     rasterize_to_pixels_ref_absgrad,
 )
+from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 C, W, H, TS, D, CAP = 1, 48, 32, 16, 3, 8192
 NAMES = ("means2d", "conics", "colors", "opacities")

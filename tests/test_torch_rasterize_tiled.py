@@ -33,6 +33,7 @@ from gsplat_tpu_torch.ops.rasterize import rasterize_to_pixels
 from gsplat_tpu_torch.ops.rasterize_ref import rasterize_to_pixels_ref
 
 from test_rasterize_tiled import _scene
+from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 C, W, H, TS, CAP = 2, 64, 48, 16, 8192
 TW, TH = 4, 3

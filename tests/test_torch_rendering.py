@@ -18,6 +18,7 @@ import torch
 
 import gsplat_tpu
 from gsplat_tpu_torch import load_test_data, rasterization
+from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CAP = 1 << 16
 

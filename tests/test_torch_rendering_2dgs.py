@@ -29,6 +29,7 @@ from gsplat_tpu.rendering import rasterization_2dgs as jax_r2
 from gsplat_tpu.utils import depth_to_normal as jax_d2n
 from gsplat_tpu.utils import depth_to_points as jax_d2p
 from gsplat_tpu_torch import depth_to_normal, depth_to_points, rasterization_2dgs
+from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 N, C, W, H, CAP = 200, 2, 48, 32, 8192
 OUTS = ("colors", "alphas", "normals", "normals_from_depth", "distort", "median")

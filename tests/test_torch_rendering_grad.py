@@ -23,6 +23,7 @@ import gsplat_tpu
 from gsplat_tpu_torch import rasterization
 
 from test_torch_rendering import CAP, _garden
+from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 KEYS = ("means", "quats", "scales", "opacities", "sh0", "shN")
 CASES = {  # name -> rasterization kwargs

@@ -17,6 +17,7 @@ import torch
 
 from gsplat_tpu.optimizers import SelectiveAdam as JaxAdam
 from gsplat_tpu_torch.optimizers import SelectiveAdam
+from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CAP = 64
 SHAPES = {"means": (CAP, 3), "opacities": (CAP,), "shN": (CAP, 15, 3)}

@@ -12,6 +12,7 @@ import torch
 
 from gsplat_tpu.ops import sh as jsh
 from gsplat_tpu_torch.ops import sh as tsh
+from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 

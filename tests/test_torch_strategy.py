@@ -22,6 +22,7 @@ from gsplat_tpu.strategy import ops as jops
 from gsplat_tpu_torch.optimizers import SelectiveAdam
 from gsplat_tpu_torch.strategy import DefaultStrategy
 from gsplat_tpu_torch.strategy import ops as tops
+from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 CAP = 64
 SHAPES = {"means": (3,), "scales": (3,), "quats": (4,), "opacities": (), "sh0": (1, 3), "shN": (3, 3)}

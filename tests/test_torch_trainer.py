@@ -38,6 +38,7 @@ from gsplat_tpu.strategy import DefaultStrategy as JaxDefault
 from gsplat_tpu_torch import rasterization
 from gsplat_tpu_torch import simple_trainer as st
 from gsplat_tpu_torch.modules import knn_distances, rgb_to_sh, sh_to_rgb
+from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W, H = 48, 36

@@ -52,6 +52,7 @@ from gsplat_tpu_torch import simple_trainer as st
 from gsplat_tpu_torch.simple_trainer_2dgs import Runner2DGS
 
 from test_torch_trainer import _ROOT, _c2w, _jax_trainer
+from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 W, H = 48, 36
 NORMAL_START, DIST_START = 1, 2

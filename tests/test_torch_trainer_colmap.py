@@ -1,0 +1,412 @@
+"""The port's trainer from a COLMAP directory (gsplat_tpu_torch.simple_trainer,
+simple_trainer_2dgs) vs the JAX trainer (examples/simple_trainer.py).
+
+The scene is tests/torch_synth_scene.py's (6 views of 64x48, 300 points
+with each view's observations; test_every 8 leaves 5 train views whose
+image ids run 1-5 against 5 table rows, so id 5 reads the clamped row).
+- Pool growth against JAX's `_maybe_grow` on the same state: the grown
+  params, live mask, Adam moments and strategy state equal (zeros in the
+  new slots), the pre-scaled intersection capacity, the growth history
+  and the projection equal; with and without a projection.
+- The depth term against the JAX trainer's formula, value and gradient
+  within rtol 1e-6, pixels at negative and past-the-edge coordinates
+  included.
+- Three steps of both trainers from the same COLMAP directory and the same
+  state (the JAX Runner's, carried across by Runner.set_state and
+  checkpoint.aux_modules_from_numpy), with depth_loss, pose_opt, app_opt
+  and use_bilateral_grid on: the port on the binned backend (plain
+  versions), JAX on its oracle, its step jitted: parameters (splats and
+  aux modules) within rtol 1e-4 and atol 1e-3 x their learning rate,
+  splat moments within rtol 1e-4 and atol 1e-5 x their largest |value|
+  (test_torch_trainer.py's atols x 10: see PARAM_ATOL).
+- parse_config equal to JAX's for a few command lines (with
+  --steps-scaler), but the port's tile_size default.
+- Save -> load -> continue across refine steps (splits and duplicates
+  drawing from the step generator) equals the uninterrupted run bit for
+  bit (splats, moments, live mask, aux modules, their optimizers); the
+  checkpoint's arrays round-trip bit for bit.
+- The command line end to end on the CPU (main), 3DGS and 2DGS, writes
+  cfg.json, stats.jsonl, val_step*.json, ckpt_*.npz, splats_*.ply and the
+  fly-through; a JAX trainer checkpoint loads in the eval-only mode.
+- The flags not ported yet raise NotImplementedError.
+"""
+
+import dataclasses
+import functools
+import json
+import os
+import sys
+import tempfile
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gsplat_tpu.optimizers import SelectiveAdam as JaxAdam
+from gsplat_tpu.strategy import DefaultStrategy as JaxDefault
+from gsplat_tpu_torch import simple_trainer as st
+from gsplat_tpu_torch import simple_trainer_2dgs as st2
+
+from test_torch_trainer import _jax_trainer
+from torch_exp_warmup import one_torch_thread, warm_exp  # noqa: F401 (one_torch_thread: an autouse fixture)
+from torch_synth_scene import scene_dir
+
+# The JAX reference here is the JAX trainer's own step, jitted (XLA
+# contracts multiply-adds), where test_torch_trainer.py's runs op by op
+# (which takes ~75 s here). Its tolerances, rtol 1e-4 with atol 1e-4 x
+# the learning rate (parameters) and 1e-6 x the largest |value|
+# (moments), fail at single entries: a feature at step 1 by 4.3e-4 x lr (1
+# of 131,072; Adam's second step amplifies a gradient whose two steps
+# nearly cancel), a means moment at step 0 by 2.5e-6 x the largest (1 of
+# 12,288, a sum that cancels; also against the op-by-op JAX step). So
+# here: atol 1e-3 x lr and 1e-5 x the largest |value|
+PARAM_ATOL, MOMENT_ATOL = 1e-3, 1e-5
+AUX_ON = dict(depth_loss=True, pose_opt=True, app_opt=True, use_bilateral_grid=True, pose_opt_lr=1e-3)
+
+
+@pytest.fixture(autouse=True)
+def jax_python_colmap_reader(monkeypatch):
+    """The JAX Parser reads through its Python reader: its native one
+    compiles with g++ first (~20 s), and the port has none."""
+    from gsplat_tpu.datasets import colmap_native
+
+    monkeypatch.setattr(colmap_native, "_build_and_load", lambda: None)
+
+
+def _np(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _jax_state(r):
+    return {
+        "params": {k: np.asarray(v) for k, v in r.params.items()},
+        "moments": {k: (np.asarray(s.mu), np.asarray(s.nu)) for k, s in r.opt_states.items()},
+        "aux": {m: {k: np.asarray(v) for k, v in p.items()} for m, p in r.aux_params.items()},
+        "live": np.asarray(r.live),
+    }
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_three_steps():
+    """The JAX Runner on the scene, three steps of its `train`, the state
+    before and after each step (one jit of the step: every aux module in
+    it). Built once per process. tb_every=0: at step 0 the JAX trainer
+    would import TensorBoard (and TensorFlow, ~15 s here) to log."""
+    warm_exp()
+    jt = _jax_trainer()
+    from gsplat_tpu.datasets import colmap_native
+
+    real = colmap_native._build_and_load, jt.knn_distances
+    colmap_native._build_and_load = lambda: None
+    # the kNN of the initial scales through scipy, whose distances equal
+    # scikit-learn's (test_torch_trainer.py::test_knn_and_sh_helpers):
+    # importing scikit-learn takes ~6 s
+    jt.knn_distances = st.knn_distances
+    try:
+        cfg = jt.Config(data_dir=scene_dir(), data_factor=1, result_dir=tempfile.mkdtemp(), max_steps=3,
+                        eval_steps=[], save_steps=[], sh_degree=1, sh_degree_interval=1000, refine_start_iter=100,
+                        tile_size=16, seed=3, tb_every=0, **AUX_ON)
+        runner = jt.Runner(cfg)
+    finally:
+        colmap_native._build_and_load, jt.knn_distances = real
+    # kNN scales are isotropic, so the rotations' true gradient is 0 and
+    # Adam would step on rounding noise: an anisotropic start, as in
+    # test_torch_trainer.py
+    noise = np.random.default_rng(0).normal(0.0, 0.3, runner.params["scales"].shape).astype(np.float32)
+    runner.params = {**runner.params, "scales": runner.params["scales"] + jnp.asarray(noise)}
+    init = _jax_state(runner)
+    snaps = []
+    grow = runner._maybe_grow
+
+    def snapshot(*args, **kwargs):
+        snaps.append(_jax_state(runner))
+        return grow(*args, **kwargs)
+
+    runner._maybe_grow = snapshot
+    runner.train()
+    return cfg, init, snaps, runner.scene_scale
+
+
+def _port_runner(tmp, device="cpu", **kw):
+    cfg = st.Config(data_dir=scene_dir(), data_factor=1, result_dir=str(tmp), tile_size=16, seed=3, **kw)
+    return st.Runner.from_colmap(cfg, device=device)
+
+
+def _lr(runner, name, aux=None):
+    if aux is not None:
+        return runner.aux_optimizers[aux].param_groups[0]["lr"]
+    lr = runner.optimizers[name].param_groups[0]["lr"]
+    return runner.cfg.means_lr * runner.scene_scale if callable(lr) else lr
+
+
+def test_three_steps_with_aux_modules_match_jax(tmp_path):
+    jcfg, init, snaps, scene_scale = _jax_three_steps()
+    runner = _port_runner(tmp_path, max_steps=3, eval_steps=[], save_steps=[], sh_degree=1, sh_degree_interval=1000,
+                          refine_start_iter=100, backend="binned", **AUX_ON)
+    assert sorted(runner.aux) == ["app", "bilagrid", "pose"] and len(runner.trainset) == 5
+    assert sorted(runner.params) == sorted(init["params"]) == ["colors", "features", "means", "opacities", "quats",
+                                                               "scales"]
+    assert runner.scene_scale == pytest.approx(scene_scale, rel=1e-6)
+    runner.set_state(init["params"], init["live"], init["aux"])
+    runner.probe_isect_capacity()
+    ids = []
+    for step in range(3):
+        out = runner.train_step(step)
+        ids += out["image_ids"]
+        assert np.isfinite(float(out["loss"])) and float(out["depth"]) > 0
+        want = snaps[step]
+        np.testing.assert_array_equal(_np(runner.live), want["live"])
+        for k, p in runner.params.items():
+            np.testing.assert_allclose(_np(p), want["params"][k], rtol=1e-4, atol=PARAM_ATOL * _lr(runner, k),
+                                       err_msg=f"step {step} {k}")
+            state = runner.optimizers[k].state[p]
+            for got, w, name in ((state["exp_avg"], want["moments"][k][0], "mu"),
+                                 (state["exp_avg_sq"], want["moments"][k][1], "nu")):
+                np.testing.assert_allclose(_np(got), w, rtol=1e-4, atol=MOMENT_ATOL * max(float(np.abs(w).max()), 1e-12),
+                                           err_msg=f"step {step} {k} {name}")
+        for m, mod in runner.aux.items():
+            for name, p in mod.named_parameters():
+                w = want["aux"][m][name]
+                np.testing.assert_allclose(_np(p), w, rtol=1e-4, atol=PARAM_ATOL * _lr(runner, None, m),
+                                           err_msg=f"step {step} {m}.{name}")
+    assert all(1 <= i <= 5 for i in ids)
+    for m, name in (("pose", "embeds"), ("app", "w0"), ("bilagrid", "grids")):  # each module trained
+        assert not np.array_equal(snaps[-1]["aux"][m][name], init["aux"][m][name]), m
+
+
+@pytest.mark.parametrize("history", [True, False])
+def test_pool_growth_matches_jax(tmp_path, history):
+    """A 4096-slot pool with 3700 live (> 0.9 x cap): JAX's `_maybe_grow`
+    and the port's on the same state."""
+    jt = _jax_trainer()
+    runner = _port_runner(tmp_path, pool_headroom=1.0, refine_stop_iter=60, max_steps=80, backend="binned",
+                          isect_capacity_init=100_000)
+    cap = runner.live.shape[0]
+    assert cap == 4096
+    rng = np.random.default_rng(11)
+    params = {k: rng.standard_normal(_np(v).shape).astype(np.float32) for k, v in runner.params.items()}
+    live = np.arange(cap) < 3700
+    runner.set_state(params, live)
+    moments = {k: (rng.standard_normal(v.shape).astype(np.float32), rng.random(v.shape).astype(np.float32))
+               for k, v in params.items()}
+    for k, p in runner.params.items():
+        runner.optimizers[k].state[p] = {"step": 7, "exp_avg": torch.from_numpy(moments[k][0].copy()),
+                                         "exp_avg_sq": torch.from_numpy(moments[k][1].copy())}
+    grad2d, count = rng.random(cap).astype(np.float32), rng.integers(0, 9, cap).astype(np.float32)
+    runner.strategy_state["grad2d"] = torch.from_numpy(grad2d.copy())
+    runner.strategy_state["count"] = torch.from_numpy(count.copy())
+    hist = [(10, 2000), (20, 2600), (30, 3100)] if history else []
+    runner._live_hist = list(hist)
+
+    jr = jt.Runner.__new__(jt.Runner)
+    jr.cfg = jt.Config(pool_headroom=1.0, refine_stop_iter=60, max_steps=80)
+    jr.params = {k: jnp.asarray(v) for k, v in params.items()}
+    jr.live = jnp.asarray(live)
+    jr.opt_states = {k: JaxAdam(1e-3).init(jr.params[k])._replace(
+        count=jnp.asarray(7, jnp.int32), mu=jnp.asarray(moments[k][0]), nu=jnp.asarray(moments[k][1]))
+        for k in params}
+    jr.strategy_state = {**JaxDefault().initialize_state(cap, scene_scale=runner.scene_scale),
+                         "grad2d": jnp.asarray(grad2d), "count": jnp.asarray(count)}
+    jr.isect_capacity, jr.pack_capacity, jr._step_fn = 100_000, 4096, None
+    jr._live_hist = list(hist)
+
+    step, n_isects = 40, 90_000
+    assert (jr._projected_final_live(step, 3700) is None) == (not history)
+    if history:
+        assert runner._projected_final_live(step, 3700) == pytest.approx(jr._projected_final_live(step, 3700), rel=1e-12)
+    jr._maybe_grow(n_isects, 0, step=step)
+    assert runner._maybe_grow(n_isects, step=step)
+    new_cap = jr.live.shape[0]
+    assert runner.live.shape[0] == new_cap and new_cap >= 2 * cap
+    assert runner.isect_capacity == jr.isect_capacity > 100_000
+    assert runner._live_hist == jr._live_hist == hist + [(step, 3700)]
+    np.testing.assert_array_equal(_np(runner.live), np.asarray(jr.live))
+    for k, p in runner.params.items():
+        assert p.is_leaf and p.requires_grad and p.shape[0] == new_cap
+        np.testing.assert_array_equal(_np(p), np.asarray(jr.params[k]), err_msg=k)
+        opt = runner.optimizers[k]
+        assert opt.param_groups[0]["params"][0] is p and len(opt.state) == 1
+        state = opt.state[p]
+        assert state["step"] == 7 == int(jr.opt_states[k].count)
+        np.testing.assert_array_equal(_np(state["exp_avg"]), np.asarray(jr.opt_states[k].mu), err_msg=k)
+        np.testing.assert_array_equal(_np(state["exp_avg_sq"]), np.asarray(jr.opt_states[k].nu), err_msg=k)
+    for k in ("grad2d", "count"):
+        np.testing.assert_array_equal(_np(runner.strategy_state[k]), np.asarray(jr.strategy_state[k]), err_msg=k)
+    # the grown pool trains on: one step, the means' learning rate at count 8
+    out = runner.train_step(41)
+    assert np.isfinite(float(out["loss"])) and runner.optimizers["means"].state[runner.params["means"]]["step"] == 8
+
+
+def test_depth_term_matches_jax():
+    """examples/simple_trainer.py's disparity L1 (inside its step_fn),
+    written out here with jnp, against the port's depth_loss_term."""
+    rng = np.random.default_rng(12)
+    B, Hh, Ww, P = 2, 9, 11, 40
+    dmap = rng.uniform(0.5, 4.0, (B, Hh, Ww, 1)).astype(np.float32)
+    pts = rng.uniform(-3.0, 14.0, (B, P, 2)).astype(np.float32)
+    pts[0, :4] = [[-0.7, 2.3], [-1.2, -0.4], [10.9, 8.99], [-0.01, -0.99]]  # truncation toward zero
+    dep = rng.uniform(0.5, 4.0, (B, P)).astype(np.float32)
+    dep[:, ::5] = 0.0  # padding
+
+    def jax_term(depths_map):
+        xi = jnp.clip(jnp.asarray(pts)[..., 0].astype(jnp.int32), 0, Ww - 1)
+        yi = jnp.clip(jnp.asarray(pts)[..., 1].astype(jnp.int32), 0, Hh - 1)
+        d_pred = depths_map[jnp.arange(B)[:, None], yi, xi, 0]
+        valid = jnp.asarray(dep) > 0
+        disp = jnp.where(valid, 1.0 / jnp.clip(d_pred, 1e-6, None), 0.0)
+        disp_gt = jnp.where(valid, 1.0 / jnp.clip(jnp.asarray(dep), 1e-6, None), 0.0)
+        nl = jnp.clip(jnp.sum(valid), 1, None)
+        return 0.01 * jnp.sum(jnp.abs(disp - disp_gt)) / nl * 1.7
+
+    want, g_want = jax.value_and_grad(jax_term)(jnp.asarray(dmap))
+    x = torch.from_numpy(dmap).requires_grad_(True)
+    got = st.depth_loss_term(x, torch.from_numpy(pts), torch.from_numpy(dep), 0.01, 1.7)
+    got.backward()
+    np.testing.assert_allclose(float(got), float(want), rtol=1e-6)
+    np.testing.assert_allclose(x.grad.numpy(), np.asarray(g_want), rtol=1e-6, atol=1e-9)
+    assert x.grad[0, 0, 0, 0] != 0 and x.grad[0, 8, 10, 0] != 0  # (-0.7, 2.3) -> x 0; (10.9, 8.99) -> (10, 8)
+    assert float(st.depth_loss_term(x, torch.from_numpy(pts), torch.zeros((B, P)), 0.01, 1.7)) == 0.0
+
+
+@pytest.mark.parametrize("argv", [
+    [],
+    ["mcmc", "--cap-max", "5000", "--steps-scaler", "0.25", "--tile-size", "32"],
+    ["default", "--data-dir", "d", "--eval-steps", "5", "10", "--save-steps", "--depth-loss", "--pose-opt",
+     "--app-opt", "--use-bilateral-grid", "--steps-scaler", "0.5", "--init-opa", "0.3", "--backend", "tiled"],
+])
+def test_parse_config_matches_jax(monkeypatch, argv):
+    jt = _jax_trainer()
+    monkeypatch.setattr(sys, "argv", ["simple_trainer.py"] + argv)
+    want = vars(jt.parse_config())
+    got = dataclasses.asdict(st.parse_config(argv))
+    assert sorted(got) == sorted(want) and len(got) == 72
+    if "--tile-size" not in argv:
+        assert (got.pop("tile_size"), want.pop("tile_size")) == (16, 32)
+    assert got == want
+
+
+def test_auto_backend_resolves_by_device(tmp_path):
+    """backend="auto" (the default, as in the JAX trainer): the oracle on
+    the CPU; the binned backend on the card."""
+    assert _port_runner(tmp_path).backend == "oracle"
+
+
+@pytest.mark.parametrize("flag,value", [("distributed", True), ("packed", True), ("lpips_weights", "w.npz"),
+                                        ("compression", "png")])
+def test_unported_flags_raise(tmp_path, flag, value):
+    with pytest.raises(NotImplementedError, match="not ported"):
+        _port_runner(tmp_path, **{flag: value})
+
+
+def _state(runner):
+    out = {"live": _np(runner.live)}
+    for k, p in runner.params.items():
+        out[f"p/{k}"] = _np(p)
+        for name, v in runner.optimizers[k].state[p].items():
+            out[f"adam/{k}/{name}"] = _np(v)
+    for m, mod in runner.aux.items():
+        for name, p in mod.named_parameters():
+            out[f"aux/{m}/{name}"] = _np(p)
+        for idx, s in runner.aux_optimizers[m].state_dict()["state"].items():
+            for name, v in s.items():
+                out[f"aux_adam/{m}/{idx}/{name}"] = _np(v)
+    return out
+
+
+def test_resume_equals_the_uninterrupted_run(tmp_path):
+    """8 steps with refines at 3 and 6 (split draws from the step's
+    generator) and every aux module on, against a run resumed from the
+    step-4 checkpoint; and save -> load -> save."""
+    warm_exp()
+    kw = dict(max_steps=8, save_steps=[4], eval_steps=[], refine_start_iter=2, refine_every=3, grow_grad2d=1e-9,
+              sh_degree=1, sh_degree_interval=2, backend="binned", random_bkgd=True, **AUX_ON)
+    a = _port_runner(tmp_path / "a", **kw)
+    outs = a.train()
+    assert [o["refined"] for o in outs] == [s in (3, 6) for s in range(8)]
+    assert int(a.live.sum()) > 300
+    ckpt = str(tmp_path / "a" / "ckpt_4.npz")
+    b = _port_runner(tmp_path / "b", resume=ckpt, **kw)
+    outs_b = b.train()
+    assert len(outs_b) == 4 and outs_b[2]["refined"]
+    for s, (oa, ob) in enumerate(zip(outs[4:], outs_b)):
+        assert float(oa["loss"]) == float(ob["loss"]), s + 4
+    want, got = _state(a), _state(b)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    # save -> load -> save: the same arrays
+    c = _port_runner(tmp_path / "c", **kw)
+    assert c.load(ckpt) == 4
+    c.save(4)
+    first, again = np.load(ckpt), np.load(str(tmp_path / "c" / "ckpt_4.npz"))
+    assert sorted(first.files) == sorted(again.files)
+    assert {"step", "live", "splat/means", "splat/colors", "splat/features", "adam/means/exp_avg",
+            "strategy/grad2d", "aux/app/w0", "aux_adam/bilagrid/0/exp_avg", "pool/live_hist"} <= set(first.files)
+    for k in first.files:
+        np.testing.assert_array_equal(again[k], first[k], err_msg=k)
+
+
+def test_command_line_end_to_end(tmp_path):
+    """main() on the CPU: 3DGS with the fly-through and a checkpoint, the
+    eval-only mode from that checkpoint, and the 2DGS command line."""
+    out = str(tmp_path / "r")
+    argv = ["default", "--data-dir", scene_dir(), "--data-factor", "1", "--result-dir", out, "--max-steps", "3",
+            "--eval-steps", "3", "--save-steps", "3", "--render-traj", "--depth-loss", "--pose-opt",
+            "--seed", "3", "--steps-scaler", "1.0", "--backend", "binned"]
+    runner = st.main(argv, device="cpu")
+    files = sorted(os.listdir(out))
+    assert {"cfg.json", "stats.jsonl", "val_step3.json", "ckpt_3.npz", "splats_3.ply", "videos"} <= set(files)
+    assert json.load(open(os.path.join(out, "cfg.json")))["max_steps"] == 3
+    stats = [json.loads(l) for l in open(os.path.join(out, "stats.jsonl"))]
+    assert stats[0]["step"] == 0 and np.isfinite(stats[0]["loss"])
+    val = json.load(open(os.path.join(out, "val_step3.json")))
+    assert val["step"] == 3 and np.isfinite(val["psnr"]) and val["num_GS"] == int(runner.live.sum())
+    videos = os.listdir(os.path.join(out, "videos"))
+    assert videos in (["traj_interp_3.mp4"], ["traj_interp_3_frames.npz"])
+    if videos[0].endswith(".npz"):
+        frames = np.load(os.path.join(out, "videos", videos[0]))["frames"]
+        assert frames.shape[1:] == (48, 64, 3) and frames.dtype == np.uint8 and len(frames) >= 5
+    # eval-only: a checkpoint at max_steps renders the fly-through, trains nothing
+    out2 = str(tmp_path / "e")
+    r2 = st.main(argv[:6] + [out2] + argv[7:] + ["--resume", os.path.join(out, "ckpt_3.npz")], device="cpu")
+    assert not os.path.exists(os.path.join(out2, "ckpt_3.npz"))
+    np.testing.assert_array_equal(_np(r2.params["means"]), _np(runner.params["means"]))
+    # the 2DGS command line
+    out3 = str(tmp_path / "s")
+    r3 = st2.main(["--data-dir", scene_dir(), "--data-factor", "1", "--result-dir", out3, "--max-steps", "2",
+                   "--eval-steps", "2", "--save-steps", "--seed", "3", "--backend", "binned"], device="cpu")
+    assert r3.cfg.tile_size == 16 and json.load(open(os.path.join(out3, "val_step2.json")))["step"] == 2
+
+
+def test_jax_checkpoint_loads_for_eval(tmp_path):
+    """A checkpoint written by the JAX trainer's `save` (splats with
+    colors/features, the aux modules' parameters, seeded values) loads
+    into the port's Runner: its splats, live mask and aux parameters, in
+    the JAX tree's leaf order."""
+    jt = _jax_trainer()
+    src = _port_runner(tmp_path / "src", max_steps=3, sh_degree=1, **AUX_ON)
+    rng = np.random.default_rng(13)
+    params = {k: _np(v) + rng.normal(0, 0.1, v.shape).astype(np.float32) for k, v in src.params.items()}
+    aux = {m: {n: _np(p) + rng.normal(0, 0.1, p.shape).astype(np.float32) for n, p in mod.named_parameters()}
+           for m, mod in src.aux.items()}
+    live = np.arange(src.live.shape[0]) < 250
+    jr = jt.Runner.__new__(jt.Runner)
+    jr.cfg = jt.Config(result_dir=str(tmp_path))
+    jr.params = {k: jnp.asarray(v) for k, v in params.items()}
+    jr.live = jnp.asarray(live)
+    jr.opt_states = {k: JaxAdam(1e-3).init(v) for k, v in jr.params.items()}
+    jr.strategy_state = {"grad2d": jnp.zeros(live.shape), "scene_scale": 1.0}
+    jr.aux_params = {m: {k: jnp.asarray(v) for k, v in p.items()} for m, p in aux.items()}
+    jr.aux_states = {}
+    jr.save(3)
+    runner = _port_runner(tmp_path / "p", max_steps=3, sh_degree=1, **AUX_ON)
+    assert runner.load(str(tmp_path / "ckpt_3.npz")) == 3
+    np.testing.assert_array_equal(_np(runner.live), live)
+    for k, p in runner.params.items():
+        np.testing.assert_array_equal(_np(p), params[k], err_msg=k)
+    for m, mod in runner.aux.items():
+        for name, p in mod.named_parameters():
+            np.testing.assert_array_equal(_np(p), aux[m][name], err_msg=f"{m}.{name}")
+    assert runner.eval(3)["num_GS"] == 250

@@ -13,6 +13,7 @@ import torch
 
 from gsplat_tpu import utils as jutils
 from gsplat_tpu_torch import utils as tutils
+from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 TOL = dict(rtol=1e-6, atol=1e-7)
 
