@@ -7,12 +7,14 @@ Phases, each printing its lines; any failure raises and the script exits
 non-zero (there is no CPU fallback):
 
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: the eleven kernels (csrc/emit.cu, emit_gather.cu,
+  2. build: the seventeen kernel sources (csrc/emit.cu, emit_gather.cu,
      rasterize_fwd.cu, rasterize_bwd.cu, gid_reduce.cu, rasterize_2dgs_fwd.cu,
      rasterize_2dgs_bwd.cu, rasterize_tiled_fwd.cu, rasterize_tiled_bwd.cu,
-     rasterize_2dgs_tiled_fwd.cu, rasterize_2dgs_tiled_bwd.cu), one nvcc
-     process each, started together, into build/gsplat_tpu_torch/, with
-     ptxas's registers and spills for each kernel instantiation;
+     rasterize_2dgs_tiled_fwd.cu, rasterize_2dgs_tiled_bwd.cu, bilagrid_bwd.cu
+     and the micro-benchmarks' mb_calib.cu, mb_gather.cu, mb_inner_math.cu,
+     mb_slice_shapes.cu, mb_fwd_breakdown.cu), one nvcc process each,
+     started together, into build/gsplat_tpu_torch/, with ptxas's registers
+     and spills for each kernel instantiation;
   3. kernel vs plain on the card: garden scene_grid=1 at its native
      648x420, 3 cameras, tile sizes 16 and 32, sh_degree 0 and 3:
      - the emit kernel's keys and gids, and the gather kernel's sorted gids
@@ -162,21 +164,39 @@ non-zero (there is no CPU fallback):
      after save -> load -> save; a second main resumed from ckpt_12 whose
      losses at steps 12-23 (a refine at 16 among them) lie within 1e-3
      relative of the first run's with equal live counts (not bit-equal on
-     the card: the bilateral grid's gradient accumulates with atomic adds
-     and SSIM's cuDNN convolutions pick their algorithms per call);
+     the card: SSIM's cuDNN convolutions pick their algorithms per call;
+     the bilateral grid's gradients are csrc/bilagrid_bwd.cu's two kernels,
+     each launched in every step and on its last step's inputs the same
+     bits twice and within GRID_GRAD_TOL of its plain version);
      simple_trainer_2dgs.main for 8 steps (emit, both 2DGS kernels and
      the reduce in every step, finite, val_step8.json; emit, the gather,
      both 2DGS kernels and the reduce against their plain versions on its
      first train view by phase 3's gates); image fitting at
      its defaults for 300 steps on the binned backend (steps/s, PSNR
      rising). Every time printed beside the card's name and power limit;
- 14. the `kernels` line (all eleven kernels; emit, the gather and the
+ 14. the micro-benchmarks (the port of scripts/exp_*.py's Pallas
+     kernels; gsplat_tpu_torch/microbench/{vpu_calib,primitives,
+     kernel_shapes,fwd_breakdown}.py, which scripts/torch_exp_*.py
+     drive): each kernel against its plain version at a small size and at
+     its TPU script's size (the gathers equal; the forward breakdown on
+     grid1 648x420 and on 256 seeded tiles of the garden grid5 1080p
+     tile-32 stream; each tolerance gate shown to reject a wrong result),
+     the bilateral grid's gradient at 1920x1080 (the same bits twice,
+     against its plain version, timed beside grid_sample's backward), then
+     every module's timing run at its TPU script's sizes with the launch counts set
+     to 0 before and read after (each kernel launched), the calibration
+     rates beside the data sheet's figures, and fwd_3dgs on the breakdown's
+     stream at tile 32 and 16; both of the grid's gradient kernels
+     (the grids' and the luminance's) as above;
+ 15. the `kernels` line (the eleven path kernels, the grid's two gradient
+     kernels and the eighteen micro-benchmark kernels; emit, the gather and the
      reduce also with their times and bounds at the 2DGS train shapes, emit
      and the gather also at the fixture surfels, the four forwards with
      their SASS instructions per pair; the five training kernels also with
      their launches in phase 12 and in phase 13's 3DGS and 2DGS runs and
-     their largest error against the plain version on phase 13's inputs),
-     then the result line.
+     their largest error against the plain version on phase 13's inputs,
+     the grid's gradients their phase 13 launches and errors), the card's name and
+     power limit, then the result line.
 """
 
 import json
@@ -236,6 +256,11 @@ COLMAP_POINTS = 1_000_000
 COLMAP_STEPS = 24
 COLMAP_2DGS_STEPS = 8
 FIT_STEPS = 300
+# the grid's gradient kernels against their plain versions, of each
+# value's sum of |terms|: a cell sums ~4 x 10^4 products at 1080p in
+# another order (the plain version's index_add_), and the path's
+# cotangents cancel (a cell's sum ~1e-5 of its terms)
+GRID_GRAD_TOL = 1e-4
 
 
 def log(msg):
@@ -726,13 +751,9 @@ def demangle(names):
     return out if len(out) == len(names) else list(names)
 
 
-def sass_loops(so, pattern, ex2=None):
-    """{demangled kernel: the instructions of the innermost loop of its SASS
-    that holds an MUFU.EX2 (an expf)} for each kernel of the shared library
-    `so` whose name contains `pattern` (cuobjdump beside nvcc); with `ex2`
-    (a function of the kernel's name) the loop must hold exactly ex2(name)
-    of them. A static count of the loop's body: the compositing loop over
-    staged entries."""
+def _sass(so):
+    """{demangled kernel: ([(address, instruction)], {label: address})} of
+    the shared library `so` (cuobjdump beside nvcc)."""
     from gsplat_tpu_torch import _backend
 
     cuobjdump = os.path.join(os.path.dirname(_backend._nvcc()), "cuobjdump")
@@ -756,25 +777,58 @@ def sass_loops(so, pattern, ex2=None):
             funcs[fn][0].append((addr, m.group(2)))
             funcs[fn][1].update({lb: addr for lb in pending})
             pending = []
+    return dict(zip(demangle(list(funcs)), funcs.values()))
+
+
+def _loop_bodies(ins, labels):
+    """The instructions of each loop (a backward branch and what it jumps
+    over) of one kernel's SASS."""
+    for i, (addr, op) in enumerate(ins):
+        m = re.search(r"\bBRA\b[^`]*?(?:0x([0-9a-f]+)|`\(\s*(\.L_x_\d+)\s*\))", op)
+        if not m:
+            continue
+        target = int(m.group(1), 16) if m.group(1) else labels.get(m.group(2), addr + 1)
+        if target <= addr:
+            yield [o for a, o in ins[:i + 1] if a >= target]
+
+
+def sass_loops(so, pattern, ex2=None):
+    """{demangled kernel: the instructions of the innermost loop of its SASS
+    that holds an MUFU.EX2 (an expf)} for each kernel of the shared library
+    `so` whose name contains `pattern` (cuobjdump beside nvcc); with `ex2`
+    (a function of the kernel's name) the loop must hold exactly ex2(name)
+    of them. A static count of the loop's body: the compositing loop over
+    staged entries."""
     counts = {}
-    for name, (ins, labels) in zip(demangle(list(funcs)), funcs.values()):
+    for name, (ins, labels) in _sass(so).items():
         if pattern not in name:
             continue
         best = None
         want = ex2(name) if ex2 is not None else None
-        for i, (addr, op) in enumerate(ins):
-            m = re.search(r"\bBRA\b[^`]*?(?:0x([0-9a-f]+)|`\(\s*(\.L_x_\d+)\s*\))", op)
-            if not m:
-                continue
-            target = int(m.group(1), 16) if m.group(1) else labels.get(m.group(2), addr + 1)
-            if target > addr:
-                continue
-            body = [o for a, o in ins[:i + 1] if a >= target]
+        for body in _loop_bodies(ins, labels):
             n_ex2 = sum("MUFU.EX2" in o for o in body)
             if n_ex2 and (want is None or n_ex2 == want) and (best is None or len(body) < best):
                 best = len(body)
         counts[name] = best
     return counts
+
+
+def repeat_loops(so, ops):
+    """{demangled kernel: [(loop length, count of its op) for each loop
+    holding one]} of the shared library `so`, `ops` {kernel name part: SASS
+    opcode} (FFMA, HMMA): shows that a micro-benchmark's repeats stay loops
+    of the work on the card."""
+    def opcode(ins):  # past a predicate such as @P0
+        parts = ins.split()
+        return parts[1] if len(parts) > 1 and parts[0].startswith("@") else (parts[0] if parts else "")
+
+    out = {}
+    for name, (ins, labels) in _sass(so).items():
+        op = next((o for part, o in ops.items() if part in name), None)
+        if op is not None:
+            counts = ((len(b), sum(opcode(i).startswith(op) for i in b)) for b in _loop_bodies(ins, labels))
+            out[name] = sorted(c for c in counts if c[1])
+    return out
 
 
 def fwd2_sass_per_pair(so, L, ts):
@@ -2813,6 +2867,34 @@ def check_colmap_kernels_2dgs(runner, what):
             "rasterize_2dgs_bwd": bmx, "gid_reduce": rmx}
 
 
+def check_grid_grad(torch, bilagrid, inputs, what):
+    """csrc/bilagrid_bwd.cu's two kernels on `inputs` (the gathered grids g
+    [B, Z, Y, X, 12], the cotangent v [B, H, W, 12], gray [B, H, W], the
+    grids' shape): the same bits from two launches, and within
+    GRID_GRAD_TOL x each value's sum of |terms| of their plain versions.
+    Returns the grids' and the luminance's max abs errors."""
+    from gsplat_tpu_torch.microbench import compare
+
+    g, v, gray, shape = inputs["g"].detach(), inputs["v"], inputs["gray"], inputs["shape"]
+    # each value's sum of |terms|: the cell's |weight| |v| (the plain
+    # version on |v|), and per pixel (Z - 1) x 2 max|g| x sum |v|
+    scales = (bilagrid._grid_grad_plain(v.abs(), gray, shape),
+              v.abs().sum(-1) * (2 * (shape[1] - 1) * float(g.abs().max())))
+    errs = []
+    for name, kern, plain, scale in (("the grids' gradient", lambda: bilagrid._grid_grad_cuda(v, gray, shape),
+                                      lambda: bilagrid._grid_grad_plain(v, gray, shape), scales[0]),
+                                     ("the luminance's gradient", lambda: bilagrid._lum_grad_cuda(g, gray, v),
+                                      lambda: bilagrid._lum_grad(g, gray, v), scales[1])):
+        a, b = kern(), kern()
+        if not torch.equal(a, b):
+            raise AssertionError(f"{what}: {name} differs between two launches at {int((a != b).sum())} values")
+        errs.append(compare(f"{what}: {name}", a, plain(), GRID_GRAD_TOL, scale=scale))
+        log(f"{what}: {name} kernel on its inputs ({tuple(v.shape)} cotangent, grids {shape}): the same bits from "
+            f"two launches, max abs {errs[-1]:.3e} against the plain version (of max |plain| "
+            f"{float(b.abs().max()):.3e})")
+    return tuple(errs)
+
+
 def phase_colmap(smi, default_steady_ms):
     """The COLMAP trainer end to end: a synthetic scene written by
     datasets/synth.py (the training path's 2,794,625 splats at 1920x1080,
@@ -2823,7 +2905,7 @@ def phase_colmap(smi, default_steady_ms):
     import shutil
 
     import torch
-    from gsplat_tpu_torch import _backend, image_fitting, load_test_data
+    from gsplat_tpu_torch import _backend, bilagrid, image_fitting, load_test_data
     from gsplat_tpu_torch import simple_trainer as st
     from gsplat_tpu_torch import simple_trainer_2dgs as st2
     from gsplat_tpu_torch.datasets import Parser, image_io, synth
@@ -2854,9 +2936,22 @@ def phase_colmap(smi, default_steady_ms):
                 "--pose-opt", "--app-opt", "--use-bilateral-grid", "--white-bkgd", "--tile-size", str(MAIN_TILE),
                 "--seed", str(SEED), *extra]
 
-    kernels = ("emit", "emit_gather", "rasterize_fwd", "rasterize_bwd", "gid_reduce")
+    kernels = ("emit", "emit_gather", "rasterize_fwd", "rasterize_bwd", "gid_reduce", "bilagrid_bwd",
+               "bilagrid_lum_bwd")
     record = {"steps": [], "growths": []}
     restore = _record_steps(torch, _backend, st.Runner, record)
+    # the grid's gradients' inputs as the last step hands them to its kernels
+    grid_grad, lum_grad, grid_inputs = bilagrid.grid_grad, bilagrid.lum_grad, {}
+
+    def recording_grid_grad(v, gray, shape):
+        grid_inputs.update(v=v, gray=gray, shape=tuple(shape))
+        return grid_grad(v, gray, shape)
+
+    def recording_lum_grad(g, gray, v):
+        grid_inputs.update(g=g)
+        return lum_grad(g, gray, v)
+
+    bilagrid.grid_grad, bilagrid.lum_grad = recording_grid_grad, recording_lum_grad
     try:
         _backend.reset_launch_counts()
         t0 = time.perf_counter()
@@ -2864,6 +2959,7 @@ def phase_colmap(smi, default_steady_ms):
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = _backend.launch_counts()
+        bilagrid.grid_grad, bilagrid.lum_grad = grid_grad, lum_grad
         first = record
         record = {"steps": [], "growths": []}
         restore()
@@ -2873,6 +2969,8 @@ def phase_colmap(smi, default_steady_ms):
         step_ms = cuda_ms(torch, lambda: runner.train_step(COLMAP_STEPS), 2)
         kern = device_time_by_kernel(torch, lambda: runner.train_step(COLMAP_STEPS + 1))
         errs = check_colmap_kernels(runner, "COLMAP trainer")
+        errs["bilagrid_bwd"], errs["bilagrid_lum_bwd"] = check_grid_grad(torch, bilagrid, grid_inputs,
+                                                                          "COLMAP trainer's last step")
         # the first train frame as Up-, Paeth- and Average-filtered PNGs
         # (encoders such as libpng choose Paeth and Average rows for
         # photographs), each read back by the port's reader on the host
@@ -2898,6 +2996,7 @@ def phase_colmap(smi, default_steady_ms):
         second = record
     finally:
         restore()
+        bilagrid.grid_grad, bilagrid.lum_grad = grid_grad, lum_grad
 
     steps = first["steps"]
     for s in steps:
@@ -3002,6 +3101,165 @@ def phase_colmap(smi, default_steady_ms):
     return launches, launches_2dgs, errs, errs_2dgs
 
 
+# phase 14: the micro-benchmarks (gsplat_tpu_torch/microbench/, which
+# scripts/torch_exp_*.py drive) and the TPU kernels they replace
+MB_MODULES = ("vpu_calib", "primitives", "kernel_shapes", "fwd_breakdown")
+MB_RUNS = 7
+MB_REPLACES = {
+    "fma_chain": "scripts/exp_vpu_calib.py:18",
+    "sgemm": "scripts/exp_vpu_calib.py:29",
+    "tf32_mma": "scripts/exp_vpu_calib.py:29",
+    "gather_rows": "scripts/exp_r2_batch2.py:18",
+    "gather_window": "scripts/exp_r2_primitives.py:79",
+    "gather_cols": "scripts/exp_r2_primitives.py:155",
+    "inner_math_f32": "scripts/exp_r2_primitives.py:189",
+    "inner_math_bf16": "scripts/exp_r2_primitives.py:189",
+    **{f"slice_{v}": "scripts/exp_mxu_kernel_shapes.py:43"
+       for v in ("vpu_sigma", "mxu_sigma", "moments", "vpu_reduce5", "scan", "fwd_mix")},
+    **{f"fwd_breakdown_L{i}": "scripts/exp_fwd_breakdown.py:67" for i in range(4)},
+}
+# e1's take_along_axis kernels (one block) run through these two
+MB_ALSO_REPLACES = {"gather_rows": "scripts/exp_r2_primitives.py:57",
+                    "gather_window": "scripts/exp_r2_primitives.py:52"}
+
+
+def grid_grad_at_1080p(torch, smi):
+    """The bilateral grid's two gradient kernels at 1920x1080 (16 x 16 x 8
+    grids, luminance rows on the bottom and top node included): the same
+    bits twice and against their plain versions (check_grid_grad), timed
+    beside grid_sample's backward for the grids alone and for the
+    coordinates alone (output masks [True, False] and [False, True]) and
+    the slice's whole backward through the port's Function beside
+    grid_sample's autograd. Returns their `kernels` entries (launches
+    filled from phase 13)."""
+    from gsplat_tpu_torch import bilagrid
+    from gsplat_tpu_torch.microbench import bound_ms, median_ms
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 21)
+    B, H, W = 1, MAIN_H, MAIN_W
+    shape = (B, 8, 16, 16, 12)
+    grids = torch.randn(shape, device="cuda", generator=g) * 0.2 + bilagrid.BilateralGrid(1, device="cuda").grids
+    rgb = torch.rand(B, H, W, 3, device="cuda", generator=g)
+    rgb[:, :8] = 0.0
+    rgb[:, -8:] = 1.0
+    gray = torch.clamp((rgb * torch.tensor(bilagrid.RGB2GRAY, device="cuda")).sum(-1), 0.0, 1.0)
+    v = torch.randn(B, H, W, 12, device="cuda", generator=g)
+    err, lum_err = check_grid_grad(torch, bilagrid, {"g": grids, "v": v, "gray": gray, "shape": shape}, f"{W}x{H}")
+    ms = median_ms(lambda: bilagrid._grid_grad_cuda(v, gray, shape), MB_RUNS)
+    plain_ms = median_ms(lambda: bilagrid._grid_grad_plain(v, gray, shape), 3, warmup=1)
+    lum_ms = median_ms(lambda: bilagrid._lum_grad_cuda(grids, gray, v), MB_RUNS)
+    lum_plain_ms = median_ms(lambda: bilagrid._lum_grad(grids, gray, v), 3, warmup=1)
+    g5, coords, go = grids.permute(0, 4, 1, 2, 3), bilagrid._coords(gray), v.permute(0, 3, 1, 2)[:, :, None]
+    lib_ms = median_ms(lambda: torch.ops.aten.grid_sampler_3d_backward(go, g5, coords, 0, 1, True, [True, False]),
+                       MB_RUNS)
+    # the coordinates' gradient alone: grid_sample's per-pixel backward
+    lum_lib_ms = median_ms(lambda: torch.ops.aten.grid_sampler_3d_backward(go, g5, coords, 0, 1, True,
+                                                                           [False, True]), MB_RUNS)
+    # the slice's whole backward: the port's Function against grid_sample's autograd
+    x = rgb.clone().requires_grad_(True)
+    gp = grids.clone().requires_grad_(True)
+    cot = torch.randn(B, H, W, 3, device="cuda", generator=g)
+
+    def port():
+        torch.autograd.grad(bilagrid.slice_grid(gp, torch.zeros(1, dtype=torch.int64, device="cuda"), x), (gp, x), cot)
+
+    def autograd_grid_sample():
+        gr = torch.clamp((x * torch.tensor(bilagrid.RGB2GRAY, device="cuda")).sum(-1), 0.0, 1.0)
+        a = torch.nn.functional.grid_sample(gp.permute(0, 4, 1, 2, 3), bilagrid._coords(gr), mode="bilinear",
+                                            padding_mode="border", align_corners=True)
+        A = a[:, :, 0].permute(0, 2, 3, 1).reshape(B, H, W, 3, 4)
+        torch.autograd.grad((A[..., :3] * x[..., None, :]).sum(-1) + A[..., 3], (gp, x), cot)
+
+    port_ms, old_ms = median_ms(port, MB_RUNS), median_ms(autograd_grid_sample, MB_RUNS)
+    # bytes: v and gray read, the grids' gradient (the luminance's) written;
+    # operations: 8 corners x 12 multiply-adds a pixel (the luminance's: 8
+    # x 12 interpolation multiply-adds and 12 for the dot)
+    nbytes = 4 * (v.numel() + gray.numel() + grids.numel())
+    bound, by = bound_ms(nbytes=nbytes, flops=2 * 96 * B * H * W)
+    lum_bytes = 4 * (v.numel() + 2 * gray.numel() + grids.numel())
+    lum_bound, lum_by = bound_ms(nbytes=lum_bytes, flops=2 * 108 * B * H * W)
+    log(f"bilagrid_bwd at {W}x{H}: {ms:.4f} ms, bound {bound:.4f} ms ({by}, {nbytes} bytes); plain "
+        f"{plain_ms:.3f} ms; grid_sample's backward for the grids {lib_ms:.4f} ms; bilagrid_lum_bwd {lum_ms:.4f} "
+        f"ms, bound {lum_bound:.4f} ms ({lum_by}), plain {lum_plain_ms:.3f} ms, grid_sample's backward for the "
+        f"coordinates {lum_lib_ms:.4f} ms; the slice's forward and backward {port_ms:.3f} ms through the port's "
+        f"Function against {old_ms:.3f} ms through grid_sample's autograd (card: {smi})")
+    entry = {"route": "cuda", "source": "gsplat_tpu_torch/csrc/bilagrid_bwd.cu",
+             "replaces": "none: gsplat_tpu/bilagrid.py:31 (_trilerp) is plain JAX", "launches": None}
+    return [{"name": "bilagrid_bwd", **entry, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+             "bound_by": by, "library_ms": lib_ms},
+            {"name": "bilagrid_lum_bwd", **entry, "max_abs_err": lum_err, "ms": lum_ms, "plain_ms": lum_plain_ms,
+             "bound_ms": lum_bound, "bound_by": lum_by, "library_ms": lum_lib_ms}]
+
+
+def phase_microbench(smi):
+    """Phase 14: each micro-benchmark kernel against its plain version at a
+    small size and at its TPU script's, each gate shown to reject a wrong
+    result (gsplat_tpu_torch/microbench/*.py::check), the grid gradient at
+    1080p (grid_grad_at_1080p), then the micro-benchmarks' own path: launch
+    counts set to 0, every module's timing run at its script's sizes
+    (::measure), the counts read (each kernel launched); the calibration
+    rates beside the data sheet's figures. Returns the kernels' `kernels`
+    entries."""
+    import importlib
+
+    import torch
+    from gsplat_tpu_torch import _backend
+    from gsplat_tpu_torch.microbench import PEAK_BYTES_PER_S, PEAK_EX2_PER_S, format_errors, report_line
+    from gsplat_tpu_torch.microbench import fwd_breakdown
+
+    # the repeats of rows 11-12 as loops of the work in SASS
+    for name, loops in repeat_loops(_backend._library_path("mb_calib"),
+                                    {"fma_chain": "FFMA", "sgemm": "FFMA", "tf32_mma": "HMMA"}).items():
+        log(f"SASS loops of {name} (instructions, of them its FFMA / HMMA): {loops}")
+    mods = [importlib.import_module(f"gsplat_tpu_torch.microbench.{n}") for n in MB_MODULES]
+    errs = {}
+    for mod in mods:
+        for small in (True, False):
+            e = mod.check(small)
+            log(f"{mod.__name__} kernels against plain ({'small' if small else 'the script'}'s size): "
+                f"{format_errors(e)}")
+            if not small:
+                errs.update(e)
+    grid_entries = grid_grad_at_1080p(torch, smi)
+
+    _backend.reset_launch_counts()
+    rows, fwd_info = [], None
+    for mod in mods:
+        out = mod.measure(MB_RUNS)
+        if isinstance(out, tuple):
+            out, fwd_info = out
+        rows += out
+    torch.cuda.synchronize()
+    launches = _backend.launch_counts()
+    for r in rows:
+        log(report_line(r, smi))
+    missing = [r["name"] for r in rows if launches[r["name"]] == 0]
+    if missing:
+        raise AssertionError(f"micro-benchmark kernels not launched: {missing}")
+    log(f"{fwd_breakdown.describe(fwd_info)} (card: {smi})")
+    by = {r["name"]: r for r in rows}
+    log("calibration (measured against the data sheet's figures the bounds use): "
+        f"f32 multiply-adds {by['fma_chain']['rate']:.4g}/s against {by['fma_chain']['peak']:.4g}; f32 matmul "
+        f"{by['sgemm']['rate']:.4g} flop/s against {by['sgemm']['peak']:.4g}; TF32 mma.sync "
+        f"{by['tf32_mma']['rate']:.4g} flop/s against {by['tf32_mma']['peak']:.4g} (torch.bmm TF32 "
+        f"{by['tf32_mma']['rate'] * by['tf32_mma']['ms'] / by['tf32_mma']['library_ms']:.4g}); gather bytes "
+        f"{by['gather_rows']['rate']:.4g}/s against {PEAK_BYTES_PER_S:.4g}; exponentials "
+        f"{by['inner_math_f32']['rate']:.4g}/s against the SFU's {PEAK_EX2_PER_S:.4g} (card: {smi})")
+    fwd_breakdown.stream.cache_clear()  # its binned streams
+    sources = {k: src for src, ks in _backend.SOURCE_KERNELS.items() for k in ks}
+    kernels = []
+    for r in rows:
+        entry = {"name": r["name"], "route": "cuda", "source": f"gsplat_tpu_torch/csrc/{sources[r['name']]}.cu",
+                 "replaces": MB_REPLACES[r["name"]], "launches": launches[r["name"]],
+                 "max_abs_err": errs[r["name"]], "ms": r["ms"], "plain_ms": r["plain_ms"],
+                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        if r["name"] in MB_ALSO_REPLACES:
+            entry["also_replaces"] = MB_ALSO_REPLACES[r["name"]]
+            entry.update({k: v for k, v in r.items() if k.startswith("e1_")})
+        kernels.append(entry)
+    return kernels + grid_entries
+
+
 def main():
     smi = phase_device()
     import torch
@@ -3049,12 +3307,19 @@ def main():
             k["launches_colmap_2dgs"] = colmap_launches_2dgs[k["name"]]
             k["max_abs_err_colmap_2dgs"] = colmap_errs_2dgs[k["name"]]
     t9 = time.perf_counter()
-    log(f"card: {smi}")
-    log(json.dumps({"kernels": kernels}))
+    mb = phase_microbench(smi)
+    for k in mb:
+        if k["name"] in ("bilagrid_bwd", "bilagrid_lum_bwd"):  # their main path is phase 13's
+            k["launches"] = colmap_launches[k["name"]]
+            k["max_abs_err_colmap"] = colmap_errs[k["name"]]
+    kernels += mb
+    t10 = time.perf_counter()
     log(f"phase wall times: build + kernel vs plain {t1 - t0:.1f} s, serving {t2 - t1:.1f} s, "
         f"training {t3 - t2:.1f} s, 2DGS training {t4 - t3:.1f} s, 2DGS serving {t5 - t4:.1f} s, "
         f"tiled serving and training {t6 - t5:.1f} s, op API {t7 - t6:.1f} s, MCMC training {t8 - t7:.1f} s, "
-        f"COLMAP trainer {t9 - t8:.1f} s")
+        f"COLMAP trainer {t9 - t8:.1f} s, micro-benchmarks {t10 - t9:.1f} s")
+    log(json.dumps({"kernels": kernels}))
+    log(f"card: {smi}")
     print(json.dumps({
         "ok": True,
         "device": {

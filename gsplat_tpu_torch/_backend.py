@@ -12,7 +12,7 @@ every source at once, one ``nvcc`` process per source.
 
 Each kernel wrapper adds one to ``LAUNCHES[name]`` where it launches its
 kernel and nowhere else, so a run can show that its path went through the
-kernels.
+kernels; a source of several kernels (``SOURCE_KERNELS``) counts each apart.
 """
 
 from __future__ import annotations
@@ -67,9 +67,29 @@ KERNELS: Dict[str, Sequence[str]] = {
     "rasterize_tiled_bwd": (),
     "rasterize_2dgs_tiled_fwd": ("-fmad=false",),
     "rasterize_2dgs_tiled_bwd": (),
+    # the bilateral grid's gradients: the grids' a gather in a fixed order of
+    # adds, the luminance's per pixel
+    "bilagrid_bwd": (),
+    # the micro-benchmarks (microbench/), counterparts of scripts/exp_*.py
+    "mb_calib": (),
+    "mb_gather": (),
+    "mb_inner_math": (),
+    "mb_slice_shapes": (),
+    "mb_fwd_breakdown": (),
 }
 
-LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+# sources that hold several kernels: each kernel's launches count apart
+SOURCE_KERNELS: Dict[str, Sequence[str]] = {
+    "bilagrid_bwd": ("bilagrid_bwd", "bilagrid_lum_bwd"),
+    "mb_calib": ("fma_chain", "sgemm", "tf32_mma"),
+    "mb_gather": ("gather_rows", "gather_window", "gather_cols"),
+    "mb_inner_math": ("inner_math_f32", "inner_math_bf16"),
+    "mb_slice_shapes": tuple(f"slice_{v}" for v in ("vpu_sigma", "mxu_sigma", "moments", "vpu_reduce5", "scan",
+                                                    "fwd_mix")),
+    "mb_fwd_breakdown": tuple(f"fwd_breakdown_L{i}" for i in range(4)),
+}
+
+LAUNCHES: Dict[str, int] = {k: 0 for name in KERNELS for k in SOURCE_KERNELS.get(name, (name,))}
 
 # nvcc's stderr per built source (the -Xptxas -v register/spill report)
 BUILD_LOG: Dict[str, str] = {}
@@ -123,18 +143,29 @@ def stream(device: torch.device) -> int:
 
 
 @contextlib.contextmanager
+def _matmul_tf32(allow: bool):
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = allow
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def full_f32_matmul():
     """TF32 off for cuBLAS float32 products inside the block, the caller's
     setting restored after it. Only ``torch.backends.cuda.matmul.allow_tf32``
     is read and set: on some torch releases
     ``torch.get_float32_matmul_precision()`` raises once a process has set
     both that switch and ``torch.set_float32_matmul_precision``."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        yield
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+    return _matmul_tf32(False)
+
+
+def tf32_matmul():
+    """TF32 on for cuBLAS float32 products inside the block (a yardstick's
+    setting; the port's own products run with it off), through the same
+    switch as `full_f32_matmul`."""
+    return _matmul_tf32(True)
 
 
 class _F32Matmul(torch.autograd.Function):

@@ -14,6 +14,17 @@ so that a trainer's depth loss has points to read.
 
     python -m gsplat_tpu_torch.datasets.synth --out DIR --n-views 16 \
         --width 324 --height 210 --n-points 40000
+
+By default the ground truth is the fixture's splats as they are (all of
+them, or a sorted seeded sample of ``--gt-splats``). ``--jax-scene``
+builds the JAX script's scene instead (`jax_scene`): a seeded, unsorted
+sample of ``--gt-splats`` (default 120,000) of the fixture's means and
+colours, isotropic scales from the mean of the 2nd-4th nearest-neighbour
+distances clipped to [5e-3, 0.05], identity quaternions and opacity 0.9;
+the cameras from those float32 points; the initial points drawn by the same
+generator after the sample, in its order. Camera poses, intrinsics, splats,
+points and colours are then the JAX script's; the images are this
+package's render of them (the JAX script's is its oracle's).
 """
 
 from __future__ import annotations
@@ -22,7 +33,7 @@ import argparse
 import os
 import struct
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -94,6 +105,44 @@ def _points3d_bin(xyz, rgb, obs_image, obs_point, obs_index) -> bytes:
     return buf.tobytes()
 
 
+def circle_cameras(pts: np.ndarray, n_views: int, W: int, H: int):
+    """(K [3, 3], world-to-camera [n_views, 4, 4]), float64: `n_views`
+    cameras on a circle around `pts` looking at their mean, the JAX script's
+    (its centre and radius in the dtype of `pts`)."""
+    center = pts.mean(axis=0)
+    radius = 1.2 * np.percentile(np.linalg.norm(pts - center, axis=1), 90)
+    f = 0.85 * W
+    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float64)
+    c2ws = []
+    for i in range(n_views):
+        th = 2 * np.pi * i / n_views
+        eye = center + radius * np.array([np.cos(th), np.sin(th), 0.45 + 0.15 * np.sin(3 * th)])
+        c2ws.append(look_at(eye, center))
+    return K, np.linalg.inv(np.stack(c2ws))
+
+
+def jax_scene(means: np.ndarray, colors: np.ndarray, gt_splats: int, n_points: int, seed: int):
+    """The JAX script's ground truth and initial points
+    (scripts/make_synth_dataset.py:86-96, :196) from the fixture's `means`
+    and `colors`: (splats, keep), `keep` the rows of the splats that are
+    the initial points, in the generator's order."""
+    from ..modules import knn_distances
+
+    rng = np.random.default_rng(seed)
+    sub = rng.choice(len(means), size=min(len(means), gt_splats), replace=False)
+    pts, cols = means[sub], colors[sub]
+    d = knn_distances(pts, k=4)[:, 1:].mean(axis=1)
+    splats = {
+        "means": pts,
+        "quats": np.tile(np.array([1, 0, 0, 0], np.float32), (len(pts), 1)),
+        "scales": np.tile(np.clip(d, 5e-3, 0.05)[:, None], (1, 3)).astype(np.float32),
+        "opacities": np.full((len(pts),), 0.9, np.float32),
+        "colors": cols,
+    }
+    keep = rng.choice(len(pts), size=min(n_points, len(pts)), replace=False)
+    return splats, keep
+
+
 def write_scene(
     out: str,
     splats: Dict[str, np.ndarray],
@@ -104,28 +153,24 @@ def write_scene(
     seed: int = 3,
     device="cuda",
     tile_size: int = 16,
+    keep: Optional[np.ndarray] = None,
+    cameras=None,
 ) -> Dict:
     """Render `splats` (means [N,3], quats [N,4], scales [N,3] and
     opacities [N] activated, colors [N,3] in [0, 1]) from `n_views` cameras
     at width x height and write the COLMAP scene to `out`, with a seeded
-    `n_points` of the means and colours as its points. Returns {"render_s",
+    `n_points` of the means and colours as its points (or the rows `keep`,
+    in that order). The cameras are `circle_cameras` of the float64 means,
+    or `cameras` = (K, world-to-camera) where given. Returns {"render_s",
     "write_s", "bytes", "observations"}."""
     from .._backend import resolve_device
     from ..rendering import rasterization
 
     device = resolve_device(device)
     means = np.asarray(splats["means"], np.float64)
-    center = means.mean(axis=0)
-    radius = 1.2 * np.percentile(np.linalg.norm(means - center, axis=1), 90)
     W, H = width, height
-    f = 0.85 * W
-    K = np.array([[f, 0, W / 2], [0, f, H / 2], [0, 0, 1]], np.float64)
-    c2ws = []
-    for i in range(n_views):
-        th = 2 * np.pi * i / n_views
-        eye = center + radius * np.array([np.cos(th), np.sin(th), 0.45 + 0.15 * np.sin(3 * th)])
-        c2ws.append(look_at(eye, center))
-    w2cs = np.linalg.inv(np.stack(c2ws))
+    K, w2cs = circle_cameras(means, n_views, W, H) if cameras is None else cameras
+    f = K[0, 0]
 
     img_dir = os.path.join(out, "images")
     sp = os.path.join(out, "sparse", "0")
@@ -151,8 +196,9 @@ def write_scene(
     t0 = time.perf_counter()
     nbytes = sum(write_png(os.path.join(img_dir, n), fr) for n, fr in zip(names, frames))
 
-    rng = np.random.default_rng(seed)
-    keep = np.sort(rng.choice(len(means), size=min(n_points, len(means)), replace=False))
+    if keep is None:
+        rng = np.random.default_rng(seed)
+        keep = np.sort(rng.choice(len(means), size=min(n_points, len(means)), replace=False))
     xyz = means[keep]
     rgb = (np.asarray(splats["colors"])[keep] * 255).astype(np.uint8)
     obs = []  # per image: (point rows, xy)
@@ -199,23 +245,35 @@ def main(argv=None):
     ap.add_argument("--n-points", type=int, default=40000)
     ap.add_argument("--scene-grid", type=int, default=1,
                     help="the garden fixture tiled scene_grid x scene_grid: its splats are the ground truth")
-    ap.add_argument("--gt-splats", type=int, default=0,
-                    help="a seeded sample of this many of the fixture's splats as the ground truth (0: all)")
+    ap.add_argument("--gt-splats", type=int, default=None,
+                    help="a seeded sample of this many of the fixture's splats as the ground truth (default: all; "
+                         "with --jax-scene 120000)")
+    ap.add_argument("--jax-scene", action="store_true",
+                    help="the ground truth, cameras and points of scripts/make_synth_dataset.py (its pinhole path)")
     ap.add_argument("--seed", type=int, default=3)
     ap.add_argument("--device", default="cuda", help="cuda, or cpu for the kernels' plain versions")
     args = ap.parse_args(argv)
     from .._helper import load_test_data
 
     means, quats, scales, opac, colors, _, _, _, _ = load_test_data(scene_grid=args.scene_grid)
-    if 0 < args.gt_splats < len(means):
-        sub = np.sort(np.random.default_rng(args.seed).choice(len(means), args.gt_splats, replace=False))
-        means, quats, scales, opac, colors = (a[sub] for a in (means, quats, scales, opac, colors))
-    splats = {"means": means, "quats": quats, "scales": scales, "opacities": opac, "colors": colors}
+    keep = cameras = None
+    if args.jax_scene:
+        gt = 120_000 if args.gt_splats is None else args.gt_splats
+        splats, keep = jax_scene(means, colors, gt, args.n_points, args.seed)
+        cameras = circle_cameras(splats["means"], args.n_views, args.width, args.height)
+    else:
+        if 0 < (args.gt_splats or 0) < len(means):
+            sub = np.sort(np.random.default_rng(args.seed).choice(len(means), args.gt_splats, replace=False))
+            means, quats, scales, opac, colors = (a[sub] for a in (means, quats, scales, opac, colors))
+        splats = {"means": means, "quats": quats, "scales": scales, "opacities": opac, "colors": colors}
+    n = len(splats["means"])
     info = write_scene(args.out, splats, args.n_views, args.width, args.height, args.n_points,
-                       seed=args.seed, device=args.device)
-    print(f"wrote a synthetic COLMAP scene of {len(means)} splats to {args.out}: {args.n_views} views at "
-          f"{args.width}x{args.height}, {min(args.n_points, len(means))} points, {info['observations']} "
+                       seed=args.seed, device=args.device, keep=keep, cameras=cameras)
+    print(f"wrote a synthetic COLMAP scene of {n} splats to {args.out}: {args.n_views} views at "
+          f"{args.width}x{args.height}, {min(args.n_points, n)} points, {info['observations']} "
           f"observations, {info['bytes']} bytes; render {info['render_s']:.2f} s, write {info['write_s']:.2f} s")
+    if args.jax_scene:
+        info["splats"], info["keep"] = splats, keep
     return info
 
 

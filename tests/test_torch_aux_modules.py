@@ -14,7 +14,14 @@ The JAX functions run jitted, as in the JAX trainer's step.
   row's update; the port's take_rows, the pose, appearance and grid
   modules give the same values and gradients;
 - the MLP's and the pose module's products, forward and gradient, run
-  with TF32 off while the caller allows it.
+  with TF32 off while the caller allows it;
+- the grid slice's autograd Function (bilagrid._GridSlice) at the default
+  8 z levels, with an image id past the table and white and black pixels
+  (luminance on the grid's top and bottom node): values and both
+  gradients within rtol 1e-5 of JAX's VJP, the same bits from two calls,
+  the grids' gradient of its plain version (csrc/bilagrid_bwd.cu's
+  counterpart) within rtol 1e-5 of grid_sample's own backward, and no
+  kernel launched on the CPU.
 """
 
 import jax
@@ -25,7 +32,7 @@ import torch
 
 from gsplat_tpu import bilagrid as jbg
 from gsplat_tpu import modules as jm
-from gsplat_tpu_torch import bilagrid as tbg
+from gsplat_tpu_torch import _backend, bilagrid as tbg
 from gsplat_tpu_torch.checkpoint import aux_modules_from_numpy, splats_from_numpy
 from gsplat_tpu_torch.modules import AppearanceOptModule, CameraOptModule, rotation_6d_to_matrix, take_rows
 
@@ -203,6 +210,41 @@ def test_bilateral_grid_matches_jax():
     _close(got_tv, tv, name="tv")
     _close(g.grad, g_tv, name="d tv")
     torch.testing.assert_close(mod.tv_loss(), got_tv.detach())
+
+
+def test_grid_slice_function_matches_jax():
+    rng = np.random.default_rng(11)
+    grids = np.asarray(jbg.init_bilateral_grid(3)["grids"])[:, :, :6, :7]  # [3, 8, 6, 7, 12]
+    grids = grids + 0.2 * rng.standard_normal(grids.shape).astype(np.float32)
+    rgb = rng.random((2, 23, 29, 3)).astype(np.float32)
+    rgb[0, :2] = 1.0  # luminance on the top node
+    rgb[1, -2:] = 0.0  # and on the bottom one
+    ids = np.array([2, 4], np.int32)  # 4 is past the table: reads row 2, no gradient
+    cot = rng.standard_normal(rgb.shape).astype(np.float32)
+    want, (g_g, g_rgb) = _vjp(lambda g, x: jbg.slice_grid({"grids": g}, jnp.asarray(ids), x),
+                              [jnp.asarray(grids), jnp.asarray(rgb)], cot)
+    before = dict(_backend.LAUNCHES)
+    runs = []
+    for _ in range(2):
+        mod = tbg.BilateralGrid.from_numpy({"grids": grids}, device="cpu")
+        x = torch.from_numpy(rgb).requires_grad_(True)
+        got = mod(x, torch.from_numpy(ids))
+        (got * torch.from_numpy(cot)).sum().backward()
+        runs.append((got.detach(), mod.grids.grad, x.grad))
+    assert _backend.LAUNCHES == before
+    _close(runs[0][0], want, name="slice")
+    _close(runs[0][1], g_g, name="d grids")
+    _close(runs[0][2], g_rgb, name="d rgb")
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    # the plain grid gradient against grid_sample's own backward
+    g = torch.from_numpy(grids[[2, 2]]).requires_grad_(True)
+    gray = torch.clamp((torch.from_numpy(rgb) * torch.tensor(tbg.RGB2GRAY)).sum(-1), 0.0, 1.0)
+    v = torch.from_numpy(rng.standard_normal(rgb.shape[:3] + (12,)).astype(np.float32))
+    out = torch.nn.functional.grid_sample(g.permute(0, 4, 1, 2, 3), tbg._coords(gray), mode="bilinear",
+                                          padding_mode="border", align_corners=True)
+    (ref,) = torch.autograd.grad(out, g, v.permute(0, 3, 1, 2)[:, :, None])
+    _close(tbg.grid_grad(v, gray, g.shape), ref.numpy(), name="plain vs grid_sample")
 
 
 def test_color_correct_matches_jax():

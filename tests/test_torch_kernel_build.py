@@ -10,7 +10,12 @@ keep their bits. The two 2DGS backwards build without it: their decisions
 round op by op through explicit intrinsics whatever the flags, so they
 accept exactly the forward's entries while their gradient chains contract
 to multiply-adds. The 3DGS kernels never took the flag: their sigma is
-explicit too (raster.cuh::gauss_sigma).
+explicit too (raster.cuh::gauss_sigma). The bilateral grid's gradient
+(bilagrid_bwd) and the micro-benchmarks (mb_*) build without the flag:
+where their plain versions' rounding matters they round through explicit
+intrinsics (the forward breakdown's sigma, the bf16 inner math's _rn
+operations). A source of several kernels counts each kernel's launches
+apart (_backend.SOURCE_KERNELS).
 """
 
 import os
@@ -38,3 +43,33 @@ def test_kernel_build_flags(name):
     # flags rebuilds
     path = _backend._library_path(name)
     assert os.path.basename(path).startswith(name + "-")
+
+
+MICROBENCH = {
+    "mb_calib": ("fma_chain", "sgemm", "tf32_mma"),
+    "mb_gather": ("gather_rows", "gather_window", "gather_cols"),
+    "mb_inner_math": ("inner_math_f32", "inner_math_bf16"),
+    "mb_slice_shapes": ("slice_vpu_sigma", "slice_mxu_sigma", "slice_moments", "slice_vpu_reduce5", "slice_scan",
+                        "slice_fwd_mix"),
+    "mb_fwd_breakdown": ("fwd_breakdown_L0", "fwd_breakdown_L1", "fwd_breakdown_L2", "fwd_breakdown_L3"),
+}
+
+
+SEVERAL = {**MICROBENCH, "bilagrid_bwd": ("bilagrid_bwd", "bilagrid_lum_bwd")}
+
+
+@pytest.mark.parametrize("name", sorted(SEVERAL))
+def test_new_sources_and_their_launch_counts(name):
+    assert tuple(_backend.KERNELS[name]) == ()
+    kernels = tuple(_backend.SOURCE_KERNELS[name])
+    assert kernels == SEVERAL[name]
+    assert all(_backend.LAUNCHES.get(k) == 0 or _backend.LAUNCHES.get(k) is not None for k in kernels)
+    assert (name in _backend.LAUNCHES) == (name in kernels)
+    with open(os.path.join(_backend.CSRC, name + ".cu")) as f:
+        src = f.read()
+    # a plain C entry point returning the launch's error
+    assert 'extern "C" int' in src and "cudaGetLastError()" in src
+    if name == "mb_inner_math":
+        assert all(op in src for op in ("__hmul2_rn", "__hadd2_rn", "__hsub2_rn"))
+    if name == "mb_fwd_breakdown":
+        assert "__fmul_rn" in src and "__fadd_rn" in src

@@ -10,7 +10,8 @@
   backend="auto" reaches it at scene scale without a capacity;
 - the binned backend differentiates (the training slice), 3DGS and 2DGS;
 - CPU runs take the kernels' plain versions and launch no kernel, forward
-  and backward, and through an MCMC training step;
+  and backward, through an MCMC training step, the bilateral grid's
+  gradient and every micro-benchmark wrapper;
 - the trainer runs on CUDA unless told device="cpu";
 - checkpoint arrays (the JAX trainer's layout and the viewer's) render the
   same image in both packages through the trainer's render transform.
@@ -52,6 +53,8 @@ def test_import_loads_no_jax():
         "import gsplat_tpu_torch.ops.rasterize_2dgs_tiled, gsplat_tpu_torch.ops.accumulate\n"
         "import gsplat_tpu_torch.relocation, gsplat_tpu_torch.strategy.mcmc, gsplat_tpu_torch.utils\n"
         "import gsplat_tpu_torch.datasets.synth, gsplat_tpu_torch.bilagrid, gsplat_tpu_torch.image_fitting\n"
+        "import gsplat_tpu_torch.microbench.vpu_calib, gsplat_tpu_torch.microbench.primitives\n"
+        "import gsplat_tpu_torch.microbench.kernel_shapes, gsplat_tpu_torch.microbench.fwd_breakdown\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'gsplat_tpu' or m.startswith('gsplat_tpu.'))\n"
         "assert not bad, bad\n"
@@ -303,10 +306,30 @@ def test_cpu_runs_launch_no_kernel():
                                 sh_degree=0, isect_capacity_init=4096, backend="binned")
     runner = simple_trainer.Runner(cfg, [view], pts, np.full((50, 3), 128, np.uint8), 1.0, device="cpu")
     assert runner.train_step(1)["refined"] and int(runner.live.sum()) == 52
+    # the bilateral grid's gradient and each micro-benchmark's wrapper
+    from gsplat_tpu_torch.bilagrid import BilateralGrid
+    from gsplat_tpu_torch.microbench import fwd_breakdown, kernel_shapes, primitives, vpu_calib
+
+    grid = BilateralGrid(2, 4, 4, 3, device="cpu")
+    grid(torch.rand(1, 8, 8, 3), torch.tensor([1])).sum().backward()
+    x = torch.rand(64, 64)
+    vpu_calib.fma_chain(x, 2), vpu_calib.sgemm(x, x, 2), vpu_calib.tf32_mma(x, x, 2)
+    tab, idx = torch.rand(2, 8, 8), torch.randint(0, 8, (2, 8, 8), dtype=torch.int32)
+    primitives.gather_rows(tab, idx), primitives.gather_window(tab[0], idx), primitives.gather_cols(tab, idx[:, :1])
+    primitives.inner_math(torch.rand(2, 8, 4), 8), primitives.inner_math(torch.rand(2, 8, 4), 8, torch.bfloat16)
+    for v in kernel_shapes.VARIANTS:
+        kernel_shapes.slice_shapes(v, torch.rand(16, 128), 256, 1, 1)
+    for level in range(4):
+        fwd_breakdown.fwd_breakdown(level, torch.rand(9, 600), torch.tensor([0, 500], dtype=torch.int32),
+                                    torch.tensor([300, 100], dtype=torch.int32), 2, 1, 16)
     assert _backend.launch_counts() == {name: 0 for name in (
         "emit", "emit_gather", "rasterize_fwd", "rasterize_bwd", "gid_reduce", "rasterize_2dgs_fwd",
         "rasterize_2dgs_bwd",
         "rasterize_tiled_fwd", "rasterize_tiled_bwd", "rasterize_2dgs_tiled_fwd", "rasterize_2dgs_tiled_bwd",
+        "bilagrid_bwd", "bilagrid_lum_bwd", "fma_chain", "sgemm", "tf32_mma", "gather_rows", "gather_window", "gather_cols",
+        "inner_math_f32", "inner_math_bf16", "slice_vpu_sigma", "slice_mxu_sigma", "slice_moments",
+        "slice_vpu_reduce5", "slice_scan", "slice_fwd_mix", "fwd_breakdown_L0", "fwd_breakdown_L1",
+        "fwd_breakdown_L2", "fwd_breakdown_L3",
     )}
     assert not _backend.BUILD_LOG
 
