@@ -188,15 +188,41 @@ non-zero (there is no CPU fallback):
      rates beside the data sheet's figures, and fwd_3dgs on the breakdown's
      stream at tile 32 and 16; both of the grid's gradient kernels
      (the grids' and the luminance's) as above;
- 15. the `kernels` line (the eleven path kernels, the grid's two gradient
+ 15. multi-GPU rendering (gsplat_tpu_torch/distributed.py) at the serving
+     path's shapes: (a) an in-process NCCL group of world size 1:
+     rasterization(distributed=True) binned and tiled,
+     rasterization_2dgs(distributed=True, RGB+ED) binned and one 3DGS
+     binned forward and backward, with the launch counts set to 0 before
+     and read after (emit, the gather, the binned forward and backward,
+     the reduce, the tiled forward and the 2DGS forward each launched),
+     then each against the single-device call on the same inputs (whether
+     the bits are equal; render and alphas by phase 3's forward gates, the
+     gradients by its backward gates, 2DGS by the FWD2 count gates) and
+     the frame's time beside rasterization()'s with the host's waits on
+     the card in each frame (stream syncs, blocking copies); (b) two gloo
+     ranks on the card, spawned here, N padded to even with a masked
+     slot: C=1 as two
+     strips and C=2 as whole cameras, each 3DGS binned forward and
+     backward and 2DGS binned forward, and the packed exchange at
+     pack_capacity = pack_required, each rank's block against its block
+     of the single-device call by the same gates (a 2DGS strip rebuilt
+     from the single-device projection and shifted as distributed.py
+     shifts it, equal to the distributed block bit for bit, its kernel
+     outputs against the single-device kernel's rows by the FWD2
+     tolerance with every value past it explained by the float64 witness
+     of phase 11, the strip's frame as one side; the normals from depth
+     against depth_to_normal of the strips' gathered depth), each timed
+     after a warm-up call (two ranks on one card: not a scaling figure);
+ 16. the `kernels` line (the eleven path kernels, the grid's two gradient
      kernels and the eighteen micro-benchmark kernels; emit, the gather and the
      reduce also with their times and bounds at the 2DGS train shapes, emit
      and the gather also at the fixture surfels, the four forwards with
      their SASS instructions per pair; the five training kernels also with
      their launches in phase 12 and in phase 13's 3DGS and 2DGS runs and
      their largest error against the plain version on phase 13's inputs,
-     the grid's gradients their phase 13 launches and errors), the card's name and
-     power limit, then the result line.
+     the grid's gradients their phase 13 launches and errors, the seven
+     kernels of phase 15 their launches there), the card's name and power
+     limit, then the result line.
 """
 
 import json
@@ -312,6 +338,24 @@ def device_time_by_kernel(torch, fn):
         if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False):
             by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3
     return by_name
+
+
+def host_waits(torch, fn):
+    """The host's waits on the card over one call of `fn`, from
+    torch.profiler's CPU events: {op: (calls, self CPU ms)} for the runtime
+    calls that block the host (stream and device synchronisation, blocking
+    copies, the caching allocator's cudaMalloc and cudaFree) and the ops
+    that read a device value on the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+    keys = ("Synchronize", "cudaMemcpy", "cudaMalloc", "cudaFree", "_local_scalar_dense", "aten::item",
+            "aten::equal")
+    return {e.key: (e.count, e.self_cpu_time_total / 1e3) for e in prof.key_averages()
+            if any(k in e.key for k in keys)}
 
 
 def log_profile(what, kern, total_ms):
@@ -2337,6 +2381,9 @@ def _window_pairs(torch, indices_fn, N, R, C, W, H, feats, *args):
 def _fwd_gate(torch, got, want, what):
     """FWD_MAX_ABS / FWD_MEAN_ABS over the pairs of outputs. Returns (max
     abs, mean abs)."""
+    for a, b in zip(got, want):
+        if a.shape != b.shape:
+            raise AssertionError(f"{what}: shape {tuple(a.shape)} against {tuple(b.shape)}")
     d = torch.cat([(a - b).abs().reshape(-1) for a, b in zip(got, want)])
     mx, mean = float(d.max()), float(d.mean())
     if not all(bool(torch.isfinite(a).all()) for a in got) or mx > FWD_MAX_ABS or mean > FWD_MEAN_ABS:
@@ -2359,50 +2406,113 @@ def _composite(torch, valid, alpha, feats):
     return [torch.bmm(vis, f.to(alpha.dtype)) for f in feats] + [(1.0 - final_T)[..., None]]
 
 
-def _witness_2dgs(torch, pix, m2, Ms, opc, feats, radii, depths, W, ts, gen):
-    """The float64 witness at pixels `pix` (flat ids, camera 0) over all N
-    surfels in depth order. Each pair's alpha three ways from the same f32
-    inputs: the oracle's cross product in f32 (`surfel_sigma`), the binned
-    kernel's arithmetic in f32 (`_sigma`, its plain version) and float64.
-    The unstable pairs are those where either f32 alpha (or its 1/255
-    acceptance) differs from float64 by more than FWD2_TOL. Returns the
-    composites [P, k] of `feats` and alpha with float64 alphas everywhere
-    (`truth`) and with the unstable pairs' alphas taken from the oracle
-    (`oracle_hat`) and from the kernel (`kernel_hat`), the unstable mask
-    [P, N] (depth order), the depth order `sel` [N], and the largest move
-    of an unstable pair's float64 alpha when M moves by half an f32 ulp."""
+def _sigma_oracle(m2s, M9, px, py):
+    """The oracle's f32 sigma (`surfel_sigma`'s cross product) [C, P, N]."""
+    from gsplat_tpu_torch.ops.rasterize_2dgs_ref import surfel_sigma
+
+    return surfel_sigma(m2s, M9.reshape(M9.shape[:-1] + (3, 3)), px, py)
+
+
+def _sigma_kernel(m2s, M9, px, py):
+    """The binned 2DGS kernel's f32 sigma (`_sigma`, its plain version's
+    arithmetic) [C, P, N]."""
     from gsplat_tpu_torch.ops.rasterize_2dgs_binned import _sigma
+
+    rows = [r[:, None, :] for r in (m2s[..., 0], m2s[..., 1], *M9.unbind(-1))]
+    return _sigma(rows, px[None, :, None], py[None, :, None])[0]
+
+
+def _shift_frame(torch, m2s, M9, y_off):
+    """Surfels in the frame of a strip starting at row `y_off`, in their own
+    dtype, as distributed.py shifts them: mean_y - y_off, M[1] - y_off M[2]."""
+    if not y_off:
+        return m2s, M9
+    m2s = torch.cat([m2s[..., :1], m2s[..., 1:] - float(y_off)], dim=-1)
+    M9 = torch.cat([M9[..., :3], M9[..., 3:6] - y_off * M9[..., 6:9], M9[..., 6:]], dim=-1)
+    return m2s, M9
+
+
+def _witness_2dgs(torch, pix, m2, Ms, opc, feats, radii, depths, W, ts, gen, sides=None, row0=0,
+                  chunk=WITNESS_CHUNK):
+    """The float64 witness at pixels `pix` (flat ids of an image of width W
+    whose first row is the frame's row `row0`; camera 0) over all N surfels
+    in depth order. Each pair's alpha three ways from the same f32 inputs:
+    the two f32 evaluations of `sides` and float64. A side is (sigma
+    function, y_off): its surfels and pixels shifted into the frame of a
+    strip starting at row y_off (`_shift_frame`), and its sigma by
+    `_sigma_oracle` or `_sigma_kernel`; by default the oracle's and the
+    kernel's in the image frame. The unstable pairs are those where either
+    f32 alpha (or its 1/255 acceptance) differs by more than FWD2_TOL from
+    the float64 alpha of the same f32 inputs (lost to arithmetic), and, for
+    a shifted side, those whose float64 alpha of the f32-shifted inputs
+    differs by more than FWD2_TOL from that of the shift made in float64
+    (sensitive to rounding the strip frame's inputs to f32). Returns the
+    composites [P, k] of `feats` and alpha with float64 alphas everywhere
+    (`truth`) and with the unstable pairs' alphas taken from each side
+    (`hat0`, `hat1`), whether each pixel holds an unstable pair [P], each
+    surfel's count of unstable pairs [N] (depth order), the depth order
+    `sel` [N], the largest move of the float64 alpha of a pair lost
+    to arithmetic when M moves by half an f32 ulp, the largest move of a
+    float64 alpha when a side's frame shift is made in float64, and the
+    number of pairs sensitive to the rounding."""
     from gsplat_tpu_torch.ops.rasterize_2dgs_ref import surfel_sigma
     from gsplat_tpu_torch.ops.rasterize_ref import ALPHA_MAX, depth_rank_window, valid_pairs
 
+    sides = sides or ((_sigma_oracle, 0), (_sigma_kernel, 0))
     C, N = m2.shape[:2]
     sel, (m2s, M9, ops, rad, *fs) = depth_rank_window(depths, 0, N, m2, Ms.reshape(C, N, 9), opc, radii, *feats)
     M3 = M9.reshape(C, N, 3, 3)
-    rows = [r[:, None, :] for r in (m2s[..., 0], m2s[..., 1], *M9.unbind(-1), ops)]
-    out = {k: [] for k in ("truth", "oracle_hat", "kernel_hat", "unstable")}
-    cond = 0.0
-    for chunk in pix.split(WITNESS_CHUNK):
-        px = (chunk % W).float() + 0.5
-        py = (chunk // W).float() + 0.5
-        ptx, pty = (chunk % W).int() // ts, (chunk // W).int() // ts
+    out = {k: [] for k in ("truth", "hat0", "hat1", "pix_any")}
+    surf_count = torch.zeros(N, dtype=torch.int64, device=m2.device)
+    cond = shift = 0.0
+    n_rep = 0
+    for part in pix.split(chunk):
+        col, row = part % W, part // W + row0
+        px = col.float() + 0.5
 
-        def alpha_of(sig, op):
+        def alpha_of(sig, op, m2f, y_off):
             a = torch.clamp_max(op[:, None, :] * torch.exp(-sig), ALPHA_MAX)
-            return a, valid_pairs(a, sig, rad, m2s, ptx, pty, ts)
+            return a, valid_pairs(a, sig, rad, m2f, col.int() // ts, (row - y_off).int() // ts, ts)
 
-        a64, v64 = alpha_of(surfel_sigma(m2s.double(), M3.double(), px.double(), py.double()), ops.double())
-        a_or, v_or = alpha_of(surfel_sigma(m2s, M3, px, py), ops)
-        a_kf, v_kf = alpha_of(_sigma(rows, px[None, :, None], py[None, :, None])[0], ops)
+        py = row.float() + 0.5
+        a64, v64 = alpha_of(surfel_sigma(m2s.double(), M3.double(), px.double(), py.double()), ops.double(), m2s, 0)
+        unstable = torch.zeros_like(v64)
+        rep = torch.zeros_like(v64)
+        side_alphas = []
 
-        def lost(a, v):
-            return (v != v64) | ((v | v64) & ((a.double() - a64).abs() > FWD2_TOL))
+        def apart(a, v, a_ref, v_ref):
+            return (v != v_ref) | ((v | v_ref) & ((a.double() - a_ref).abs() > FWD2_TOL))
 
-        unstable = lost(a_or, v_or) | lost(a_kf, v_kf)
+        for fn, y_off in sides:
+            m2f, M9f = _shift_frame(torch, m2s, M9, y_off)
+            py_f = (row - y_off).double() + 0.5
+            a, v = alpha_of(fn(m2f, M9f, px, py_f.float()), ops, m2f, y_off)
+            a_ref, v_ref = a64, v64
+            if y_off:
+                # the shift in float64 must be exact math (the image frame's
+                # alphas); the f32 shifted inputs' own float64 alphas are
+                # the side's reference, and where they leave the exact ones
+                # the pair is sensitive to rounding its inputs to f32
+                m2d, M9d = _shift_frame(torch, m2s.double(), M9.double(), y_off)
+                ad, vd = alpha_of(surfel_sigma(m2d, M9d.reshape(C, N, 3, 3), px.double(), py_f), ops.double(),
+                                  m2d, y_off)
+                moved = (torch.where(vd, ad, 0.0) - torch.where(v64, a64, 0.0)).abs()
+                shift = max(shift, float(moved.max()))
+                a_ref, v_ref = alpha_of(surfel_sigma(m2f.double(), M9f.double().reshape(C, N, 3, 3), px.double(),
+                                                     py_f), ops.double(), m2f, y_off)
+                rep |= apart(a_ref, v_ref, ad, vd)
+            unstable |= apart(a, v, a_ref, v_ref)
+            side_alphas.append((a, v))
+        unstable |= rep
+        n_rep += int(rep.sum())
         out["truth"].append(_composite(torch, v64, a64, fs))
-        for key, a, v in (("oracle_hat", a_or, v_or), ("kernel_hat", a_kf, v_kf)):
+        for key, (a, v) in zip(("hat0", "hat1"), side_alphas):
             out[key].append(_composite(torch, torch.where(unstable, v, v64), torch.where(unstable, a.double(), a64), fs))
-        out["unstable"].append(unstable[0])
-        c, p, n = torch.nonzero(unstable, as_tuple=True)
+        out["pix_any"].append(unstable[0].any(dim=-1))
+        surf_count += unstable[0].sum(dim=0)
+        # the half-ulp test decides the pairs lost to arithmetic; a pair
+        # sensitive to its inputs' rounding moves under it by definition
+        c, p, n = torch.nonzero(unstable & ~rep, as_tuple=True)
         if n.numel():
             Mu, mu = M3[c, n].double(), m2s[c, n].double()
             for _ in range(WITNESS_PERTURB):
@@ -2412,15 +2522,17 @@ def _witness_2dgs(torch, pix, m2, Ms, opc, feats, radii, depths, W, ts, gen):
                 sig = sig[0].diagonal()
                 a = torch.clamp_max(ops[c, n].double() * torch.exp(-sig), ALPHA_MAX)
                 cond = max(cond, float((a - a64[c, p, n]).abs().max()))
-    joined = {k: [torch.cat(x, dim=1)[0] for x in zip(*v)] for k, v in out.items() if k != "unstable"}
-    return joined, torch.cat(out["unstable"]), sel[0], cond
+    joined = {k: [torch.cat(x, dim=1)[0] for x in zip(*v)] for k, v in out.items() if k != "pix_any"}
+    return joined, torch.cat(out["pix_any"]), surf_count, sel[0], cond, shift, n_rep
 
 
-def _attribute_2dgs(torch, names, got, want, geo, W, ts, what):
-    """The FWD2_* gates between accumulate_2dgs (`got`) and the binned 2DGS
-    kernel (`want`), each a tuple of [1, H, W, k] outputs in `names` order,
-    where every value past FWD2_TOL x scale must be explained by the float64
-    witness at its pixel (`_witness_2dgs`). Returns the printed summary."""
+def _attribute_2dgs(torch, names, got, want, geo, W, ts, what, labels=("accumulate", "the kernel"), **witness):
+    """The FWD2_* gates between `got` and `want` (by default accumulate_2dgs
+    and the binned 2DGS kernel), each a tuple of [1, H, W, k] outputs in
+    `names` order, where every value past FWD2_TOL x scale must be
+    explained by the float64 witness at its pixel (`_witness_2dgs`, given
+    `witness`: the sides, the first row's place). Returns the printed
+    summary."""
     flags, scales, flat = [], [], []
     for a, b in zip(got, want):
         d = (a - b).abs().reshape(-1, a.shape[-1])
@@ -2435,34 +2547,41 @@ def _attribute_2dgs(torch, names, got, want, geo, W, ts, what):
     if pix.numel() == 0:
         return f"{summary}; nothing to attribute"
     gen = torch.Generator(device=got[0].device).manual_seed(SEED)
-    hats, unstable, sel, cond = _witness_2dgs(torch, pix, *geo, W, ts, gen)
-    missing = int((~unstable.any(dim=-1)).sum())
+    hats, pix_any, surf_count, sel, cond, shift, n_rep = _witness_2dgs(torch, pix, *geo, W, ts, gen, **witness)
+    missing = int((~pix_any).sum())
     if missing:
         raise AssertionError(f"{what}: {missing} of {pix.numel()} pixels past the FWD2 tolerance hold no pair "
                              f"whose f32 alpha the float64 witness finds lost")
     if cond > FWD2_TOL:
         raise AssertionError(f"{what}: the float64 alpha of an unstable pair moves by {cond:.3e} under half-ulp "
                              f"moves of M: the witness cannot decide")
+    if shift > STRIP_SHIFT_TOL:
+        raise AssertionError(f"{what}: the strip frame's float64 alpha differs from the image frame's by {shift:.3e} "
+                             f"(limit {STRIP_SHIFT_TOL}): the shift is not exact math")
     errs = []
     for i, (n, a, b, scale) in enumerate(zip(names, got, want, scales)):
         a, b = a.reshape(-1, a.shape[-1])[pix].double(), b.reshape(-1, b.shape[-1])[pix].double()
-        res_o = float((a - hats["oracle_hat"][i]).abs().max())
-        res_k = float((b - hats["kernel_hat"][i]).abs().max())
-        if res_o > FWD2_TOL * scale or res_k > FWD2_TOL * scale:
+        res_a = float((a - hats["hat0"][i]).abs().max())
+        res_b = float((b - hats["hat1"][i]).abs().max())
+        if res_a > FWD2_TOL * scale or res_b > FWD2_TOL * scale:
             raise AssertionError(f"{what}: {n} at the flagged pixels not reproduced by the float64 composite with "
-                                 f"only the unstable pairs' alphas taken from each side: accumulate off by {res_o:.3e}, "
-                                 f"the kernel off by {res_k:.3e} (limit {FWD2_TOL} x {scale:.3g})")
-        errs.append(f"{n} accumulate {float((a - hats['truth'][i]).abs().max()):.3e} kernel "
-                    f"{float((b - hats['truth'][i]).abs().max()):.3e} (reproduced within {max(res_o, res_k):.1e})")
-    n_idx = torch.nonzero(unstable.any(dim=0))[:, 0]
+                                 f"only the unstable pairs' alphas taken from each side: {labels[0]} off by "
+                                 f"{res_a:.3e}, {labels[1]} off by {res_b:.3e} (limit {FWD2_TOL} x {scale:.3g})")
+        errs.append(f"{n} {labels[0]} {float((a - hats['truth'][i]).abs().max()):.3e} {labels[1]} "
+                    f"{float((b - hats['truth'][i]).abs().max()):.3e} (reproduced within {max(res_a, res_b):.1e})")
+    n_idx = torch.nonzero(surf_count)[:, 0]
     m2, depths = geo[0][0], geo[-1][0]
     surfels = ", ".join(f"{int(g)} (depth {float(depths[g]):.6g}, mean2d ({float(m2[g, 0]):.7g}, {float(m2[g, 1]):.7g}), "
-                        f"{int(unstable[:, k].sum())} pixels)" for k, g in zip(n_idx.tolist(), sel[n_idx].tolist()))
-    rows, cols = pix // W, pix % W
+                        f"{int(surf_count[k])} pixels)" for k, g in zip(n_idx[:8].tolist(), sel[n_idx[:8]].tolist()))
+    if n_idx.numel() > 8:
+        surfels += f" and {n_idx.numel() - 8} more"
+    rows, cols = pix // W + witness.get("row0", 0), pix % W
     return (f"{summary}; {pix.numel()} pixels past the tolerance (x {int(cols.min())}-{int(cols.max())}, "
             f"y {int(rows.min())}-{int(rows.max())}), each explained by the float64 witness: "
-            f"{int(unstable.sum())} unstable pairs of the surfels {surfels}; their float64 alpha moves at most "
-            f"{cond:.3e} under half-ulp moves of M; max abs against the float64 composite there: " + ", ".join(errs))
+            f"{int(surf_count.sum())} unstable pairs ({n_rep} of them sensitive to rounding the strip frame's "
+            f"inputs to f32, the rest lost to f32 arithmetic) of the surfels {surfels}; the float64 alpha of a pair "
+            f"lost to arithmetic moves at most {cond:.3e} under half-ulp moves of M, an exact alpha at most "
+            f"{shift:.3e} under the frame shift; max abs against the float64 composite there: " + ", ".join(errs))
 
 
 def phase_op_api():
@@ -3260,6 +3379,467 @@ def phase_microbench(smi):
     return kernels + grid_entries
 
 
+# phase 15: multi-GPU rendering (gsplat_tpu_torch/distributed.py). The
+# kernels its path launches, and those the two-rank runs launch
+DIST_KERNELS = ("emit", "emit_gather", "rasterize_fwd", "rasterize_bwd", "gid_reduce", "rasterize_tiled_fwd",
+                "rasterize_2dgs_fwd")
+DIST_RANK_KERNELS = ("emit", "emit_gather", "rasterize_fwd", "rasterize_bwd", "gid_reduce", "rasterize_2dgs_fwd")
+# a 2DGS strip against the single-device frame: the strip's kernel outputs
+# (before the expected-depth division and the normals' rotation) against the
+# single-device kernel's rows by the FWD2_* tolerance, every value past it
+# explained by the float64 witness (`_witness_2dgs` with the strip's frame
+# as one side). The strip evaluates its surfels in its own pixel frame
+# (M[1] - y_off * M[2], as JAX does), where the f32 sigma of a near-plane
+# surfel cancels otherwise (ROADMAP Queue 3 item 4). Its normals from depth
+# are held to depth_to_normal of the strips' assembled depth
+WITNESS_STRIP_CHUNK = 16  # pixels a float64 evaluation over the 2.8M surfels of grid5
+# the float64 alpha of the strip frame's inputs (shifted in float64) against
+# the image frame's, at the attributed pixels: the shift itself is exact math
+STRIP_SHIFT_TOL = 1e-6
+NFD_TOL = 1e-5
+DIST_RANKS = 2
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dist_scene(torch, dev, grid, W, H, n_ranks, sh_degree=3):
+    """Garden `grid` as phase 4 serves it, N padded to a multiple of
+    `n_ranks` with masked slots: (render args, live, viewmats [C,4,4], Ks
+    [C,3,3])."""
+    from gsplat_tpu_torch import splats_from_numpy
+
+    arrays, viewmats, Ks, W0, _ = splat_arrays(grid, sh_degree, SEED)
+    Ks = Ks.copy()
+    Ks[:, :2, :] *= W / W0
+    pad = (-arrays["splat/means"].shape[0]) % n_ranks
+    if pad:
+        for k, v in arrays.items():
+            fill = np.zeros((pad,) + v.shape[1:], v.dtype)  # live False
+            if k == "splat/quats":
+                fill[:, 0] = 1.0
+            arrays[k] = np.concatenate([v, fill])
+    splats, live = splats_from_numpy(arrays, device=dev)
+    return list(render_args(torch, splats)), live, torch.as_tensor(viewmats, device=dev), torch.as_tensor(Ks, device=dev)
+
+
+def gate_grads(torch, got, want, names, what):
+    """BWD_RTOL / BWD_ATOL on each gradient against the reference's,
+    BWD_ATOL relative to its largest |value|. Returns the largest error."""
+    errs = []
+    for g, w, name in zip(got, want, names):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{what}: gradient of {name} not finite")
+        d = (g - w).abs()
+        scale = float(w.abs().max())
+        bad = d > BWD_RTOL * w.abs() + BWD_ATOL * scale
+        if bool(bad.any()):
+            raise AssertionError(f"{what}: gradient of {name}: {int(bad.sum())} of {bad.numel()} values off, "
+                                 f"max abs {float(d.max()):.3e} against its max {scale:.3e}")
+        errs.append(float(d.max()))
+    return max(errs)
+
+
+def gate_2dgs(torch, got, want, what):
+    """A 2DGS block against the single-device one: colours (expected depth
+    included), alphas, normals, normals from depth and distortion by the
+    FWD2 gates, the median by MED_FLIPS. Returns {output: max abs}."""
+    errs = {}
+    for i, name in ((0, "render"), (1, "alphas"), (2, "normals"), (3, "normals_from_depth"), (4, "distort")):
+        if want[i] is not None:
+            errs[name] = _flip_gate(torch, name, got[i], want[i], what)
+    scale = max(1.0, float(want[5].abs().max())) if want[5].numel() else 1.0
+    med_off = float(((got[5] - want[5]).abs() > 1e-5 * scale).float().mean()) if want[5].numel() else 0.0
+    if med_off > MED_FLIPS:
+        raise AssertionError(f"{what}: median differs at a share {med_off:.3e} of pixels (limit {MED_FLIPS})")
+    errs["median share off"] = med_off
+    return errs
+
+
+def diff_stats(torch, got, want):
+    """Per 2DGS output: max abs and the share of values off by > 5e-4 and by
+    > 2e-4 x max(1, max |want|)."""
+    out = {}
+    for i, name in enumerate(("render", "alphas", "normals", "normals_from_depth", "distort", "median")):
+        if want[i] is None or not want[i].numel():
+            continue
+        d = (got[i] - want[i]).abs()
+        scale = max(1.0, float(want[i].abs().max()))
+        out[f"{name} max"] = float(d.max())
+        out[f"{name} >5e-4"] = float((d > 5e-4).float().mean())
+        out[f"{name} >2e-4s"] = float((d > 2e-4 * scale).float().mean())
+    return out
+
+
+def same_bits(torch, a, b):
+    return all((x is None and y is None) or (x.shape == y.shape and torch.equal(x, y)) for x, y in zip(a, b))
+
+
+def _loss_weights(torch, dev, C, H, W, X):
+    gen = torch.Generator(device=dev).manual_seed(SEED + 7)
+    return torch.randn((C, H, W, X), generator=gen, device=dev)
+
+
+def _render3(rasterization, args, live, vm, K, W, H, cap, backend="binned", **kw):
+    return rasterization(*args, vm, K, W, H, sh_degree=3, masks=live, tile_size=MAIN_TILE, backend=backend,
+                         isect_capacity=cap, **kw)
+
+
+def _render2(rasterization_2dgs, args, live, vm, K, W, H, cap, **kw):
+    return rasterization_2dgs(*args, vm, K, W, H, sh_degree=3, masks=live, tile_size=MAIN_TILE, backend="binned",
+                              isect_capacity=cap, render_mode="RGB+ED", **kw)
+
+
+def _grads3(torch, rasterization, args, live, vm, K, W, H, cap, w, block=lambda x: x, **kw):
+    """Gradients w.r.t. the render args of sum(render * w) + sum(alphas),
+    each summed over `block` of the outputs, with the outputs detached."""
+    leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    img, alpha, meta = _render3(rasterization, leaves, live, vm, K, W, H, cap, **kw)
+    ((img * block(w)).sum() + alpha.sum()).backward()
+    return [p.grad for p in leaves], img.detach(), alpha.detach(), meta
+
+
+def phase_distributed_world1(smi, dev=None, grid=MAIN_GRID, W=MAIN_W, H=MAIN_H, pg_backend="nccl"):
+    """15a: an in-process process group of world size 1 (NCCL on the card):
+    rasterization(distributed=True) binned and tiled, rasterization_2dgs
+    (distributed=True, RGB+ED) binned, and one 3DGS binned forward and
+    backward, each against the single-device call on the same inputs.
+    Returns the launch counts of the distributed calls."""
+    import torch
+    import torch.distributed as dist
+    from gsplat_tpu_torch import _backend, rasterization, rasterization_2dgs
+
+    dev = torch.device("cuda") if dev is None else dev
+    args, live, vms, Kss = dist_scene(torch, dev, grid, W, H, 1)
+    vm, K = vms[:1], Kss[:1]
+    names = ("means", "quats", "scales", "opacities", "colors")
+    with torch.no_grad():
+        cap = _render3(rasterization, args, live, vm, K, W, H, 512)[2]["slab_required"] + 1024
+        cap_t = int(_render3(rasterization, args, live, vm, K, W, H, 1 << 20, backend="tiled")[2]["n_isects"]) + 4096
+        cap2 = _render2(rasterization_2dgs, args, live, vm, K, W, H, 512)[6]["slab_required"] + 1024
+    w = _loss_weights(torch, dev, 1, H, W, 3)
+    dist.init_process_group(pg_backend, init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0)
+    try:
+        torch.cuda.synchronize(dev) if dev.type == "cuda" else None
+        _backend.reset_launch_counts()
+        with torch.no_grad():
+            d3 = _render3(rasterization, args, live, vm, K, W, H, cap, distributed=True)
+            d3t = _render3(rasterization, args, live, vm, K, W, H, cap_t, backend="tiled", distributed=True)
+            d2 = _render2(rasterization_2dgs, args, live, vm, K, W, H, cap2, distributed=True)
+        g_d, img_g, alpha_g, _ = _grads3(torch, rasterization, args, live, vm, K, W, H, cap, w, distributed=True)
+        torch.cuda.synchronize(dev) if dev.type == "cuda" else None
+        launches = _backend.launch_counts()
+        log(f"launches in the world-size-1 distributed path: {launches}")
+        for name in DIST_KERNELS:
+            if launches[name] == 0:
+                raise AssertionError(f"kernel {name} was not launched on the distributed path")
+        with torch.no_grad():
+            s3 = _render3(rasterization, args, live, vm, K, W, H, cap)
+            s3t = _render3(rasterization, args, live, vm, K, W, H, cap_t, backend="tiled")
+            s2 = _render2(rasterization_2dgs, args, live, vm, K, W, H, cap2)
+        g_s, img_s, alpha_s, _ = _grads3(torch, rasterization, args, live, vm, K, W, H, cap, w)
+        for what, d, s in (("3DGS binned", d3, s3), ("3DGS tiled", d3t, s3t), ("3DGS binned fwd+bwd", (img_g, alpha_g), (img_s, alpha_s))):
+            e = [_fwd_gate(torch, [d[i]], [s[i]], f"world size 1, {what}, {k}") for i, k in enumerate(("render", "alphas"))]
+            log(f"world size 1, {what} against rasterization(): same bits {same_bits(torch, d[:2], s[:2])}, "
+                f"render max abs {e[0][0]:.3e} mean {e[0][1]:.3e}, alphas max abs {e[1][0]:.3e}")
+        e2 = gate_2dgs(torch, d2[:6], s2[:6], "world size 1, 2DGS binned RGB+ED")
+        log(f"world size 1, 2DGS binned RGB+ED against rasterization_2dgs(): same bits {same_bits(torch, d2[:6], s2[:6])}, "
+            + ", ".join(f"{k} {v:.3e}" for k, v in e2.items()))
+        ge = gate_grads(torch, g_d, g_s, names, "world size 1, 3DGS binned backward")
+        log(f"world size 1, 3DGS binned gradients against rasterization()'s: same bits {same_bits(torch, g_d, g_s)}, "
+            f"max abs {ge:.3e}; meta: n_isects {d3[2]['n_isects'].tolist()}, slab_required {int(d3[2]['slab_required'])}, "
+            f"a2a_bytes_per_device {d3[2]['a2a_bytes_per_device']}")
+        if dev.type == "cuda":
+            with torch.no_grad():
+                ms_d = cuda_ms(torch, lambda: _render3(rasterization, args, live, vm, K, W, H, cap, distributed=True), 5)
+                ms_s = cuda_ms(torch, lambda: _render3(rasterization, args, live, vm, K, W, H, cap), 5)
+            log(f"world size 1 ({pg_backend}), 3DGS binned frame {W}x{H} (CUDA events, mean of 5): distributed "
+                f"{ms_d:.3f} ms, rasterization() {ms_s:.3f} ms, the exchange and its bookkeeping {ms_d - ms_s:.3f} ms "
+                f"({smi})")
+            with torch.no_grad():
+                kd = device_time_by_kernel(torch, lambda: _render3(rasterization, args, live, vm, K, W, H, cap,
+                                                                   distributed=True))
+                ks = device_time_by_kernel(torch, lambda: _render3(rasterization, args, live, vm, K, W, H, cap))
+            log_profile("world size 1, distributed frame", kd, ms_d)
+            log_profile("world size 1, rasterization() frame", ks, ms_s)
+            extra = sorted(((k, v - ks.get(k, 0.0)) for k, v in kd.items()), key=lambda kv: -kv[1])[:6]
+            log("world size 1, device time the distributed frame adds, by kernel: "
+                + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in extra))
+            with torch.no_grad():
+                for what, fn in (("distributed", lambda: _render3(rasterization, args, live, vm, K, W, H, cap,
+                                                                  distributed=True)),
+                                 ("rasterization()", lambda: _render3(rasterization, args, live, vm, K, W, H, cap))):
+                    waits = host_waits(torch, fn)
+                    log(f"world size 1, {what} frame: the host's waits on the card (calls, self CPU ms): "
+                        + "; ".join(f"{k} {c} {ms:.3f}" for k, (c, ms) in sorted(waits.items()))
+                        + f"; device memory allocated {torch.cuda.memory_allocated() / 2**30:.2f} GiB, reserved "
+                        f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB")
+    finally:
+        dist.destroy_process_group()
+    return launches
+
+
+def _rank_rows(rank, C, n, H, ts=MAIN_TILE):
+    """(y0, y1, strip_h) of rank `rank`'s strip (n % C == 0), by the
+    distributed module's own layout."""
+    from gsplat_tpu_torch.distributed import strip_layout, strip_rows
+
+    G, _, strip_h = strip_layout(C, n, H, ts)
+    return strip_rows(rank % G, strip_h, H) + (strip_h,)
+
+
+def _rank_block(x, rank, C, n, H, ts=MAIN_TILE):
+    """Rank `rank`'s block of a [C, H, ...] single-device output (whole
+    cameras, or its strip's rows)."""
+    if C % n == 0:
+        k = C // n
+        return x[rank * k:(rank + 1) * k]
+    y0, y1, _ = _rank_rows(rank, C, n, H, ts)
+    return x[rank // (n // C): rank // (n // C) + 1, y0:y1]
+
+
+def strip_normals_check(torch, dist, d2, vm, K, rank, n, H):
+    """A strip's normals from depth (C=1) against depth_to_normal of the
+    strips' depth, gathered from every rank and assembled: the rows at the
+    strip's edges read the neighbouring strip's depth. Returns max abs."""
+    from gsplat_tpu_torch.utils import depth_to_normal
+
+    depth = d2[0][..., -1:]
+    _, _, strip_h = _rank_rows(rank, 1, n, H)
+    buf = depth.new_zeros((1, strip_h) + tuple(depth.shape[2:]))
+    buf[:, :depth.shape[1]] = depth
+    parts = [torch.empty_like(buf) for _ in range(n)]
+    dist.all_gather(parts, buf)
+    full = torch.cat([p[:, :_rank_rows(r, 1, n, H)[1] - _rank_rows(r, 1, n, H)[0]] for r, p in enumerate(parts)],
+                     dim=1)
+    want = _rank_block(depth_to_normal(full, torch.linalg.inv(vm), K), rank, 1, n, H)
+    err = float((d2[3] - want).abs().max())
+    if not err <= NFD_TOL:
+        raise AssertionError(f"rank {rank}: strip normals from depth off the assembled depth's by {err:.3e} "
+                             f"(limit {NFD_TOL})")
+    return err
+
+
+def strip_check_2dgs(torch, args, live, vm, K, W, H, cap, rank, n, d2, want):
+    """Rank `rank`'s 2DGS strip of one camera (`d2`, RGB+ED) against the
+    single-device frame (`want`, the rank's block). The strip is rebuilt
+    here from the single-device projection, its surfels shifted into the
+    strip's frame by `_shift_frame` (distributed.py's arithmetic), and its
+    kernel outputs post-processed must be the distributed block bit for bit
+    (normals from depth apart: they read the neighbours' depth). Its kernel
+    outputs (colours, accumulated depth, normals, alpha) are then held to
+    the single-device kernel's rows by the FWD2_* tolerance with every value
+    past it explained by the float64 witness (the strip's frame as one
+    side), and its median by MED_FLIPS. Returns the printed summary."""
+    from gsplat_tpu_torch.rendering import postprocess_2dgs, project_and_shade_2dgs, rasterize_shaded_2dgs
+
+    what = f"rank {rank}, strips C=1, 2DGS"
+    y0, y1, strip_h = _rank_rows(rank, 1, n, H)
+    y_off = (rank % n) * strip_h
+    with torch.no_grad():
+        s = project_and_shade_2dgs(*args, vm, K, W, H, sh_degree=3, masks=live, render_mode="RGB+ED")
+
+        def raster(m2, M, h):
+            return rasterize_shaded_2dgs("binned", m2, M, s.colors, s.normals, s.opacities, s.radii, s.depths, W, h,
+                                         MAIN_TILE, cap)[:5]
+
+        full = [o[:, y0:y1] for o in raster(s.means2d, s.ray_transforms, H)]
+        m2f, M9f = _shift_frame(torch, s.means2d, s.ray_transforms.reshape(s.radii.shape + (9,)), y_off)
+        strip = [o[:, : y1 - y0] for o in raster(m2f, M9f.reshape(M9f.shape[:-1] + (3, 3)), strip_h)]
+        post = postprocess_2dgs(*strip, vm, K, "RGB+ED", "expected", False, normals_fn=lambda d: None)
+    for i, name in ((0, "render"), (1, "alphas"), (2, "normals"), (4, "distort"), (5, "median")):
+        if not torch.equal(post[i], d2[i]):
+            raise AssertionError(f"{what}: the strip rebuilt from the single-device projection is not the "
+                                 f"distributed block ({name})")
+    names = ("colours", "depth", "normals", "alpha")
+    split = lambda o: (o[0][..., :3], o[0][..., 3:], o[2], o[1])  # noqa: E731
+    geo = (s.means2d, s.ray_transforms, s.opacities, [s.colors[..., :3], s.colors[..., 3:], s.normals], s.radii,
+           s.depths)
+    summary = _attribute_2dgs(torch, names, split(strip), split(full), geo, W, MAIN_TILE, what,
+                              labels=("the strip", "one device"), sides=((_sigma_kernel, y_off), (_sigma_kernel, 0)),
+                              row0=y0, chunk=WITNESS_STRIP_CHUNK)
+    scale = max(1.0, float(want[5].abs().max())) if want[5].numel() else 1.0
+    med_off = float(((d2[5] - want[5]).abs() > 1e-5 * scale).float().mean()) if want[5].numel() else 0.0
+    if med_off > MED_FLIPS:
+        raise AssertionError(f"{what}: median differs at a share {med_off:.3e} of pixels (limit {MED_FLIPS})")
+    return f"the distributed block is the rebuilt strip bit for bit; kernel outputs vs one device: {summary}; " \
+           f"median share off {med_off:.3e}"
+
+
+def _dist_rank(rank, port, out_path, grid, W, H, dev_name):
+    """One of DIST_RANKS gloo ranks on one card (15b): the cases of
+    phase_distributed_ranks, each rank's block against its block of the
+    single-device call. Writes its numbers to `out_path` (JSON)."""
+    import torch
+    import torch.distributed as dist
+    from gsplat_tpu_torch import _backend, rasterization, rasterization_2dgs
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(dev_name)
+    n = DIST_RANKS
+    cuda = dev.type == "cuda"
+    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
+    out = {"rank": rank, "cases": []}
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=n, rank=rank)
+    try:
+        args, live, vms, Kss = dist_scene(torch, dev, grid, W, H, n)
+        N = args[0].shape[0]
+        rows = slice(rank * (N // n), (rank + 1) * (N // n))
+        mine = [a[rows] for a in args]
+        live_r = live[rows]
+        names = ("means", "quats", "scales", "opacities", "colors")
+        launches = {k: 0 for k in DIST_RANK_KERNELS}
+
+        def timed(fn):
+            """fn()'s result and ms on the host's clock after one warm-up
+            call, its launches added to `launches`."""
+            fn()
+            sync()
+            _backend.reset_launch_counts()
+            t0 = time.perf_counter()
+            r = fn()
+            sync()
+            ms = (time.perf_counter() - t0) * 1e3
+            for k in launches:
+                launches[k] += _backend.launch_counts()[k]
+            return r, ms
+
+        for C in (1, 2):
+            vm, K = vms[:C], Kss[:C]
+            layout = "strips" if C < n else "whole cameras"
+            w = _loss_weights(torch, dev, C, H, W, 3)
+            with torch.no_grad():  # the budget of all C cameras: enough for a rank's share
+                cap = _render3(rasterization, args, live, vm, K, W, H, 512)[2]["slab_required"] + 1024
+                cap2 = _render2(rasterization_2dgs, args, live, vm, K, W, H, 512)[6]["slab_required"] + 1024
+            blk = lambda x: _rank_block(x, rank, C, n, H)  # noqa: E731
+            # 3DGS binned forward and backward
+            (g_d, img_d, alpha_d, meta), ms = timed(lambda: _grads3(
+                torch, rasterization, mine, live_r, vm, K, W, H, cap, w, block=blk, distributed=True))
+            g_s, img_s, alpha_s, _ = _grads3(torch, rasterization, args, live, vm, K, W, H, cap, w)
+            e = [_fwd_gate(torch, [a], [blk(b)], f"rank {rank}, {layout} C={C}, 3DGS {k}")
+                 for a, b, k in ((img_d, img_s, "render"), (alpha_d, alpha_s, "alphas"))]
+            ge = gate_grads(torch, g_d, [g[rows] for g in g_s], names, f"rank {rank}, {layout} C={C}, 3DGS backward")
+            out["cases"].append({"case": f"{layout} C={C} 3DGS binned fwd+bwd", "ms": ms, "render_max_abs": e[0][0],
+                                 "render_mean_abs": e[0][1], "alphas_max_abs": e[1][0], "grad_max_abs": ge,
+                                 "same_bits": same_bits(torch, [img_d, alpha_d], [blk(img_s), blk(alpha_s)]),
+                                 "n_isects": meta["n_isects"].tolist(), "slab_required": int(meta["slab_required"]),
+                                 "a2a_bytes_per_device": meta["a2a_bytes_per_device"]})
+            # 2DGS binned forward
+            with torch.no_grad():
+                d2, ms = timed(lambda: _render2(rasterization_2dgs, mine, live_r, vm, K, W, H, cap2, distributed=True))
+                s2 = _render2(rasterization_2dgs, args, live, vm, K, W, H, cap2)
+            ref2 = [None if x is None else blk(x) for x in s2[:6]]
+            case = {"case": f"{layout} C={C} 2DGS binned RGB+ED fwd", "ms": ms, **diff_stats(torch, d2[:6], ref2),
+                    "same_bits": same_bits(torch, d2[:6], ref2)}
+            out["cases"].append(case)
+            try:
+                if C < n:
+                    case["normals_from_depth vs assembled depth"] = strip_normals_check(torch, dist, d2, vm, K, rank,
+                                                                                        n, H)
+                    case["witness"] = strip_check_2dgs(torch, args, live, vm, K, W, H, cap2, rank, n, d2, ref2)
+                    if cuda:  # the witness's float64 blocks, cached, would crowd the other rank on the card
+                        torch.cuda.empty_cache()
+                else:
+                    gate_2dgs(torch, d2[:6], ref2, f"rank {rank}, {layout} C={C}, 2DGS")
+            except AssertionError as e:  # reported with every case's numbers, then raised
+                case["failed"] = str(e)
+        # the packed exchange, whole cameras, at pack_capacity = pack_required
+        vm, K = vms[:2], Kss[:2]
+        with torch.no_grad():
+            need = int(_render3(rasterization, mine, live_r, vm, K, W, H, cap, distributed=True, packed=True,
+                                pack_capacity=1)[2]["pack_required"])
+            (img_p, alpha_p, meta_p), ms = timed(lambda: _render3(
+                rasterization, mine, live_r, vm, K, W, H, cap, distributed=True, packed=True, pack_capacity=need))
+            img_s, alpha_s, _ = _render3(rasterization, args, live, vm, K, W, H, cap)
+        blk = lambda x: _rank_block(x, rank, 2, n, H)  # noqa: E731
+        e = [_fwd_gate(torch, [a], [blk(b)], f"rank {rank}, packed C=2, 3DGS {k}")
+             for a, b, k in ((img_p, img_s, "render"), (alpha_p, alpha_s, "alphas"))]
+        if int(meta_p["pack_required"]) != need:
+            raise AssertionError(f"rank {rank}: pack_required {meta_p['pack_required']} != {need}")
+        out["cases"].append({"case": "packed C=2 3DGS binned fwd", "ms": ms, "pack_capacity": need,
+                             "pack_rows_of": N // n, "render_max_abs": e[0][0], "render_mean_abs": e[0][1],
+                             "alphas_max_abs": e[1][0],
+                             "same_bits": same_bits(torch, [img_p, alpha_p], [blk(img_s), blk(alpha_s)])})
+        out["launches"] = launches
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def phase_distributed_ranks(smi, grid=MAIN_GRID, W=MAIN_W, H=MAIN_H, dev_name="cuda:0"):
+    """15b: DIST_RANKS ranks on one card over gloo, spawned here: C=1 as
+    strips and C=2 as whole cameras, each 3DGS binned forward and backward
+    and 2DGS binned forward, and the packed exchange at pack_capacity =
+    pack_required; each rank's block (and its gradient rows) against the
+    single-device call. Returns the ranks' summed launch counts."""
+    import torch.multiprocessing as mp
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_dist")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = [os.path.join(out_dir, f"rank{r}.json") for r in range(DIST_RANKS)]
+    for p in paths + [p + ".err" for p in paths]:
+        if os.path.exists(p):
+            os.remove(p)
+    port = free_port()
+    t0 = time.perf_counter()
+    try:
+        mp.start_processes(_dist_rank_entry, args=(port, paths, grid, W, H, dev_name), nprocs=DIST_RANKS,
+                           join=True, start_method="spawn")
+    except Exception:
+        for r, p in enumerate(paths):
+            if os.path.exists(p + ".err"):
+                with open(p + ".err") as f:
+                    log(f"rank {r} failed:\n{f.read()}")
+        raise
+    wall = time.perf_counter() - t0
+    ranks = []
+    for p in paths:
+        with open(p) as f:
+            ranks.append(json.load(f))
+    for r in ranks:
+        for c in r["cases"]:
+            log(f"two gloo ranks on one card, rank {r['rank']}, {c['case']}: "
+                + ", ".join(f"{k} {v:.3e}" if isinstance(v, float) else f"{k} {v}" for k, v in c.items() if k != "case"))
+    log(f"two gloo ranks on one card: gloo's all_to_all_single took the CUDA tensors (it stages them through host "
+        f"memory); the two ranks share the card, so these times say "
+        f"nothing of scaling across cards ({smi}); phase wall time {wall:.1f} s")
+    failed = [f"rank {r['rank']}: {c['failed']}" for r in ranks for c in r["cases"] if "failed" in c]
+    if failed:
+        raise AssertionError("; ".join(failed))
+    launches = {k: sum(r["launches"][k] for r in ranks) for k in DIST_RANK_KERNELS}
+    log(f"launches in the two ranks' distributed calls: {launches}")
+    for k, v in launches.items():
+        if v == 0:
+            raise AssertionError(f"kernel {k} was not launched by the two ranks")
+    return launches
+
+
+def _dist_rank_entry(rank, port, paths, grid, W, H, dev_name):
+    try:
+        _dist_rank(rank, port, paths[rank], grid, W, H, dev_name)
+    except BaseException:  # kept for the parent, which reports every rank's
+        import traceback
+
+        with open(paths[rank] + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def phase_distributed(smi):
+    """Phase 15: 15a then 15b. Returns {kernel: launches in this phase}."""
+    launches = phase_distributed_world1(smi)
+    for k, v in phase_distributed_ranks(smi).items():
+        launches[k] += v
+    return launches
+
+
 def main():
     smi = phase_device()
     import torch
@@ -3314,10 +3894,15 @@ def main():
             k["max_abs_err_colmap"] = colmap_errs[k["name"]]
     kernels += mb
     t10 = time.perf_counter()
+    dist_launches = phase_distributed(smi)
+    for k in kernels:
+        if k["name"] in DIST_KERNELS:
+            k["launches_distributed"] = dist_launches[k["name"]]
+    t11 = time.perf_counter()
     log(f"phase wall times: build + kernel vs plain {t1 - t0:.1f} s, serving {t2 - t1:.1f} s, "
         f"training {t3 - t2:.1f} s, 2DGS training {t4 - t3:.1f} s, 2DGS serving {t5 - t4:.1f} s, "
         f"tiled serving and training {t6 - t5:.1f} s, op API {t7 - t6:.1f} s, MCMC training {t8 - t7:.1f} s, "
-        f"COLMAP trainer {t9 - t8:.1f} s, micro-benchmarks {t10 - t9:.1f} s")
+        f"COLMAP trainer {t9 - t8:.1f} s, micro-benchmarks {t10 - t9:.1f} s, multi-GPU rendering {t11 - t10:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {smi}")
     print(json.dumps({

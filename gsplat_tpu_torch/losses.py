@@ -1,12 +1,18 @@
 """Training losses and image metrics in plain PyTorch (port of
 gsplat_tpu/losses.py).
 
-SSIM is the standard 11x11 Gaussian-window formulation as depthwise
-convolutions (`F.conv2d` with ``groups=C``, VALID); the JAX package left
-its convolution to XLA, so there is no kernel here. Images are NHWC
-([B, H, W, C]) as in the JAX package. On the card a float32 convolution
-goes through cuDNN in TF32 unless ``torch.backends.cudnn.allow_tf32`` is
-False; SSIM's variance terms (E[x^2] - mu^2) need full float32.
+SSIM is the standard 11x11 Gaussian-window formulation; the window is
+the outer product of a 1D Gaussian, so each filter is a column pass and a
+row pass of 11-tap depthwise convolutions (`F.conv2d` with ``groups=C``,
+VALID). The JAX package left its convolution to XLA, so there is no kernel
+here. Images are NHWC ([B, H, W, C]) as in the JAX package. SSIM's
+variance terms (E[x^2] - mu^2) cancel, so the filter's rounding shows in
+the gradient: with one 11x11 convolution (oneDNN's on the CPU) a training
+step's gradients lay several times farther from a float64 evaluation than
+the JAX package's, with the two passes as close
+(tests/test_torch_trainer_colmap.py::test_step0_moments_float64_witness).
+On the card a float32 convolution goes through cuDNN in TF32 unless
+``torch.backends.cudnn.allow_tf32`` is False.
 """
 
 from __future__ import annotations
@@ -19,18 +25,20 @@ import torch.nn.functional as F
 
 
 @functools.lru_cache(maxsize=None)
-def _gaussian_window(size: int = 11, sigma: float = 1.5) -> np.ndarray:
+def _gaussian_1d(size: int = 11, sigma: float = 1.5) -> np.ndarray:
     x = np.arange(size) - size // 2
     g = np.exp(-(x**2) / (2 * sigma**2))
     g /= g.sum()
-    return np.outer(g, g).astype(np.float32)
+    return g.astype(np.float32)
 
 
-def _filter2d(img: torch.Tensor, window: torch.Tensor) -> torch.Tensor:
-    """Depthwise 2D filter, VALID. img [B, H, W, C], window [k, k]."""
+def _filter2d(img: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """Depthwise 2D filter by the window outer(g, g), VALID: a column pass
+    then a row pass. img [B, H, W, C], g [k]."""
     C = img.shape[-1]
-    k = window.shape[0]
-    out = F.conv2d(img.permute(0, 3, 1, 2), window.expand(C, 1, k, k), groups=C)
+    k = g.shape[0]
+    out = F.conv2d(img.permute(0, 3, 1, 2), g.reshape(1, 1, k, 1).expand(C, 1, k, 1), groups=C)
+    out = F.conv2d(out, g.reshape(1, 1, 1, k).expand(C, 1, 1, k), groups=C)
     return out.permute(0, 2, 3, 1)
 
 
@@ -44,7 +52,7 @@ def ssim(
     """Mean SSIM over the batch (standard Gaussian-window formulation)."""
     c1 = (0.01 * data_range) ** 2
     c2 = (0.03 * data_range) ** 2
-    window = torch.as_tensor(_gaussian_window(window_size, sigma), device=img0.device)
+    window = torch.as_tensor(_gaussian_1d(window_size, sigma), device=img0.device, dtype=img0.dtype)
 
     mu0 = _filter2d(img0, window)
     mu1 = _filter2d(img1, window)

@@ -16,9 +16,10 @@ densification reads. `rasterization_2dgs()` renders 2DGS surfels on the
 same three backends: 2DGS projection, SH, render modes, the distortion and
 median outputs, normals from depth (utils.py), and the 2DGS forward and
 backward kernels of the binned and tiled backends
-(ops/rasterize_2dgs_binned.py, ops/rasterize_2dgs_tiled.py). Not ported
-yet, and raising NotImplementedError rather than falling back:
-``distributed=True``.
+(ops/rasterize_2dgs_binned.py, ops/rasterize_2dgs_tiled.py). Both take
+``distributed=True`` (with ``packed=True`` and a ``pack_capacity``, the
+packed exchange) to render over the ranks of a ``torch.distributed``
+process group (distributed.py).
 """
 
 from __future__ import annotations
@@ -68,6 +69,10 @@ def project_and_shade(
     """Everything of `rasterization()` before the rasterizer: projection,
     masks, compensation, colours (SH +0.5 and clamp) and the depth
     channel."""
+    if render_mode not in RENDER_MODES:
+        raise ValueError(f"render_mode must be one of {RENDER_MODES}, got {render_mode!r}")
+    if rasterize_mode not in ("classic", "antialiased"):
+        raise ValueError(f"unknown rasterize_mode {rasterize_mode!r}")
     N = means.shape[0]
     C = viewmats.shape[0]
     proj = fully_fused_projection_soa(
@@ -158,6 +163,8 @@ def rasterization(
     packed: bool = False,
     sparse_grad: bool = False,
     distributed: bool = False,
+    group=None,  # a torch.distributed process group; None is the default one
+    pack_capacity: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, Dict]:
     """Rasterize N 3D Gaussians to C image planes, on the device of the
     inputs.
@@ -172,28 +179,52 @@ def rasterization(
     gradient| summed over tiles. The rendered output is the same either way.
     ``packed`` and ``sparse_grad`` are accepted and have no effect on one
     device, as in the JAX package.
+
+    ``distributed=True`` renders over the ranks of ``group`` (the default
+    process group when None; `torch.distributed.init_process_group` must
+    have run, or the call raises): each rank passes its shard of the
+    Gaussians and gets its block of the image back
+    (`distributed.rasterization_distributed`, whose docstring states the
+    per-rank contract). ``packed=True`` there exchanges only the visible
+    (camera, Gaussian) rows, in a ``pack_capacity`` buffer per camera and
+    rank (`distributed.rasterization_distributed_packed`).
     """
     if distributed:
-        raise NotImplementedError(
-            "distributed=True is not ported yet: it comes with the port's "
-            "multi-GPU slice"
+        if covars is not None:
+            raise ValueError("covars is not supported on the distributed path")
+        from .distributed import rasterization_distributed, rasterization_distributed_packed
+
+        common = dict(
+            group=group, sh_degree=sh_degree, near_plane=near_plane, far_plane=far_plane,
+            radius_clip=radius_clip, eps2d=eps2d, tile_size=tile_size, backgrounds=backgrounds,
+            render_mode=render_mode, rasterize_mode=rasterize_mode, backend=backend,
+            isect_capacity=isect_capacity, masks=masks, means2d_carrier=means2d_carrier,
+            absgrad=absgrad, camera_model=camera_model,
         )
-    if render_mode not in RENDER_MODES:
-        raise ValueError(f"render_mode must be one of {RENDER_MODES}, got {render_mode!r}")
-    if rasterize_mode not in ("classic", "antialiased"):
-        raise ValueError(f"unknown rasterize_mode {rasterize_mode!r}")
+        per_cam = colors.dim() == 3 and sh_degree is None
+        if packed:
+            if pack_capacity is None:
+                raise ValueError(
+                    "the packed distributed exchange needs pack_capacity (grow it "
+                    "from meta['pack_required'])"
+                )
+            if per_cam:
+                raise ValueError("per-camera colors are not supported in the packed exchange")
+            return rasterization_distributed_packed(
+                means, quats, scales, opacities, colors, viewmats, Ks, width, height, pack_capacity, **common
+            )
+        return rasterization_distributed(
+            means, quats, scales, opacities, colors, viewmats, Ks, width, height,
+            per_camera_colors=per_cam, **common,
+        )
     common_device(
         means, quats, scales, opacities, colors, viewmats, Ks, backgrounds,
         covars, masks, means2d_carrier,
     )
     C = viewmats.shape[0]
-    backend, isect_capacity = resolve_auto_backend(
+    backend, isect_capacity = resolve_backend(
         backend, isect_capacity, C, means.shape[0], width, height
     )
-    if backend not in ("oracle", "binned", "tiled"):
-        raise ValueError(f"Unknown backend: {backend}")
-    if backend != "oracle" and isect_capacity is None:
-        raise ValueError(f"backend={backend!r} needs isect_capacity")
 
     s = project_and_shade(
         means, quats, scales, opacities, colors, viewmats, Ks, width, height,
@@ -218,96 +249,112 @@ def rasterization(
         "tile_size": tile_size,
         "n_cameras": C,
     }
-
+    render_colors, render_alphas, aux = rasterize_shaded(
+        backend, (mean_x, mean_y), s.conics, s.colors, s.opacities, s.radii,
+        s.depths, width, height, tile_size, isect_capacity, s.backgrounds,
+        abs_c, channel_chunk,
+    )
     if backend == "oracle":
-        means2d = torch.stack([mean_x, mean_y], dim=-1)
-        conics = torch.stack(s.conics, dim=-1)
-        meta["means2d"] = means2d
-
-        def _fn(col, bg):
-            if abs_c is not None:
-                if bg is None:
-                    bg = col.new_zeros((C, col.shape[-1]))
-                return rasterize_to_pixels_ref_absgrad(
-                    means2d, conics, col, s.opacities, s.radii, s.depths,
-                    width, height, tile_size, bg, means2d_carrier,
-                )
-            return rasterize_to_pixels_ref(
-                means2d, conics, col, s.opacities, s.radii, s.depths,
-                width, height, tile_size, bg,
-            )
-
-        render_colors, render_alphas = _rasterize_chunked(
-            _fn, channel_chunk, s.colors, s.backgrounds
-        )
-    elif backend == "tiled":
-        tile_width = math.ceil(width / tile_size)
-        tile_height = math.ceil(height / tile_size)
-        isect = isect_tiles(
-            (mean_x, mean_y), s.radii, s.depths, tile_size, tile_width,
-            tile_height, isect_capacity,
-        )
-        meta.update(
-            {
-                "tile_width": tile_width,
-                "tile_height": tile_height,
-                "n_isects": isect.n_isects,
-                # the budget used: n_isects above it means truncation
-                "isect_capacity": isect_capacity,
-            }
-        )
-
-        def _fn(col, bg):
-            return rasterize_to_pixels_tiled(
-                (mean_x, mean_y), s.conics, col, s.opacities, width, height,
-                tile_size, isect, backgrounds=bg, abs_carrier=abs_c,
-            )
-
-        render_colors, render_alphas = _rasterize_chunked(
-            _fn, channel_chunk, s.colors, s.backgrounds
-        )
+        meta["means2d"] = aux["means2d"]
     else:
-        aux_out = {}
-
-        def _fn(col, bg):
-            r, a, aux = rasterize_to_pixels_binned(
-                (mean_x, mean_y), s.conics, col, s.opacities,
-                s.radii, s.depths, width, height, tile_size,
-                capacity=isect_capacity, backgrounds=bg, abs_carrier=abs_c,
-            )
-            aux_out.update(aux)
-            return r, a
-
-        render_colors, render_alphas = _rasterize_chunked(
-            _fn, channel_chunk, s.colors, s.backgrounds
-        )
         meta.update(
             {
                 "tile_width": math.ceil(width / tile_size),
                 "tile_height": math.ceil(height / tile_size),
-                "n_isects": aux_out["n_isects"],
-                "slab_required": aux_out["slab_required"],
-                # the budget used: slab_required above it means truncation
+                "n_isects": aux["n_isects"],
+                # the budget used: n_isects (tiled) or slab_required
+                # (binned) above it means truncation
                 "isect_capacity": isect_capacity,
             }
         )
-
+        if backend == "binned":
+            meta["slab_required"] = aux["slab_required"]
     if render_mode in ("ED", "RGB+ED"):
-        render_colors = torch.cat(
-            [
-                render_colors[..., :-1],
-                render_colors[..., -1:] / torch.clamp_min(render_alphas, 1e-10),
-            ],
-            dim=-1,
-        )
-
+        render_colors = expected_depth(render_colors, render_alphas)
     return render_colors, render_alphas, meta
 
 
+def resolve_backend(backend, isect_capacity, C, N, width, height):
+    """`resolve_auto_backend`, then a known backend and, for the binned and
+    tiled backends, a capacity: (backend, isect_capacity)."""
+    backend, isect_capacity = resolve_auto_backend(
+        backend, isect_capacity, C, N, width, height
+    )
+    if backend not in ("oracle", "binned", "tiled"):
+        raise ValueError(f"Unknown backend: {backend}")
+    if backend != "oracle" and isect_capacity is None:
+        raise ValueError(f"backend={backend!r} needs isect_capacity")
+    return backend, isect_capacity
+
+
+def expected_depth(render, alphas):
+    """The last channel (accumulated depth) divided by the alpha."""
+    return torch.cat(
+        [render[..., :-1], render[..., -1:] / torch.clamp_min(alphas, 1e-10)], dim=-1
+    )
+
+
+def rasterize_shaded(
+    backend, means2d, conics, colors, opacities, radii, depths, width, height,
+    tile_size, isect_capacity, backgrounds=None, abs_carrier=None,
+    channel_chunk=None,
+):
+    """The 3DGS rasterizer on projected rows (``means2d`` as (mean_x,
+    mean_y), ``conics`` as (a, b, c), each [C, N]) on a resolved backend,
+    ``channel_chunk`` channels a call (None: one call). ``abs_carrier``
+    (x, y) takes the absgrad statistic. Returns (render, alphas, aux): aux
+    holds ``n_isects`` and ``slab_required`` on the binned backend,
+    ``n_isects`` on the tiled one and the stacked ``means2d`` on the
+    oracle."""
+    aux: Dict = {}
+    if backend == "oracle":
+        m2 = aux["means2d"] = torch.stack(list(means2d), dim=-1)
+        con = torch.stack(list(conics), dim=-1)
+
+        def _fn(col, bg):
+            if abs_carrier is not None:
+                if bg is None:
+                    bg = col.new_zeros((col.shape[0], col.shape[-1]))
+                return rasterize_to_pixels_ref_absgrad(
+                    m2, con, col, opacities, radii, depths, width, height,
+                    tile_size, bg, torch.stack(list(abs_carrier), dim=-1),
+                )
+            return rasterize_to_pixels_ref(
+                m2, con, col, opacities, radii, depths, width, height, tile_size, bg,
+            )
+
+    elif backend == "tiled":
+        isect = isect_tiles(
+            means2d, radii, depths, tile_size, math.ceil(width / tile_size),
+            math.ceil(height / tile_size), isect_capacity,
+        )
+        aux["n_isects"] = isect.n_isects
+
+        def _fn(col, bg):
+            return rasterize_to_pixels_tiled(
+                means2d, conics, col, opacities, width, height, tile_size, isect,
+                backgrounds=bg, abs_carrier=abs_carrier,
+            )
+
+    else:
+
+        def _fn(col, bg):
+            r, a, aux_b = rasterize_to_pixels_binned(
+                means2d, conics, col, opacities, radii, depths, width, height,
+                tile_size, capacity=isect_capacity, backgrounds=bg,
+                abs_carrier=abs_carrier,
+            )
+            aux.update(aux_b)
+            return r, a
+
+    render, alphas = _rasterize_chunked(_fn, channel_chunk, colors, backgrounds)
+    return render, alphas, aux
+
+
 def _rasterize_chunked(fn, channel_chunk, colors, backgrounds):
-    """Rasterize channels in chunks of `channel_chunk`."""
+    """Rasterize channels in chunks of `channel_chunk` (None: one call)."""
     D = colors.shape[-1]
-    if D <= channel_chunk:
+    if channel_chunk is None or D <= channel_chunk:
         return fn(colors, backgrounds)
     out_c, out_a = [], None
     n_chunks = (D + channel_chunk - 1) // channel_chunk
@@ -344,6 +391,8 @@ def project_and_shade_2dgs(
     projection, masks, colours (SH +0.5 and clamp) and the depth channel,
     which is appended for RGB+D / RGB+ED and replaces the colours for D /
     ED (plain RGB gets nothing extra)."""
+    if render_mode not in RENDER_MODES:
+        raise ValueError(f"render_mode must be one of {RENDER_MODES}, got {render_mode!r}")
     N = means.shape[0]
     C = viewmats.shape[0]
     radii, means2d, depths, ray_transforms, normals = fully_fused_projection_2dgs(
@@ -409,6 +458,8 @@ def rasterization_2dgs(
     packed: bool = False,
     sparse_grad: bool = False,
     distributed: bool = False,
+    group=None,  # a torch.distributed process group; None is the default one
+    pack_capacity: Optional[int] = None,
 ):
     """Rasterize 2D Gaussians (surfels) to C image planes, on the device of
     the inputs.
@@ -425,29 +476,44 @@ def rasterization_2dgs(
     added to the projected means; its gradient is the screen-space
     gradient the densification strategies read. ``packed`` and
     ``sparse_grad`` are accepted and have no effect on one device.
+    ``distributed=True`` (and ``packed=True`` with a ``pack_capacity``)
+    renders over the ranks of ``group`` as `rasterization` does
+    (`distributed.rasterization_2dgs_distributed`,
+    `distributed.rasterization_2dgs_distributed_packed`).
     """
     if distributed:
-        raise NotImplementedError(
-            "rasterization_2dgs(distributed=True) is not ported yet: it comes "
-            "with the port's multi-GPU slice"
+        from .distributed import rasterization_2dgs_distributed, rasterization_2dgs_distributed_packed
+
+        common = dict(
+            group=group, sh_degree=sh_degree, near_plane=near_plane, far_plane=far_plane,
+            radius_clip=radius_clip, tile_size=tile_size, backgrounds=backgrounds,
+            render_mode=render_mode, distloss=distloss, depth_mode=depth_mode, backend=backend,
+            isect_capacity=isect_capacity, masks=masks, densify_carrier=densify_carrier,
         )
-    if render_mode not in RENDER_MODES:
-        raise ValueError(f"render_mode must be one of {RENDER_MODES}, got {render_mode!r}")
-    if depth_mode not in ("expected", "median"):
-        raise ValueError(f"Unknown depth_mode: {depth_mode}")
+        per_cam = colors.dim() == 3 and sh_degree is None
+        if packed:
+            if pack_capacity is None:
+                raise ValueError(
+                    "the packed distributed exchange needs pack_capacity (grow it "
+                    "from meta['pack_required'])"
+                )
+            if per_cam:
+                raise ValueError("per-camera colors are not supported in the packed exchange")
+            return rasterization_2dgs_distributed_packed(
+                means, quats, scales, opacities, colors, viewmats, Ks, width, height, pack_capacity, **common
+            )
+        return rasterization_2dgs_distributed(
+            means, quats, scales, opacities, colors, viewmats, Ks, width, height,
+            per_camera_colors=per_cam, **common,
+        )
+    check_depth_mode(depth_mode)
     common_device(
         means, quats, scales, opacities, colors, viewmats, Ks, backgrounds,
         densify_carrier, masks,
     )
     N = means.shape[0]
     C = viewmats.shape[0]
-    backend, isect_capacity = resolve_auto_backend(
-        backend, isect_capacity, C, N, width, height
-    )
-    if backend not in ("oracle", "binned", "tiled"):
-        raise ValueError(f"Unknown backend: {backend}")
-    if backend != "oracle" and isect_capacity is None:
-        raise ValueError(f"backend={backend!r} needs isect_capacity")
+    backend, isect_capacity = resolve_backend(backend, isect_capacity, C, N, width, height)
 
     s = project_and_shade_2dgs(
         means, quats, scales, opacities, colors, viewmats, Ks, width, height,
@@ -466,54 +532,83 @@ def rasterization_2dgs(
         "n_cameras": C,
         "normals": s.normals,
     }
-    args = (
-        means2d, s.ray_transforms, s.colors, s.normals, s.opacities, s.radii,
-        s.depths, width, height, tile_size,
+    *out, aux = rasterize_shaded_2dgs(
+        backend, means2d, s.ray_transforms, s.colors, s.normals, s.opacities,
+        s.radii, s.depths, width, height, tile_size, isect_capacity, s.backgrounds,
     )
-    if backend == "binned":
-        (
-            render_colors, render_alphas, render_normals, render_distort,
-            render_median, aux,
-        ) = rasterize_to_pixels_2dgs_binned(
-            *args, capacity=isect_capacity, backgrounds=s.backgrounds
-        )
+    if backend != "oracle":
         meta["n_isects"] = aux["n_isects"]
-        meta["slab_required"] = aux["slab_required"]
+        if backend == "binned":
+            meta["slab_required"] = aux["slab_required"]
         meta["isect_capacity"] = isect_capacity
-    elif backend == "tiled":
+    return postprocess_2dgs(*out, viewmats, Ks, render_mode, depth_mode, distloss) + (meta,)
+
+
+def check_depth_mode(depth_mode):
+    if depth_mode not in ("expected", "median"):
+        raise ValueError(f"Unknown depth_mode: {depth_mode}")
+
+
+def rasterize_shaded_2dgs(
+    backend, means2d, ray_transforms, colors, normals, opacities, radii, depths,
+    width, height, tile_size, isect_capacity, backgrounds=None,
+):
+    """The 2DGS rasterizer on projected surfel rows on a resolved backend
+    (``means2d`` [C, N, 2] or (mean_x, mean_y), ``ray_transforms``
+    [C, N, 3, 3] or its 9 [C, N] rows). Returns (render, alphas, normals,
+    distort, median, aux), aux as `rasterize_shaded`'s (empty on the
+    oracle)."""
+    if backend == "binned":
+        *out, aux = rasterize_to_pixels_2dgs_binned(
+            means2d, ray_transforms, colors, normals, opacities, radii, depths,
+            width, height, tile_size, capacity=isect_capacity, backgrounds=backgrounds,
+        )
+        return (*out, aux)
+    if backend == "tiled":
         isect = isect_tiles(
-            means2d, s.radii, s.depths, tile_size, math.ceil(width / tile_size),
+            means2d, radii, depths, tile_size, math.ceil(width / tile_size),
             math.ceil(height / tile_size), isect_capacity,
         )
-        meta["n_isects"] = isect.n_isects
-        meta["isect_capacity"] = isect_capacity
-        (
-            render_colors, render_alphas, render_normals, render_distort,
-            render_median,
-        ) = rasterize_to_pixels_2dgs_tiled(
-            *args[:5], width, height, tile_size, isect, backgrounds=s.backgrounds
+        out = rasterize_to_pixels_2dgs_tiled(
+            means2d, ray_transforms, colors, normals, opacities, width, height,
+            tile_size, isect, backgrounds=backgrounds,
         )
-    else:
-        (
-            render_colors, render_alphas, render_normals, render_distort,
-            render_median,
-        ) = rasterize_to_pixels_2dgs_ref(*args, s.backgrounds)
+        return (*out, {"n_isects": isect.n_isects})
+    if isinstance(means2d, (tuple, list)):
+        means2d = torch.stack(list(means2d), dim=-1)
+    if isinstance(ray_transforms, (tuple, list)):
+        ray_transforms = torch.stack(list(ray_transforms), dim=-1).reshape(
+            ray_transforms[0].shape + (3, 3)
+        )
+    out = rasterize_to_pixels_2dgs_ref(
+        means2d, ray_transforms, colors, normals, opacities, radii, depths,
+        width, height, tile_size, backgrounds,
+    )
+    return (*out, {})
 
+
+def postprocess_2dgs(
+    render_colors, render_alphas, render_normals, render_distort, render_median,
+    viewmats, Ks, render_mode, depth_mode, distloss, normals_fn=None,
+):
+    """Everything of `rasterization_2dgs()` after the rasterizer: the
+    expected-depth division, normals from the expected or median depth
+    (``normals_fn(depth)``; by default `depth_to_normal` in the cameras of
+    ``viewmats``), the distortion zeroed without distloss, and the rendered
+    normals into the world frame. Returns the 6 images of
+    `rasterization_2dgs`."""
     if render_mode in ("ED", "RGB+ED"):
-        render_colors = torch.cat(
-            [
-                render_colors[..., :-1],
-                render_colors[..., -1:] / torch.clamp_min(render_alphas, 1e-10),
-            ],
-            dim=-1,
-        )
+        render_colors = expected_depth(render_colors, render_alphas)
 
     # normals from the expected or median depth, for the normal-consistency
     # loss; the caller modulates them by alpha
     normals_from_depth = None
     if render_mode in ("RGB+D", "RGB+ED"):
         depth_for_normal = render_colors[..., -1:] if depth_mode == "expected" else render_median
-        normals_from_depth = depth_to_normal(depth_for_normal, torch.linalg.inv(viewmats), Ks)
+        if normals_fn is None:
+            normals_from_depth = depth_to_normal(depth_for_normal, torch.linalg.inv(viewmats), Ks)
+        else:
+            normals_from_depth = normals_fn(depth_for_normal)
 
     if not distloss:
         render_distort = torch.zeros_like(render_distort.detach())
@@ -529,5 +624,4 @@ def rasterization_2dgs(
         normals_from_depth,
         render_distort,
         render_median,
-        meta,
     )

@@ -35,7 +35,9 @@ random draw of a step comes from a generator seeded by (seed, step), so a
 resumed run draws what the uninterrupted one drew.
 
 Not ported yet, and refused with NotImplementedError: ``distributed`` and
-``packed`` (multi-GPU), ``lpips_weights`` and ``compression``.
+``packed`` (multi-GPU training: `rasterization(distributed=True)` renders
+over a process group, but the trainer and its strategy keep one pool on one
+device), ``lpips_weights`` and ``compression``.
 ``tb_every`` / ``tb_save_image`` are accepted and write nothing, as the
 JAX trainer does where TensorBoard cannot be imported; the port does not
 depend on it. The 2DGS trainer (simple_trainer_2dgs.py)
@@ -138,8 +140,8 @@ class Config:
     bilateral_tv_lambda: float = 10.0
     depth_loss: bool = False
     depth_lambda: float = 1e-2
-    distributed: bool = False  # not ported yet: multi-GPU
-    packed: bool = False  # not ported yet: multi-GPU
+    distributed: bool = False  # not ported yet: multi-GPU training
+    packed: bool = False  # not ported yet: multi-GPU training
     resume: str = ""  # a ckpt_*.npz to resume from
     render_traj: bool = False
     render_traj_path: str = "interp"  # or "ellipse"
@@ -173,8 +175,9 @@ class Config:
 
 # fields whose paths are not ported yet: a set value raises
 NOT_PORTED = {
-    "distributed": "multi-GPU training (ROADMAP Queue 1 item 5)",
-    "packed": "the packed multi-GPU exchange (ROADMAP Queue 1 item 5)",
+    "distributed": "multi-GPU training (ROADMAP Queue 1 item 5b; multi-GPU rendering is "
+                   "rasterization(distributed=True))",
+    "packed": "the packed exchange in multi-GPU training (ROADMAP Queue 1 item 5b)",
     "lpips_weights": "the LPIPS metric (ROADMAP Queue 1 item 6)",
     "compression": "PNG compression (ROADMAP Queue 1 item 6)",
 }

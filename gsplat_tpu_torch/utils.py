@@ -26,13 +26,15 @@ def depth_to_points(
     camtoworlds: torch.Tensor,  # [..., 4, 4]
     Ks: torch.Tensor,  # [..., 3, 3]
     z_depth: bool = True,
+    row0: int = 0,
 ) -> torch.Tensor:
-    """Depth maps -> world-space 3D points [..., H, W, 3]."""
+    """Depth maps -> world-space 3D points [..., H, W, 3]. The maps' rows
+    are the image's rows [row0, row0 + H) (a strip of a taller image)."""
     if depths.shape[-1] != 1:
         raise ValueError(f"depths must end in a channel of 1, got shape {tuple(depths.shape)}")
     height, width = depths.shape[-3:-1]
     y, x = torch.meshgrid(
-        torch.arange(height, dtype=torch.float32, device=depths.device),
+        torch.arange(row0, row0 + height, dtype=torch.float32, device=depths.device),
         torch.arange(width, dtype=torch.float32, device=depths.device),
         indexing="ij",
     )
@@ -55,10 +57,11 @@ def depth_to_normal(
     camtoworlds: torch.Tensor,
     Ks: torch.Tensor,
     z_depth: bool = True,
+    row0: int = 0,
 ) -> torch.Tensor:
     """Depth maps -> finite-difference surface normals [..., H, W, 3], zero
-    on the one-pixel border."""
-    points = depth_to_points(depths, camtoworlds, Ks, z_depth=z_depth)
+    on the one-pixel border (rows as in `depth_to_points`)."""
+    points = depth_to_points(depths, camtoworlds, Ks, z_depth=z_depth, row0=row0)
     dx = points[..., 2:, 1:-1, :] - points[..., :-2, 1:-1, :]
     dy = points[..., 1:-1, 2:, :] - points[..., 1:-1, :-2, :]
     normals = torch.linalg.cross(dx, dy, dim=-1)

@@ -5,8 +5,9 @@
   scripts/torch_*.py imports them; the package exports the JAX package's names;
 - functions run on the device of their inputs and refuse mixed devices;
   splats_from_numpy defaults to CUDA and raises without it;
-- paths not ported yet (multi-GPU) raise NotImplementedError instead of
-  falling back; the tiled backend, once such a path, renders, and
+- multi-GPU, not ported until its slice, raises without a torch.distributed
+  process group instead of falling back; the tiled backend, once such a
+  path, renders, and
   backend="auto" reaches it at scene scale without a capacity;
 - the binned backend differentiates (the training slice), 3DGS and 2DGS;
 - CPU runs take the kernels' plain versions and launch no kernel, forward
@@ -52,6 +53,7 @@ def test_import_loads_no_jax():
         "import gsplat_tpu_torch.ops.isect, gsplat_tpu_torch.ops.rasterize_tiled\n"
         "import gsplat_tpu_torch.ops.rasterize_2dgs_tiled, gsplat_tpu_torch.ops.accumulate\n"
         "import gsplat_tpu_torch.relocation, gsplat_tpu_torch.strategy.mcmc, gsplat_tpu_torch.utils\n"
+        "import gsplat_tpu_torch.distributed\n"
         "import gsplat_tpu_torch.datasets.synth, gsplat_tpu_torch.bilagrid, gsplat_tpu_torch.image_fitting\n"
         "import gsplat_tpu_torch.microbench.vpu_calib, gsplat_tpu_torch.microbench.primitives\n"
         "import gsplat_tpu_torch.microbench.kernel_shapes, gsplat_tpu_torch.microbench.fwd_breakdown\n"
@@ -173,16 +175,18 @@ def test_binned_backend_refuses_gradients():
 
 @pytest.mark.parametrize("kw,match", [
     (dict(backend="tiled", isect_capacity=4096), "tiled"),
-    (dict(distributed=True), "multi-GPU"),
+    (dict(distributed=True), "init_process_group"),
     (dict(backend="tiled", isect_capacity=4096, means2d_carrier=torch.zeros(1, 64, 2), absgrad=True), "tiled"),
-    (dict(distributed=True, means2d_carrier=torch.zeros(1, 64, 2)), "multi-GPU"),
+    (dict(distributed=True, means2d_carrier=torch.zeros(1, 64, 2)), "init_process_group"),
 ])
 def test_unported_paths_raise(kw, match):
-    """Multi-GPU is not ported and raises. The tiled backend, which raised
-    until its slice, renders (with the absgrad carrier too) and matches the
-    oracle."""
+    """Multi-GPU, which raised NotImplementedError until its slice, needs a
+    torch.distributed process group: without one it raises and never
+    renders on one device instead. The tiled backend, which raised until its
+    slice, renders (with the absgrad carrier too) and matches the oracle."""
     if match != "tiled":
-        with pytest.raises(NotImplementedError, match=match):
+        assert not torch.distributed.is_initialized()
+        with pytest.raises(RuntimeError, match=match):
             rasterization(*_tiny(), **kw)
         return
     with torch.no_grad():
@@ -194,13 +198,16 @@ def test_unported_paths_raise(kw, match):
 
 
 def test_unported_entry_points_raise():
-    """rasterization_2dgs's multi-GPU path raises. Its tiled path and the
+    """rasterization_2dgs's multi-GPU path raises without a process group
+    (never rendering on one device instead). Its tiled path and the
     tiled backend of both tile rasterizers, which raised until the tiled
     slice, render: rasterization_2dgs as its binned backend does (the same
     stream order), and on an all-culled scene the two rasterizers give the
     background and aux {"n_isects": 0}."""
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    with pytest.raises(RuntimeError, match="init_process_group"):
         gsplat_tpu_torch.rasterization_2dgs(*_tiny(), distributed=True)
+    with pytest.raises(RuntimeError, match="init_process_group"):
+        gsplat_tpu_torch.rasterization_2dgs(*_tiny(), distributed=True, packed=True, pack_capacity=64)
     with torch.no_grad():
         tiled = gsplat_tpu_torch.rasterization_2dgs(*_tiny(), backend="tiled", isect_capacity=4096)
         binned = gsplat_tpu_torch.rasterization_2dgs(*_tiny(), backend="binned", isect_capacity=4096)

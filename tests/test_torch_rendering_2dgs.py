@@ -196,7 +196,9 @@ def test_rasterization_2dgs_options_and_refusals(scene):
         inert = rasterization_2dgs(*args, backend="binned", isect_capacity=CAP, packed=True, sparse_grad=True)
     for a, b in zip(base[:6], inert[:6]):
         assert (a is None and b is None) or torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
+    # multi-GPU needs a torch.distributed process group, and raises without
+    # one rather than render on one device
+    with pytest.raises(RuntimeError, match="init_process_group"):
         rasterization_2dgs(*args, distributed=True)
     # the tiled backend, which raised until its slice, renders as the binned
     # one does (the same stream, no cull in either)

@@ -55,14 +55,14 @@ from torch_synth_scene import scene_dir
 
 # The JAX reference here is the JAX trainer's own step, jitted (XLA
 # contracts multiply-adds), where test_torch_trainer.py's runs op by op
-# (which takes ~75 s here). Its tolerances, rtol 1e-4 with atol 1e-4 x
-# the learning rate (parameters) and 1e-6 x the largest |value|
-# (moments), fail at single entries: a feature at step 1 by 4.3e-4 x lr (1
-# of 131,072; Adam's second step amplifies a gradient whose two steps
-# nearly cancel), a means moment at step 0 by 2.5e-6 x the largest (1 of
-# 12,288, a sum that cancels; also against the op-by-op JAX step). So
-# here: atol 1e-3 x lr and 1e-5 x the largest |value|
-PARAM_ATOL, MOMENT_ATOL = 1e-3, 1e-5
+# (which takes ~75 s here), at test_torch_trainer.py's tolerances: rtol
+# 1e-4 with atol 1e-4 x the learning rate (parameters) and 1e-6 x the
+# largest |value| (moments). These held only at 10x the atols while SSIM
+# filtered with one 11x11 convolution (oneDNN's on the CPU): the means'
+# step-0 moment lay ~8x farther from a float64 evaluation of the same step
+# than JAX's (test_step0_moments_float64_witness prints both); with the
+# separable filter (losses.py) the port's lies as close as JAX's
+PARAM_ATOL, MOMENT_ATOL = 1e-4, 1e-6
 AUX_ON = dict(depth_loss=True, pose_opt=True, app_opt=True, use_bilateral_grid=True, pose_opt_lr=1e-3)
 
 
@@ -174,6 +174,95 @@ def test_three_steps_with_aux_modules_match_jax(tmp_path):
     assert all(1 <= i <= 5 for i in ids)
     for m, name in (("pose", "embeds"), ("app", "w0"), ("bilagrid", "grids")):  # each module trained
         assert not np.array_equal(snaps[-1]["aux"][m][name], init["aux"][m][name]), m
+
+
+def _step0_float64(tmp, init):
+    """The port's step 0 on the oracle in float64, from the same f32 state,
+    views and SSIM window: its splat moments. The oracle's depth order is
+    the f32 depths' (as the f32 paths sort)."""
+    import copy
+
+    from gsplat_tpu_torch.ops import rasterize_ref
+
+    runner = _port_runner(tmp, max_steps=3, eval_steps=[], save_steps=[], sh_degree=1, sh_degree_interval=1000,
+                          refine_start_iter=100, backend="oracle", **AUX_ON)
+    runner.set_state(*copy.deepcopy((init["params"], init["live"], init["aux"])))
+    for p in runner.params.values():
+        p.data = p.data.double()
+    for mod in runner.aux.values():
+        mod.double()
+    order, batch = rasterize_ref.depth_rank_window, st.Runner._as_batch
+
+    def depth_rank_window(depths, start, end, *xs):
+        sel = order(depths.float(), start, end)[0]
+        return sel, [torch.gather(x, 1, sel.reshape(sel.shape + (1,) * (x.dim() - 2)).expand(sel.shape + x.shape[2:]))
+                     for x in xs]
+
+    rasterize_ref.depth_rank_window = depth_rank_window
+    st.Runner._as_batch = lambda self, views: tuple(x.double() for x in batch(self, views))
+    dtype = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        runner.train_step(0)
+    finally:
+        torch.set_default_dtype(dtype)
+        rasterize_ref.depth_rank_window, st.Runner._as_batch = order, batch
+    return {k: _np(runner.optimizers[k].state[p]["exp_avg"]) for k, p in runner.params.items()}
+
+
+def _port_step0(tmp, init, filter2d=None):
+    """The port's step 0 (binned, f32): its splat moments; SSIM through
+    `filter2d` where given."""
+    import copy
+
+    from gsplat_tpu_torch import losses
+
+    runner = _port_runner(tmp, max_steps=3, eval_steps=[], save_steps=[], sh_degree=1, sh_degree_interval=1000,
+                          refine_start_iter=100, backend="binned", **AUX_ON)
+    runner.set_state(*copy.deepcopy((init["params"], init["live"], init["aux"])))
+    runner.probe_isect_capacity()
+    real = losses._filter2d
+    losses._filter2d = filter2d or real
+    try:
+        runner.train_step(0)
+    finally:
+        losses._filter2d = real
+    return {k: _np(runner.optimizers[k].state[p]["exp_avg"]) for k, p in runner.params.items()}
+
+
+def _filter2d_11x11(img, g):
+    """SSIM's former filter: one 11x11 depthwise convolution of the window
+    outer(g, g) taken in float64 (oneDNN's on the CPU)."""
+    x = np.arange(11) - 5
+    g1 = np.exp(-(x**2) / (2 * 1.5**2))
+    w = torch.as_tensor(np.outer(g1 / g1.sum(), g1 / g1.sum()).astype(np.float32), dtype=img.dtype)
+    C = img.shape[-1]
+    return torch.nn.functional.conv2d(img.permute(0, 3, 1, 2), w.expand(C, 1, 11, 11), groups=C).permute(0, 2, 3, 1)
+
+
+def test_step0_moments_float64_witness(tmp_path):
+    """The step-0 first moments (0.1 x the gradient) of the port (binned,
+    f32) and of the JAX trainer's jitted step against a float64 evaluation
+    of the same step: the port lies no farther from it than JAX does (at
+    most 1.5x). Prints each side's distance, and the port's with SSIM's
+    former 11x11 filter, which put the means' moment 8x farther than JAX's
+    (ROADMAP Queue 3 item 13)."""
+    _, init, snaps, _ = _jax_three_steps()
+    got = _port_step0(tmp_path / "f32", init)
+    former = _port_step0(tmp_path / "f32_11x11", init, _filter2d_11x11)
+    f64 = _step0_float64(tmp_path / "f64", init)
+    for k, want in f64.items():
+        scale = float(np.abs(want).max())
+        if scale == 0.0:  # no gradient reaches it at step 0
+            continue
+        jax_got = snaps[0]["moments"][k][0]
+        port, jax_, old = (np.abs(x - want) for x in (got[k], jax_got, former[k]))
+        i = np.unravel_index(np.argmax(port), port.shape)
+        print(f"{k}: largest |mu| {scale:.4e}; distance from float64 / it: port {port.max() / scale:.3e}, "
+              f"JAX jitted {jax_.max() / scale:.3e}, port with the 11x11 filter {old.max() / scale:.3e}; at the "
+              f"port's worst entry {tuple(int(v) for v in i)}: float64 {want[i]:.9e}, port {got[k][i]:.9e}, "
+              f"JAX {jax_got[i]:.9e}")
+        assert port.max() <= 1.5 * jax_.max() + 1e-7 * scale, k
 
 
 @pytest.mark.parametrize("history", [True, False])

@@ -80,3 +80,20 @@ def test_save_ply_bytes_match_jax(tmp_path, with_live, with_sh):
     assert not finite.all() and n_t == int((finite if live is None else finite & live).sum())
     assert tp.read_bytes() == jp.read_bytes()
     assert tp.read_bytes().startswith(b"ply\nformat binary_little_endian 1.0\n")
+
+
+def test_depth_to_normal_on_rows_of_a_taller_image():
+    """``row0`` places a depth strip at its rows of a taller image: the
+    strip's inner rows are the whole image's normals, bit for bit (what a
+    distributed strip computes with one halo row from each neighbour)."""
+    rng = np.random.default_rng(3)
+    H, W, y0, h = 24, 20, 7, 9
+    depth = torch.from_numpy((rng.random((1, H, W, 1)) * 2 + 1).astype(np.float32))
+    c2w = torch.eye(4)[None]
+    c2w[0, :3, 3] = torch.tensor([0.1, -0.2, 0.3])
+    K = torch.tensor([[[30.0, 0, W / 2], [0, 28.0, H / 2], [0, 0, 1]]])
+    full = tutils.depth_to_normal(depth, c2w, K)
+    strip = tutils.depth_to_normal(depth[:, y0 - 1:y0 + h + 1], c2w, K, row0=y0 - 1)
+    assert torch.equal(strip[:, 1:-1], full[:, y0:y0 + h])
+    assert torch.equal(tutils.depth_to_points(depth[:, y0:y0 + h], c2w, K, row0=y0),
+                       tutils.depth_to_points(depth, c2w, K)[:, y0:y0 + h])
