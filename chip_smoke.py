@@ -3326,10 +3326,15 @@ def phase_microbench(smi):
     from gsplat_tpu_torch.microbench import PEAK_BYTES_PER_S, PEAK_EX2_PER_S, format_errors, report_line
     from gsplat_tpu_torch.microbench import fwd_breakdown
 
-    # the repeats of rows 11-12 as loops of the work in SASS
-    for name, loops in repeat_loops(_backend._library_path("mb_calib"),
-                                    {"fma_chain": "FFMA", "sgemm": "FFMA", "tf32_mma": "HMMA"}).items():
-        log(f"SASS loops of {name} (instructions, of them its FFMA / HMMA): {loops}")
+    # the repeats of rows 11-12 as loops of the work in SASS (tf32_mma's
+    # product: wgmma, HGMMA in SASS), each kernel's work in one
+    ops = {"fma_chain": "FFMA", "sgemm": "FFMA", "tf32_mma": "HGMMA"}
+    calib_loops = repeat_loops(_backend._library_path("mb_calib"), ops)
+    for name, loops in calib_loops.items():
+        log(f"SASS loops of {name} (instructions, of them its FFMA / HGMMA): {loops}")
+    bare = [part for part in ops if not any(loops for name, loops in calib_loops.items() if part in name)]
+    if bare:
+        raise AssertionError(f"no SASS loop of {bare} holds its {[ops[p] for p in bare]}")
     mods = [importlib.import_module(f"gsplat_tpu_torch.microbench.{n}") for n in MB_MODULES]
     errs = {}
     for mod in mods:
@@ -3357,11 +3362,15 @@ def phase_microbench(smi):
         raise AssertionError(f"micro-benchmark kernels not launched: {missing}")
     log(f"{fwd_breakdown.describe(fwd_info)} (card: {smi})")
     by = {r["name"]: r for r in rows}
+
+    def product(name):  # its rate and share of its bound, beside torch.bmm's
+        r = by[name]
+        return (f"{r['rate']:.4g} flop/s against {r['peak']:.4g}, {r['bound_ms'] / r['ms']:.3f} of its bound "
+                f"(torch.bmm {r['rate'] * r['ms'] / r['library_ms']:.4g}, {r['bound_ms'] / r['library_ms']:.3f})")
+
     log("calibration (measured against the data sheet's figures the bounds use): "
         f"f32 multiply-adds {by['fma_chain']['rate']:.4g}/s against {by['fma_chain']['peak']:.4g}; f32 matmul "
-        f"{by['sgemm']['rate']:.4g} flop/s against {by['sgemm']['peak']:.4g}; TF32 mma.sync "
-        f"{by['tf32_mma']['rate']:.4g} flop/s against {by['tf32_mma']['peak']:.4g} (torch.bmm TF32 "
-        f"{by['tf32_mma']['rate'] * by['tf32_mma']['ms'] / by['tf32_mma']['library_ms']:.4g}); gather bytes "
+        f"(FFMA) {product('sgemm')}; TF32 wgmma {product('tf32_mma')}; gather bytes "
         f"{by['gather_rows']['rate']:.4g}/s against {PEAK_BYTES_PER_S:.4g}; exponentials "
         f"{by['inner_math_f32']['rate']:.4g}/s against the SFU's {PEAK_EX2_PER_S:.4g} (card: {smi})")
     fwd_breakdown.stream.cache_clear()  # its binned streams

@@ -18,7 +18,9 @@ operations). A source of several kernels counts each kernel's launches
 apart (_backend.SOURCE_KERNELS).
 """
 
+import ctypes
 import os
+import re
 
 import pytest
 
@@ -73,3 +75,35 @@ def test_new_sources_and_their_launch_counts(name):
         assert all(op in src for op in ("__hmul2_rn", "__hadd2_rn", "__hsub2_rn"))
     if name == "mb_fwd_breakdown":
         assert "__fmul_rn" in src and "__fadd_rn" in src
+
+
+def test_calibration_products_on_hopper_instructions():
+    """mb_calib's TF32 product issues wgmma on .tf32 operands from tiles
+    that TMA fills (cp.async.bulk.tensor, maps encoded through the runtime's
+    driver entry point: no -lcuda), the f32 product stays on FFMA with a
+    ring of shared-memory stages filled by cp.async, and the source keeps
+    its three counted kernels."""
+    assert tuple(_backend.SOURCE_KERNELS["mb_calib"]) == ("fma_chain", "sgemm", "tf32_mma")
+    with open(os.path.join(_backend.CSRC, "mb_calib.cu")) as f:
+        src = f.read()
+    assert "wgmma.mma_async.sync.aligned.m64n256k8.f32.tf32.tf32" in src
+    assert "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32" in src
+    assert "cp.async.bulk.tensor.2d" in src and "CU_TENSOR_MAP_SWIZZLE_128B" in src
+    assert "cudaGetDriverEntryPoint" in src and "-lcuda" not in " ".join(_backend._COMMON_FLAGS)
+    assert "setmaxnreg.inc" in src and "setmaxnreg.dec" in src and "mbarrier.try_wait.parity" in src
+    assert "cvt.rna.tf32.f32" in src and "cudaFuncAttributeMaxDynamicSharedMemorySize" in src
+    assert "cp.async.cg.shared.global" in src and "cp.async.wait_group" in src
+    assert int(re.search(r"kSgStages = (\d+)", src).group(1)) >= 2  # the next stage loads while one multiplies
+    assert "mma.sync" not in src
+
+
+@pytest.mark.parametrize("symbol, argtypes", [("sgemm_launch", "_SGEMM_ARGS"), ("tf32_mma_launch", "_TF32_ARGS")])
+def test_calibration_wrappers_bind_c_signatures(symbol, argtypes):
+    """vpu_calib binds each product's C entry with one ctypes type for each
+    of its parameters, in order (a pointer, an int, a float)."""
+    from gsplat_tpu_torch.microbench import vpu_calib as vc
+
+    with open(os.path.join(_backend.CSRC, "mb_calib.cu")) as f:
+        params = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', f.read()).group(1).split(",")
+    kinds = [ctypes.c_void_p if "*" in p else ctypes.c_float if "float" in p else ctypes.c_int for p in params]
+    assert getattr(vc, argtypes) == kinds

@@ -134,6 +134,54 @@ def test_products_match_mxu_kernel(which):
     assert vc.gemm_flops(torch.from_numpy(x), torch.from_numpy(y), 256) == 2 * 64 * 256 * 128 * 256
 
 
+# the products' shape contract (vpu_calib.gemm_plan): the script's and
+# check's SMALL shapes, and shapes the tiles cannot cover
+@pytest.mark.parametrize("name", ["sgemm", "tf32_mma"])
+@pytest.mark.parametrize("shape", [(vc.P, vc.M, vc.K, vc.B), vc.SMALL[:1] + (vc.SMALL[2], vc.SMALL[1], vc.SMALL[3])])
+def test_gemm_plan_takes_callers_shapes(name, shape):
+    m, n, k, repeats = shape
+    plan = vc.gemm_plan(name, m, n, k, repeats)
+    (bm, bn, bk), (gx, gy, gz) = plan.tile, plan.grid
+    assert (gx * bn, gy * bm) == (n, m) and k % bk == 0
+    reps = repeats // gz
+    assert reps * gz == repeats and reps == min(vc.GEMM_REPS, repeats)
+    assert 0 < plan.smem <= vc.SMEM_LIMIT == 232_448
+    if name == "tf32_mma":  # 128-byte swizzled rows of 32 TF32 values; the n128 tiles where n is not 256's multiple
+        assert bk == 32 and bn == (256 if n % 256 == 0 else 128)
+        assert plan.smem == vc.TF32_STAGES * (bm + bn) * bk * 4 + 1024
+    else:
+        assert plan.tile == (128, 128, 16)
+
+
+@pytest.mark.parametrize("name", ["sgemm", "tf32_mma"])
+@pytest.mark.parametrize("shape", [(64, 512, 1024, 256), (512, 64, 1024, 256), (512, 512, 1000, 256),
+                                   (512, 512, 1024, 12), (0, 512, 1024, 256), (512, 512, 1024, 8 * 65536)])
+def test_gemm_plan_refuses_uncovered_shapes(name, shape):
+    with pytest.raises(ValueError):
+        vc.gemm_plan(name, *shape)
+
+
+def test_gemm_plan_refuses_unknown_kernel():
+    with pytest.raises(ValueError):
+        vc.gemm_plan("hgemm", 512, 512, 1024, 256)
+
+
+@pytest.mark.parametrize("shape", [(64, 256, 128), vc.SMALL[:3]])
+def test_tf32_staged_operands_give_plain_bits(shape):
+    """The pre-pass's specified output (round_tf32(x), round_tf32(y)^T,
+    K-major), multiplied in plain torch, is tf32_mma_plain bit for bit."""
+    m, k, n = shape
+    rng = np.random.default_rng(3)
+    x, y = (torch.from_numpy(rng.standard_normal(s, np.float32)) for s in ((m, k), (k, n)))
+    xs, ys = vc.tf32_staged(x, y)
+    assert xs.shape == (m, k) and ys.shape == (n, k) and ys.is_contiguous()
+    assert torch.equal(xs, vc.round_tf32(x)) and torch.equal(ys.T, vc.round_tf32(y))
+    assert not ((xs.view(torch.int32) & 0x1FFF) != 0).any()  # 13 low bits clear: exact as TF32
+    with _backend.full_f32_matmul():
+        got = xs @ ys.T
+    assert torch.equal(got, vc.tf32_mma_plain(x, y))
+
+
 # --------------------------------------------------------------- gathers
 def test_gather_rows_matches_g1():
     NB, S, L = 3, 64, 128
