@@ -178,13 +178,18 @@ non-zero (there is no CPU fallback):
      kernels; gsplat_tpu_torch/microbench/{vpu_calib,primitives,
      kernel_shapes,fwd_breakdown}.py, which scripts/torch_exp_*.py
      drive): each kernel against its plain version at a small size and at
-     its TPU script's size (the gathers equal; the forward breakdown on
+     its TPU script's size (the gathers equal, gather_rows and
+     gather_window also at the edges of primitives.gather_plan: ragged
+     widths, the S where a lane group narrows, the largest S and W, NB =
+     0, K = 0, a misaligned table; the forward breakdown on
      grid1 648x420 and on 256 seeded tiles of the garden grid5 1080p
      tile-32 stream; each tolerance gate shown to reject a wrong result),
      the bilateral grid's gradient at 1920x1080 (the same bits twice,
      against its plain version, timed beside grid_sample's backward), then
      every module's timing run at its TPU script's sizes with the launch counts set
-     to 0 before and read after (each kernel launched), the calibration
+     to 0 before and read after (each kernel launched; each gather also
+     as the card's ms a launch and the host's us a call, beside
+     torch.gather's), the calibration
      rates beside the data sheet's figures, and fwd_3dgs on the breakdown's
      stream at tile 32 and 16; both of the grid's gradient kernels
      (the grids' and the luminance's) as above;
@@ -3381,6 +3386,9 @@ def phase_microbench(smi):
                  "replaces": MB_REPLACES[r["name"]], "launches": launches[r["name"]],
                  "max_abs_err": errs[r["name"]], "ms": r["ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+        # the gathers' split of a call (primitives.measure): the card's ms a
+        # launch and the host's us a call, the kernel's and torch.gather's
+        entry.update({k: r[k] for k in ("device_ms", "host_us", "library_device_ms", "library_host_us") if k in r})
         if r["name"] in MB_ALSO_REPLACES:
             entry["also_replaces"] = MB_ALSO_REPLACES[r["name"]]
             entry.update({k: v for k, v in r.items() if k.startswith("e1_")})

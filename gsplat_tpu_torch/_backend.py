@@ -19,13 +19,14 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -95,6 +96,8 @@ LAUNCHES: Dict[str, int] = {k: 0 for name in KERNELS for k in SOURCE_KERNELS.get
 BUILD_LOG: Dict[str, str] = {}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# (source, symbol) -> (its library, the bound entry point, its argtypes and restype)
+_BOUND: Dict[Tuple[str, str], Tuple[ctypes.CDLL, ctypes._CFuncPtr, Sequence, type]] = {}
 _LOCK = threading.Lock()
 
 
@@ -120,12 +123,18 @@ def resolve_device(device) -> torch.device:
 
 def common_device(*tensors: Optional[torch.Tensor]) -> torch.device:
     """The one device all given tensors lie on (None entries are skipped)."""
-    devices = {t.device for t in tensors if t is not None}
-    if len(devices) != 1:
-        raise ValueError(
-            f"inputs must lie on one device, got {sorted(map(str, devices))}"
-        )
-    return devices.pop()
+    dev = None
+    for t in tensors:
+        if t is None:
+            continue
+        if dev is None:
+            dev = t.device
+        elif t.device != dev:
+            devices = {t.device for t in tensors if t is not None}
+            raise ValueError(f"inputs must lie on one device, got {sorted(map(str, devices))}")
+    if dev is None:
+        raise ValueError("inputs must lie on one device, got []")
+    return dev
 
 
 def use_kernel(device: torch.device) -> bool:
@@ -139,7 +148,17 @@ def use_kernel(device: torch.device) -> bool:
 
 
 def stream(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The handle of `device`'s current CUDA stream, read with the raw query
+    that torch's generated code uses (no ``torch.cuda.Stream`` object: 0.2
+    against 5.3 us a call on the H100's host, scripts/torch_gather_ab.py)."""
+    i = device.index
+    return torch._C._cuda_getCurrentRawStream(torch.cuda.current_device() if i is None else i)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """The streaming multiprocessors of CUDA device `index`."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 @contextlib.contextmanager
@@ -255,15 +274,35 @@ def build_all() -> None:
         _load(name, path)
 
 
-def kernel(name: str, symbol: str, argtypes: Sequence) -> ctypes._CFuncPtr:
+def kernel(name: str, symbol: str, argtypes: Sequence, restype=ctypes.c_int) -> ctypes._CFuncPtr:
     """The C entry point ``symbol`` of csrc/<name>.cu, built on first use.
-    It returns the launch's cudaError_t as an int."""
+    A launch entry returns the launch's cudaError_t as an int (`restype`).
+
+    Each (source, symbol) is bound once: its ``argtypes`` and ``restype``
+    are set when it is first asked for (again only where ``_LIBS`` holds
+    another library for the source), and later calls with the same
+    argtypes get the same callable back; other argtypes or another restype
+    raise TypeError. Wrappers pass a list made once, at module level."""
+    hit = _BOUND.get((name, symbol))
+    if hit is not None and hit[2] is argtypes and hit[3] is restype and hit[0] is _LIBS.get(name):
+        return hit[1]
+    return _bind(name, symbol, argtypes, restype)
+
+
+def _bind(name: str, symbol: str, argtypes: Sequence, restype) -> ctypes._CFuncPtr:
     lib = _LIBS.get(name)
     if lib is None:
         lib = _load(name, _build(name))
-    fn = getattr(lib, symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
+    with _LOCK:
+        hit = _BOUND.get((name, symbol))
+        if hit is not None and (list(hit[2]) != list(argtypes) or hit[3] is not restype):
+            raise TypeError(f"{name}.{symbol} is bound with argtypes {list(hit[2])} and restype {hit[3]}, asked "
+                            f"for {list(argtypes)} and {restype}")
+        fn = getattr(lib, symbol)
+        if hit is None or hit[0] is not lib:
+            fn.argtypes = list(argtypes)
+            fn.restype = restype
+        _BOUND[(name, symbol)] = (lib, fn, argtypes, restype)
     return fn
 
 

@@ -21,7 +21,8 @@ and each gate shown to reject a wrong result) and ``measure(runs)`` (one
 timed row a kernel). ``scripts/torch_exp_*.py`` and ``chip_smoke.py``
 call those two. This module holds what the modules share: the card's
 data-sheet peaks the bounds use (`bound_ms`), CUDA-event timing
-(`median_ms`), the card's name and power limit (`card`), the
+(`median_ms`; `split_ms` parts a call's time into the card's and the
+host's), the card's name and power limit (`card`), the
 kernel-against-plain gate (`compare`, `rejects`, `format_errors`), a measured kernel's
 printed line (`report_line`) and the scripts' `main`.
 """
@@ -30,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import subprocess
+import time
 from typing import Callable, List
 
 import torch
@@ -72,6 +74,41 @@ def median_ms(fn: Callable[[], object], runs: int = 7, warmup: int = 2) -> float
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[len(times) // 2]
+
+
+def split_ms(fn: Callable[[], object], runs: int = 7, reps: int = 100) -> dict:
+    """Three times of `fn`, each the median over `runs`:
+
+    - ``single_ms``: one call between two CUDA events (`median_ms`), which
+      holds the host's enqueue of the call where the card waits for it;
+    - ``host_us``: host microseconds a call, a ``time.perf_counter`` around
+      `reps` calls that are only enqueued;
+    - ``device_ms``: the card's ms a launch, two events around `reps`
+      back-to-back calls enqueued behind a ``torch.cuda._sleep`` that
+      outlasts their enqueue, so the card runs them without a gap."""
+    single = median_ms(fn, runs)
+    hosts: List[float] = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        hosts.append((time.perf_counter() - t0) / reps * 1e6)
+    torch.cuda.synchronize()
+    host_us = sorted(hosts)[len(hosts) // 2]
+    # the sleep's cycles: three times the enqueue at 2 GHz (the boost clock)
+    cycles = int(max(1e5, 3 * max(hosts) * 1e-6 * reps * 2e9))
+    devs: List[float] = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        devs.append(start.elapsed_time(end) / reps)
+    return {"single_ms": single, "host_us": host_us, "device_ms": sorted(devs)[len(devs) // 2]}
 
 
 def card() -> str:
@@ -146,12 +183,21 @@ def report_line(r: dict, smi: str) -> str:
             rate += f" against the data sheet's {r['peak']:.4g} ({r['rate'] / r['peak']:.3f})"
     lib = "none" if r["library_ms"] is None else f"{r['library_ms']:.4f} ms"
     line = (f"{r['name']}: {r['ms']:.4f} ms ({r['work']}){rate}; bound {r['bound_ms']:.4f} ms ({r['bound_by']}); "
-            f"plain {r['plain_ms']:.4f} ms; library {lib} (card: {smi})")
+            f"plain {r['plain_ms']:.4f} ms; library {lib}{_split(r, '')} (card: {smi})")
     if "e1_ms" in r:  # e1's one-block take_along_axis through the same kernel
         line += (f"\n  e1's [8, 512] take_along_axis through it: {r['e1_ms']:.4f} ms, bound "
                  f"{r['e1_bound_ms']:.6f} ms (bytes), plain {r['e1_plain_ms']:.4f} ms, library "
-                 f"{r['e1_library_ms']:.4f} ms")
+                 f"{r['e1_library_ms']:.4f} ms{_split(r, 'e1_')}")
     return line
+
+
+def _split(r: dict, pre: str) -> str:
+    """`split_ms`'s other two forms of a row, the kernel's and the
+    library's, where the row has them."""
+    if f"{pre}device_ms" not in r:
+        return ""
+    return (f"; device ms a launch {r[pre + 'device_ms']:.4f} (library {r[pre + 'library_device_ms']:.4f}), host us "
+            f"a call {r[pre + 'host_us']:.2f} (library {r[pre + 'library_host_us']:.2f})")
 
 
 def main(mod, doc: str, argv=None, sizes=None) -> None:

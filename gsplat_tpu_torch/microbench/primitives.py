@@ -11,11 +11,14 @@ replaces and its bound on the card:
   idx, out [NB, S, L] (``g1.kern``, exp_r2_batch2.py:18, pallas_call :27;
   with ``idx % F`` also e1's ``k_taa0``, exp_r2_primitives.py:57, :67). A
   table is more than a block's shared memory (1 MB at [2048, 128]): a block
-  stages 8 lanes of it. Bound: bytes, 1.61 GB at [512, 2048, 128], 0.481 ms.
+  stages a group of 16 lanes of it, or 8 where 16 do not fit
+  (`gather_plan`; 16 at S = 2048). Bound: bytes, 1.61 GB at [512, 2048,
+  128], 0.481 ms.
 - `gather_window(tab, idx)`: out[b, f, k] = tab[f, idx[b, f, k]] from a
   window tab [F, W] (e1's ``kern2``, :79, :86; with one b also e1's
-  ``k_taa``, :52, :67). A block stages a row (32 KB at W = 8192). Bound:
-  bytes, 67.6 MB at [16, 8192], idx [256, 16, 2048]: 0.020 ms.
+  ``k_taa``, :52, :67). A block stages a row (32 KB at W = 8192) and
+  gathers its share of the row's outputs. Bound: bytes, 67.6 MB at [16,
+  8192], idx [256, 16, 2048]: 0.020 ms.
 - `gather_cols(tab, idx)`: out[b, f, s] = tab[b, f, idx[b, 0, s]] (e4's
   ``kern``, :155, :168), a one-hot matmul at HIGHEST on the TPU: exact, so
   the port gathers (one-hot selection gets no Hopper counterpart). Bound:
@@ -36,20 +39,150 @@ yardstick (``library ms``).
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
 from .. import _backend
 from ..ops.rasterize_binned import _check as check_inputs
-from . import PEAK_BYTES_PER_S, PEAK_EX2_PER_S, bound_ms, compare, median_ms, rejects
+from . import PEAK_BYTES_PER_S, PEAK_EX2_PER_S, bound_ms, compare, median_ms, rejects, split_ms
 
 REPEATS = 6  # e5's repeats of the inner math
 
 
 def _launch(source: str, symbol: str, name: str, argtypes, *args) -> None:
     """Launch `symbol` of csrc/`source`.cu and count it as kernel `name`."""
-    _backend.check_launch(_backend.kernel(source, symbol, argtypes)(*args), name)
+    rc = _backend.kernel(source, symbol, argtypes)(*args)
+    if rc:
+        _backend.check_launch(rc, name)
     _backend.LAUNCHES[name] += 1
+
+
+# the gathers' shape contract (csrc/mb_gather.cu's C entries check the same)
+SMEM_LIMIT = 232_448  # a block's shared memory on the H100
+SM_SMEM = 233_472  # an SM's, 1 KB of it kept for each resident block
+THREADS = 256  # a block's; 2,048 an SM
+MIN_BLOCKS = 4  # blocks an SM holds by registers at least (the kernels' __launch_bounds__)
+ROWS_LANES = (16, 8)  # gather_rows' lane groups, widest first (64, 32 bytes of a row)
+ROWS_MAX_S = SMEM_LIMIT // (4 * ROWS_LANES[-1])  # 7,264: the largest S, at 8 lanes (the parent's, too)
+CHUNKS_A_BLOCK = THREADS  # gather_window: a block has at least a chunk for each thread
+
+
+class GatherPlan(NamedTuple):
+    lanes: int  # gather_rows: lanes a group stages (gather_window: the row's W)
+    copy: str  # the staging copy: "cp.async 16 B" or, where a width or a pointer is not 16-byte aligned, "cp.async 4 B"
+    vector: bool  # indices and outputs as 16-byte vectors (else 4-byte scalars)
+    blocks: int  # the grid: persistent blocks (gather_rows), a multiple of F (gather_window); 0: no launch
+    smem: int  # dynamic shared bytes of a block
+
+
+@functools.lru_cache(maxsize=4096)
+def gather_plan(name: str, shape: Tuple[int, ...], sms: int = 132, aligned: bool = True) -> GatherPlan:
+    """The launch `name` makes for `shape` on a card of `sms` SMs, or
+    ValueError where the kernel cannot take it (where the parent refused it:
+    gather_rows S > 7,264 or NB > 65,535, gather_window W > 58,112).
+    `aligned`: tab, idx and out all start on 16 bytes.
+
+    gather_rows, shape (NB, S, L): the widest lane group of `ROWS_LANES`
+    whose stage of S x lanes floats fits a block (narrowing as S grows);
+    indices, outputs and the copy in 16-byte pieces where L % 4 == 0; as
+    many persistent blocks as the SMs hold (by shared memory, and at most
+    `MIN_BLOCKS`, which the registers always allow), at most one a group of
+    NB x ceil(L / lanes).
+
+    gather_window, shape (NB, F, W, K): a block stages one row of W floats
+    (16-byte copies where W % 4 == 0) and gathers an equal share of its NB
+    x K outputs (16-byte vectors where K % 4 == 0); each row gets as many
+    blocks as fill the card in one wave (one where F rows alone fill it),
+    each with a chunk for every thread at least."""
+    if name == "gather_rows":
+        NB, S, L = shape
+        if NB < 0 or S < 1 or L < 1 or NB > 65535:
+            raise ValueError(f"gather_rows takes 0 <= NB <= 65535, S >= 1, L >= 1: got {shape}")
+        fits = [la for la in ROWS_LANES if S * la * 4 <= SMEM_LIMIT]
+        if not fits:
+            raise ValueError(f"gather_rows: S = {S} is above {ROWS_MAX_S}, the rows of {ROWS_LANES[-1]} lanes a "
+                             "block holds")
+        lanes = fits[0]
+        smem = S * lanes * 4
+        vector = L % 4 == 0 and aligned
+        groups = NB * -(-L // lanes)
+        resident = min(MIN_BLOCKS, SM_SMEM // (smem + 1024))
+        return GatherPlan(lanes, "cp.async 16 B" if vector else "cp.async 4 B", vector,
+                          min(groups, resident * sms), smem)
+    if name == "gather_window":
+        NB, F, W, K = shape
+        smem = 4 * -(-W // 4) * 4
+        if NB < 0 or F < 1 or W < 1 or K < 0 or smem > SMEM_LIMIT:
+            raise ValueError(f"gather_window takes NB >= 0, F >= 1, 1 <= W <= {SMEM_LIMIT // 4}, K >= 0: got {shape}")
+        vector = K % 4 == 0 and aligned
+        chunks = NB * (K // 4 if vector else K)
+        resident = min(MIN_BLOCKS, SM_SMEM // (smem + 1024))
+        per_f = max(1, min(resident * sms // F, -(-chunks // CHUNKS_A_BLOCK)))
+        return GatherPlan(W, "cp.async 16 B" if W % 4 == 0 and aligned else "cp.async 4 B", vector,
+                          F * per_f if chunks else 0, smem)
+    raise ValueError(f"no gather plan for {name!r}")
+
+
+def gather_edges():
+    """[(kernel, shape)]: the plan's edges, which the card holds to the plain
+    versions bit for bit: gather_rows at the S where each lane group stops
+    fitting (and one row past), the parent's largest S,
+    ragged L (the scalar form, a narrow last group), L below a group, S = 1
+    and NB = 0; gather_window at ragged W and K, the largest W, NB = 0 and
+    K = 0."""
+    rows = []
+    for la in ROWS_LANES:
+        top = SMEM_LIMIT // (4 * la)
+        rows += [(2, top, 2 * la + 4), (2, top + 1, 2 * la + 4)]
+    rows += [(3, 64, 130), (5, 1, 3), (4, 100, 20), (0, 64, 128)]
+    window = [(3, 5, 8191, 2047), (2, 3, SMEM_LIMIT // 4, 36), (5, 2, 100, 7), (1, 1, 1, 1), (0, 4, 64, 16),
+              (3, 4, 64, 0)]
+    return [("gather_rows", s) for s in sorted(set(rows)) if s[1] <= ROWS_MAX_S] + \
+        [("gather_window", s) for s in window]
+
+
+def edge_inputs():
+    """[(kernel, where, tab, idx)] on the card, from a seeded generator: each
+    shape of `gather_edges`, and for each gather a table one float off
+    16-byte alignment (the scalar form at a vector width)."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    rand = lambda *s: torch.rand(*s, device="cuda", generator=g)  # noqa: E731
+    ints = lambda hi, *s: torch.randint(0, hi, s, device="cuda", generator=g, dtype=torch.int32)  # noqa: E731
+    out = []
+    for name, shape in gather_edges():
+        if name == "gather_rows":
+            out.append((name, f"edge {list(shape)}", rand(*shape), ints(shape[1], *shape)))
+        else:
+            NB, F, W, K = shape
+            out.append((name, f"edge {list(shape)}", rand(F, W), ints(W, NB, F, K)))
+    out.append(("gather_rows", "a misaligned table [4, 256, 128]", rand(1 + 4 * 256 * 128)[1:].view(4, 256, 128),
+                ints(256, 4, 256, 128)))
+    out.append(("gather_window", "a misaligned table [16, 8192]", rand(1 + 16 * 8192)[1:].view(16, 8192),
+                ints(8192, 8, 16, 2048)))
+    return out
+
+
+def dims_array(name: str, shape: Tuple[int, ...], plan: GatherPlan):
+    """The C entry's `dims`: the shape, then the plan's lanes and blocks
+    (gather_rows) or its blocks (gather_window), as one C int array."""
+    vals = tuple(shape) + ((plan.lanes, plan.blocks) if name == "gather_rows" else (plan.blocks,))
+    return (ctypes.c_int * len(vals))(*vals)
+
+
+@functools.lru_cache(maxsize=4096)
+def _dims(name: str, shape: Tuple[int, ...], device_index: int, aligned: bool):
+    """`dims_array` of `gather_plan`'s launch on a CUDA device, made once a
+    shape."""
+    return dims_array(name, shape, gather_plan(name, shape, _backend.sm_count(device_index), aligned))
+
+
+# tab, idx, out, dims, stream
+_ROWS_ARGS = [ctypes.c_void_p] * 5
+_WINDOW_ARGS = [ctypes.c_void_p] * 5
+_COLS_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
+_INNER_ARGS = [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_void_p] * 2
 
 
 def gather_rows_plain(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -61,11 +194,12 @@ def gather_rows(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     dev = _backend.common_device(tab, idx)
     if not _backend.use_kernel(dev):
         return gather_rows_plain(tab, idx)
-    NB, S, L = tab.shape
-    check_inputs("gather_rows", dev, [(tab, torch.float32, None), (idx, torch.int32, (NB, S, L))])
+    shape = tab.shape
+    check_inputs("gather_rows", dev, [(tab, torch.float32, None), (idx, torch.int32, shape)])
     out = torch.empty_like(tab)
-    _launch("mb_gather", "gather_rows_launch", "gather_rows",
-            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 2, tab.data_ptr(), idx.data_ptr(), NB, S, L, out.data_ptr(), _backend.stream(dev))
+    pt, pi, po = tab.data_ptr(), idx.data_ptr(), out.data_ptr()
+    dims = _dims("gather_rows", shape, dev.index, not (pt | pi | po) & 15)
+    _launch("mb_gather", "gather_rows_launch", "gather_rows", _ROWS_ARGS, pt, pi, po, dims, _backend.stream(dev))
     return out
 
 
@@ -82,10 +216,11 @@ def gather_window(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     F, W = tab.shape
     NB, _, K = idx.shape
     check_inputs("gather_window", dev, [(tab, torch.float32, None), (idx, torch.int32, (NB, F, K))])
-    out = torch.empty((NB, F, K), dtype=torch.float32, device=dev)
-    _launch("mb_gather", "gather_window_launch", "gather_window",
-            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2,
-            tab.data_ptr(), idx.data_ptr(), NB, F, W, K, out.data_ptr(), _backend.stream(dev))
+    out = torch.empty_like(idx, dtype=torch.float32)
+    pt, pi, po = tab.data_ptr(), idx.data_ptr(), out.data_ptr()
+    dims = _dims("gather_window", (NB, F, W, K), dev.index, not (pt | pi | po) & 15)
+    _launch("mb_gather", "gather_window_launch", "gather_window", _WINDOW_ARGS, pt, pi, po, dims,
+            _backend.stream(dev))
     return out
 
 
@@ -103,8 +238,8 @@ def gather_cols(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     S = idx.shape[2]
     check_inputs("gather_cols", dev, [(tab, torch.float32, None), (idx, torch.int32, (NB, 1, S))])
     out = torch.empty((NB, F, S), dtype=torch.float32, device=dev)
-    _launch("mb_gather", "gather_cols_launch", "gather_cols",
-            [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2, tab.data_ptr(), idx.data_ptr(), NB, F, G, S, out.data_ptr(), _backend.stream(dev))
+    _launch("mb_gather", "gather_cols_launch", "gather_cols", _COLS_ARGS, tab.data_ptr(), idx.data_ptr(), NB, F, G, S,
+            out.data_ptr(), _backend.stream(dev))
     return out
 
 
@@ -134,8 +269,7 @@ def inner_math(e: torch.Tensor, P: int, dtype=torch.float32) -> torch.Tensor:
     check_inputs("inner_math", dev, [(e, torch.float32, None)])
     out = torch.empty((NB, 1, K), dtype=torch.float32, device=dev)
     bf16 = dtype == torch.bfloat16
-    _launch("mb_inner_math", "inner_math_launch", "inner_math_bf16" if bf16 else "inner_math_f32",
-            [ctypes.c_void_p] + [ctypes.c_int] * 5 + [ctypes.c_float] + [ctypes.c_void_p] * 2,
+    _launch("mb_inner_math", "inner_math_launch", "inner_math_bf16" if bf16 else "inner_math_f32", _INNER_ARGS,
             e.data_ptr(), NB, R, K, P, int(bf16), 0.0, out.data_ptr(), _backend.stream(dev))
     return out
 
@@ -167,6 +301,8 @@ SIZES = {  # the scripts' sizes
     "e4": (16, 1024, 2048, 512),  # F, G, S, NB
     "e5": (256, 128, 2048),  # P, K, NB
 }
+# calls a host or device sample of `split_ms` takes (a g1 launch is ~1 ms)
+SPLIT_REPS = {"g1": 20, "e1": 200, "e1b": 100, "e4": 100}
 SMALL = {"g1": (4, 256, 128), "e1b": (16, 8192, 2048, 8), "e4": (16, 1024, 2048, 4), "e5": (256, 128, 16)}
 
 
@@ -197,8 +333,13 @@ def inputs(small: bool):
 def check(small: bool):
     """Each kernel against its plain version, {kernel: max abs error}, and
     the bf16 gate on the f32 kernel's output, {"rejects ...": its max abs
-    error}."""
+    error}; at the small size also the two gathers at `edge_inputs`."""
     x = inputs(small)
+    if small:  # the plan's edges
+        for name, where, tab, idx in edge_inputs():
+            fn, plain = (gather_rows, gather_rows_plain) if name == "gather_rows" else \
+                (gather_window, gather_window_plain)
+            compare(f"{name} at {where}", fn(tab, idx), plain(tab, idx))
     tab, idx = x["e1"]
     F = tab.shape[0]
     # e1's two take_along_axis kernels (one block), through the window and row gathers
@@ -224,7 +365,11 @@ def check(small: bool):
 def measure(runs: int = 7):
     """The kernels at the scripts' sizes: one row each, with its rate; the
     library call is one ``torch.gather`` on int64 indices made beforehand
-    (the plain versions convert the int32 indices in the call)."""
+    (the plain versions convert the int32 indices in the call). Each
+    gather's ``ms`` is one call between two events; beside it
+    `split_ms`'s card's ms a launch of back-to-back launches
+    (``device_ms``) and host microseconds a call (``host_us``), for the
+    kernel and for ``torch.gather`` (``library_*``)."""
     x = inputs(False)
     rows = []
     library = {
@@ -232,6 +377,13 @@ def measure(runs: int = 7):
         "gather_window": lambda tab, i64: torch.gather(tab.expand(i64.shape[0], -1, -1), 2, i64),
         "gather_cols": lambda tab, i64: torch.gather(tab, 2, i64.expand(-1, tab.shape[1], -1)),
     }
+
+    def split(fn, lib, reps, pre=""):
+        k, lb = split_ms(fn, runs, reps), split_ms(lib, runs, reps)
+        return {f"{pre}ms": k["single_ms"], f"{pre}device_ms": k["device_ms"], f"{pre}host_us": k["host_us"],
+                f"{pre}library_ms": lb["single_ms"], f"{pre}library_device_ms": lb["device_ms"],
+                f"{pre}library_host_us": lb["host_us"]}
+
     for name, key, fn, plain in (("gather_rows", "g1", gather_rows, gather_rows_plain),
                                  ("gather_window", "e1b", gather_window, gather_window_plain),
                                  ("gather_cols", "e4", gather_cols, gather_cols_plain)):
@@ -239,11 +391,11 @@ def measure(runs: int = 7):
         i64 = idx.long()
         n_out = tab.shape[0] * tab.shape[1] * idx.shape[-1] if name == "gather_cols" else idx.numel()
         nbytes = 4 * (tab.numel() + idx.numel() + n_out)
-        ms = median_ms(lambda: fn(tab, idx), runs)
+        t = split(lambda: fn(tab, idx), lambda: library[name](tab, i64), SPLIT_REPS[key])
         b, by = bound_ms(nbytes=nbytes)
-        rows.append(dict(name=name, ms=ms, plain_ms=median_ms(lambda: plain(tab, idx), runs),
-                         library_ms=median_ms(lambda: library[name](tab, i64), runs), bound_ms=b, bound_by=by,
-                         rate=nbytes / ms * 1e3, unit="bytes/s", peak=PEAK_BYTES_PER_S, work=f"{nbytes} bytes"))
+        rows.append(dict(name=name, **t, plain_ms=median_ms(lambda: plain(tab, idx), runs), bound_ms=b, bound_by=by,
+                         rate=nbytes / t["ms"] * 1e3, unit="bytes/s", peak=PEAK_BYTES_PER_S,
+                         work=f"{nbytes} bytes"))
         del i64
     # e1's two take_along_axis kernels, one [8, 512] block each (a launch's
     # cost): through gather_window (lanes) and gather_rows (sublanes, idx % F)
@@ -256,8 +408,8 @@ def measure(runs: int = 7):
         fn, plain = (gather_window, gather_window_plain) if name == "gather_window" else \
             (gather_rows, gather_rows_plain)
         i64 = i.long()
-        by[name].update(e1_ms=median_ms(lambda: fn(t, i), runs), e1_plain_ms=median_ms(lambda: plain(t, i), runs),
-                        e1_library_ms=median_ms(lambda: lib(t, i64), runs),
+        by[name].update(split(lambda: fn(t, i), lambda: lib(t, i64), SPLIT_REPS["e1"], "e1_"),
+                        e1_plain_ms=median_ms(lambda: plain(t, i), runs),
                         e1_bound_ms=bound_ms(nbytes=4 * 3 * i.numel())[0])
     e, P = x["e5"]
     ex2, flops = inner_math_ops(e, P)

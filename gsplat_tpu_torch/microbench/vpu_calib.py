@@ -60,15 +60,16 @@ def fma_chain_plain(x: torch.Tensor, passes: int = B) -> torch.Tensor:
     return a + b
 
 
+_CHAIN_ARGS = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p]
+
+
 def _fma_chain_cuda(x: torch.Tensor, passes: int) -> torch.Tensor:
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"the fma_chain kernel takes CUDA tensors, got {dev}")
     check_inputs("fma_chain", dev, [(x, torch.float32, None)])
     out = torch.empty_like(x)
-    fn = _backend.kernel("mb_calib", "fma_chain_launch",
-                         [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float, ctypes.c_void_p,
-                          ctypes.c_void_p])
+    fn = _backend.kernel("mb_calib", "fma_chain_launch", _CHAIN_ARGS)
     _backend.check_launch(fn(x.data_ptr(), x.numel(), passes, 0.0, out.data_ptr(), _backend.stream(dev)),
                           "fma_chain")
     _backend.LAUNCHES["fma_chain"] += 1

@@ -50,9 +50,9 @@ def _check(what: str, dev: torch.device, checks) -> None:
     """Raise unless each (tensor, dtype, shape or None) of `checks` is a
     contiguous tensor of that dtype (and shape) on `dev`."""
     for t, dt, shape in checks:
-        if t.dtype != dt or not t.is_contiguous() or t.device != dev:
+        if t.dtype is not dt or not t.is_contiguous() or t.device != dev:
             raise ValueError(f"{what} input of dtype {t.dtype} on {t.device}: expected contiguous {dt} on {dev}")
-        if shape is not None and tuple(t.shape) != shape:
+        if shape is not None and t.shape != shape:
             raise ValueError(f"{what} input of shape {tuple(t.shape)}: expected {shape}")
 
 
@@ -398,6 +398,7 @@ def gid_order(gids: torch.Tensor, n_out: int) -> Tuple[torch.Tensor, torch.Tenso
 
 REDUCE_MAX_ROWS = 64  # csrc/gid_reduce.cu: a slot's padded row of at most 16 float4s
 
+_PARTIALS_ARGS = [ctypes.c_longlong, ctypes.c_int]  # M, R -> the partials' floats
 _REDUCE_ARGS = (
     [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_int]  # rows, M, R, Rp
     + [ctypes.c_void_p] * 2  # dst, starts
@@ -436,8 +437,7 @@ def _reduce_cuda(rows: torch.Tensor, dst: torch.Tensor, starts: torch.Tensor, n_
         return out
     Rp = reduce_row_floats(R)
     scratch = torch.empty(max(M * Rp, 4), dtype=torch.float32, device=dev)
-    size = _backend.kernel("gid_reduce", "gid_reduce_partials_size", [ctypes.c_longlong, ctypes.c_int])
-    size.restype = ctypes.c_longlong
+    size = _backend.kernel("gid_reduce", "gid_reduce_partials_size", _PARTIALS_ARGS, ctypes.c_longlong)
     partials = torch.empty(max(size(M, R), 4), dtype=torch.float32, device=dev)
     fn = _backend.kernel("gid_reduce", "gid_reduce_launch", _REDUCE_ARGS)
     code = fn(

@@ -23,6 +23,7 @@ import os
 import re
 
 import pytest
+import torch
 
 from gsplat_tpu_torch import _backend
 from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
@@ -107,3 +108,80 @@ def test_calibration_wrappers_bind_c_signatures(symbol, argtypes):
         params = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', f.read()).group(1).split(",")
     kinds = [ctypes.c_void_p if "*" in p else ctypes.c_float if "float" in p else ctypes.c_int for p in params]
     assert getattr(vc, argtypes) == kinds
+
+
+def test_gather_sources_on_hopper_copies():
+    """mb_gather.cu stages rows by 16-byte cp.async (4-byte where a width or
+    a pointer is not aligned) and moves indices and outputs as 16-byte
+    vectors; gather_rows has a kernel for each of the plan's lane groups."""
+    from gsplat_tpu_torch.microbench import primitives as pm
+
+    with open(os.path.join(_backend.CSRC, "mb_gather.cu")) as f:
+        src = f.read()
+    assert "cp.async.cg.shared.global [%0], [%1], 16" in src and "cp.async.ca.shared.global [%0], [%1], 4" in src
+    assert "cp.async.wait_group" in src and "cp.async.commit_group" in src
+    assert "__ldcs(reinterpret_cast<const int4*>" in src and "__stcs(reinterpret_cast<float4*>" in src
+    for lanes in pm.ROWS_LANES:
+        assert f"rows_kernel<{lanes}>(vec)" in src
+    assert f"kSmemLimit = {pm.SMEM_LIMIT}" in src and f"kThreads = {pm.THREADS}" in src
+    assert f"kMinBlocks = {pm.MIN_BLOCKS}" in src and src.count("__launch_bounds__(kThreads, kMinBlocks)") == 2
+
+
+@pytest.mark.parametrize("symbol, argtypes", [("gather_rows_launch", "_ROWS_ARGS"),
+                                              ("gather_window_launch", "_WINDOW_ARGS"),
+                                              ("gather_cols_launch", "_COLS_ARGS")])
+def test_gather_wrappers_bind_c_signatures(symbol, argtypes):
+    """primitives binds each gather's C entry with one ctypes type for each
+    of its parameters, in order."""
+    from gsplat_tpu_torch.microbench import primitives as pm
+
+    with open(os.path.join(_backend.CSRC, "mb_gather.cu")) as f:
+        params = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', f.read()).group(1).split(",")
+    kinds = [ctypes.c_void_p if "*" in p else ctypes.c_float if "float" in p else ctypes.c_int for p in params]
+    assert getattr(pm, argtypes) == kinds
+
+
+@pytest.fixture
+def stand_in_library():
+    """The C library's `abs` under a source name of its own in `_LIBS`
+    (`_LIBS` and the bindings restored afterwards)."""
+    libs, bound = dict(_backend._LIBS), dict(_backend._BOUND)
+    _backend._LIBS["stand_in"] = ctypes.CDLL(None)
+    yield "stand_in"
+    _backend._LIBS.clear()
+    _backend._LIBS.update(libs)
+    _backend._BOUND.clear()
+    _backend._BOUND.update(bound)
+
+
+def test_kernel_binds_once(stand_in_library):
+    args = [ctypes.c_int]
+    fn = _backend.kernel(stand_in_library, "abs", args)
+    assert fn(-3) == 3 and list(fn.argtypes) == [ctypes.c_int] and fn.restype is ctypes.c_int
+    fn.restype = ctypes.c_long  # not set again: the same callable as it was left
+    assert _backend.kernel(stand_in_library, "abs", args) is fn and fn.restype is ctypes.c_long
+    assert _backend.kernel(stand_in_library, "abs", [ctypes.c_int]) is fn  # an equal list
+    with pytest.raises(TypeError):
+        _backend.kernel(stand_in_library, "abs", [ctypes.c_void_p])
+    with pytest.raises(TypeError):
+        _backend.kernel(stand_in_library, "abs", args, ctypes.c_longlong)
+
+
+def test_kernel_rebinds_a_swapped_library(stand_in_library):
+    """A comparison script may put another build of a source in `_LIBS`:
+    its entry point is bound then, with the same argtypes."""
+    args = [ctypes.c_int]
+    fn = _backend.kernel(stand_in_library, "abs", args)
+    other = ctypes.CDLL(None)
+    _backend._LIBS[stand_in_library] = other
+    fn2 = _backend.kernel(stand_in_library, "abs", args)
+    assert fn2 is getattr(other, "abs") and fn2 is not fn and list(fn2.argtypes) == [ctypes.c_int] and fn2(-5) == 5
+
+
+def test_common_device():
+    a, b = torch.zeros(2), torch.zeros(3)
+    assert _backend.common_device(a, None, b) == torch.device("cpu")
+    with pytest.raises(ValueError):
+        _backend.common_device(a, torch.zeros(2, device="meta"))
+    with pytest.raises(ValueError):
+        _backend.common_device(None)

@@ -256,6 +256,77 @@ def test_gather_cols_matches_e4_one_hot():
     np.testing.assert_array_equal(pm.gather_cols(torch.from_numpy(tab), torch.from_numpy(idx)).numpy(), want)
 
 
+# the gathers' shape contract (primitives.gather_plan): the scripts' and
+# check's shapes, the edges the card checks, and the parent's refusals
+V16, V4 = "cp.async 16 B", "cp.async 4 B"
+
+
+@pytest.mark.parametrize("shape, want", [
+    (pm.SIZES["g1"], (16, V16, True, 132, 131_072)),  # 64-byte pieces of a row, one 128 KB stage, a block an SM
+    (pm.SMALL["g1"], (16, V16, True, 32, 16_384)),
+    ((1, 8, 512), (16, V16, True, 32, 512)),  # e1's k_taa0
+    ((2, 3632, 36), (16, V16, True, 6, 232_448)),  # the largest S of 16 lanes
+    ((2, 3633, 36), (8, V16, True, 10, 116_256)),  # one row past it: 8 lanes
+    ((2, 7264, 20), (8, V16, True, 6, 232_448)),  # the parent's largest S
+    ((3, 64, 130), (16, V4, False, 27, 4096)),  # ragged L: the scalar form, a narrow last group
+    ((5, 1, 3), (16, V4, False, 5, 64)),
+    ((4, 100, 20), (16, V16, True, 8, 6400)),
+    ((0, 64, 128), (16, V16, True, 0, 4096)),  # NB = 0: no launch
+])
+def test_gather_plan_rows(shape, want):
+    plan = pm.gather_plan("gather_rows", shape)
+    assert plan == pm.GatherPlan(*want)
+    assert plan.smem <= pm.SMEM_LIMIT == 232_448
+    assert pm.gather_plan("gather_rows", shape, aligned=False)[1:3] == (V4, False)
+
+
+def test_gather_plan_rows_narrows_at_each_edge():
+    """The card's edge shapes are those of test_gather_plan_rows; one row
+    past the 16 lanes' limit the plan takes 8; every S up to the parent's
+    7,264 launches."""
+    edges = [s for n, s in pm.gather_edges() if n == "gather_rows"]
+    assert sorted(edges) == sorted([(2, 3632, 36), (2, 3633, 36), (2, 7264, 20), (3, 64, 130), (5, 1, 3),
+                                    (4, 100, 20), (0, 64, 128)])
+    tops = [s for s in edges if (s[0], s[1] + 1, s[2]) in edges]
+    assert len(tops) == 1 and max(s[1] for s in edges) == pm.ROWS_MAX_S == 7264
+    for NB, S, L in tops:
+        a, b = pm.gather_plan("gather_rows", (NB, S, L)), pm.gather_plan("gather_rows", (NB, S + 1, L))
+        assert b.lanes < a.lanes
+    for S in (1, 2, 907, 1815, 3631, 5000, 7263, 7264):
+        for L in (1, 3, 8, 128, 130, 4096):
+            assert pm.gather_plan("gather_rows", (65535, S, L)).smem <= pm.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("shape", [pm.SIZES["e1b"][3:] + pm.SIZES["e1b"][:3], (1, 8, 512, 512),
+                                   pm.SMALL["e1b"][3:] + pm.SMALL["e1b"][:3]]
+                         + [s for n, s in pm.gather_edges() if n == "gather_window"])
+def test_gather_plan_window(shape):
+    NB, F, W, K = shape
+    plan = pm.gather_plan("gather_window", shape)
+    assert plan.smem == 4 * (-(-W // 4) * 4) <= pm.SMEM_LIMIT
+    assert plan.vector == (K % 4 == 0) and plan.copy == ("cp.async 16 B" if W % 4 == 0 else "cp.async 4 B")
+    if NB * K == 0:
+        assert plan.blocks == 0
+        return
+    per_f, rem = divmod(plan.blocks, F)
+    chunks = NB * (K // 4 if plan.vector else K)
+    assert rem == 0 and 1 <= per_f and (per_f == 1 or chunks >= 256 * (per_f - 1))
+    assert per_f == 1 or plan.blocks <= min(pm.MIN_BLOCKS, 233_472 // (plan.smem + 1024)) * 132  # one wave
+    if shape == (256, 16, 8192, 2048):  # e1b: 33 blocks a row, 4 an SM (by registers)
+        assert plan.blocks == 528
+
+
+@pytest.mark.parametrize("name, shape", [("gather_rows", (2, 7265, 8)), ("gather_rows", (65536, 8, 8)),
+                                         ("gather_rows", (-1, 8, 8)), ("gather_rows", (1, 0, 8)),
+                                         ("gather_rows", (1, 8, 0)), ("gather_rows", (2, 2048, 128, 4)),
+                                         ("gather_window", (1, 1, 58113, 8)), ("gather_window", (1, 0, 8, 8)),
+                                         ("gather_window", (1, 1, 8, -1)), ("gather_window", (-1, 1, 8, 8)),
+                                         ("gather_cols", (1, 1, 8))])
+def test_gather_plan_refuses_what_the_parent_refused(name, shape):
+    with pytest.raises(ValueError):
+        pm.gather_plan(name, shape)
+
+
 # --------------------------------------------------------------- e5's inner math
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_inner_math_matches_e5(dtype):
