@@ -3247,28 +3247,64 @@ MB_ALSO_REPLACES = {"gather_rows": "scripts/exp_r2_primitives.py:57",
                     "gather_window": "scripts/exp_r2_primitives.py:52"}
 
 
+# the grid kernels' edge shapes (B, H, W, Z, Y, X): two images, a small odd
+# image, one narrower and shorter than the grid, Z = 16 and 32 (the first
+# version took Z <= 16), one node along an axis, 1080p at B = 2 and at Z = 32
+GRID_EDGE_SHAPES = ((2, 23, 37, 8, 16, 16), (1, 23, 37, 16, 16, 16), (1, 23, 37, 32, 16, 16),
+                    (1, 5, 7, 8, 16, 16), (2, 23, 37, 4, 1, 16), (1, 37, 23, 3, 16, 1),
+                    (2, 1080, 1920, 8, 16, 16), (1, 1080, 1920, 32, 16, 16))
+
+
+def grid_inputs(torch, B, H, W, Z, Y, X, seed):
+    """The grid kernels' inputs at a shape: grids of random affines about
+    the identity, a cotangent, and the luminance of random colours with the
+    first and last rows (8 at most) black and white (on the bottom and top
+    node)."""
+    from gsplat_tpu_torch import bilagrid
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (B, Z, Y, X, 12)
+    ident = bilagrid.BilateralGrid(1, X, Y, Z, device="cuda").grids.detach()
+    grids = torch.randn(shape, device="cuda", generator=g) * 0.2 + ident
+    rgb = torch.rand(B, H, W, 3, device="cuda", generator=g)
+    e = min(8, max(1, H // 8))
+    rgb[:, :e] = 0.0
+    rgb[:, -e:] = 1.0
+    gray = torch.clamp((rgb * torch.tensor(bilagrid.RGB2GRAY, device="cuda")).sum(-1), 0.0, 1.0)
+    v = torch.randn(B, H, W, 12, device="cuda", generator=g)
+    return {"g": grids, "v": v, "gray": gray, "shape": shape, "rgb": rgb}
+
+
+def check_grid_edges(torch):
+    """check_grid_grad at each of GRID_EDGE_SHAPES. Returns the largest
+    errors (the grids', the luminance's)."""
+    from gsplat_tpu_torch import bilagrid
+
+    errs = [check_grid_grad(torch, bilagrid, grid_inputs(torch, *shape, SEED + 22 + i), "edge B{} {}x{}, grids "
+                            "Z{} Y{} X{}".format(shape[0], shape[2], shape[1], *shape[3:]))
+            for i, shape in enumerate(GRID_EDGE_SHAPES)]
+    return max(e[0] for e in errs), max(e[1] for e in errs)
+
+
 def grid_grad_at_1080p(torch, smi):
     """The bilateral grid's two gradient kernels at 1920x1080 (16 x 16 x 8
     grids, luminance rows on the bottom and top node included): the same
-    bits twice and against their plain versions (check_grid_grad), timed
-    beside grid_sample's backward for the grids alone and for the
-    coordinates alone (output masks [True, False] and [False, True]) and
-    the slice's whole backward through the port's Function beside
-    grid_sample's autograd. Returns their `kernels` entries (launches
-    filled from phase 13)."""
+    bits twice and against their plain versions (check_grid_grad), also at
+    GRID_EDGE_SHAPES, timed beside grid_sample's backward for the grids
+    alone and for the coordinates alone (output masks [True, False] and
+    [False, True]) and the slice's whole backward through the port's
+    Function beside grid_sample's autograd. Returns their `kernels` entries
+    (launches filled from phase 13)."""
     from gsplat_tpu_torch import bilagrid
     from gsplat_tpu_torch.microbench import bound_ms, median_ms
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 21)
     B, H, W = 1, MAIN_H, MAIN_W
-    shape = (B, 8, 16, 16, 12)
-    grids = torch.randn(shape, device="cuda", generator=g) * 0.2 + bilagrid.BilateralGrid(1, device="cuda").grids
-    rgb = torch.rand(B, H, W, 3, device="cuda", generator=g)
-    rgb[:, :8] = 0.0
-    rgb[:, -8:] = 1.0
-    gray = torch.clamp((rgb * torch.tensor(bilagrid.RGB2GRAY, device="cuda")).sum(-1), 0.0, 1.0)
-    v = torch.randn(B, H, W, 12, device="cuda", generator=g)
-    err, lum_err = check_grid_grad(torch, bilagrid, {"g": grids, "v": v, "gray": gray, "shape": shape}, f"{W}x{H}")
+    x = grid_inputs(torch, B, H, W, 8, 16, 16, SEED + 21)
+    grids, v, gray, shape, rgb = x["g"], x["v"], x["gray"], x["shape"], x["rgb"]
+    err, lum_err = check_grid_grad(torch, bilagrid, x, f"{W}x{H}")
+    edge_err, edge_lum_err = check_grid_edges(torch)
+    err, lum_err = max(err, edge_err), max(lum_err, edge_lum_err)
     ms = median_ms(lambda: bilagrid._grid_grad_cuda(v, gray, shape), MB_RUNS)
     plain_ms = median_ms(lambda: bilagrid._grid_grad_plain(v, gray, shape), 3, warmup=1)
     lum_ms = median_ms(lambda: bilagrid._lum_grad_cuda(grids, gray, v), MB_RUNS)

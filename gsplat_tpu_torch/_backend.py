@@ -68,8 +68,9 @@ KERNELS: Dict[str, Sequence[str]] = {
     "rasterize_tiled_bwd": (),
     "rasterize_2dgs_tiled_fwd": ("-fmad=false",),
     "rasterize_2dgs_tiled_bwd": (),
-    # the bilateral grid's gradients: the grids' a gather in a fixed order of
-    # adds, the luminance's per pixel
+    # the bilateral grid's gradients over bilagrid.grad_plan's tiles: the
+    # grids' tile partials and their node sums in a fixed order of adds, the
+    # luminance's from the tile's node window
     "bilagrid_bwd": (),
     # the micro-benchmarks (microbench/), counterparts of scripts/exp_*.py
     "mb_calib": (),

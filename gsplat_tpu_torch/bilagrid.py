@@ -8,12 +8,13 @@ evaluation-time affine fit ``color_correct``.
 The slice's forward is ``F.grid_sample`` (trilinear, corners aligned), as
 the JAX package leaves its gather to XLA. Its gradient goes through
 `_GridSlice`: with respect to the grids, the kernel csrc/bilagrid_bwd.cu on
-the card (`_grid_grad_plain` is its plain version, for CPU tensors), a
-gather that sums each node's pixels in a fixed order, so two runs of a step
-give the same bits (``grid_sample``'s own backward adds into the cells with
-atomics); with respect to the pixels' luminance, a second kernel of the
-same source, per pixel, from the eight corners as the JAX package
-differentiates its lerps (`_lum_grad` is its plain version;
+the card (`_grid_grad_plain` is its plain version, for CPU tensors), one
+pass over `grad_plan`'s pixel tiles and a sum of each node's tile partials
+in a fixed order, so two runs of a step give the same bits
+(``grid_sample``'s own backward adds into the cells with atomics); with
+respect to the pixels' luminance, a second kernel of the same source over
+the same tiles, from the eight corners as the JAX package differentiates
+its lerps (`_lum_grad` is its plain version;
 ``grid_sample``'s border rule would give 0 where the luminance sits on the
 bottom node). The luminance is clipped to [0, 1] with JAX's
 gradient at the ends: half of it where it equals 0 or 1.
@@ -22,6 +23,7 @@ gradient at the ends: half of it where it equals 0 or 1.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Mapping
 
 import numpy as np
@@ -71,23 +73,139 @@ def _grid_grad_plain(v: torch.Tensor, gray: torch.Tensor, grid_shape) -> torch.T
     return out.reshape(B, Z, Y, X, NC)
 
 
-_GRID_GRAD_ARGS = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+# the grid gradient kernels' layout (csrc/bilagrid_bwd.cu): blocks of
+# GRAD_THREADS threads, each warp's chunks of 32 pixels copied into
+# GRAD_STAGES stages of shared memory, about GRAD_TILES_PER_SM tiles an SM
+# (a few waves of blocks)
+GRAD_THREADS = 256
+GRAD_WARPS = GRAD_THREADS // 32
+GRAD_TILES_PER_SM = 16
+GRAD_STAGES = 2
+GRAD_PLAN_HEADER = 4
+SMEM_LIMIT = 232448  # shared memory a block may take on the H100
+
+
+def grad_smem(Z: int):
+    """Shared bytes a block takes: (the grids' gradient, the luminance's).
+    Each warp of both keeps GRAD_STAGES chunks in flight (a chunk: 32
+    pixels' v and gray). The grids' adds each warp's pixels' x-and-z
+    weights [32, 2, 2] and its sums [Z + 1, 12, 4] (a level past the top
+    takes the upper weight of a pixel whose two levels coincide); the
+    luminance's the tile's node window of level differences [Z, 4 corners,
+    12] at a pitch of 52 floats a level."""
+    stages = GRAD_STAGES * (32 * 12 + 32)
+    return GRAD_WARPS * 4 * (stages + 32 * 4 + (Z + 1) * 48), 4 * (GRAD_WARPS * stages + 52 * Z)
+
+
+def _lower_nodes(n: int, g: int) -> np.ndarray:
+    """Each of `n` pixels' lower node along an axis of `g` nodes, rounded as
+    `_corners` and the kernels round: ((i + 0.5) / n) (g - 1) in float32,
+    floored and clipped."""
+    t = (np.arange(n, dtype=np.float32) + np.float32(0.5)) / np.float32(n)
+    return np.clip(np.floor(t * np.float32(g - 1)), 0, g - 1).astype(np.int64)
+
+
+def _runs(n: int, g: int):
+    """The runs of pixels along an axis that share their lower node:
+    (starts, lengths, nodes), and for each of the `g` nodes the two
+    (run * 2 + slot) that reach it, slot 0 the run's lower node and slot
+    1 its upper one (-1 where fewer), in ascending order."""
+    lo = _lower_nodes(n, g)
+    starts = np.flatnonzero(np.diff(lo, prepend=-1)) if n else np.zeros(0, np.int64)
+    lengths = np.diff(np.append(starts, n))
+    nodes = lo[starts]
+    reach = np.full((g, 2), -1, np.int64)
+    for k in range(g):
+        hits = sorted([r * 2 for r in np.flatnonzero(nodes == k)]
+                      + [r * 2 + 1 for r in np.flatnonzero(np.minimum(nodes + 1, g - 1) == k)])
+        reach[k, :len(hits)] = hits
+    return starts, lengths, reach
+
+
+@functools.lru_cache(maxsize=64)
+def grad_plan(B: int, H: int, W: int, Z: int, Y: int, X: int, sms: int = 132) -> np.ndarray:
+    """The tiles both gradient kernels of csrc/bilagrid_bwd.cu take, for
+    images [B, H, W] and grids [B, Z, Y, X, 12] on a card of `sms` SMs, as
+    one read-only int32 array:
+
+    - a header of GRAD_PLAN_HEADER ints: tiles an image Ti, column runs
+      Rx, row runs Ry, 0;
+    - B x Ti tiles (b * H + h0, w0, rows, columns), image by image, row
+      run by row run, column run by column run, then down the run's rows;
+    - for each x node, the two (column run * 2 + slot) that reach it (-1
+      where fewer; `_runs`), then the same for each y node;
+    - for the Ry x Rx cells of an image, the index of each cell's first
+      tile within the image, and Ti.
+
+    A run is the pixels along an axis whose lower node is the same, with
+    the kernels' rounding (`_lower_nodes`), so a tile's pixels all have the
+    same (x, y) corners: a node window of 2 x 2 nodes x Z levels. Each
+    cell is cut along its rows into as many tiles as give about
+    GRAD_TILES_PER_SM x `sms` tiles in all. Cached by shape. Raises
+    ValueError where the kernels cannot take the shape: a block's shared
+    memory for Z (`grad_smem`; Z <= 130), or indices past 32-bit ints."""
+    if min(B, H, W) < 0 or min(Z, Y, X) < 1:
+        raise ValueError(f"images [B, H, W] >= 0 and grids Z, Y, X >= 1, got {(B, H, W)} and {(Z, Y, X)}")
+    if max(grad_smem(Z)) > SMEM_LIMIT:
+        raise ValueError(f"Z = {Z} levels take {max(grad_smem(Z))} bytes of shared memory a block, above "
+                         f"{SMEM_LIMIT}")
+    ry0, rh, yreach = _runs(H, Y)
+    rx0, cw, xreach = _runs(W, X)
+    cells = len(ry0) * len(rx0)
+    split = max(1, -(-GRAD_TILES_PER_SM * sms // max(1, B * cells)))
+    tiles, first = [], []
+    for h0, n in zip(ry0, rh):
+        k = min(split, n)
+        rows = n // k + (np.arange(k) < n % k)
+        starts = h0 + np.concatenate([[0], np.cumsum(rows)[:-1]])
+        for w0, m in zip(rx0, cw):
+            first.append(len(tiles))
+            tiles += [(h, w0, r, m) for h, r in zip(starts, rows)]
+    Ti = len(tiles)
+    first.append(Ti)
+    img = np.asarray(tiles, np.int64).reshape(Ti, 4)
+    all_tiles = np.concatenate([img + np.array([b * H, 0, 0, 0]) for b in range(B)]) if B else img[:0]
+    plan = np.concatenate([[Ti, len(rx0), len(ry0), 0], all_tiles.reshape(-1), xreach.reshape(-1),
+                           yreach.reshape(-1), first])
+    if plan.max(initial=0) >= 2 ** 31 or B * Z * Y * X * 12 >= 2 ** 29:
+        raise ValueError(f"images {(B, H, W)} and grids {(Z, Y, X)} take indices past 32-bit ints")
+    out = plan.astype(np.int32)
+    out.flags.writeable = False
+    return out
+
+
+@functools.lru_cache(maxsize=64)
+def _tiles(device: torch.device, B: int, H: int, W: int, Z: int, Y: int, X: int):
+    """(`grad_plan` for the SMs of `device`, a CUDA tensor's device, copied
+    to it once, its number of tiles)."""
+    plan = grad_plan(B, H, W, Z, Y, X, _backend.sm_count(device.index))
+    return torch.from_numpy(plan.copy()).to(device), B * int(plan[0])
+
+
+_GRID_GRAD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
 
 
 def _grid_grad_cuda(v: torch.Tensor, gray: torch.Tensor, grid_shape) -> torch.Tensor:
-    """Launch csrc/bilagrid_bwd.cu: one block per (image, y node, x node),
-    the same bits on every launch. Same output as `_grid_grad_plain`."""
+    """Launch csrc/bilagrid_bwd.cu's grids' gradient over `grad_plan`'s
+    tiles: each tile's partial sums, then each node's sum of them in the
+    plan's order, the same bits on every launch. Same output as
+    `_grid_grad_plain`."""
     dev = v.device
     if dev.type != "cuda":
         raise ValueError(f"the bilateral grid's gradient kernel takes CUDA tensors, got {dev}")
     B, Z, Y, X, NC = grid_shape
     H, Wd = v.shape[1:3]
-    if NC != 12 or not 1 <= Z <= 16:
-        raise ValueError(f"the kernel takes grids [B, Z <= 16, Y, X, 12], got {tuple(grid_shape)}")
+    if NC != 12:
+        raise ValueError(f"the kernel takes grids [B, Z, Y, X, 12], got {tuple(grid_shape)}")
     _check("grid gradient", dev, [(v, torch.float32, (B, H, Wd, NC)), (gray, torch.float32, (B, H, Wd))])
+    plan, ntiles = _tiles(dev, B, H, Wd, Z, Y, X)
+    if v.data_ptr() % 16:  # the kernels read v in 16-byte vectors
+        v = v.clone()
+    partial = torch.empty((ntiles, 4, Z, NC), dtype=torch.float32, device=dev)
     out = torch.empty(tuple(grid_shape), dtype=torch.float32, device=dev)
     fn = _backend.kernel("bilagrid_bwd", "bilagrid_bwd_launch", _GRID_GRAD_ARGS)
-    code = fn(v.data_ptr(), gray.data_ptr(), B, H, Wd, Z, Y, X, out.data_ptr(), _backend.stream(dev))
+    code = fn(v.data_ptr(), gray.data_ptr(), plan.data_ptr(), ntiles, B, H, Wd, Z, Y, X, partial.data_ptr(),
+              out.data_ptr(), _backend.stream(dev))
     _backend.check_launch(code, "bilagrid_bwd")
     _backend.LAUNCHES["bilagrid_bwd"] += 1
     return out
@@ -135,12 +253,13 @@ def _lum_grad(g: torch.Tensor, gray: torch.Tensor, v: torch.Tensor) -> torch.Ten
     return (v * (level(z1) - level(z0))).sum(dim=-1) * (Z - 1)
 
 
-_LUM_GRAD_ARGS = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+_LUM_GRAD_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 2
 
 
 def _lum_grad_cuda(g: torch.Tensor, gray: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Launch csrc/bilagrid_bwd.cu's luminance kernel: a thread per pixel.
-    Same output as `_lum_grad`."""
+    """Launch csrc/bilagrid_bwd.cu's luminance kernel: a block per tile of
+    `grad_plan`, its node window in shared memory. Same output as
+    `_lum_grad`."""
     dev = v.device
     if dev.type != "cuda":
         raise ValueError(f"the bilateral grid's luminance gradient kernel takes CUDA tensors, got {dev}")
@@ -148,9 +267,13 @@ def _lum_grad_cuda(g: torch.Tensor, gray: torch.Tensor, v: torch.Tensor) -> torc
     H, Wd = gray.shape[1:]
     _check("luminance gradient", dev, [(g, torch.float32, (B, Z, Y, X, 12)), (v, torch.float32, (B, H, Wd, 12)),
                                        (gray, torch.float32, (B, H, Wd))])
+    plan, ntiles = _tiles(dev, B, H, Wd, Z, Y, X)
+    if v.data_ptr() % 16:
+        v = v.clone()
     out = torch.empty((B, H, Wd), dtype=torch.float32, device=dev)
     fn = _backend.kernel("bilagrid_bwd", "bilagrid_lum_bwd_launch", _LUM_GRAD_ARGS)
-    code = fn(g.data_ptr(), v.data_ptr(), gray.data_ptr(), B, H, Wd, Z, Y, X, out.data_ptr(), _backend.stream(dev))
+    code = fn(g.data_ptr(), v.data_ptr(), gray.data_ptr(), plan.data_ptr(), ntiles, B, H, Wd, Z, Y, X,
+              out.data_ptr(), _backend.stream(dev))
     _backend.check_launch(code, "bilagrid_lum_bwd")
     _backend.LAUNCHES["bilagrid_lum_bwd"] += 1
     return out

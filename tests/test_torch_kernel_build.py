@@ -141,6 +141,26 @@ def test_gather_wrappers_bind_c_signatures(symbol, argtypes):
     assert getattr(pm, argtypes) == kinds
 
 
+@pytest.mark.parametrize("symbol, argtypes", [("bilagrid_bwd_launch", "_GRID_GRAD_ARGS"),
+                                              ("bilagrid_lum_bwd_launch", "_LUM_GRAD_ARGS")])
+def test_bilagrid_wrappers_bind_c_signatures(symbol, argtypes):
+    """bilagrid binds each gradient kernel's C entry with one ctypes type for
+    each of its parameters, in order; both take grad_plan's tiles, and the
+    source keeps the plan's header and shared-memory limit."""
+    from gsplat_tpu_torch import bilagrid
+
+    with open(os.path.join(_backend.CSRC, "bilagrid_bwd.cu")) as f:
+        src = f.read()
+    params = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', src).group(1).split(",")
+    kinds = [ctypes.c_void_p if "*" in p else ctypes.c_float if "float" in p else ctypes.c_int for p in params]
+    assert getattr(bilagrid, argtypes) == kinds
+    assert [p.split()[-1] for p in params][2:5] == (["plan", "ntiles", "B"] if symbol == "bilagrid_bwd_launch"
+                                                    else ["gray", "plan", "ntiles"])
+    assert f"kHeader = {bilagrid.GRAD_PLAN_HEADER}" in src and f"kSmemLimit = {bilagrid.SMEM_LIMIT}" in src
+    assert f"kThreads = {bilagrid.GRAD_THREADS}" in src and not re.search(r"\batomic\w*\(", src)
+    assert f"kStages = {bilagrid.GRAD_STAGES};" in src and "kLevelPitch = 52;" in src  # bilagrid.grad_smem's layout
+
+
 @pytest.fixture
 def stand_in_library():
     """The C library's `abs` under a source name of its own in `_LIBS`
