@@ -3354,12 +3354,13 @@ def grid_grad_at_1080p(torch, smi):
 def phase_microbench(smi):
     """Phase 14: each micro-benchmark kernel against its plain version at a
     small size and at its TPU script's, each gate shown to reject a wrong
-    result (gsplat_tpu_torch/microbench/*.py::check), the grid gradient at
-    1080p (grid_grad_at_1080p), then the micro-benchmarks' own path: launch
-    counts set to 0, every module's timing run at its script's sizes
-    (::measure), the counts read (each kernel launched); the calibration
-    rates beside the data sheet's figures. Returns the kernels' `kernels`
-    entries."""
+    result (gsplat_tpu_torch/microbench/*.py::check; the slice kernels also
+    at their edge shapes and tiles, two launches to the same bits), the
+    grid gradient at 1080p (grid_grad_at_1080p), then the micro-benchmarks'
+    own path: launch counts set to 0, every module's timing run at its
+    script's sizes (::measure), the counts read (each kernel launched); the
+    calibration rates beside the data sheet's figures. Returns the kernels'
+    `kernels` entries."""
     import importlib
 
     import torch
@@ -3385,6 +3386,9 @@ def phase_microbench(smi):
                 f"{format_errors(e)}")
             if not small:
                 errs.update(e)
+    _, offs, cnts, *_ = fwd_breakdown.stream(*fwd_breakdown.PRODUCTION)
+    log("fwd_breakdown's edge tiles at 1080p, held to plain above: " + ", ".join(
+        f"tile {t} ({int(cnts[t])} entries from {int(offs[t])})" for t in fwd_breakdown.edge_tiles(offs, cnts).tolist()))
     grid_entries = grid_grad_at_1080p(torch, smi)
 
     _backend.reset_launch_counts()

@@ -24,13 +24,25 @@ reader and writer, ``Parser`` / ``Dataset``, a synthetic-scene writer),
 the pose and appearance modules (``modules.py``) and the bilateral grid
 (``bilagrid.py``), the depth loss, pool growth, checkpoints and resume,
 the trainers' command lines (``python -m gsplat_tpu_torch.simple_trainer``,
-``simple_trainer_2dgs``) and ``image_fitting``. Functions run on the
-device of their input tensors: CUDA tensors go through the kernels, CPU
-tensors through each kernel's plain PyTorch version; entry points that
-make tensors run on the card unless asked for the CPU. Not ported yet, and
-raising NotImplementedError: multi-GPU rendering and training, the
-trainer's LPIPS metric and PNG compression, undistortion and resizing in
-the dataset.
+``simple_trainer_2dgs``) and ``image_fitting``. Slice 11 is the last of
+the TPU kernels, the micro-benchmarks of ``scripts/exp_*.py``
+(``microbench/`` over ``csrc/mb_*.cu``), and the bilateral grid's
+gradients as kernels (``csrc/bilagrid_bwd.cu``). Slice 12 is multi-GPU
+rendering: ``rasterization(distributed=True)`` and
+``rasterization_2dgs(distributed=True)`` over a ``torch.distributed``
+process group (``distributed.py``: whole cameras, image strips, the packed
+exchange), one rank a card. Slices 13-16 redesign kernels already ported:
+the calibration products (``csrc/mb_calib.cu``), the gathers and the launch
+path (``csrc/mb_gather.cu``, ``_backend.py``), the bilateral grid's
+gradients over pixel tiles, and the slice micro-benchmarks over the whole
+card (``csrc/mb_slice_shapes.cu``, ``csrc/mb_fwd_breakdown.cu``).
+
+Functions run on the device of their input tensors: CUDA tensors go
+through the kernels, CPU tensors through each kernel's plain PyTorch
+version; entry points that make tensors run on the card unless asked for
+the CPU. Not ported yet, and raising NotImplementedError: the trainers'
+``distributed`` and ``packed`` (multi-GPU training), the trainer's LPIPS
+metric and PNG compression, undistortion and resizing in the dataset.
 """
 
 from ._helper import load_test_data

@@ -11,12 +11,21 @@ transmittance and the weights, L3 the colour contraction. Output [T, 8, P]
 
 `fwd_breakdown(level, entries, offs, cnts, tw, th, ts)` takes the port's
 binned stream (`ops.binning.bin_gaussians`: entries [NF, M] with NF <= 16,
-the layout csrc/rasterize_fwd.cu reads) and keeps the TPU's arithmetic:
-each tile reads every 512-entry batch from floor(off / 512) 512 to off + n
-(entries past M read as 0, rows past NF as the TPU's zero padding to 16),
-evaluates every entry of them masked to [off, off + n), and restarts the
-transmittance at each 128-entry slice of the stream. So the CPU tests feed
-one stream to the port and to the script's kernel body and compare.
+the layout csrc/rasterize_fwd.cu reads) and keeps the TPU's arithmetic. Its
+plain version, as the TPU kernel, reads every 512-entry batch of a tile
+from floor(off / 512) 512 to off + n (entries past M read as 0, rows past
+NF as the TPU's zero padding to 16), evaluates every entry of them masked
+to [off, off + n), and restarts the transmittance at each 128-entry slice
+of the stream. So the CPU tests feed one stream to the port and to the
+script's kernel body and compare.
+
+The kernel walks a work list (`breakdown_plan`, a pure function of offs
+and cnts made on the host, once a stream, by the caller, who passes it as
+`plan=`; `check_plan` holds it to the stream): each tile's range cut into items of at most
+`ITEM_SLICES` slices (L0: of whole batches), the heaviest items first, a
+block an item; at L1-L3 only the entries [off, off + n), since the entries
+masked out contributed nothing. A split tile's items write partials that a
+second pass adds in item order.
 
 Bound on the card: the larger of the bytes (the distinct batches' NF rows,
 the offsets and the [T, 8, P] output) and the operations the stream needs:
@@ -32,7 +41,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import time
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -118,12 +127,92 @@ def fwd_breakdown_plain(level: int, entries: torch.Tensor, offs: torch.Tensor, c
     return out
 
 
-_ARGS = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int] + [ctypes.c_void_p] * 2
-         + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2)
+ITEM_SLICES = 8  # a work item's most slices (1,024 entries; L0: two batches)
+
+
+class BreakdownPlan(NamedTuple):
+    """`breakdown_plan`'s work list for one level of one stream, int32
+    tensors on the stream's device."""
+    level: int
+    T: int  # the stream's tiles
+    M: int  # the stream's entries
+    items: torch.Tensor  # [n, 4]: tile, first entry, end entry, partial slot or -1; heaviest first
+    finish: torch.Tensor  # [m, 4]: tile, first slot, slots, 0: the split tiles and the tiles with no item
+    slots: int  # partials: the items of the split tiles
+
+
+def item_units(level: int):
+    """(entries a unit, units an item) of `breakdown_plan`'s cut: slices of
+    128 at L1-L3, batches of 512 at L0."""
+    return (KB, max(1, ITEM_SLICES * LANES // KB)) if level == 0 else (LANES, ITEM_SLICES)
+
+
+def breakdown_plan(level: int, offs: torch.Tensor, cnts: torch.Tensor, M: int) -> BreakdownPlan:
+    """The kernel's work list for `level` over a stream of M entries, on
+    offs' device. Each tile's range, [off, min(off + n, M)) at L1-L3
+    (entries past M read as zeros and add nothing) and its batches
+    [floor(off / 512) 512, min(that + 512 nb, M)) at L0, is cut from its
+    first slice into items of `ITEM_SLICES` slices (`item_units`; L0: of
+    the whole batches in 128 x ITEM_SLICES entries, at least one), the
+    first and last one part-full where the range starts or ends mid-slice;
+    a tile of several items gets one partial slot an item, in item order,
+    and a `finish` row; a tile of no entries gets no item and a `finish`
+    row of no slots. The items are ordered by their entries, most first
+    (ties in tile order). Reads offs and cnts to the host."""
+    if level not in (0, 1, 2, 3):
+        raise ValueError(f"breakdown_plan takes a level 0-3, got {level}")
+    off = offs.detach().cpu().numpy().astype(np.int64)
+    n = cnts.detach().cpu().numpy().astype(np.int64)
+    T = off.shape[0]
+    if (off < 0).any() or (n < 0).any() or M >= 2 ** 31:
+        raise ValueError("breakdown_plan takes offs, cnts >= 0 and M < 2^31")
+    unit, per = item_units(level)
+    if level == 0:
+        lo = off // KB * KB
+        hi = np.minimum(lo + (off + n - lo + KB - 1) // KB * KB, M)
+    else:
+        lo = off
+        hi = np.minimum(off + n, M)
+    live = hi > lo
+    first = lo // unit
+    k = np.where(live, -(-((np.maximum(hi, lo + 1) - 1) // unit - first + 1) // per), 0)  # items a tile
+    tile = np.repeat(np.arange(T), k)
+    j = np.arange(int(k.sum())) - np.repeat(np.cumsum(k) - k, k)  # item within its tile
+    start = np.maximum(lo[tile], (first[tile] + j * per) * unit)
+    end = np.minimum(hi[tile], (first[tile] + (j + 1) * per) * unit)
+    split = k[tile] > 1
+    slot = np.where(split, np.cumsum(split) - 1, -1)
+    order = np.argsort(-(end - start), kind="stable")
+    items = np.stack([tile, start, end, slot], axis=1)[order]
+    fin_tiles = np.nonzero((k == 0) | (k > 1))[0]
+    first_slot = np.cumsum(np.where(k > 1, k, 0)) - np.where(k > 1, k, 0)
+    finish = np.stack([fin_tiles, first_slot[fin_tiles], np.where(k > 1, k, 0)[fin_tiles],
+                       np.zeros_like(fin_tiles)], axis=1)
+    as_i32 = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32).reshape(-1, 4)).to(offs.device)  # noqa: E731
+    return BreakdownPlan(level, T, int(M), as_i32(items), as_i32(finish), int(split.sum()))
+
+
+def check_plan(plan: BreakdownPlan, level: int, entries: torch.Tensor, offs: torch.Tensor):
+    """Raises unless `plan` is `breakdown_plan`'s for `level` over a stream
+    of entries' M and offs' T, its lists contiguous int32 [n, 4] on the
+    stream's device: the kernel trusts every tile and entry it names."""
+    T, M = offs.shape[0], entries.shape[1]
+    if (plan.level, plan.T, plan.M) != (level, T, M):
+        raise ValueError(f"fwd_breakdown L{level} over T {T}, M {M} given the plan of L{plan.level} over "
+                         f"T {plan.T}, M {plan.M}")
+    for name, a in (("items", plan.items), ("finish", plan.finish)):
+        if a.dtype != torch.int32 or a.dim() != 2 or a.shape[1] != 4 or not a.is_contiguous() \
+                or a.device != offs.device:
+            raise ValueError(f"fwd_breakdown's plan.{name} must be contiguous int32 [n, 4] on {offs.device}, got "
+                             f"{a.dtype} {tuple(a.shape)} on {a.device}")
+
+
+_ARGS = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_int] * 4
+         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 3)
 
 
 def _fwd_breakdown_cuda(level: int, entries: torch.Tensor, offs: torch.Tensor, cnts: torch.Tensor, tw: int,
-                        th: int, ts: int) -> torch.Tensor:
+                        th: int, ts: int, plan: Optional[BreakdownPlan]) -> torch.Tensor:
     dev = entries.device
     if dev.type != "cuda":
         raise ValueError(f"the fwd_breakdown kernel takes CUDA tensors, got {dev}")
@@ -133,23 +222,33 @@ def _fwd_breakdown_cuda(level: int, entries: torch.Tensor, offs: torch.Tensor, c
                                         (cnts, torch.int32, (T,))])
     if not 6 <= NF <= ROWS or ts * ts > 1024 or (ts * ts) % 32:
         raise ValueError(f"fwd_breakdown takes 6..{ROWS} rows and ts^2 <= 1024 a multiple of 32: {NF}, {ts}")
-    out = torch.empty((T, 8, ts * ts), dtype=torch.float32, device=dev)
+    if plan is None:
+        raise ValueError("the fwd_breakdown kernel takes the stream's plan: breakdown_plan(level, offs, cnts, M)")
+    check_plan(plan, level, entries, offs)
+    P = ts * ts
+    out = torch.empty((T, 8, P), dtype=torch.float32, device=dev)
+    partial = torch.empty(max(plan.slots, 1) * (8 * P if level == 3 else 1), dtype=torch.float32, device=dev)
     fn = _backend.kernel("mb_fwd_breakdown", "fwd_breakdown_launch", _ARGS)
-    _backend.check_launch(fn(level, entries.data_ptr(), M, NF, offs.data_ptr(), cnts.data_ptr(), T, tw, th, ts,
-                             out.data_ptr(), _backend.stream(dev)), f"fwd_breakdown_L{level}")
+    _backend.check_launch(fn(level, entries.data_ptr(), M, NF, tw, th, ts, plan.items.data_ptr(), plan.items.shape[0],
+                             plan.finish.data_ptr(), plan.finish.shape[0], partial.data_ptr(), out.data_ptr(),
+                             _backend.stream(dev)), f"fwd_breakdown_L{level}")
     _backend.LAUNCHES[f"fwd_breakdown_L{level}"] += 1
     return out
 
 
 def fwd_breakdown(level: int, entries: torch.Tensor, offs: torch.Tensor, cnts: torch.Tensor, tw: int, th: int,
-                  ts: int) -> torch.Tensor:
-    """Level 0-3 over the stream: the kernel for CUDA tensors, the plain
-    version for CPU tensors; [T, 8, ts^2]."""
+                  ts: int, plan: Optional[BreakdownPlan] = None) -> torch.Tensor:
+    """Level 0-3 over the stream: the kernel for CUDA tensors, over `plan`
+    (`breakdown_plan`'s for this level and stream, made once by the
+    caller), the plain version for CPU tensors, which needs none; a plan
+    given is held to the stream on either (`check_plan`). [T, 8, ts^2]."""
     if level not in (0, 1, 2, 3):
         raise ValueError(f"level must be 0-3, got {level}")
     dev = _backend.common_device(entries, offs, cnts)
     if _backend.use_kernel(dev):
-        return _fwd_breakdown_cuda(level, entries, offs, cnts, tw, th, ts)
+        return _fwd_breakdown_cuda(level, entries, offs, cnts, tw, th, ts, plan)
+    if plan is not None:
+        check_plan(plan, level, entries, offs)
     return fwd_breakdown_plain(level, entries, offs, cnts, tw, th, ts)
 
 
@@ -204,30 +303,61 @@ def stream(grid: int, W: int, H: int, ts: int):
     return bk.entries, bk.offs, bk.cnts, tw, th, W, H
 
 
+def gate_scale(level: int, want: torch.Tensor, entries, offs, cnts, tw: int, th: int, ts: int, tiles):
+    """`compare`'s scale for the plain version's rows `want` of `tiles`:
+    at L0-L2 each tile's sum of |terms| (L0's no more than the largest
+    tile's |value|), at L3 None (the largest |value|)."""
+    if level == 3:
+        return None
+    if level == 0:
+        return torch.clamp(fwd_breakdown_plain(0, entries.abs(), offs, cnts, tw, th, ts, tiles=tiles),
+                           max=float(want.abs().max()))
+    return want.abs()
+
+
+def edge_tiles(offs: torch.Tensor, cnts: torch.Tensor) -> torch.Tensor:
+    """The tiles a check must hold whatever its seed: the two heaviest, the
+    first empty one, and the heaviest of those whose range starts and ends
+    mid-slice over more than one slice (each where the stream has one)."""
+    off, n = offs.long().cpu(), cnts.long().cpu()
+    picks = torch.argsort(n, descending=True, stable=True)[:2].tolist()
+    empty = torch.nonzero(n == 0).flatten()
+    mid = (off % LANES != 0) & ((off + n) % LANES != 0) & (off // LANES != (off + n) // LANES)
+    if len(empty):
+        picks.append(int(empty[0]))
+    if bool(mid.any()):
+        picks.append(int(torch.argmax(torch.where(mid, n, -1))))
+    return torch.tensor(sorted(set(picks)), dtype=torch.long)
+
+
 def check(small: bool):
     """Each level against its plain version (small: garden scene_grid 1 at
     648x420, every tile; else the production stream on `TILE_SUBSET`
-    seeded tiles), {kernel: max abs error}, and each per-tile gate on a
-    perturbed result, {"rejects ...": its max abs error}."""
+    seeded tiles and its `edge_tiles`), {kernel: max abs error}, two
+    launches to the same bits, and each per-tile gate on a perturbed
+    result, {"rejects ...": its max abs error}."""
     if small:
         entries, offs, cnts, tw, th, _, _ = stream(1, 648, 420, 32)
         tiles = torch.arange(offs.shape[0], device=offs.device)
     else:
         entries, offs, cnts, tw, th, _, _ = stream(*PRODUCTION)
         g = torch.Generator().manual_seed(0)
-        tiles = torch.randperm(offs.shape[0], generator=g)[:TILE_SUBSET].sort().values.to(offs.device)
+        seeded = torch.randperm(offs.shape[0], generator=g)[:TILE_SUBSET]
+        tiles = torch.unique(torch.cat([seeded, edge_tiles(offs, cnts)])).to(offs.device)
     errs = {}
     for level in range(4):
-        got = fwd_breakdown(level, entries, offs, cnts, tw, th, 32)[tiles]
+        plan = breakdown_plan(level, offs, cnts, entries.shape[1])
+        full = fwd_breakdown(level, entries, offs, cnts, tw, th, 32, plan=plan)
+        again = fwd_breakdown(level, entries, offs, cnts, tw, th, 32, plan=plan)
+        if not torch.equal(full, again):
+            raise AssertionError(f"fwd_breakdown_L{level}: two launches differ at {int((full != again).sum())} values")
+        got = full[tiles]
         want = fwd_breakdown_plain(level, entries, offs, cnts, tw, th, 32, tiles=tiles)
         name = f"fwd_breakdown_L{level}"
-        if level == 3:
-            errs[name] = compare(name, got, want, TOL[level])
-            continue
-        # each tile's sum of |terms|, no more than the largest tile's |value|
-        terms = torch.clamp(fwd_breakdown_plain(0, entries.abs(), offs, cnts, tw, th, 32, tiles=tiles),
-                            max=float(want.abs().max())) if level == 0 else want.abs()
+        terms = gate_scale(level, want, entries, offs, cnts, tw, th, 32, tiles)
         errs[name] = compare(name, got, want, TOL[level], terms)
+        if level == 3:
+            continue
         small_tile = int(torch.where(terms[:, 0, 0] > 0, terms[:, 0, 0], float("inf")).argmin())
         wrong = got.clone()
         wrong[small_tile] += 1e-4 * terms[small_tile]
@@ -237,15 +367,17 @@ def check(small: bool):
 
 
 def measure(runs: int = 7):
-    """The four levels on the production stream, one row each (the plain
-    version's ms: one run over the whole stream), and info: fwd_3dgs's ms
+    """The four levels on the production stream, one row each (each
+    level's plan made once, before its timed calls; the plain version's
+    ms: one run over the whole stream), and info: fwd_3dgs's ms
     on it (tile 32) and on the stream binned at tile 16, with their
     entries."""
     grid, W, H, ts = PRODUCTION
     entries, offs, cnts, tw, th, _, _ = stream(*PRODUCTION)
     rows = []
     for level in range(4):
-        ms = median_ms(lambda: fwd_breakdown(level, entries, offs, cnts, tw, th, ts), runs)
+        plan = breakdown_plan(level, offs, cnts, entries.shape[1])  # made once a stream, outside the timed calls
+        ms = median_ms(lambda: fwd_breakdown(level, entries, offs, cnts, tw, th, ts, plan=plan), runs)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fwd_breakdown_plain(level, entries, offs, cnts, tw, th, ts)

@@ -14,6 +14,13 @@ the same work. `slice_shapes(variant, x, P, NB, T)` returns the T blocks'
 acc [T, 8, 128] (all equal); every contraction is f32 (HIGHEST's
 contract).
 
+The kernel spreads each tile over the card by `slice_plan` (a pure
+function of the shape and the SM count): the four lane variants split a
+tile's 128 lanes into warps of `LANES_PER_THREAD` lanes a thread, each
+thread walking a run of the P pixels (`pixel_split`); the scan and fwd_mix,
+whose chains couple every lane of a tile, split its pixels over a cluster
+of `cluster_size` blocks.
+
 Bound on the card: operations, the (pixel, lane) pairs the output needs
 times the variant's f32 flops a pair (`FLOPS_PER_PAIR`, counted from the
 script's expressions, a subexpression once and a product over Qm's six
@@ -29,6 +36,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -102,7 +110,63 @@ def slice_shapes_plain(variant: str, x: torch.Tensor, P: int, NB: int, T: int) -
     return acc.expand(T, 8, LANES).contiguous()
 
 
-_ARGS = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 3
+# the kernel's layout, mirrored from csrc/mb_slice_shapes.cu (kLpt, kRuns,
+# kLaneBlock, kScanThreads, kMaxCluster), which derives its blocks and
+# threads from the one value it is passed, the cluster size: a lane
+# variant's thread holds LANES_PER_THREAD lanes and one of a warp's RUNS
+# runs of the pixels, LANE_BLOCK threads a block; the scan's blocks
+# SCAN_THREADS threads, a warp a pixel at a time; fwd_mix a pixel a thread;
+# a tile's scan or fwd_mix over a cluster of at most MAX_CLUSTER blocks
+LANES_PER_THREAD = 4
+RUNS = 32
+LANE_BLOCK = 128
+SCAN_THREADS = 512
+MAX_CLUSTER = 8
+FILL = 0.9  # the share of the SMs a cluster size must give blocks to
+
+
+class SlicePlan(NamedTuple):
+    blocks: int
+    threads: int
+    cluster: int  # blocks a tile (1: a lane variant's blocks hold warps of any tile)
+
+
+def pixel_split(n: int, parts: int):
+    """The first item of each of `parts` runs of n items, and n: run i is
+    [bounds[i], bounds[i + 1]) (the kernel's `split`)."""
+    return [i * n // parts for i in range(parts + 1)]
+
+
+def cluster_size(T: int, sms: int) -> int:
+    """Blocks a tile for the scan and fwd_mix: the least of 1, 2, 4 and 8
+    whose T C blocks give at least `FILL` of the SMs a block, else 8."""
+    for c in (1, 2, 4, MAX_CLUSTER):
+        if T * c >= FILL * sms:
+            return c
+    return MAX_CLUSTER
+
+
+def slice_plan(variant: str, P: int, T: int, sms: int) -> SlicePlan:
+    """The kernel's launch for `variant` over T tiles of P pixels on a card
+    of `sms` SMs. The C entry takes only its `cluster` and derives the
+    rest as this does."""
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; one of {VARIANTS}")
+    if P < 1 or T < 0 or sms < 1:
+        raise ValueError(f"slice_plan takes P >= 1, T >= 0 and sms >= 1, got {P}, {T}, {sms}")
+    if variant == "fwd_mix" and not LANES <= P <= 1024:
+        raise ValueError(f"fwd_mix takes {LANES} <= P <= 1024, got {P}")
+    if variant not in ("scan", "fwd_mix"):
+        warps = T * (LANES // LANES_PER_THREAD)
+        return SlicePlan(-(-warps // (LANE_BLOCK // 32)), LANE_BLOCK, 1)
+    c = cluster_size(T, sms)
+    if variant == "scan":
+        return SlicePlan(T * c, SCAN_THREADS, c)
+    per_rank = -(-P // c)  # the most pixels a block holds
+    return SlicePlan(T * c, -(-per_rank // 32) * 32, c)
+
+
+_ARGS = [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 7 + [ctypes.c_void_p] * 3
 
 
 def _slice_shapes_cuda(variant: str, x: torch.Tensor, P: int, NB: int, T: int) -> torch.Tensor:
@@ -114,10 +178,13 @@ def _slice_shapes_cuda(variant: str, x: torch.Tensor, P: int, NB: int, T: int) -
     ts = math.isqrt(P)
     if ts * ts != P or K % LANES:
         raise ValueError(f"slice_shapes takes P = ts^2 and K a multiple of {LANES}, got P {P}, K {K}")
+    if x.data_ptr() % 16:
+        raise ValueError("slice_shapes takes x 16-byte aligned")
+    cluster = slice_plan(variant, P, T, _backend.sm_count(dev.index)).cluster
     out = torch.empty((T, 8, LANES), dtype=torch.float32, device=dev)
     sink = torch.empty(1, dtype=torch.float32, device=dev)  # fwd_mix writes it only when asked
     fn = _backend.kernel("mb_slice_shapes", "slice_shapes_launch", _ARGS)
-    _backend.check_launch(fn(VARIANTS.index(variant), x.data_ptr(), K, P, ts, NB, T, 0, out.data_ptr(),
+    _backend.check_launch(fn(VARIANTS.index(variant), x.data_ptr(), K, P, ts, NB, T, 0, cluster, out.data_ptr(),
                              sink.data_ptr(), _backend.stream(dev)), f"slice_{variant}")
     _backend.LAUNCHES[f"slice_{variant}"] += 1
     return out
@@ -146,6 +213,10 @@ def needed_pairs(variant: str, K: int, P: int, NB: int, T: int) -> int:
 TOL = 1e-5
 DEFAULTS = {"ts": 32, "nb": 64, "k": 512, "tiles": 64}
 SMALL = {"ts": 16, "nb": 3, "k": 256, "tiles": 4}
+# part-full layouts: runs of 4 or 5 pixels that wrap mid-row, one or two
+# pixels a scan warp, fwd_mix ranks of 18 pixels in one part-full warp,
+# every rank holding output pixels
+EDGE = {"ts": 12, "nb": 3, "k": 256, "tiles": 3}
 
 
 def row_scale(want: torch.Tensor) -> torch.Tensor:
@@ -159,17 +230,27 @@ def _x(K: int) -> torch.Tensor:
 
 
 def check(small: bool, sizes=None):
-    """Each variant against its plain version, {kernel: max abs error},
-    and the gate on a perturbed result, {"rejects ...": its max abs
-    error}."""
-    sz = SMALL if small else (sizes or DEFAULTS)
+    """Each variant against its plain version (small: at `SMALL` and at
+    `EDGE`, "... at EDGE" keys), {kernel: max abs error}, two launches to
+    the same bits, and the gate on a perturbed result, {"rejects ...": its
+    max abs error}."""
+    errs = {}
+    for sz, tag in ((SMALL, ""), (EDGE, " at EDGE")) if small else (((sizes or DEFAULTS), ""),):
+        errs.update(_check(sz, tag))
+    return errs
+
+
+def _check(sz, tag):
     x, P = _x(sz["k"]), sz["ts"] ** 2
     errs = {}
     for v in VARIANTS:
         got = slice_shapes(v, x, P, sz["nb"], sz["tiles"])
+        again = slice_shapes(v, x, P, sz["nb"], sz["tiles"])
+        if not torch.equal(got, again):
+            raise AssertionError(f"slice_{v}{tag}: two launches differ at {int((got != again).sum())} values")
         want = slice_shapes_plain(v, x, P, sz["nb"], sz["tiles"])
-        errs[f"slice_{v}"] = compare(f"slice_{v}", got, want, TOL, row_scale(want))
-        if v == "vpu_sigma":
+        errs[f"slice_{v}{tag}"] = compare(f"slice_{v}{tag}", got, want, TOL, row_scale(want))
+        if v == "vpu_sigma" and not tag:
             top = want.abs().amax(dim=(0, 2))
             r = int(torch.where(top > 0, top, float("inf")).argmin())
             wrong = got.clone()

@@ -31,9 +31,11 @@ kernel bodies are restated below with the script's lines cited, with
   alike).
 """
 
+import ctypes
 import functools
 import importlib.util
 import os
+import re
 
 import jax
 import jax.numpy as jnp
@@ -517,3 +519,396 @@ def test_fwd_breakdown_matches_make_kernel(level):
         assert (want > 0).any()
     nbytes, flops, ex2 = fb.work(level, t(entries[:NF]), t(offs), t(cnts), ts)
     assert nbytes > 4 * len(offs) * 8 * ts * ts and flops > 0 and (ex2 > 0) == (level > 0)
+
+
+# --------------------------------------------------------------- the kernels' plans
+# kernel_shapes.slice_plan and fwd_breakdown.breakdown_plan are the launch
+# layouts of csrc/mb_slice_shapes.cu and csrc/mb_fwd_breakdown.cu; each
+# covers every (lane, pixel) pair or every needed entry once, in order, and
+# a torch walk of that layout gives the plain version's result
+SLICE_SHAPES = [(1024, 64), (256, 4), (144, 3), (64, 2), (9, 1), (4096, 5)]  # (P, T)
+
+
+def _walk_pixels(p0, p1, ts):
+    """The kernel's walk of pixels [p0, p1): px and py stepped as floats."""
+    px, py = np.float32(p0 % ts + 0.5), np.float32(p0 // ts + 0.5)
+    out = []
+    for _ in range(p0, p1):
+        out.append((float(px), float(py)))
+        px = np.float32(px + 1)
+        if px > ts:
+            px, py = np.float32(0.5), np.float32(py + 1)
+    return out
+
+
+@pytest.mark.parametrize("P, T", SLICE_SHAPES)
+def test_slice_plan_lanes_cover_pairs(P, T):
+    """A lane warp: 4 lanes of one tile, its threads' runs of the pixels;
+    every (tile, lane, pixel) once, the runs in order, the walk exact."""
+    ts = int(np.sqrt(P))
+    plan = ks.slice_plan("vpu_sigma", P, T, 132)
+    warps_a_block = plan.threads // 32
+    units = T * LANES // ks.LANES_PER_THREAD
+    assert plan.cluster == 1 and plan.blocks * warps_a_block >= units > (plan.blocks - 1) * warps_a_block - 1
+    assert all(ks.slice_plan(v, P, T, 132) == plan for v in ("mxu_sigma", "moments", "vpu_reduce5"))
+    runs = ks.pixel_split(P, ks.RUNS)
+    assert runs[0] == 0 and runs[-1] == P and all(a <= b for a, b in zip(runs, runs[1:]))
+    for p0, p1 in zip(runs, runs[1:]):
+        assert _walk_pixels(p0, p1, ts) == [(p % ts + 0.5, p // ts + 0.5) for p in range(p0, p1)]
+    cover = np.zeros((T, LANES, P), np.int32)
+    for u in range(units):
+        t, k0 = divmod(u, LANES // ks.LANES_PER_THREAD)
+        for p0, p1 in zip(runs, runs[1:]):
+            cover[t, k0 * 4:k0 * 4 + 4, p0:p1] += 1
+    assert (cover == 1).all()
+
+
+@pytest.mark.parametrize("P, T", SLICE_SHAPES)
+def test_slice_plan_clusters_cover_pixels(P, T):
+    """The scan and fwd_mix: a cluster a tile; its ranks' pixels, the scan's
+    warps' runs (two halves walked at once) and fwd_mix's threads' pixels
+    cover each pixel once, in order; the owners of pixels 0-127."""
+    ts = int(np.sqrt(P))
+    for variant in ("scan", "fwd_mix"):
+        if variant == "fwd_mix" and not LANES <= P <= 1024:
+            with pytest.raises(ValueError):
+                ks.slice_plan(variant, P, T, 132)
+            continue
+        plan = ks.slice_plan(variant, P, T, 132)
+        C = plan.cluster
+        assert C == ks.cluster_size(T, 132) and plan.blocks == T * C and plan.threads % 32 == 0
+        assert C == 8 or T * C >= 0.9 * 132 > T * C // 2 or C == 1
+        ranks = ks.pixel_split(P, C)
+        seen = []
+        for c0, c1 in zip(ranks, ranks[1:]):
+            if variant == "scan":
+                bounds = [c0 + b for b in ks.pixel_split(c1 - c0, ks.SCAN_THREADS // 32)]
+                for w0, w1 in zip(bounds, bounds[1:]):
+                    half = (w1 - w0 + 1) // 2
+                    a, b = list(range(w0, w0 + half)), list(range(w0 + half, w1))
+                    assert len(b) in (half, half - 1) or half == 0
+                    assert _walk_pixels(w0, w0 + half, ts) == [(p % ts + 0.5, p // ts + 0.5) for p in a]
+                    seen += a + b
+            else:
+                assert plan.threads >= c1 - c0 > plan.threads - 32
+                seen += [c0 + i for i in range(plan.threads) if c0 + i < c1]
+        assert seen == list(range(P))
+        if variant == "fwd_mix":  # the rank that holds each output pixel (the kernel's `owner`)
+            owner = [max(c for c in range(C) if ranks[c] <= k) for k in range(LANES)]
+            assert all(ranks[o] <= k < ranks[o + 1] for k, o in enumerate(owner))
+
+
+def test_slice_plan_fills_the_card():
+    """The script's size: 512 blocks of 4 lane warps; the scan and fwd_mix
+    on clusters of 2 (128 of 132 SMs), fwd_mix a pixel a thread; small T on
+    clusters of 8."""
+    assert ks.slice_plan("vpu_sigma", 1024, 64, 132) == ks.SlicePlan(512, 128, 1)
+    assert ks.slice_plan("scan", 1024, 64, 132) == ks.SlicePlan(128, 512, 2)
+    assert ks.slice_plan("fwd_mix", 1024, 64, 132) == ks.SlicePlan(128, 512, 2)
+    assert ks.slice_plan("scan", 256, 4, 132).cluster == 8 and ks.slice_plan("scan", 1024, 132, 132).cluster == 1
+    for bad in [("fwd_mix", 100, 2), ("fwd_mix", 1089, 2), ("scan", 0, 2), ("scan", 64, -1)]:
+        with pytest.raises(ValueError):
+            ks.slice_plan(*bad, 132)
+
+
+def _contrib(variant, e, pxl, pyl, Qm):
+    """[P, 8, 128]: each pixel's term of acc for one slice's entries e (the
+    plain version's expressions)."""
+    gx, gy, ca, cb, cc = (e[i:i + 1] for i in range(5))
+    dx, dy = pxl - gx, pyl - gy
+    if variant == "vpu_reduce5":
+        v = ca * dx + cb * dy
+        rows = [0.5 * dx * dx * v, dx * dy * v, 0.5 * dy * dy * v, (ca * dx + cb * dy) * v, (cb * dx + cc * dy) * v]
+        return torch.stack(rows + [torch.zeros_like(v)] * 3, dim=1)
+    if variant == "vpu_sigma":
+        v = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+    elif variant == "mxu_sigma":
+        coef = torch.cat([0.5 * ca, cb, 0.5 * cc, -(ca * gx + cb * gy), -(cc * gy + cb * gx),
+                          0.5 * ca * gx * gx + cb * gx * gy + 0.5 * cc * gy * gy, torch.zeros((2, LANES))])
+        v = Qm @ coef
+    elif variant == "moments":
+        v = ca * dx + cb * dy
+    else:  # scan
+        v = torch.cumprod(1.0 - torch.clamp_max(torch.abs(ca * dx), 0.99), dim=1)
+    return Qm[:, :, None] * v[:, None, :]
+
+
+def _walk_fwd_mix(x, P, NB, plan, pxl, pyl):
+    """fwd_mix's cluster in torch, rank by rank: rank r holds pixels
+    [c0, c1) of `pixel_split(P, C)` in a block of `plan.threads` threads
+    (the last ones idle where the rank is part-full); each batch, lane k's
+    dep is row 0 of pixel k as its owner rank wrote it into its own `own`
+    row at the previous batch's end (the kernel's `owner[k]`, found by the
+    kernel's search), every other value of `own` unset (NaN); [8, 128]."""
+    C = plan.cluster
+    ranks = ks.pixel_split(P, C)
+    owner = []
+    for k in range(LANES):
+        r = 0
+        while ranks[r + 1] <= k:
+            r += 1
+        owner.append(r)
+    acc = torch.zeros((P, 8))
+    own = torch.full((C, LANES), float("nan"))
+    for b in range(NB):
+        dep = torch.zeros(LANES) if b == 0 else own[owner, torch.arange(LANES)] * 1e-20
+        own = torch.full((C, LANES), float("nan"))
+        for r, (c0, c1) in enumerate(zip(ranks, ranks[1:])):
+            assert plan.threads >= c1 - c0 > plan.threads - 32  # a part-full last warp at most
+            for s in range(x.shape[1] // LANES):
+                e = x[:, s * LANES:(s + 1) * LANES] + dep[None]
+                gx, gy, ca, cb, cc, op = (e[i:i + 1] for i in range(6))
+                dx, dy = pxl[c0:c1] - gx, pyl[c0:c1] - gy
+                sig = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+                alpha = torch.clamp_max(op * torch.exp(-sig), 0.999)
+                valid = (alpha >= 1.0 / 255.0) & (sig >= 0.0)
+                Tm = torch.cumprod(torch.where(valid, 1.0 - alpha, 1.0), dim=1)
+                acc[c0:c1] += torch.where(valid, Tm * alpha, 0.0) @ e[6:14].T  # every pixel its own chain
+            mine = torch.arange(c0, max(c0, min(c1, LANES)))
+            own[r, mine] = acc[mine, 0]  # the rank's output pixels' row 0
+    assert not acc[:LANES].isnan().any()  # every lane's dep came from its owner
+    return acc[:LANES].T.contiguous()
+
+
+def _walk_slices(variant, x, P, NB, T):
+    """The kernel's layout in torch: per-batch partials of each pixel group
+    (a lane warp's runs; the scan's ranks x warps), each group's running
+    totals, dep from the groups' row-0 totals; fwd_mix by `_walk_fwd_mix`;
+    [T, 8, 128]."""
+    plan = ks.slice_plan(variant, P, T, 132)
+    pxl, pyl, Qm = ks._pixels(P, x.device)
+    if variant == "fwd_mix":
+        return _walk_fwd_mix(x, P, NB, plan, pxl, pyl).expand(T, 8, LANES)
+    if variant == "scan":
+        group = torch.empty(P, dtype=torch.long)
+        ranks = ks.pixel_split(P, plan.cluster)
+        g = 0
+        for c0, c1 in zip(ranks, ranks[1:]):
+            bounds = ks.pixel_split(c1 - c0, ks.SCAN_THREADS // 32)
+            for w0, w1 in zip(bounds, bounds[1:]):
+                group[c0 + w0:c0 + w1] = g
+                g += 1
+    else:
+        runs = ks.pixel_split(P, ks.RUNS)
+        group = torch.repeat_interleave(torch.arange(ks.RUNS), torch.tensor(np.diff(runs)))
+        g = ks.RUNS
+    racc = torch.zeros((g, 8, LANES))
+    with _backend.full_f32_matmul():
+        for _ in range(NB):
+            dep = racc[:, 0].sum(0, keepdim=True) * 1e-20
+            pr = torch.zeros_like(racc)
+            for s in range(x.shape[1] // LANES):
+                pr.index_add_(0, group, _contrib(variant, x[:, s * LANES:(s + 1) * LANES] + dep, pxl, pyl, Qm))
+            racc += pr
+    return racc.sum(0).expand(T, 8, LANES)
+
+
+@pytest.mark.parametrize("variant", ks.VARIANTS)
+@pytest.mark.parametrize("P", [256, 144])
+def test_slice_walk_matches_plain(variant, P):
+    K, NB, T = 256, 2, 3
+    x = torch.from_numpy(np.random.default_rng(9).random((16, K)).astype(np.float32))
+    warm_exp()
+    want = ks.slice_shapes_plain(variant, x, P, NB, T)
+    got = _walk_slices(variant, x, P, NB, T)
+    _close(got, want.numpy(), ks.TOL, ks.row_scale(want).numpy())
+
+
+def _stream_tensors():
+    entries, NF, offs, cnts, tw, th, ts = _stream()
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))  # noqa: E731
+    return t(entries[:NF]), t(offs), t(cnts), tw, th, ts
+
+
+def _check_items(plan, level, offs, cnts, M, cap):
+    """Every tile's needed range, once and in order, in items of at most
+    `cap` slices (L0: whole batches), the first cut at the range's first
+    slice; none for a tile with nothing to read; slots and finish rows
+    agree."""
+    off, n = offs.long().numpy(), cnts.long().numpy()
+    items, finish = plan.items.numpy(), plan.finish.numpy()
+    unit, per = fb.item_units(level)
+    assert cap == fb.ITEM_SLICES and (unit, per) == ((fb.KB, max(1, cap // 4)) if level == 0 else (LANES, cap))
+    sizes = items[:, 2] - items[:, 1]
+    assert (sizes > 0).all() and (np.diff(sizes) <= 0).all()  # heaviest first
+    assert ((items[:, 2] - 1) // unit - items[:, 1] // unit < per).all()  # no item over its cap
+    by_tile = {}
+    for tile, a, b, slot in items.tolist():
+        by_tile.setdefault(tile, []).append((a, b, slot))
+    slots = []
+    fin = {int(r[0]): (int(r[1]), int(r[2])) for r in finish}
+    for tile in range(len(off)):
+        if level == 0:
+            lo = off[tile] // fb.KB * fb.KB
+            hi = min(lo + (off[tile] + n[tile] - lo + fb.KB - 1) // fb.KB * fb.KB, M)
+        else:
+            lo, hi = off[tile], min(off[tile] + n[tile], M)
+        got = sorted(by_tile.get(tile, []))
+        if hi <= lo:
+            assert not got and fin[tile] == (fin[tile][0], 0)
+            continue
+        assert got[0][0] == lo and got[-1][1] == hi and all(a[1] == b[0] for a, b in zip(got, got[1:]))
+        assert len(got) == -(-((hi - 1) // unit - lo // unit + 1) // per)
+        assert all((b - lo // unit * unit) % (per * unit) == 0 for _, b, _ in got[:-1])  # cut from the first slice
+        if len(got) == 1:
+            assert got[0][2] == -1 and tile not in fin
+        else:
+            assert fin[tile] == (got[0][2], len(got)) and [s for *_, s in got] == list(range(got[0][2], got[0][2] + len(got)))
+            slots += [s for *_, s in got]
+    assert sorted(slots) == list(range(plan.slots)) == slots
+
+
+def _synthetic_stream():
+    """offs / cnts with empty tiles, ranges that start and end mid-slice,
+    one exactly on slice edges, one of 3,000 entries, and one past M."""
+    cnts = np.array([0, 5, 130, 0, 3000, 128, 77, 1, 0, 700, 40], np.int32)
+    offs = np.concatenate([[3], 3 + np.cumsum(cnts)[:-1]]).astype(np.int32)
+    offs[5] = 3456  # [3456, 3584): exactly one slice
+    return torch.from_numpy(offs), torch.from_numpy(cnts), int(offs[-1]) + 20  # the last tile runs past M
+
+
+@pytest.mark.parametrize("level", [0, 1])
+@pytest.mark.parametrize("cap", [1, 2, 8])
+def test_breakdown_plan_items(level, cap, monkeypatch):
+    monkeypatch.setattr(fb, "ITEM_SLICES", cap)
+    offs, cnts, M = _synthetic_stream()
+    plan = fb.breakdown_plan(level, offs, cnts, M)
+    assert (plan.level, plan.T, plan.M) == (level, len(offs), M)
+    assert plan.items.dtype == plan.finish.dtype == torch.int32
+    _check_items(plan, level, offs, cnts, M, cap)
+    if level:
+        assert fb.breakdown_plan(3, offs, cnts, M).items.equal(plan.items)
+        starts = {a for _, a, _, _ in plan.items.tolist()}
+        mid = [t for t in range(len(offs)) if offs[t] % LANES and (offs[t] + cnts[t]) % LANES and cnts[t] > LANES]
+        assert mid and all(int(offs[t]) in starts for t in mid)  # a tile that starts mid-slice starts an item there
+        heavy = max(range(len(offs)), key=lambda t: int(cnts[t]))  # 3,000 entries over 24 slices
+        assert sum(1 for it in plan.items.tolist() if it[0] == heavy) == -(-24 // cap)
+
+
+@pytest.mark.parametrize("level", [0, 1, 2, 3])
+@pytest.mark.parametrize("cap", [1, 8])
+def test_breakdown_plan_on_the_stream(level, cap, monkeypatch):
+    monkeypatch.setattr(fb, "ITEM_SLICES", cap)
+    entries, offs, cnts, *_ = _stream_tensors()
+    M = entries.shape[1]
+    plan = fb.breakdown_plan(level, offs, cnts, M)
+    _check_items(plan, level, offs, cnts, M, cap)
+    if cap == 1 and level:
+        assert plan.slots > 0  # tiles split
+
+
+def _walk_breakdown(level, entries, offs, cnts, tw, th, ts, plan):
+    """The kernel's walk in torch: each item's partial (L1-L3 from its first
+    entry, the transmittance restarting there and at every multiple of 128),
+    in launch order; one item's tile written, a split tile's partials added
+    in item order by the finish rows."""
+    P = ts * ts
+    pix = torch.arange(P)
+    out = torch.full((len(offs), 8, P), float("nan"))
+    partial = {}
+    for tile, a, b, slot in plan.items.tolist():
+        if level == 0:
+            val = entries[:, a:b].sum()
+        else:
+            rem = tile % (th * tw)
+            px = ((rem % tw) * ts + pix % ts + 0.5).float()[:, None]
+            py = ((rem // tw) * ts + pix // ts + 0.5).float()[:, None]
+            val = torch.zeros((8, P)) if level == 3 else torch.zeros(())
+            lo = a
+            while lo < b:
+                hi = min(b, (lo // LANES + 1) * LANES)
+                e = entries[:, lo:hi]
+                gx, gy, ca, cb, cc, op = (e[r:r + 1] for r in range(6))
+                dx, dy = px - gx, py - gy
+                sig = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+                alpha = torch.clamp_max(op * torch.exp(-sig), 0.999)
+                valid = (alpha >= 1.0 / 255.0) & (sig >= 0.0)
+                if level == 1:
+                    val = val + torch.where(valid, alpha, 0.0).sum()
+                else:
+                    Tm = torch.cumprod(torch.where(valid, 1.0 - alpha, 1.0), dim=1)
+                    T_excl = torch.cat([torch.ones_like(Tm[:, :1]), Tm[:, :-1]], dim=1)
+                    w = torch.where(valid & (Tm > 1e-4), T_excl * alpha, 0.0)
+                    if level == 2:
+                        val = val + w.sum()
+                    else:
+                        colours = torch.zeros((8, hi - lo))
+                        colours[:min(e.shape[0] - 6, 8)] = e[6:14]
+                        val = val + colours @ w.T
+                lo = hi
+        if slot < 0:
+            out[tile] = val if level == 3 else val * 1e-9
+        else:
+            partial[slot] = val
+    for tile, first, count, _ in plan.finish.tolist():
+        total = torch.zeros((8, P)) if level == 3 else torch.zeros(())
+        for s in range(count):
+            total = total + partial[first + s]
+        out[tile] = total if level == 3 else total * 1e-9
+    assert not out.isnan().any()  # every tile written once
+    return out
+
+
+@pytest.mark.parametrize("level", [0, 1, 2, 3])
+@pytest.mark.parametrize("cap", [1, 8])
+def test_breakdown_walk_matches_plain(level, cap, monkeypatch):
+    monkeypatch.setattr(fb, "ITEM_SLICES", cap)
+    entries, offs, cnts, tw, th, ts = _stream_tensors()
+    warm_exp()
+    plan = fb.breakdown_plan(level, offs, cnts, entries.shape[1])
+    want = fb.fwd_breakdown_plain(level, entries, offs, cnts, tw, th, ts)
+    got = _walk_breakdown(level, entries, offs, cnts, tw, th, ts, plan)
+    if level == 3:
+        _close(got, want.numpy(), fb.TOL[3])
+    else:
+        terms = fb.fwd_breakdown_plain(0, entries.abs(), offs, cnts, tw, th, ts) if level == 0 else want.abs()
+        _close(got, want.numpy(), fb.TOL[level], terms.numpy())
+
+
+@pytest.mark.parametrize("level", [0, 3])
+def test_fwd_breakdown_refuses_another_streams_plan(level):
+    """A plan is held to the stream it is used on (its level, T and M) and
+    to contiguous int32 [n, 4] lists, whichever version runs; the stream's
+    own plan passes and the plain result comes back."""
+    entries, offs, cnts, tw, th, ts = _stream_tensors()
+    o2, c2, M2 = _synthetic_stream()
+    other = fb.breakdown_plan(level, o2, c2, M2)
+    own = fb.breakdown_plan(level, offs, cnts, entries.shape[1])
+    short = fb.breakdown_plan(level, offs[:-1], cnts[:-1], entries.shape[1])  # a tile fewer
+    wide = fb.breakdown_plan(level, offs, cnts, entries.shape[1] + 128)  # more entries
+    wrong = [other, short, wide, fb.breakdown_plan(1 if level == 0 else 2, offs, cnts, entries.shape[1]),
+             own._replace(items=own.items.t().contiguous().t()), own._replace(finish=own.finish.long()),
+             own._replace(items=own.items.reshape(-1))]
+    for plan in wrong:
+        with pytest.raises(ValueError):
+            fb.fwd_breakdown(level, entries, offs, cnts, tw, th, ts, plan=plan)
+        with pytest.raises(ValueError):
+            fb.check_plan(plan, level, entries, offs)
+    fb.check_plan(own, level, entries, offs)
+    got = fb.fwd_breakdown(level, entries[:, :1], offs[:1] * 0, cnts[:1] * 0, tw, th, ts,
+                           plan=fb.breakdown_plan(level, offs[:1] * 0, cnts[:1] * 0, 1))
+    assert got.shape == (1, 8, ts * ts) and not got.any()  # one empty tile
+
+
+def _c_kinds(src, symbol):
+    """The ctypes type of each parameter of `extern "C" int symbol(...)`."""
+    params = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', src).group(1).split(",")
+    kinds = [ctypes.c_void_p if "*" in p else ctypes.c_longlong if "long long" in p else ctypes.c_int for p in params]
+    return [p.split()[-1].lstrip("*") for p in params], kinds
+
+
+def test_slice_wrappers_bind_c_signatures():
+    """kernel_shapes and fwd_breakdown bind their C entries with one ctypes
+    type for each parameter, in order; the slice entry takes the cluster
+    size alone and derives the layout that slice_plan mirrors from the
+    source's own constants."""
+    with open(os.path.join(_backend.CSRC, "mb_slice_shapes.cu")) as f:
+        src = f.read()
+    names, kinds = _c_kinds(src, "slice_shapes_launch")
+    assert kinds == ks._ARGS and names[8] == "cluster"
+    for const, value in (("kLpt", ks.LANES_PER_THREAD), ("kRuns", ks.RUNS), ("kLaneBlock", ks.LANE_BLOCK),
+                         ("kScanThreads", ks.SCAN_THREADS), ("kMaxCluster", ks.MAX_CLUSTER)):
+        assert f"constexpr int {const} = {value};" in src
+    with open(os.path.join(_backend.CSRC, "mb_fwd_breakdown.cu")) as f:
+        names, kinds = _c_kinds(f.read(), "fwd_breakdown_launch")
+    assert kinds == fb._ARGS and names[7:11] == ["items", "n_items", "finish", "n_finish"]
