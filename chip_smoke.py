@@ -880,6 +880,51 @@ def repeat_loops(so, ops):
     return out
 
 
+# SASS opcodes by the kind of issue slot they take (the first match wins):
+# MUFU (the SFU), the packed half / bf16 pipe, conversions, f32, integer
+# and moves (uniform datapath included), branches, memory
+SASS_KINDS = (("MUFU", ("MUFU",)), ("HFMA2", ("HADD2", "HMUL2", "HFMA2", "HMNMX2", "HSETP2", "HSET2")),
+              ("conversion", ("F2F", "I2F", "F2I", "F2FP", "I2FP", "FRND")),
+              ("FP32", ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET", "FCHK", "FSWZADD")),
+              ("integer", ("IADD", "IMAD", "ISETP", "IMNMX", "IABS", "LOP", "SHF", "LEA", "SEL", "PRMT", "MOV",
+                           "U", "S2R", "S2UR", "CS2R", "P2R", "R2P", "PLOP3", "VIADD", "VIMNMX", "FLO", "POPC")),
+              ("branch", ("BRA", "BSSY", "BSYNC", "EXIT", "WARPSYNC", "BAR", "RET", "CALL", "BREAK", "NOP")),
+              ("memory", ("LD", "ST", "RED", "ATOM")))
+
+
+def sass_mix(so, pattern):
+    """{demangled kernel: {kind: instructions a term, "loop": the loop's
+    instructions, "ex2": its MUFU.EX2}} for each kernel of the shared
+    library `so` whose name contains `pattern`: the innermost SASS loop
+    holding an MUFU.EX2 (`sass_loops`' loop), its instructions counted by
+    `SASS_KINDS` and divided by its MUFU.EX2 (one exponential a term),
+    "slots" all of them a term. A static count: each instruction once."""
+    def opcode(ins):
+        parts = ins.split()
+        return parts[1] if len(parts) > 1 and parts[0].startswith("@") else (parts[0] if parts else "")
+
+    out = {}
+    for name, (ins, labels) in _sass(so).items():
+        if pattern not in name:
+            continue
+        loops = [b for b in _loop_bodies(ins, labels) if any("MUFU.EX2" in o for o in b)]
+        if not loops:
+            out[name] = None
+            continue
+        body = min(loops, key=len)
+        n_ex2 = sum("MUFU.EX2" in o for o in body)
+        counts = {kind: 0 for kind, _ in SASS_KINDS}
+        counts["other"] = 0
+        for o in body:
+            op = opcode(o)
+            kind = next((k for k, prefixes in SASS_KINDS if op.startswith(prefixes)), "other")
+            counts[kind] += 1
+        mix = {k: round(v / n_ex2, 3) for k, v in counts.items()}
+        mix.update(slots=round(len(body) / n_ex2, 3), loop=len(body), ex2=n_ex2)
+        out[name] = mix
+    return out
+
+
 def fwd2_sass_per_pair(so, L, ts):
     """(kernel, loop instructions, P, instructions per (pixel, entry) pair)
     of the fwd_2dgs instantiation in `so` that L channels at tile size ts
@@ -3355,7 +3400,8 @@ def phase_microbench(smi):
     """Phase 14: each micro-benchmark kernel against its plain version at a
     small size and at its TPU script's, each gate shown to reject a wrong
     result (gsplat_tpu_torch/microbench/*.py::check; the slice kernels also
-    at their edge shapes and tiles, two launches to the same bits), the
+    at their edge shapes and tiles, two launches to the same bits; the
+    gathers and the inner math at theirs), the inner math's SASS a term, the
     grid gradient at 1080p (grid_grad_at_1080p), then the micro-benchmarks'
     own path: launch counts set to 0, every module's timing run at its
     script's sizes (::measure), the counts read (each kernel launched); the
@@ -3377,6 +3423,12 @@ def phase_microbench(smi):
     bare = [part for part in ops if not any(loops for name, loops in calib_loops.items() if part in name)]
     if bare:
         raise AssertionError(f"no SASS loop of {bare} holds its {[ops[p] for p in bare]}")
+    # row 19's pixel loop, its instructions a term (an exponential) by kind
+    inner_mix = sass_mix(_backend._library_path("mb_inner_math"), "inner_")
+    for name, mix in inner_mix.items():
+        log(f"SASS of {name}'s pixel loop, instructions a term: {mix}")
+    if len(inner_mix) != 2 or not all(inner_mix.values()):
+        raise AssertionError(f"mb_inner_math: no pixel loop with an MUFU.EX2 in {inner_mix}")
     mods = [importlib.import_module(f"gsplat_tpu_torch.microbench.{n}") for n in MB_MODULES]
     errs = {}
     for mod in mods:
@@ -3426,8 +3478,9 @@ def phase_microbench(smi):
                  "replaces": MB_REPLACES[r["name"]], "launches": launches[r["name"]],
                  "max_abs_err": errs[r["name"]], "ms": r["ms"], "plain_ms": r["plain_ms"],
                  "bound_ms": r["bound_ms"], "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
-        # the gathers' split of a call (primitives.measure): the card's ms a
-        # launch and the host's us a call, the kernel's and torch.gather's
+        # the split of a call (primitives.measure: the gathers and the inner
+        # math): the card's ms a launch and the host's us a call, the
+        # kernel's and, for a gather, torch.gather's
         entry.update({k: r[k] for k in ("device_ms", "host_us", "library_device_ms", "library_host_us") if k in r})
         if r["name"] in MB_ALSO_REPLACES:
             entry["also_replaces"] = MB_ALSO_REPLACES[r["name"]]

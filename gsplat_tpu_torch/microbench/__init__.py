@@ -192,12 +192,14 @@ def report_line(r: dict, smi: str) -> str:
 
 
 def _split(r: dict, pre: str) -> str:
-    """`split_ms`'s other two forms of a row, the kernel's and the
-    library's, where the row has them."""
+    """`split_ms`'s other two forms of a row where it has them: the
+    kernel's, and the library's where the row times a library call."""
     if f"{pre}device_ms" not in r:
         return ""
-    return (f"; device ms a launch {r[pre + 'device_ms']:.4f} (library {r[pre + 'library_device_ms']:.4f}), host us "
-            f"a call {r[pre + 'host_us']:.2f} (library {r[pre + 'library_host_us']:.2f})")
+    lib = f"{pre}library_device_ms" in r
+    dev = f" (library {r[pre + 'library_device_ms']:.4f})" if lib else ""
+    host = f" (library {r[pre + 'library_host_us']:.2f})" if lib else ""
+    return f"; device ms a launch {r[pre + 'device_ms']:.4f}{dev}, host us a call {r[pre + 'host_us']:.2f}{host}"
 
 
 def main(mod, doc: str, argv=None, sizes=None) -> None:

@@ -28,7 +28,10 @@ replaces and its bound on the card:
   (e5's ``mk(dtype).kern``, :189, :204). Bound: operations, 6 P K NB
   exponentials at the SFU's rate (`PEAK_EX2_PER_S`, 4.18e12 a second): at
   NB = 2048, P = 256, K = 128, 4.03e8 and 0.096 ms; the f32 flops (2.82e9)
-  bound lower.
+  bound lower. A thread a (b, lane) over NB x K flattened, in bf16
+  `INNER_RUNS` threads a (b, lane pair), each a run of the pixels
+  (`inner_plan`); P <= 2^24, where the kernels' pixel counter stops being
+  exact in f32.
 
 The gathers' indices must lie inside the table (the kernels do not check;
 the plain versions, ``torch.gather``, raise). One ``torch.gather`` call
@@ -243,6 +246,48 @@ def gather_cols(tab: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# inner_math's launch (csrc/mb_inner_math.cu's entry makes the same)
+INNER_THREADS = 128  # a block's
+INNER_RUNS = 4  # bf16: threads a lane pair, each a run of the pixels
+INNER_MAX_P = 1 << 24  # the kernels step px by an exact + 1 in f32
+
+
+class InnerPlan(NamedTuple):
+    lanes: int  # lanes a thread: 1 (f32), 2 (bf16, a lane pair)
+    runs: int  # threads an item of lanes, each a run of the pixels: 1 (f32), INNER_RUNS (bf16)
+    items: int  # NB x ceil(K / lanes)
+    blocks: int  # of INNER_THREADS threads; 0: no launch
+
+
+@functools.lru_cache(maxsize=4096)
+def inner_plan(NB: int, K: int, P: int, bf16: bool) -> InnerPlan:
+    """The launch `inner_math` makes for e [NB, R, K] over P pixels, or
+    ValueError where the kernel cannot take it (P > 2^24, or the threads
+    past a 32-bit index)."""
+    if NB < 0 or K < 0 or not 0 <= P <= INNER_MAX_P:
+        raise ValueError(f"inner_math takes NB >= 0, K >= 0, 0 <= P <= {INNER_MAX_P}: got NB {NB}, K {K}, P {P}")
+    lanes, runs = (2, INNER_RUNS) if bf16 else (1, 1)
+    items = NB * -(-K // lanes)
+    if items * runs > 2 ** 31 - 1 - INNER_THREADS:
+        raise ValueError(f"inner_math: {items * runs} threads are past a 32-bit index")
+    return InnerPlan(lanes, runs, items, -(-items * runs // INNER_THREADS))
+
+
+def inner_thread_work(t: int, K: int, P: int, plan: InnerPlan):
+    """(b, [k, ...], range of pixels) that thread `t` of the launch computes
+    (the kernels' own arithmetic: the last lane of an odd K alone in bf16),
+    or None for a thread past the items."""
+    item, run = divmod(t, plan.runs)
+    if item >= plan.items:
+        return None
+    per_b = -(-K // plan.lanes)
+    b = item // per_b
+    k = plan.lanes * (item - b * per_b)
+    per = -(-P // plan.runs)
+    p0 = min(P, run * per)
+    return b, [k + i for i in range(plan.lanes) if k + i < K], range(p0, min(P, p0 + per))
+
+
 def inner_math_plain(e: torch.Tensor, P: int, dtype=torch.float32) -> torch.Tensor:
     """e [NB, R, K] f32 (rows 0 and 1: gx, ca) -> [NB, 1, K] f32; every
     operation in `dtype` (bf16 rounds after each), the sum over P in f32."""
@@ -267,8 +312,9 @@ def inner_math(e: torch.Tensor, P: int, dtype=torch.float32) -> torch.Tensor:
         return inner_math_plain(e, P, dtype)
     NB, R, K = e.shape
     check_inputs("inner_math", dev, [(e, torch.float32, None)])
-    out = torch.empty((NB, 1, K), dtype=torch.float32, device=dev)
     bf16 = dtype == torch.bfloat16
+    inner_plan(NB, K, P, bf16)
+    out = torch.empty((NB, 1, K), dtype=torch.float32, device=dev)
     _launch("mb_inner_math", "inner_math_launch", "inner_math_bf16" if bf16 else "inner_math_f32", _INNER_ARGS,
             e.data_ptr(), NB, R, K, P, int(bf16), 0.0, out.data_ptr(), _backend.stream(dev))
     return out
@@ -302,8 +348,43 @@ SIZES = {  # the scripts' sizes
     "e5": (256, 128, 2048),  # P, K, NB
 }
 # calls a host or device sample of `split_ms` takes (a g1 launch is ~1 ms)
-SPLIT_REPS = {"g1": 20, "e1": 200, "e1b": 100, "e4": 100}
+SPLIT_REPS = {"g1": 20, "e1": 200, "e1b": 100, "e4": 100, "e5": 50}
 SMALL = {"g1": (4, 256, 128), "e1b": (16, 8192, 2048, 8), "e4": (16, 1024, 2048, 4), "e5": (256, 128, 16)}
+# the inner math's edge shapes (P, K, NB), held at the small size: K odd (a
+# lone last lane in bf16), K = 1, NB = 1, P = 1, P = 300 (bf16's px past
+# 256, where it is no longer the integer)
+INNER_EDGES = ((256, 129, 3), (256, 1, 4), (256, 128, 1), (1, 128, 4), (300, 128, 4))
+
+
+def e5_input(NB: int, K: int, rand):
+    """e5's e [NB, 8, K] from `rand(*shape)` (uniform [0, 1)): gx in [0, 4)
+    (exp(-sig) stays finite), ca in [0.1, 1)."""
+    e = rand(NB, 8, K)
+    e[:, 0] *= 4.0
+    e[:, 1] = 0.1 + 0.9 * e[:, 1]
+    return e
+
+
+def bf16_scale(want16: torch.Tensor) -> torch.Tensor:
+    """The bf16 gate's scale of each value: its |value|, at most
+    `BF16_OF_LARGEST` / TOL of the largest (so the largest values keep the
+    first form of the gate, 1e-3 of the largest |value|)."""
+    top = float(want16.abs().max()) if want16.numel() else 0.0
+    return torch.clamp(want16.abs(), max=top * BF16_OF_LARGEST / TOL["inner_math_bf16"])
+
+
+def check_inner(e: torch.Tensor, P: int, where: str):
+    """Both inner-math kernels against their plain versions on `e`: (f32's
+    output, the bf16 plain output, bf16's scale, {kernel: max abs error})."""
+    want32 = inner_math_plain(e, P)
+    want16 = inner_math_plain(e, P, torch.bfloat16)
+    scale16 = bf16_scale(want16)
+    f32 = inner_math(e, P)
+    errs = {"inner_math_f32": compare(f"inner_math_f32 at {where}", f32, want32, TOL["inner_math_f32"],
+                                      want32.abs()),
+            "inner_math_bf16": compare(f"inner_math_bf16 at {where}", inner_math(e, P, torch.bfloat16), want16,
+                                       TOL["inner_math_bf16"], scale16)}
+    return f32, want16, scale16, errs
 
 
 def inputs(small: bool):
@@ -318,9 +399,7 @@ def inputs(small: bool):
     F2, W2, K2, NB2 = sz["e1b"]
     F4, G4, S4, NB4 = sz["e4"]
     P5, K5, NB5 = sz["e5"]
-    e = rand(NB5, 8, K5)
-    e[:, 0] *= 4.0  # gx in [0, 4): exp(-sig) stays finite
-    e[:, 1] = 0.1 + 0.9 * e[:, 1]  # ca in [0.1, 1)
+    e = e5_input(NB5, K5, rand)
     return {
         "g1": (rand(NB, S, L), ints(S, NB, S, L)),
         "e1": (rand(F, W), ints(W, F, W)),
@@ -333,7 +412,8 @@ def inputs(small: bool):
 def check(small: bool):
     """Each kernel against its plain version, {kernel: max abs error}, and
     the bf16 gate on the f32 kernel's output, {"rejects ...": its max abs
-    error}; at the small size also the two gathers at `edge_inputs`."""
+    error}; at the small size also the two gathers at `edge_inputs` and the
+    inner math at `INNER_EDGES` (its errors the largest of all shapes)."""
     x = inputs(small)
     if small:  # the plan's edges
         for name, where, tab, idx in edge_inputs():
@@ -347,16 +427,18 @@ def check(small: bool):
     rows_mod = (tab[None].contiguous(), (idx % F)[None].contiguous())
     compare("e1 take_along_axis sublanes", gather_rows(*rows_mod), gather_rows_plain(*rows_mod))
     e, P = x["e5"]
-    f32, want32 = inner_math(e, P), inner_math_plain(e, P)
-    want16 = inner_math_plain(e, P, torch.bfloat16)
-    scale16 = torch.clamp(want16.abs(), max=float(want16.abs().max()) * BF16_OF_LARGEST / TOL["inner_math_bf16"])
+    f32, want16, scale16, inner = check_inner(e, P, "small" if small else "the script's size")
+    if small:
+        g = torch.Generator(device="cuda").manual_seed(8)
+        for P_, K_, NB_ in INNER_EDGES:
+            e_ = e5_input(NB_, K_, lambda *s: torch.rand(*s, device="cuda", generator=g))
+            edge = check_inner(e_, P_, f"edge P {P_}, K {K_}, NB {NB_}")[3]
+            inner = {k: max(v, edge[k]) for k, v in inner.items()}
     return {
         "gather_rows": compare("gather_rows", gather_rows(*x["g1"]), gather_rows_plain(*x["g1"])),
         "gather_window": compare("gather_window", gather_window(*x["e1b"]), gather_window_plain(*x["e1b"])),
         "gather_cols": compare("gather_cols", gather_cols(*x["e4"]), gather_cols_plain(*x["e4"])),
-        "inner_math_f32": compare("inner_math_f32", f32, want32, TOL["inner_math_f32"], want32.abs()),
-        "inner_math_bf16": compare("inner_math_bf16", inner_math(e, P, torch.bfloat16), want16,
-                                   TOL["inner_math_bf16"], scale16),
+        **inner,
         "rejects inner_math_f32's output at inner_math_bf16's gate": rejects(
             "inner_math_bf16's gate", f32, want16, TOL["inner_math_bf16"], scale16),
     }
@@ -366,10 +448,10 @@ def measure(runs: int = 7):
     """The kernels at the scripts' sizes: one row each, with its rate; the
     library call is one ``torch.gather`` on int64 indices made beforehand
     (the plain versions convert the int32 indices in the call). Each
-    gather's ``ms`` is one call between two events; beside it
+    row's ``ms`` is one call between two events; beside it
     `split_ms`'s card's ms a launch of back-to-back launches
     (``device_ms``) and host microseconds a call (``host_us``), for the
-    kernel and for ``torch.gather`` (``library_*``)."""
+    kernel and, for a gather, ``torch.gather`` (``library_*``)."""
     x = inputs(False)
     rows = []
     library = {
@@ -414,9 +496,11 @@ def measure(runs: int = 7):
     e, P = x["e5"]
     ex2, flops = inner_math_ops(e, P)
     for name, dt in (("inner_math_f32", torch.float32), ("inner_math_bf16", torch.bfloat16)):
-        ms = median_ms(lambda: inner_math(e, P, dt), runs)
+        t = split_ms(lambda: inner_math(e, P, dt), runs, SPLIT_REPS["e5"])
+        ms = t["single_ms"]
         b, by = bound_ms(nbytes=4 * (e.numel() + e.shape[0] * e.shape[2]), flops=flops, ex2=ex2)
-        rows.append(dict(name=name, ms=ms, plain_ms=median_ms(lambda: inner_math_plain(e, P, dt), runs),
-                         library_ms=None, bound_ms=b, bound_by=by, rate=ex2 / ms * 1e3, unit="exponentials/s",
-                         peak=PEAK_EX2_PER_S, work=f"{ex2} exponentials, {flops} flops"))
+        rows.append(dict(name=name, ms=ms, device_ms=t["device_ms"], host_us=t["host_us"],
+                         plain_ms=median_ms(lambda: inner_math_plain(e, P, dt), runs), library_ms=None, bound_ms=b,
+                         bound_by=by, rate=ex2 / ms * 1e3, unit="exponentials/s", peak=PEAK_EX2_PER_S,
+                         work=f"{ex2} exponentials, {flops} flops"))
     return rows

@@ -74,6 +74,15 @@ def test_new_sources_and_their_launch_counts(name):
     assert 'extern "C" int' in src and "cudaGetLastError()" in src
     if name == "mb_inner_math":
         assert all(op in src for op in ("__hmul2_rn", "__hadd2_rn", "__hsub2_rn"))
+        # the exponential: ex2.approx.ftz.f32 of the f32-scaled argument in
+        # both kernels (no library expf or __expf; never on a bf16 argument)
+        from gsplat_tpu_torch.microbench import primitives as pm
+
+        assert "ex2.approx.ftz.f32" in src and "bf16x2" not in src
+        assert not re.search(r"\b(__)?expf\(", src)
+        assert f"constexpr int kThreads = {pm.INNER_THREADS};" in src and "constexpr int kMaxP = 1 << 24;" in src
+        assert f"constexpr int kRuns = {pm.INNER_RUNS};" in src
+        assert pm.INNER_MAX_P == 1 << 24
     if name == "mb_fwd_breakdown":
         assert "__fmul_rn" in src and "__fadd_rn" in src
 

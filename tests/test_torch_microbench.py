@@ -22,6 +22,9 @@ kernel bodies are restated below with the script's lines cited, with
   5e-3 (XLA may keep a fused chain in f32 between bf16 roundings, torch
   rounds each operation: 2.7e-3 measured), a gate that the f32 result
   fails (8e-2 measured: a bf16 step of sig near -15 moves exp(-sig) by 6%);
+  the kernels' arithmetic walked in numpy (exp2 of the f32-scaled
+  argument, subnormals flushed) within the card's gates of the plain
+  version (`primitives.TOL`, `BF16_OF_LARGEST`);
 - the six slice shapes: 1e-5 of the largest |value| of each of acc's rows
   (the rows differ by ~100x; the scan is a product in order here and a
   log-step product on the TPU; sums in another order);
@@ -361,6 +364,118 @@ def test_inner_math_matches_e5(dtype):
     with pytest.raises(AssertionError):  # the gate rejects the other precision's result
         _close(pm.inner_math(torch.from_numpy(e), P, other), want, tol, np.abs(want))
     assert pm.inner_math_ops(torch.from_numpy(e), P) == (6 * P * NB * K, 42 * P * NB * K)
+
+
+def _bf16(x):
+    """float32 values rounded to bf16 (nearest, ties to even), held in
+    float32."""
+    u = np.asarray(x, np.float32).view(np.uint32).astype(np.uint64)
+    u = (u + 0x7FFF + ((u >> 16) & 1)) & 0xFFFF0000
+    return u.astype(np.uint32).view(np.float32)
+
+
+def _ftz(x):
+    """Subnormal float32 values flushed to 0, as ex2.approx.ftz.f32 flushes
+    its argument and its result."""
+    x = np.asarray(x, np.float32)
+    return np.where(np.abs(x) < np.finfo(np.float32).tiny, np.float32(0.0), x).astype(np.float32)
+
+
+def _inner_walk(e, P, bf16, arg_bf16=False):
+    """csrc/mb_inner_math.cu's arithmetic in numpy, each lane of e [NB, 8, K]
+    at once: the six gx + zero r and 0.5 ca made once, px stepped by an
+    exact + 1 in f32 (rounded to bf16 once a pixel), the exponential as
+    exp2 of the f32 product sig (-log2 e) with subnormals flushed (MUFU's
+    own error is the card's to show), bf16 rounding after every operation
+    and after the exponential, the first repeat's add into a 0 acc left
+    out, the pixels summed in order in f32 (bf16: in `INNER_RUNS` runs,
+    their sums added pairwise as the shuffles add them). `arg_bf16`: the
+    scaled argument rounded to bf16 too (ex2.approx.ftz.bf16x2's form,
+    which the kernel does not take)."""
+    f = np.float32
+    rnd = _bf16 if bf16 else (lambda x: np.asarray(x, np.float32))
+    gx0, ca = rnd(e[:, 0]), rnd(e[:, 1])
+    half_ca = rnd(f(0.5) * ca)
+    gx = [rnd(gx0 + rnd(f(0.0) * f(r))) for r in range(pm.REPEATS)]
+    neg_log2e = f(-1.4426950408889634)
+    runs = pm.INNER_RUNS if bf16 else 1
+    per = -(-P // runs) or 1
+    sums = [np.zeros(gx0.shape, np.float32) for _ in range(runs)]
+    for p in range(P):
+        if p % per == 0:  # a run starts its counter at (float)p0
+            px = f(p)
+        pxr = rnd(px)
+        acc = None
+        for g in gx:
+            dx = rnd(pxr - g)
+            sig = rnd(rnd(rnd(half_ca * dx) * dx) + rnd(dx * g))
+            arg = _ftz(sig * neg_log2e)
+            term = rnd(ca * rnd(_ftz(np.exp2(_bf16(arg) if arg_bf16 else arg))))
+            acc = term if acc is None else rnd(acc + term)
+        sums[p // per] = (sums[p // per] + acc).astype(np.float32)
+        px = f(px + f(1.0))
+    while len(sums) > 1:  # the shuffles: lanes m apart added, m = 1, 2, ...
+        sums = [(a + b).astype(np.float32) for a, b in zip(sums[0::2], sums[1::2])]
+    return sums[0][:, None, :]
+
+
+def _e5_numpy(NB, K, seed):
+    rng = np.random.default_rng(seed)
+    return pm.e5_input(NB, K, lambda *s: rng.random(s).astype(np.float32))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(256, 128, 3)] + list(pm.INNER_EDGES), ids=lambda s: "P{}-K{}-NB{}".format(*s))
+def test_inner_walk_matches_plain(shape, dtype):
+    """The kernels' arithmetic, walked in numpy, within the card's gates of
+    inner_math_plain at e5's inputs and at the edge shapes phase 14 holds
+    (K odd, K = 1, NB = 1, P = 1, P = 300: bf16's px past 256): the hoisted
+    values, the exact px step and the f32 scaling of the exponential's
+    argument stay within the gates; the bf16 gate rejects the f32
+    arithmetic and an argument rounded to bf16."""
+    P, K, NB = shape
+    e = _e5_numpy(NB, K, 17 + P + K + NB)
+    bf16 = dtype == "bfloat16"
+    got = _inner_walk(e, P, bf16)
+    want = pm.inner_math_plain(torch.from_numpy(e), P, getattr(torch, dtype))
+    if bf16:
+        _close(got, want, pm.TOL["inner_math_bf16"], pm.bf16_scale(want).numpy())
+        for wrong in (_inner_walk(e, P, False), _inner_walk(e, P, True, arg_bf16=True)):
+            with pytest.raises(AssertionError):
+                _close(wrong, want, pm.TOL["inner_math_bf16"], pm.bf16_scale(want).numpy())
+    else:
+        warm_exp()
+        _close(got, want, pm.TOL["inner_math_f32"], np.abs(want.numpy()))
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("K, P", [(1, 256), (2, 1), (127, 3), (128, 256), (129, 300), (255, 5)])
+def test_inner_plan_covers_every_lane(K, P, bf16):
+    """inner_math's launch over NB x K flattened: the threads with work
+    cover every (b, lane, pixel) once (a lone last lane at odd K in bf16,
+    pixel runs of a lane pair that end early or hold nothing at small P),
+    all in the plan's blocks, the runs of an item in one warp; P past 2^24
+    and negative sizes are refused."""
+    NB = 3
+    plan = pm.inner_plan(NB, K, P, bf16)
+    assert (plan.lanes, plan.runs) == ((2, pm.INNER_RUNS) if bf16 else (1, 1))
+    assert plan.items == NB * -(-K // plan.lanes)
+    assert (plan.blocks - 1) * pm.INNER_THREADS < plan.items * plan.runs <= plan.blocks * pm.INNER_THREADS
+    assert 32 % plan.runs == 0
+    seen = []
+    for t in range(plan.blocks * pm.INNER_THREADS):
+        work = pm.inner_thread_work(t, K, P, plan)
+        if work is not None:
+            b, lanes, pixels = work
+            seen += [(b, k, p) for k in lanes for p in pixels]
+        else:
+            assert t >= plan.items * plan.runs
+    assert sorted(seen) == [(b, k, p) for b in range(NB) for k in range(K) for p in range(P)]
+    assert pm.inner_plan(0, K, P, bf16).blocks == 0
+    pm.inner_plan(NB, K, pm.INNER_MAX_P, bf16)
+    for bad in ((NB, K, pm.INNER_MAX_P + 1), (NB, K, -1), (-1, K, P)):
+        with pytest.raises(ValueError):
+            pm.inner_plan(*bad, bf16)
 
 
 # --------------------------------------------------------------- exp_mxu_kernel_shapes
