@@ -218,7 +218,29 @@ non-zero (there is no CPU fallback):
      of phase 11, the strip's frame as one side; the normals from depth
      against depth_to_normal of the strips' gathered depth), each timed
      after a warm-up call (two ranks on one card: not a scaling figure);
- 16. the `kernels` line (the eleven path kernels, the grid's two gradient
+ 16. multi-GPU training (simple_trainer{,_2dgs} with distributed=True): (a)
+     an in-process NCCL group of world size 1 at phase 5's full width
+     (garden grid5, 1920x1080, 4,194,304 slots, refines at 5 and 10):
+     Runner 12 steps and Runner2DGS 6 steps (both geometry losses from
+     step 0, a refine at 5), each against the single-device runner from
+     the same initial state, every step's loss and after the last step
+     every splat, moment, live slot and per-slot statistic the same bits;
+     the median step and its idle share (a profiled step) beside phase
+     5's, and a refine's gather and scatter of the pool; the launch counts
+     set to 0 before the distributed runs and read after (each training
+     kernel launched); (b) two gloo ranks on the card at garden grid1 and
+     1080p, spawned here, five cases of 3 steps with a refine at step 2
+     (3DGS C=2 with the bilateral grid and two pool growths, 3DGS C=1 in
+     strips, 3DGS packed, 2DGS C=2, MCMC; scales made anisotropic by a
+     seeded draw), each held to a world-size-1 run of the same
+     configuration in rank 0 (a one-rank group): every loss within rtol
+     1e-5, the refines and growths the same, the pool before the refine
+     per slot by the CPU tests' tolerances against JAX (strips by a count
+     gate: a share of 1e-4), and after it the live slots the same, at most
+     1e-3 of them holding another Gaussian and each parameter's sum over
+     them within 1e-4 (a refine places near ties by statistics that the
+     two layouts round apart); per-rank step ms printed;
+ 17. the `kernels` line (the eleven path kernels, the grid's two gradient
      kernels and the eighteen micro-benchmark kernels; emit, the gather and the
      reduce also with their times and bounds at the 2DGS train shapes, emit
      and the gather also at the fixture surfels, the four forwards with
@@ -226,8 +248,9 @@ non-zero (there is no CPU fallback):
      their launches in phase 12 and in phase 13's 3DGS and 2DGS runs and
      their largest error against the plain version on phase 13's inputs,
      the grid's gradients their phase 13 launches and errors, the seven
-     kernels of phase 15 their launches there), the card's name and power
-     limit, then the result line.
+     kernels of phase 15 their launches there, the training kernels their
+     launches in phase 16), the card's name and power limit, then the
+     result line.
 """
 
 import json
@@ -1477,25 +1500,26 @@ def phase_serving(smi):
             f"max abs {mx:.3e}, mean abs {mean:.3e} ({n_off} values > 1e-5), last equal at {same_last:.6f} of pixels")
 
 
-def train_scene(torch, rasterization, dev):
+def train_scene(torch, rasterization, dev, grid=MAIN_GRID, W=MAIN_W, H=MAIN_H):
     """Views and initial points for the training path: the fixture's own
-    splats rendered at 1920x1080 from its 3 cameras are the targets; its
-    means and colours are the initial points (as a COLMAP parser gives
-    them), the scene scale the cameras' spread, as the JAX Parser sets it."""
+    splats (garden ``scene_grid=grid``) rendered at W x H (1920x1080) from
+    its 3 cameras are the targets; its means and colours are the initial
+    points (as a COLMAP parser gives them), the scene scale the cameras'
+    spread, as the JAX Parser sets it."""
     from gsplat_tpu_torch import load_test_data
 
-    means, quats, scales, opac, colors, viewmats, Ks, W0, _ = load_test_data(scene_grid=MAIN_GRID)
+    means, quats, scales, opac, colors, viewmats, Ks, W0, _ = load_test_data(scene_grid=grid)
     Ks = Ks.copy()
-    Ks[:, :2, :] *= MAIN_W / W0
+    Ks[:, :2, :] *= W / W0
     t = lambda a: torch.as_tensor(a, device=dev)  # noqa: E731
     gt = (t(means), t(quats), t(scales), t(opac), t(colors))
     views = []
     with torch.no_grad():
         for i in range(len(viewmats)):
             vm, K = t(viewmats[i : i + 1]), t(Ks[i : i + 1])
-            cap = rasterization(*gt, vm, K, MAIN_W, MAIN_H, backend="binned", isect_capacity=512,
+            cap = rasterization(*gt, vm, K, W, H, backend="binned", isect_capacity=512,
                                 tile_size=MAIN_TILE)[2]["slab_required"] + 1024
-            img, _, _ = rasterization(*gt, vm, K, MAIN_W, MAIN_H, backend="binned",
+            img, _, _ = rasterization(*gt, vm, K, W, H, backend="binned",
                                       isect_capacity=cap, tile_size=MAIN_TILE)
             views.append({"image": img[0].clamp(0.0, 1.0), "camtoworld": torch.linalg.inv(vm[0]),
                           "K": K[0], "image_id": i})
@@ -3950,6 +3974,435 @@ def phase_distributed(smi):
     return launches
 
 
+# phase 16: multi-GPU training (simple_trainer{,_2dgs} with distributed=True)
+TRAIN_KERNELS_3DGS = ("emit", "emit_gather", "rasterize_fwd", "rasterize_bwd", "gid_reduce")
+TRAIN_KERNELS_2DGS = ("emit", "emit_gather", "rasterize_2dgs_fwd", "rasterize_2dgs_bwd", "gid_reduce")
+DIST_TRAIN_STEPS_2DGS = 6  # 16a's 2DGS depth: a refine at step 5
+DIST_TRAIN_GRID = 1  # 16b's scene
+DIST_TRAIN_STEPS = 3  # 16b: a refine at step 2
+# the CPU tests' tolerances for the port's ranks against its one device
+# (tests/test_torch_trainer_colmap.py's, which
+# tests/test_torch_trainer_distributed.py holds its ranks to and these
+# to): parameters rtol 1e-4 and atol PARAM_ATOL x the learning rate,
+# moments and statistics rtol 1e-4 and atol MOMENT_ATOL x the array's
+# largest |value|
+PARAM_ATOL, MOMENT_ATOL = 1e-4, 1e-6
+
+
+def train_config(**kw):
+    """Phase 5's training configuration."""
+    from gsplat_tpu_torch.simple_trainer import Config
+
+    return Config(**{**dict(max_steps=TRAIN_STEPS, sh_degree=3, sh_degree_interval=1, refine_start_iter=3,
+                            refine_every=5, tile_size=MAIN_TILE, backend="binned", pool_headroom=1.5, seed=SEED),
+                     **kw})
+
+
+def pool_clone(runner):
+    """The runner's whole pool (gathered to rank 0 where distributed; every
+    rank calls it), cloned: {name: tensor}, None on the other ranks."""
+    whole = runner._gather_pool()
+    return None if runner.rank else {k: v.detach().clone() for k, v in whole.items()}
+
+
+def compare_after_refine(torch, got, want, lrs, what):
+    """Two whole pools after a refine. A refine places its candidates in
+    the order of their statistics (and MCMC draws its targets from their
+    opacities), and on the card those differ in their last bits between
+    layouts (the reduce sums another stream in another order), so near
+    ties swap slots or targets: the live slots must agree, at most 1e-3 of
+    them may hold another Gaussian (a slot off past `compare_pool`'s
+    tolerance in any parameter), and each parameter's sum over the live
+    slots must lie within 1e-4 of its sum of magnitudes. Returns the
+    share of slots off."""
+    live = want["live"]
+    if not torch.equal(got["live"], live):
+        raise AssertionError(f"{what}: the live slots differ at {int((got['live'] != live).sum())} slots")
+    off = torch.zeros_like(live)
+    for k, w in want.items():
+        if not k.startswith("splat/"):
+            continue
+        lr = next(v for p, v in lrs.items() if k.startswith(p))
+        g = got[k]
+        bad = ((g - w).abs() > 1e-4 * w.abs() + PARAM_ATOL * lr).reshape(w.shape[0], -1).any(dim=1)
+        off |= bad & live
+        x, y = g[live].double(), w[live].double()
+        err = float(((x.sum(0) - y.sum(0)).abs() / y.abs().sum(0).clamp_min(1e-30)).max())
+        if err > 1e-4:
+            raise AssertionError(f"{what}: {k} summed over the live slots is off by {err:.3e} of its magnitude")
+    share = float(off.sum()) / max(float(live.sum()), 1.0)
+    if share > 1e-3:
+        raise AssertionError(f"{what}: {int(off.sum())} of {int(live.sum())} live slots hold another Gaussian")
+    return share
+
+
+def pool_lrs(runner):
+    """{pool key prefix: learning rate} (the means' at count 0)."""
+    lrs = {}
+    for k, opt in runner.optimizers.items():
+        lr = opt.param_groups[0]["lr"]
+        lrs[f"splat/{k}"] = runner.cfg.means_lr * runner.scene_scale if callable(lr) else lr
+    return lrs
+
+
+def compare_pool(torch, got, want, lrs, what, share=0.0):
+    """Two whole pools: the same names and shapes, live and the step
+    counts equal; splats by PARAM_ATOL x their learning rate, moments and
+    statistics by MOMENT_ATOL x their largest |value|; with ``share``, at
+    most that share of an array's values past it, none by more than 2 x
+    the learning rate or 1e-2 x the largest |value| (the repo's count
+    gates). Returns (the same bits, the largest error over its
+    tolerance's atol)."""
+    if sorted(got) != sorted(want):
+        raise AssertionError(f"{what}: pools hold {sorted(got)} and {sorted(want)}")
+    same, worst = True, 0.0
+    for k, w in want.items():
+        g = got[k]
+        if g.shape != w.shape:
+            raise AssertionError(f"{what}: {k} has shape {tuple(g.shape)}, the reference {tuple(w.shape)}")
+        if torch.equal(g, w):
+            continue
+        same = False
+        if w.dtype == torch.bool:
+            raise AssertionError(f"{what}: {k} differs at {int((g != w).sum())} slots")
+        if k.startswith("splat/"):
+            lr = next(v for p, v in lrs.items() if k.startswith(p))
+            atol, cap = PARAM_ATOL * lr, 2 * lr
+        else:
+            scale = max(float(w.abs().max()), 1e-12)
+            atol, cap = MOMENT_ATOL * scale, 1e-2 * scale
+        d = (g - w).abs()
+        bad = d > 1e-4 * w.abs() + atol
+        if float(bad.float().mean()) > share or (bool(bad.any()) and float(d.max()) > cap):
+            raise AssertionError(f"{what}: {k}: {int(bad.sum())} of {bad.numel()} values off, max abs "
+                                 f"{float(d.max()):.3e} (atol {atol:.3e}, share allowed {share})")
+        worst = max(worst, float(d.max()) / atol)
+    return same, worst
+
+
+def _timed(torch, dev, fn):
+    """(fn(), its ms: CUDA events on the card, the host's clock on the
+    CPU)."""
+    if dev.type != "cuda":
+        h0 = time.perf_counter()
+        return fn(), (time.perf_counter() - h0) * 1e3
+    torch.cuda.synchronize(dev)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    r = fn()
+    end.record()
+    torch.cuda.synchronize(dev)
+    return r, start.elapsed_time(end)
+
+
+def run_train(torch, runner, steps, record=None, start=0):
+    """Steps `start` to `steps - 1`: per step the loss, ms (`_timed`) and
+    the host's ms, and whether it refined or grew the pool; with `record`
+    (a dict), a refine's pool gather and scatter, timed alike, go into
+    record["gather"] / record["scatter"]."""
+    out = {"losses": [], "ms": [], "host_ms": [], "refined": [], "grew": []}
+    dev = runner.device
+    restore = []
+    if record is not None:
+        for name in ("_gather_pool", "_scatter_pool"):
+            real = getattr(runner, name)
+
+            def timed(*a, _real=real, _key=name.strip("_").split("_")[0], **k):
+                r, ms = _timed(torch, dev, lambda: _real(*a, **k))
+                record.setdefault(_key, []).append(ms)
+                return r
+
+            setattr(runner, name, timed)
+            restore.append(name)
+    try:
+        for step in range(start, steps):
+            h0 = time.perf_counter()
+            o, ms = _timed(torch, dev, lambda: runner.train_step(step))
+            out["host_ms"].append((time.perf_counter() - h0) * 1e3)
+            out["ms"].append(ms)
+            out["losses"].append(float(o["loss"]))
+            out["refined"].append(bool(o["refined"]))
+            out["grew"].append(bool(o["pool_grew"]))
+    finally:
+        for name in restore:
+            delattr(runner, name)
+    return out
+
+
+def phase_train_distributed_world1(smi, scene, default_steady_ms, dev=None, pg_backend="nccl"):
+    """16a: world size 1 under NCCL at phase 5's full width (`scene`,
+    phase 5's). Returns ({kernel: launches in the distributed runs},
+    summary)."""
+    import torch
+    import torch.distributed as dist
+    from gsplat_tpu_torch import _backend
+    from gsplat_tpu_torch.simple_trainer import Runner
+    from gsplat_tpu_torch.simple_trainer_2dgs import Runner2DGS
+
+    dev = torch.device("cuda") if dev is None else dev
+    cuda = dev.type == "cuda"
+    views, points, rgb, scene_scale = scene
+    launches = {}
+    summary = {}
+    dist.init_process_group(pg_backend, init_method=f"tcp://localhost:{free_port()}", world_size=1, rank=0)
+    try:
+        for what, cls, steps, kw, kernels in (
+            ("3DGS", Runner, TRAIN_STEPS, {}, TRAIN_KERNELS_3DGS),
+            ("2DGS", Runner2DGS, DIST_TRAIN_STEPS_2DGS, dict(normal_start=0, dist_start=0), TRAIN_KERNELS_2DGS),
+        ):
+            t0 = time.perf_counter()
+            single = cls(train_config(), views, points, rgb, scene_scale, device=dev, **kw)
+            single.probe_isect_capacity()
+            ref = run_train(torch, single, steps)
+            want = pool_clone(single)
+            kern_single, single_ms = {}, float("nan")
+            if cuda:  # the same profiled steps on one device, after the pool's clone
+                single_ms = cuda_ms(torch, lambda: single.train_step(steps + 1), 3)
+                kern_single = device_time_by_kernel(torch, lambda: single.train_step(steps + 2))
+            del single
+            if cuda:
+                torch.cuda.empty_cache()
+            t1 = time.perf_counter()
+            runner = cls(train_config(distributed=True), views, points, rgb, scene_scale, device=dev, **kw)
+            runner.probe_isect_capacity()
+            _timed(torch, dev, lambda: None)  # the card idle before the counts start
+            _backend.reset_launch_counts()
+            record = {}
+            got = run_train(torch, runner, steps, record)
+            counts = _backend.launch_counts()
+            for k, v in counts.items():
+                launches[k] = launches.get(k, 0) + v
+            missing = [k for k in kernels if counts[k] == 0]
+            if missing:
+                raise AssertionError(f"16a {what}: kernels {missing} were not launched on the distributed path")
+            if got["losses"] != ref["losses"]:
+                raise AssertionError(f"16a {what}: losses {got['losses']} against one device's {ref['losses']}")
+            if got["refined"] != ref["refined"] or not any(got["refined"]):
+                raise AssertionError(f"16a {what}: refines {got['refined']} against {ref['refined']}")
+            same, worst = compare_pool(torch, pool_clone(runner), want, pool_lrs(runner), f"16a {what}")
+            if not same:
+                raise AssertionError(f"16a {what}: the pool is within the tolerance ({worst:.3e} of its atol) "
+                                     "but not the single-device bits")
+            steady = [ms for s, ms in enumerate(got["ms"]) if not got["refined"][s]]
+            steady_ref = [ms for s, ms in enumerate(ref["ms"]) if not ref["refined"][s]]
+            pool_bytes = sum(v.numel() * v.element_size() for v in runner._pool_tensors().values())
+            step_ms, kern = float("nan"), {}
+            if cuda:
+                step_ms = cuda_ms(torch, lambda: runner.train_step(steps + 1), 3)
+                kern = device_time_by_kernel(torch, lambda: runner.train_step(steps + 2))
+                log_profile(f"16a {what} distributed train step", kern, step_ms)
+                log_profile(f"16a {what} single-device train step", kern_single, single_ms)
+                extra = sorted(((k, v - kern_single.get(k, 0.0)) for k, v in kern.items()), key=lambda kv: -kv[1])
+                log(f"16a {what}: device time the distributed step adds, by kernel: "
+                    + "; ".join(f"{k[:70]} {v:.3f} ms" for k, v in extra[:8]))
+            busy = sum(kern.values()) if kern else float("nan")
+            summary[what] = {
+                "median_ms": float(np.median(steady)), "median_ms_single": float(np.median(steady_ref)),
+                "profiled_ms": step_ms, "idle_share": 1.0 - busy / step_ms, "profiled_ms_single": single_ms,
+                "idle_share_single": 1.0 - sum(kern_single.values()) / single_ms if kern_single else float("nan"),
+                "gather_ms": record.get("gather", []), "scatter_ms": record.get("scatter", []),
+                "pool_bytes": pool_bytes, "slots": runner.pool_size,
+            }
+            log(f"16a {what}, world size 1 ({pg_backend}), {runner.pool_size} slots, {steps} steps: every loss and the pool "
+                f"after the last step (splats, Adam moments, live, the strategy's statistics) are the single-device "
+                f"runner's bits; launches {({k: v for k, v in counts.items() if v})}; median step (non-refining "
+                f"steps) distributed "
+                f"{summary[what]['median_ms']:.3f} ms, single device {summary[what]['median_ms_single']:.3f} ms"
+                + (f", phase 5's {default_steady_ms:.3f} ms" if what == "3DGS" else "")
+                + f"; profiled step {step_ms:.3f} ms, idle share {summary[what]['idle_share']:.3f} (one device "
+                f"{single_ms:.3f} ms, {summary[what]['idle_share_single']:.3f}); refine steps "
+                f"{[round(m, 3) for s, m in enumerate(got['ms']) if got['refined'][s]]} ms against one device's "
+                f"{[round(m, 3) for s, m in enumerate(ref['ms']) if ref['refined'][s]]}; a refine's gather "
+                f"{[round(m, 3) for m in record.get('gather', [])]} ms and scatter "
+                f"{[round(m, 3) for m in record.get('scatter', [])]} ms of the {pool_bytes / 1e9:.3f} GB pool; "
+                f"{time.perf_counter() - t1:.1f} s distributed, {t1 - t0:.1f} s single ({smi})")
+            del runner
+            if cuda:
+                torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    return launches, summary
+
+
+DIST_TRAIN_RANK_KERNELS = TRAIN_KERNELS_3DGS + TRAIN_KERNELS_2DGS[2:4] + ("bilagrid_bwd", "bilagrid_lum_bwd")
+DIST_TRAIN_CASES = {
+    # name: (runner, config, kwargs)
+    "3DGS C=2, bilateral grid, two growths": ("3dgs", dict(batch_size=2, use_bilateral_grid=True,
+                                                           pool_grow_at=0.5, grow_grad2d=1e-9), {}),
+    "3DGS C=1 strips": ("3dgs", dict(batch_size=1, grow_grad2d=1e-9, pool_headroom=3.0), {}),
+    "3DGS packed C=2": ("3dgs", dict(batch_size=2, packed=True), {}),
+    "2DGS C=2": ("2dgs", dict(batch_size=2), dict(normal_start=0, dist_start=0)),
+    "MCMC C=2": ("3dgs", dict(batch_size=2, strategy_name="mcmc"), {}),
+}
+
+
+def _dist_train_rank(rank, port, out_path, dev_name, grid, size, only=None):
+    """One of DIST_RANKS gloo ranks on one card (16b): every case of
+    DIST_TRAIN_CASES at DIST_RANKS ranks, then on rank 0 the same case in
+    a one-rank group; rank 0 compares. Writes its numbers to `out_path`."""
+    import torch
+    import torch.distributed as dist
+    from gsplat_tpu_torch import _backend, rasterization
+    from gsplat_tpu_torch.simple_trainer import Runner
+    from gsplat_tpu_torch.simple_trainer_2dgs import Runner2DGS
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device(dev_name)
+    out = {"rank": rank, "cases": []}
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=DIST_RANKS, rank=rank)
+    try:
+        one = dist.new_group([0])
+        views, points, rgb, scene_scale = train_scene(torch, rasterization, dev, grid, *size)
+        launches = {}
+        for name, (kind, cfg_kw, kw) in DIST_TRAIN_CASES.items():
+            if only and only not in name:
+                continue
+            cls = Runner if kind == "3dgs" else Runner2DGS
+            cfg_kw = dict(refine_start_iter=1, refine_every=2, max_steps=DIST_TRAIN_STEPS, **cfg_kw)
+            if cfg_kw.get("strategy_name") == "mcmc":
+                cfg_kw["cap_max"] = int(points.shape[0] * 1.2)
+
+            def make(group, _cls=cls, _cfg=cfg_kw, _kw=kw):
+                r = _cls(train_config(distributed=True, **_cfg), views, points, rgb, scene_scale, device=dev,
+                         group=group, **_kw)
+                if r.cfg.packed:  # no truncation: both world sizes hold every visible row
+                    r.pack_capacity = r.live.shape[0]
+                # kNN scales are isotropic, so the rotations' true gradient is
+                # 0 and Adam steps on rounding noise, which strips round
+                # apart: an anisotropic start, as the CPU tests take (the
+                # rank's rows of one seeded draw)
+                gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+                noise = torch.randn((r.pool_size, 3), generator=gen, device=dev) * 0.3
+                with torch.no_grad():
+                    r.params["scales"] += r._own_rows(noise)
+                r.probe_isect_capacity()
+                return r
+
+            def run(r):
+                """The steps before the refine, the pool then, the refine's
+                step, the pool after it."""
+                a = run_train(torch, r, DIST_TRAIN_STEPS - 1)
+                before = pool_clone(r)
+                b = run_train(torch, r, DIST_TRAIN_STEPS, start=DIST_TRAIN_STEPS - 1)
+                return {k: a[k] + b[k] for k in a}, before, pool_clone(r)
+
+            runner = make(None)
+            _timed(torch, dev, lambda: None)
+            _backend.reset_launch_counts()
+            got, before, whole = run(runner)
+            for k, v in _backend.launch_counts().items():
+                launches[k] = launches.get(k, 0) + v
+            lrs = pool_lrs(runner)
+            case = {"case": name, "step_ms": got["ms"], "host_ms": got["host_ms"], "refined": got["refined"],
+                    "grew": got["grew"], "slots": runner.pool_size, "n_live": runner.n_live()}
+            del runner
+            if rank == 0:
+                ref_runner = make(one)
+                ref, want_before, want = run(ref_runner)
+                del ref_runner
+                try:
+                    if got["refined"] != ref["refined"] or not any(got["refined"]):
+                        raise AssertionError(f"refines {got['refined']} against world size 1's {ref['refined']}")
+                    if got["grew"] != ref["grew"]:
+                        raise AssertionError(f"growths {got['grew']} against world size 1's {ref['grew']}")
+                    loss_err = max(abs(a - b) / abs(b) for a, b in zip(got["losses"], ref["losses"]))
+                    if loss_err > 1e-5:
+                        raise AssertionError(f"losses {got['losses']} against world size 1's {ref['losses']}")
+                    # strips: the repo's count gate (a gradient that cancels
+                    # over the strips' rows rounds apart in a few slots, and
+                    # Adam's lr x g / (|g| + eps) turns the rounding of a
+                    # gradient near eps into a share of the learning rate)
+                    same, worst = compare_pool(torch, before, want_before, lrs, name + ", before the refine",
+                                               share=1e-4 if "strips" in name else 0.0)
+                    case["slots_off_after_refine"] = compare_after_refine(torch, whole, want, lrs, name)
+                    case.update(same_bits=same, worst_over_atol=worst, loss_rel_err=loss_err,
+                                world1_step_ms=ref["ms"])
+                except AssertionError as e:  # reported with every case's numbers, then raised
+                    case["failed"] = str(e)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            dist.barrier()
+            out["cases"].append(case)
+        out["launches"] = launches
+    finally:
+        dist.destroy_process_group()
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+
+
+def _dist_train_rank_entry(rank, port, paths, dev_name, grid, size, only):
+    try:
+        _dist_train_rank(rank, port, paths[rank], dev_name, grid, size, only)
+    except BaseException:  # kept for the parent, which reports every rank's
+        import traceback
+
+        with open(paths[rank] + ".err", "w") as f:
+            f.write(traceback.format_exc())
+        raise
+
+
+def phase_train_distributed_ranks(smi, dev_name="cuda:0", grid=DIST_TRAIN_GRID, size=(MAIN_W, MAIN_H), only=None):
+    """16b: DIST_RANKS gloo ranks on one card, spawned here (``only``: the
+    cases whose name holds it). Returns the ranks' summed launch counts."""
+    import torch.multiprocessing as mp
+
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_dist_train")
+    os.makedirs(out_dir, exist_ok=True)
+    paths = [os.path.join(out_dir, f"rank{r}.json") for r in range(DIST_RANKS)]
+    for p in paths + [p + ".err" for p in paths]:
+        if os.path.exists(p):
+            os.remove(p)
+    t0 = time.perf_counter()
+    try:
+        mp.start_processes(_dist_train_rank_entry, args=(free_port(), paths, dev_name, grid, size, only),
+                           nprocs=DIST_RANKS, join=True, start_method="spawn")
+    except Exception:
+        for r, p in enumerate(paths):
+            if os.path.exists(p + ".err"):
+                with open(p + ".err") as f:
+                    log(f"rank {r} failed:\n{f.read()}")
+        raise
+    wall = time.perf_counter() - t0
+    ranks = []
+    for p in paths:
+        with open(p) as f:
+            ranks.append(json.load(f))
+    for i, case in enumerate(ranks[0]["cases"]):
+        per_rank = "; ".join(f"rank {r['rank']} step ms {[round(m, 1) for m in r['cases'][i]['step_ms']]}"
+                             for r in ranks)
+        log(f"16b two gloo ranks, {case['case']}: {case['slots']} slots, {case['n_live']} live after "
+            f"{DIST_TRAIN_STEPS} steps, refined {case['refined']}, grew {case['grew']}; against world size 1: "
+            + (f"FAILED {case['failed']}" if "failed" in case else
+               f"before the refine same bits {case['same_bits']}, worst error {case['worst_over_atol']:.3e} of its "
+               f"atol; after it a share {case['slots_off_after_refine']:.3e} of the live slots holds another "
+               f"Gaussian; losses within {case['loss_rel_err']:.3e}; world size 1 step ms "
+               f"{[round(m, 1) for m in case['world1_step_ms']]}")
+            + f"; {per_rank}")
+    log(f"16b: the two ranks share the card and gloo stages their collectives through host memory, so these "
+        f"times say nothing of scaling across cards ({smi}); phase wall time {wall:.1f} s")
+    failed = [f"{c['case']}: {c['failed']}" for c in ranks[0]["cases"] if "failed" in c]
+    if failed:
+        raise AssertionError("; ".join(failed))
+    launches = {}
+    for r in ranks:
+        for k, v in r["launches"].items():
+            launches[k] = launches.get(k, 0) + v
+    missing = [k for k in DIST_TRAIN_RANK_KERNELS if launches.get(k, 0) == 0]
+    if missing:
+        raise AssertionError(f"16b: kernels {missing} were not launched by the two ranks")
+    log(f"16b launches in the two ranks' training: {launches}")
+    return launches
+
+
+def phase_train_distributed(smi, scene, default_steady_ms):
+    """Phase 16: 16a then 16b. Returns {kernel: launches in this phase}."""
+    launches, _ = phase_train_distributed_world1(smi, scene, default_steady_ms)
+    for k, v in phase_train_distributed_ranks(smi).items():
+        launches[k] = launches.get(k, 0) + v
+    return launches
+
+
 def main():
     smi = phase_device()
     import torch
@@ -4009,10 +4462,16 @@ def main():
         if k["name"] in DIST_KERNELS:
             k["launches_distributed"] = dist_launches[k["name"]]
     t11 = time.perf_counter()
+    train_dist_launches = phase_train_distributed(smi, scene, default_steady_ms)
+    for k in kernels:
+        if train_dist_launches.get(k["name"], 0):
+            k["launches_distributed_training"] = train_dist_launches[k["name"]]
+    t12 = time.perf_counter()
     log(f"phase wall times: build + kernel vs plain {t1 - t0:.1f} s, serving {t2 - t1:.1f} s, "
         f"training {t3 - t2:.1f} s, 2DGS training {t4 - t3:.1f} s, 2DGS serving {t5 - t4:.1f} s, "
         f"tiled serving and training {t6 - t5:.1f} s, op API {t7 - t6:.1f} s, MCMC training {t8 - t7:.1f} s, "
-        f"COLMAP trainer {t9 - t8:.1f} s, micro-benchmarks {t10 - t9:.1f} s, multi-GPU rendering {t11 - t10:.1f} s")
+        f"COLMAP trainer {t9 - t8:.1f} s, micro-benchmarks {t10 - t9:.1f} s, multi-GPU rendering {t11 - t10:.1f} s, "
+        f"multi-GPU training {t12 - t11:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {smi}")
     print(json.dumps({

@@ -31,18 +31,23 @@ gradients as kernels (``csrc/bilagrid_bwd.cu``). Slice 12 is multi-GPU
 rendering: ``rasterization(distributed=True)`` and
 ``rasterization_2dgs(distributed=True)`` over a ``torch.distributed``
 process group (``distributed.py``: whole cameras, image strips, the packed
-exchange), one rank a card. Slices 13-16 redesign kernels already ported:
+exchange), one rank a card. Slices 13-17 redesign kernels already ported:
 the calibration products (``csrc/mb_calib.cu``), the gathers and the launch
 path (``csrc/mb_gather.cu``, ``_backend.py``), the bilateral grid's
-gradients over pixel tiles, and the slice micro-benchmarks over the whole
-card (``csrc/mb_slice_shapes.cu``, ``csrc/mb_fwd_breakdown.cu``).
+gradients over pixel tiles, the slice micro-benchmarks over the whole card
+(``csrc/mb_slice_shapes.cu``, ``csrc/mb_fwd_breakdown.cu``) and the inner
+math (``csrc/mb_inner_math.cu``). Slice 18 is multi-GPU training: both
+trainers with ``distributed`` (and ``packed``) over a ``torch.distributed``
+group, one process a rank, the pool sharded by rows as the JAX trainer's
+mesh shards it (``simple_trainer.py``; the collectives in
+``distributed.py``).
 
 Functions run on the device of their input tensors: CUDA tensors go
 through the kernels, CPU tensors through each kernel's plain PyTorch
 version; entry points that make tensors run on the card unless asked for
-the CPU. Not ported yet, and raising NotImplementedError: the trainers'
-``distributed`` and ``packed`` (multi-GPU training), the trainer's LPIPS
-metric and PNG compression, undistortion and resizing in the dataset.
+the CPU. Not ported yet, and raising NotImplementedError: the trainer's
+LPIPS metric and PNG compression, undistortion and resizing in the
+dataset.
 """
 
 from ._helper import load_test_data

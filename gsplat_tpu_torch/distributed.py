@@ -25,6 +25,13 @@ layouts are JAX's:
 The 2DGS counterparts (:func:`rasterization_2dgs_distributed` and its strip
 and packed forms) exchange the surfel rows the same way.
 
+The trainers' multi-GPU training (simple_trainer.py) adds the collectives at
+the end of this module: :func:`gather_blocks` assembles the ranks' blocks
+into the whole batch on every rank (its backward hands each rank its own
+block's gradient), :func:`shard_rows`, :func:`gather_rows` and
+:func:`scatter_rows` move a pool's rows between the ranks and rank 0,
+:func:`all_sum` and :func:`broadcast_generator`.
+
 The per-rank contract, with ``n = dist.get_world_size(group)``:
 
 - **Inputs.** Rank r passes rows ``[r*N/n, (r+1)*N/n)`` of the global
@@ -606,3 +613,101 @@ def rasterization_2dgs_distributed_packed(
     outs, aux = _raster_2dgs(st, s, x, D, viewmats, Ks, width, height, tile_size, render_mode, depth_mode, distloss,
                              group)
     return outs + (_meta(st, s, aux, width, height, group, None, n_vis),)
+
+
+# --- the trainers' collectives (multi-GPU training) -------------------------
+
+
+def _root(group) -> int:
+    """The global rank of ``group``'s rank 0 (the rank the trainers' global
+    work runs on)."""
+    return 0 if group is None else dist.get_global_rank(group, 0)
+
+
+class _GatherBlocks(torch.autograd.Function):
+    """[...] -> [n, ...]: every rank's tensor of one shape, in rank order.
+    The backward returns the rank's own slice of the incoming gradient and
+    sums nothing: every rank computes the same loss from the same gathered
+    tensors, so slice r of any rank's gradient is rank r's."""
+
+    @staticmethod
+    def forward(ctx, x, n, rank, group):
+        ctx.rank = rank
+        parts = [torch.empty_like(x) for _ in range(n)]
+        dist.all_gather(parts, x.contiguous(), group=group)
+        return torch.stack(parts)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g[ctx.rank], None, None, None
+
+
+def gather_blocks(x: Optional[torch.Tensor], C: int, height: int, tile_size: int, group=None):
+    """The whole ``[C, H, W, X]`` on every rank, from each rank's block of a
+    distributed render (``x``, as `rasterization_distributed` returns it:
+    its whole cameras, or its strip's rows), differentiably: the backward
+    hands each rank the gradient of its own block. Strips are padded to
+    the strip height for the gather and cropped at ``height``. None stays
+    None."""
+    if x is None:
+        return None
+    n, rank = world(group)
+    strips = strip_layout(C, n, height, tile_size)
+    if strips is None:
+        return _GatherBlocks.apply(x, n, rank, group).reshape((C,) + tuple(x.shape[1:]))
+    G, _, strip_h = strips
+    pad = x.new_zeros((1, strip_h - x.shape[1]) + tuple(x.shape[2:]))
+    got = _GatherBlocks.apply(torch.cat([x, pad], dim=1), n, rank, group)  # [n, 1, strip_h, W, X]
+    cams = []
+    for c in range(C):
+        rows = [strip_rows(g, strip_h, height) for g in range(G)]
+        cams.append(torch.cat([got[c * G + g, 0, : y1 - y0] for g, (y0, y1) in enumerate(rows)]))
+    return torch.stack(cams)
+
+
+def shard_rows(x: torch.Tensor, group=None) -> torch.Tensor:
+    """This rank's rows ``[r*N/n, (r+1)*N/n)`` of a global ``[N, ...]``
+    tensor; raises unless ``N % n == 0``."""
+    n, rank = world(group)
+    N = x.shape[0]
+    if N % n:
+        raise ValueError(f"{N} rows do not split over a world of {n} ranks (N % world size must be 0)")
+    return x[rank * (N // n): (rank + 1) * (N // n)]
+
+
+def gather_rows(x: torch.Tensor, group=None) -> Optional[torch.Tensor]:
+    """The ranks' row blocks (each ``[N/n, ...]``, one shape on every rank)
+    concatenated in rank order: the global ``[N, ...]`` on the group's rank
+    0, None on the others."""
+    n, rank = world(group)
+    parts = [torch.empty_like(x) for _ in range(n)] if rank == 0 else None
+    dist.gather(x.contiguous(), parts, dst=_root(group), group=group)
+    return torch.cat(parts) if rank == 0 else None
+
+
+def scatter_rows(x: Optional[torch.Tensor], rows: int, like: torch.Tensor, group=None) -> torch.Tensor:
+    """Each rank's ``rows`` rows of the global ``x`` held by the group's
+    rank 0 (None on the others; ``x.shape[0] == rows * n``); ``like`` gives
+    the dtype, device and trailing shape."""
+    n, rank = world(group)
+    out = like.new_empty((rows,) + tuple(like.shape[1:]))
+    parts = list(x.contiguous().split(rows)) if rank == 0 else None
+    if rank == 0 and (len(parts) != n or parts[-1].shape[0] != rows):
+        raise ValueError(f"{x.shape[0]} rows do not scatter as {rows} to each of {n} ranks")
+    dist.scatter(out, parts, src=_root(group), group=group)
+    return out
+
+
+def all_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """``x`` summed over the ranks (a new tensor; ``x`` is unchanged)."""
+    out = x.clone()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    return out
+
+
+def broadcast_generator(gen: torch.Generator, device, group=None) -> None:
+    """Give every rank's ``gen`` the state of the group's rank 0 (the
+    state moves on ``device``: NCCL takes no host tensor)."""
+    state = gen.get_state().to(device)
+    dist.broadcast(state, src=_root(group), group=group)
+    gen.set_state(state.cpu())

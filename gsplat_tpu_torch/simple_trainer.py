@@ -34,10 +34,30 @@ when a step's ``slab_required`` (tiled: ``n_isects``) nears it. Every
 random draw of a step comes from a generator seeded by (seed, step), so a
 resumed run draws what the uninterrupted one drew.
 
-Not ported yet, and refused with NotImplementedError: ``distributed`` and
-``packed`` (multi-GPU training: `rasterization(distributed=True)` renders
-over a process group, but the trainer and its strategy keep one pool on one
-device), ``lpips_weights`` and ``compression``.
+Multi-GPU training (``distributed``, with ``packed`` the packed exchange)
+computes the JAX trainer's global step under its ``P("gauss")`` mesh with
+one process a rank:
+
+    python -m torch.distributed.run --standalone --nproc_per_node=N \
+        -m gsplat_tpu_torch.simple_trainer default --distributed ...
+
+Rank r holds rows ``[r*cap/n, (r+1)*cap/n)`` of the pool: the splats,
+``live``, the Adam moments and the strategy's per-slot state. Every rank
+builds the whole batch, renders it through
+``rasterization(distributed=True)`` and gathers the ranks' blocks into the
+whole batch (`distributed.gather_blocks`, whose backward hands each rank
+its own block's gradient), so every rank computes JAX's loss on the whole
+batch; the regularisers sum over the whole pool. The pose and appearance
+modules act before the exchange, so their gradients are summed over the
+ranks; the bilateral grid acts after the gather and its gradient is
+already whole on every rank. Adam, the densification statistics, the
+opacity reset and MCMC's noise act on each rank's rows; a refine and a
+pool growth run the single-device code on the whole pool on rank 0 and
+scatter the rows back. Rank 0 alone writes the result directory, and a
+checkpoint is the single-device one (`save` gathers, `load` slices).
+
+Not ported yet, and refused with NotImplementedError: ``lpips_weights``
+and ``compression``.
 ``tb_every`` / ``tb_save_image`` are accepted and write nothing, as the
 JAX trainer does where TensorBoard cannot be imported; the port does not
 depend on it. The 2DGS trainer (simple_trainer_2dgs.py)
@@ -60,6 +80,7 @@ import torch
 from ._backend import resolve_device
 from .bilagrid import BilateralGrid
 from .checkpoint import aux_modules_from_numpy, splats_from_numpy
+from .distributed import all_sum, broadcast_generator, gather_blocks, gather_rows, scatter_rows, shard_rows, world
 from .losses import psnr as psnr_fn
 from .losses import ssim as ssim_fn
 from .losses import train_loss
@@ -140,8 +161,12 @@ class Config:
     bilateral_tv_lambda: float = 10.0
     depth_loss: bool = False
     depth_lambda: float = 1e-2
-    distributed: bool = False  # not ported yet: multi-GPU training
-    packed: bool = False  # not ported yet: multi-GPU training
+    # multi-GPU training: the pool sharded by rows over a torch.distributed
+    # group, one process a rank
+    distributed: bool = False
+    # with distributed: the packed exchange (each rank's visible rows in a
+    # pack_capacity buffer, grown from meta["pack_required"])
+    packed: bool = False
     resume: str = ""  # a ckpt_*.npz to resume from
     render_traj: bool = False
     render_traj_path: str = "interp"  # or "ellipse"
@@ -175,9 +200,6 @@ class Config:
 
 # fields whose paths are not ported yet: a set value raises
 NOT_PORTED = {
-    "distributed": "multi-GPU training (ROADMAP Queue 1 item 5b; multi-GPU rendering is "
-                   "rasterization(distributed=True))",
-    "packed": "the packed exchange in multi-GPU training (ROADMAP Queue 1 item 5b)",
     "lpips_weights": "the LPIPS metric (ROADMAP Queue 1 item 6)",
     "compression": "PNG compression (ROADMAP Queue 1 item 6)",
 }
@@ -208,6 +230,48 @@ def parse_config(argv: Optional[Sequence[str]] = None) -> Config:
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
+
+
+def check_distributed(cfg: Config, n: int) -> None:
+    """Raise ValueError where the JAX trainer's asserts refuse a
+    configuration on a mesh of `n` devices (examples/simple_trainer.py
+    :401-413, :666-669)."""
+    B = cfg.batch_size
+    if B % n and n % B:
+        raise ValueError(
+            f"batch_size ({B}) and the world size ({n}) must divide one another: whole cameras a rank when "
+            "batch >= world size, tile-row strips of each camera when batch < world size"
+        )
+    if cfg.packed and B % n:
+        raise ValueError(f"--packed needs whole cameras a rank (batch_size {B} % world size {n} == 0)")
+    if cfg.packed and cfg.app_opt:
+        raise ValueError("--packed needs SH colours (no --app-opt): per-camera colours do not ride the packed exchange")
+
+
+def init_distributed(device="cuda"):
+    """For ``--distributed``: this process's device and the default
+    process group from the environment ``torch.distributed.run`` sets
+    (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR``,
+    ``MASTER_PORT``): NCCL on ``cuda:LOCAL_RANK``, gloo for
+    ``device="cpu"``. A group already initialised is kept. Returns
+    (device, whether this call initialised the group)."""
+    import torch.distributed as dist
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", int(os.environ.get("LOCAL_RANK", 0)))
+        torch.cuda.set_device(dev)
+    if dist.is_available() and dist.is_initialized():
+        return dev, False
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        raise RuntimeError(
+            "--distributed needs a process group: start one process a card with python -m "
+            "torch.distributed.run --nproc_per_node=N (which sets RANK, WORLD_SIZE and LOCAL_RANK), or call "
+            "torch.distributed.init_process_group(...) first"
+        )
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo", init_method="env://",
+                            rank=int(os.environ["RANK"]), world_size=int(os.environ["WORLD_SIZE"]))
+    return dev, True
 
 
 def step_seed(seed: int, step: int) -> int:
@@ -278,6 +342,23 @@ def create_splats(
     return params, live
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a contiguous gradient: the
+    appearance module's reductions (its biases' gradients sum over every
+    camera and slot) then add in one order whether the colours' gradient
+    comes from the rasterizer (a [D, C, N] layout) or through the
+    distributed exchange ([C, N, D]), so world size 1 gives the
+    single-device bits."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
 def depth_loss_term(
     depths_map: torch.Tensor,  # [B, H, W, 1] expected depth
     pts: torch.Tensor,  # [B, P, 2] pixel coordinates
@@ -303,7 +384,14 @@ def depth_loss_term(
 class Runner:
     """The JAX trainer's ``Runner``, for the default or the MCMC strategy,
     on in-memory views (`from_colmap` for a COLMAP directory). Runs on
-    CUDA unless ``device="cpu"`` (the kernels' plain versions)."""
+    CUDA unless ``device="cpu"`` (the kernels' plain versions).
+
+    With ``cfg.distributed`` it is one rank of multi-GPU training over
+    ``group`` (the default process group when None; without an
+    initialised one the constructor raises): every rank passes the same
+    arguments, ``device`` its own card, and holds its rows of the pool
+    (``params``, ``live``, the optimizers' and the strategy's state);
+    `set_state` and `load` take the whole pool and keep the rank's rows."""
 
     def __init__(
         self,
@@ -314,6 +402,7 @@ class Runner:
         scene_scale: float,
         val_views: Sequence[Mapping] = (),
         device="cuda",
+        group=None,
     ):
         if cfg.backend not in ("auto", "binned", "tiled", "oracle"):
             raise ValueError(f"backend must be 'auto', 'binned', 'tiled' or 'oracle', got {cfg.backend!r}")
@@ -324,6 +413,11 @@ class Runner:
                 raise NotImplementedError(f"--{name.replace('_', '-')}: {what} is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.group = group
+        self.world_size, self.rank = 1, 0
+        if cfg.distributed:
+            self.world_size, self.rank = world(group)
+            check_distributed(cfg, self.world_size)
         self.backend = cfg.backend
         if cfg.backend == "auto":
             self.backend = "binned" if self.device.type == "cuda" else "oracle"
@@ -338,7 +432,10 @@ class Runner:
             check_pool(cap)
         else:
             cap = _round_up(int(n0 * cfg.pool_headroom), 4096)
-        self.params, self.live = create_splats(cfg, points, points_rgb, scene_scale, cap, self.device)
+        self._check_pool_rows(cap)
+        params, live = create_splats(cfg, points, points_rgb, scene_scale, cap, self.device)
+        self.params = {k: self._own_rows(v.detach()).requires_grad_(True) for k, v in params.items()}
+        self.live = self._own_rows(live)
         if cfg.strategy_name == "mcmc":
             self.strategy = MCMCStrategy(
                 cap_max=cfg.cap_max,
@@ -357,7 +454,7 @@ class Runner:
                 absgrad=cfg.absgrad,
             )
         self.strategy_state = self.strategy.initialize_state(
-            cap, scene_scale=self.scene_scale, device=self.device
+            self.live.shape[0], scene_scale=self.scene_scale, device=self.device
         )
         self._build_optimizers()
 
@@ -377,29 +474,73 @@ class Runner:
         self.isect_capacity = None
         if self.backend != "oracle":
             self.isect_capacity = _round_up(cfg.isect_capacity_init or int(4e6), 4096)
+        # the packed exchange's visible rows a (camera, rank), grown from
+        # meta["pack_required"] as the JAX trainer grows it
+        self.pack_capacity = 4096
         self._live_hist = []  # (step, n_live) whenever the count changed, for the growth projection
         self._resumed_budget = False  # True once `load` restored a checkpoint's intersection budget
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
 
+    @property
+    def distributed(self) -> bool:
+        return self.cfg.distributed
+
+    @property
+    def pool_size(self) -> int:
+        """The pool's capacity; each rank holds ``pool_size / world_size``
+        of its rows."""
+        return self.live.shape[0] * self.world_size
+
+    def n_live(self) -> int:
+        """The live count of the whole pool (every rank's rows)."""
+        return int(self._all_sum(self.live.sum()))
+
+    def _all_sum(self, x: torch.Tensor) -> torch.Tensor:
+        return all_sum(x, self.group) if self.distributed else x
+
+    def _check_pool_rows(self, cap: int) -> None:
+        if cap % self.world_size:
+            raise ValueError(f"a pool of {cap} slots does not split into rows over {self.world_size} ranks "
+                             "(capacity % world size must be 0)")
+
+    def _own_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The rank's rows of a whole-pool tensor (their own copy)."""
+        return shard_rows(x, self.group).clone() if self.distributed else x
+
+    def _log(self, msg: str) -> None:
+        if self.rank == 0:
+            print(msg)
+
+    @property
+    def _writes(self) -> bool:
+        """Whether this process writes the result directory: rank 0's."""
+        return self.result_dir is not None and self.rank == 0
+
     @classmethod
-    def from_colmap(cls, cfg: Config, device="cuda") -> "Runner":
+    def from_colmap(cls, cfg: Config, device="cuda", **kwargs) -> "Runner":
         """A Runner on the COLMAP scene at ``cfg.data_dir`` (normalised, the
         split ``image % test_every``), writing its results into
-        ``cfg.result_dir``, starting with ``cfg.json``."""
+        ``cfg.result_dir`` (rank 0's, where distributed), starting with
+        ``cfg.json``. ``kwargs`` go to the constructor (``group``; the 2DGS
+        runner's loss weights and warm-ups)."""
         from .datasets import Dataset, Parser
 
-        os.makedirs(cfg.result_dir, exist_ok=True)
         parser = Parser(cfg.data_dir, factor=cfg.data_factor, normalize=True, test_every=cfg.test_every)
         trainset = Dataset(parser, split="train", load_depths=cfg.depth_loss)
         valset = Dataset(parser, split="val")
-        runner = cls(cfg, trainset, parser.points, parser.points_rgb, parser.scene_scale, valset, device=device)
+        runner = cls(cfg, trainset, parser.points, parser.points_rgb, parser.scene_scale, valset, device=device,
+                     **kwargs)
         runner.parser = parser
         runner.result_dir = cfg.result_dir
-        with open(os.path.join(cfg.result_dir, "cfg.json"), "w") as f:
-            json.dump({k: v for k, v in vars(runner.cfg).items()
-                       if isinstance(v, (int, float, str, bool, list, type(None)))}, f, indent=1, default=str)
-        print(f"scene scale: {runner.scene_scale:.3f}; {len(trainset)} train / {len(valset)} val images; "
-              f"initialized {int(runner.live.sum())} splats in a {runner.live.shape[0]}-slot pool")
+        if runner._writes:
+            os.makedirs(cfg.result_dir, exist_ok=True)
+            with open(os.path.join(cfg.result_dir, "cfg.json"), "w") as f:
+                json.dump({k: v for k, v in vars(runner.cfg).items()
+                           if isinstance(v, (int, float, str, bool, list, type(None)))}, f, indent=1, default=str)
+        n_live = runner.n_live()
+        runner._log(f"scene scale: {runner.scene_scale:.3f}; {len(trainset)} train / {len(valset)} val images; "
+                    f"initialized {n_live} splats in a {runner.pool_size}-slot pool"
+                    + (f" over {runner.world_size} ranks" if runner.distributed else ""))
         return runner
 
     def _build_optimizers(self):
@@ -439,14 +580,16 @@ class Runner:
                   aux_params: Optional[Mapping[str, Mapping[str, np.ndarray]]] = None) -> None:
         """Start from the given splats (the JAX trainer's ``params`` as numpy
         arrays, same keys), live mask and aux-module parameters: the pool
-        takes their capacity, the optimizers and the strategy start anew."""
+        takes their capacity, the optimizers and the strategy start anew.
+        Distributed, every rank passes the whole pool and keeps its rows."""
+        self._check_pool_rows(np.shape(live)[0])
         splats, live_t = splats_from_numpy({**params, "live": live}, device=self.device)
         if set(splats) != set(self.params):
             raise KeyError(f"params hold {sorted(splats)}, the runner {sorted(self.params)}")
-        self.params = {k: splats[k].requires_grad_(True) for k in self.params}
-        self.live = live_t
+        self.params = {k: self._own_rows(splats[k]).requires_grad_(True) for k in self.params}
+        self.live = self._own_rows(live_t)
         self.strategy_state = self.strategy.initialize_state(
-            live_t.shape[0], scene_scale=self.scene_scale, device=self.device
+            self.live.shape[0], scene_scale=self.scene_scale, device=self.device
         )
         self._build_optimizers()
         if aux_params:
@@ -461,31 +604,59 @@ class Runner:
         if self.cfg.app_opt:
             dirs = p["means"][None, :, :] - camtoworlds[:, None, :3, 3]
             colors = self.aux["app"](p["features"], image_ids, dirs, sh_degree)
-            return torch.sigmoid(colors + p["colors"][None]), None
+            return _ContiguousGrad.apply(torch.sigmoid(colors + p["colors"][None])), None
         return torch.cat([p["sh0"], p["shN"]], dim=1), sh_degree
 
+    def _dist_kwargs(self, packed: bool = False) -> Dict:
+        """The rendering functions' multi-GPU arguments: none on one device;
+        the group, and with ``packed`` the packed exchange at the current
+        ``pack_capacity``. The training step takes ``cfg.packed``; the
+        probe, `render` and `eval` render dense, as JAX's do."""
+        if not self.distributed:
+            return {}
+        kw = {"distributed": True, "group": self.group}
+        if packed:
+            kw.update(packed=True, pack_capacity=self.pack_capacity)
+        return kw
+
+    def _whole(self, x, C: int, height: int):
+        """The whole batch's ``[C, H, W, X]`` from this rank's block of a
+        distributed render (`distributed.gather_blocks`: differentiable, each
+        rank's backward takes its own block's gradient); ``x`` itself on
+        one device."""
+        if not self.distributed:
+            return x
+        return gather_blocks(x, C, height, self.cfg.tile_size, self.group)
+
     def _rasterize(self, viewmats, Ks, width, height, colors, sh_degree, capacity, carrier=None,
-                   render_mode="RGB"):
+                   render_mode="RGB", packed=False, whole=True):
+        """(render, alphas, meta) of the cameras; distributed, the whole
+        batch on every rank (``whole=False``: the rank's block) and the
+        rank's meta."""
         cfg = self.cfg
         p = self.params
-        return rasterization(
+        render, alphas, meta = rasterization(
             p["means"], p["quats"], torch.exp(p["scales"]), torch.sigmoid(p["opacities"]), colors,
             viewmats, Ks, width, height,
             sh_degree=sh_degree, near_plane=cfg.near_plane, far_plane=cfg.far_plane,
             rasterize_mode="antialiased" if cfg.antialiased else "classic", render_mode=render_mode,
             backend=self.backend, isect_capacity=capacity, means2d_carrier=carrier,
             masks=self.live, tile_size=cfg.tile_size, absgrad=cfg.absgrad,
-            camera_model=cfg.camera_model,
+            camera_model=cfg.camera_model, **self._dist_kwargs(packed),
         )
+        if whole:
+            C = viewmats.shape[0]
+            render, alphas = self._whole(render, C, height), self._whole(alphas, C, height)
+        return render, alphas, meta
 
     def _raster_train(self, step, viewmats, Ks, width, height, colors, sh_degree, carrier):
-        """The training step's render. Returns (rgb, alphas, depths or
-        None, meta, geom), `geom` holding what `_geom_losses` reads; the
-        2DGS runner overrides both."""
+        """The training step's render: distributed, the whole batch on every
+        rank. Returns (rgb, alphas, depths or None, meta, geom), `geom`
+        holding what `_geom_losses` reads; the 2DGS runner overrides both."""
         depth = self.cfg.depth_loss
         render, alphas, meta = self._rasterize(
             viewmats, Ks, width, height, colors, sh_degree, self.isect_capacity, carrier,
-            render_mode="RGB+ED" if depth else "RGB",
+            render_mode="RGB+ED" if depth else "RGB", packed=self.cfg.packed,
         )
         if depth:
             return render[..., :-1], alphas, render[..., -1:], meta, {}
@@ -512,11 +683,14 @@ class Runner:
         does."""
         if self.backend == "oracle" or self.cfg.isect_capacity_init > 0:
             return
-        pixels, camtoworlds, Ks = self._as_batch([self.trainset[0]])
+        # distributed: one copy of the view a rank, so that each rank renders
+        # the whole view and the maximum over ranks is a rank's budget for
+        # it (JAX :876-883)
+        pixels, camtoworlds, Ks = self._as_batch([self.trainset[0]] * self.world_size)
         H, W = pixels.shape[1:3]
         with torch.no_grad():
             colors, sh = self._colors(camtoworlds, None, self.cfg.sh_degree)
-            _, _, meta = self._rasterize(torch.linalg.inv(camtoworlds), Ks, W, H, colors, sh, 4096)
+            _, _, meta = self._rasterize(torch.linalg.inv(camtoworlds), Ks, W, H, colors, sh, 4096, whole=False)
         need = int(meta.get("slab_required", meta["n_isects"]))
         if need > 0:
             self.isect_capacity = _round_up(
@@ -531,7 +705,7 @@ class Runner:
         if cap is None or need <= 0.8 * cap:
             return
         if need > cap:
-            print(f"[isect] need {need} exceeded capacity {cap}; this step was truncated")
+            self._log(f"[isect] need {need} exceeded capacity {cap}; this step was truncated")
         self.isect_capacity = _round_up(max(int(need * self.cfg.isect_headroom), 2 * cap), 4096)
 
     def _projected_final_live(self, step: Optional[int], n_live: int) -> Optional[float]:
@@ -549,42 +723,108 @@ class Runner:
         rate = (n_live / l0) ** (1.0 / (step - s0))  # per-step factor
         return n_live * rate ** (stop - step)
 
+    def _pool_tensors(self) -> Dict[str, torch.Tensor]:
+        """The pool's per-slot tensors (this rank's rows) by their checkpoint
+        names: ``splat/{name}``, ``adam/{name}/{moment}``, ``live`` and
+        ``strategy/{key}``."""
+        n = self.live.shape[0]
+
+        def per_slot(v):
+            return isinstance(v, torch.Tensor) and v.dim() >= 1 and v.shape[0] == n
+
+        out = {}
+        for k, p in self.params.items():
+            out[f"splat/{k}"] = p.detach()
+            out.update({f"adam/{k}/{name}": v for name, v in self.optimizers[k].state.get(p, {}).items()
+                        if per_slot(v)})
+        out["live"] = self.live
+        out.update({f"strategy/{k}": v for k, v in self.strategy_state.items() if per_slot(v)})
+        return out
+
+    @torch.no_grad()
+    def _set_pool(self, pool: Mapping[str, torch.Tensor]) -> None:
+        """Take `pool` (`_pool_tensors`'s names) as the pool: copied in place
+        at the pool's size; at another size (a growth) each parameter
+        becomes a new leaf tensor that its optimizer takes with its state
+        (step count kept)."""
+        if pool["live"].shape[0] == self.live.shape[0]:
+            for k, v in self._pool_tensors().items():
+                v.copy_(pool[k])
+            return
+        for k, p in list(self.params.items()):
+            new = pool[f"splat/{k}"].requires_grad_(True)
+            opt = self.optimizers[k]
+            state = opt.state.pop(p, None)
+            opt.param_groups[0]["params"] = [new]
+            if state:
+                opt.state[new] = {name: pool.get(f"adam/{k}/{name}", v) for name, v in state.items()}
+            self.params[k] = new
+        self.live = pool["live"]
+        for k in list(self.strategy_state):
+            self.strategy_state[k] = pool.get(f"strategy/{k}", self.strategy_state[k])
+
+    def _gather_pool(self) -> Dict[str, Optional[torch.Tensor]]:
+        """The whole pool's per-slot tensors on rank 0 (None on the other
+        ranks); on one device the pool's own tensors."""
+        pool = self._pool_tensors()
+        if not self.distributed:
+            return pool
+        return {k: gather_rows(v, self.group) for k, v in pool.items()}
+
+    def _scatter_pool(self, whole: Mapping[str, Optional[torch.Tensor]], rows: int) -> None:
+        """Each rank takes its `rows` rows of rank 0's whole-pool tensors
+        (`_set_pool`)."""
+        self._set_pool({k: scatter_rows(whole[k], rows, v, self.group) for k, v in self._pool_tensors().items()})
+
+    @torch.no_grad()
+    def _on_whole_pool(self, fn) -> None:
+        """Distributed: ``fn(params, live, optimizers, state)`` on the whole
+        pool, as the single-device strategy code takes it (``optimizers`` a
+        dict of the Adam moments, which pool surgery reads as per-slot
+        optimizer state). The ranks' rows are gathered to rank 0, ``fn``
+        runs there in place with the step generator, and every rank takes
+        its rows back and rank 0's generator state, so the ranks draw on
+        alike."""
+        whole = self._gather_pool()
+        if self.rank == 0:
+            state = {k: whole.get(f"strategy/{k}", v) for k, v in self.strategy_state.items()}
+            fn({k: whole[f"splat/{k}"] for k in self.params}, whole["live"],
+               {k: v for k, v in whole.items() if k.startswith("adam/")}, state)
+        self._scatter_pool(whole, self.live.shape[0])
+        broadcast_generator(self.generator, self.device, self.group)
+
     @torch.no_grad()
     def _grow_pool(self, new_cap: int) -> None:
         """Pad the pool to `new_cap` slots as the JAX trainer does: zeros for
         the parameters, False for `live`, zeros for the Adam moments and the
         strategy's per-slot state. Each parameter becomes a new leaf
-        tensor; its optimizer takes it, with its state (step count kept)."""
-        cap = self.live.shape[0]
-
+        tensor; its optimizer takes it, with its state (step count kept).
+        Distributed, the padding goes on the whole pool on rank 0 and the
+        ranks take their new rows (the row blocks move)."""
         def grow(x):
-            return torch.cat([x, x.new_zeros((new_cap - cap,) + tuple(x.shape[1:]))])
+            return torch.cat([x, x.new_zeros((new_cap - x.shape[0],) + tuple(x.shape[1:]))])
 
-        def grow_cap(v):
-            return grow(v) if isinstance(v, torch.Tensor) and v.dim() >= 1 and v.shape[0] == cap else v
+        whole = self._gather_pool()
+        if not self.distributed:
+            self._set_pool({k: grow(v) for k, v in whole.items()})
+            return
+        if self.rank == 0:
+            whole = {k: grow(v) for k, v in whole.items()}
+        self._scatter_pool(whole, new_cap // self.world_size)
 
-        for k, p in list(self.params.items()):
-            new = grow(p.detach()).requires_grad_(True)
-            opt = self.optimizers[k]
-            state = opt.state.pop(p, None)
-            opt.param_groups[0]["params"] = [new]
-            if state:
-                opt.state[new] = {name: grow_cap(v) for name, v in state.items()}
-            self.params[k] = new
-        self.live = grow(self.live)
-        for k, v in list(self.strategy_state.items()):
-            self.strategy_state[k] = grow_cap(v)
-
-    def _maybe_grow(self, n_isects: int, step: Optional[int] = None) -> bool:
+    def _maybe_grow(self, n_isects: int, step: Optional[int] = None, pack_required: int = 0) -> bool:
         """After a step: record the live count, grow the pool when the
         default strategy's live share passes ``pool_grow_at`` (to the
         projected need x 1.2 / pool_grow_at, at least double, at most
         ``pool_grow_max`` x; double without a projection), pre-scaling the
         intersection budget in the same event, then grow the budget from
-        ``n_isects``. Returns whether the pool grew."""
+        ``n_isects`` and, with ``packed``, the packed exchange's capacity
+        from ``pack_required`` (both maxima over the ranks). Distributed,
+        the counts are the whole pool's, so every rank decides alike.
+        Returns whether the pool grew."""
         cfg = self.cfg
-        cap = self.live.shape[0]
-        n_live = int(self.live.sum())
+        cap = self.pool_size
+        n_live = self.n_live()
         hist = self._live_hist
         if step is not None and n_live > 0 and (not hist or n_live != hist[-1][1]):
             hist.append((step, n_live))
@@ -595,17 +835,26 @@ class Runner:
                 target = min(max(proj * 1.2 / cfg.pool_grow_at, cap * 2.0), cap * cfg.pool_grow_max)
             else:
                 target = cap * 2.0
-            new_cap = _round_up(int(target), 4096)
-            print(f"[pool] {n_live}/{cap} live -> growing to {new_cap} "
-                  f"(projected stop-time live: {int(proj) if proj else 'n/a'})")
+            # a multiple of 4096 that the ranks split evenly
+            new_cap = _round_up(int(target), math.lcm(4096, self.world_size))
+            self._log(f"[pool] {n_live}/{cap} live -> growing to {new_cap} "
+                      f"(projected stop-time live: {int(proj) if proj else 'n/a'})")
             self._grow_pool(new_cap)
             grew = True
             if self.isect_capacity is not None and n_isects > 0:
                 need = int(n_isects * (new_cap / cap) * cfg.pool_grow_at * cfg.isect_headroom)
                 if need > self.isect_capacity:
                     self.isect_capacity = _round_up(need, 4096)
-                    print(f"[isect] pre-scaled with pool growth -> capacity {self.isect_capacity}")
+                    self._log(f"[isect] pre-scaled with pool growth -> capacity {self.isect_capacity}")
         self._grow_isect(n_isects)
+        if cfg.packed and pack_required > 0.8 * self.pack_capacity:
+            if pack_required > self.pack_capacity:
+                self._log(f"[pack] pack_required {pack_required} exceeded capacity {self.pack_capacity}; "
+                          "this step was truncated")
+            new_pack = _round_up(int(pack_required * cfg.isect_headroom), 512)
+            if new_pack > self.pack_capacity:
+                self.pack_capacity = new_pack
+                self._log(f"[pack] pack_required {pack_required} -> capacity {new_pack}")
         return grew
 
     def data_index(self, step: int, slot: int) -> int:
@@ -631,8 +880,11 @@ class Runner:
     def train_step(self, step: int) -> Dict:
         """One training step. Returns {"loss" (a 0-d tensor on the device),
         "depth" (the depth term, or None), "image_ids", "refined",
-        "slab_required", "pool_grew"}; "slab_required" is the capacity the
-        step needed (``n_isects`` on the tiled backend, 0 on the oracle)."""
+        "slab_required", "pack_required", "pool_grew"}; "slab_required" is
+        the capacity the step needed (``n_isects`` on the tiled backend, 0
+        on the oracle), "pack_required" the packed exchange's (0 without
+        it). Distributed, every rank calls it with the same step and
+        returns the whole step's loss."""
         cfg = self.cfg
         self.generator.manual_seed(step_seed(cfg.seed, step))
         views = [self.trainset[self.data_index(step, i)] for i in range(cfg.batch_size)]
@@ -668,14 +920,24 @@ class Runner:
             loss = loss + depth_term
         if "bilagrid" in self.aux:
             loss = loss + cfg.bilateral_tv_lambda * self.aux["bilagrid"].tv_loss()
+        # the regularisers sum over the whole pool: distributed, each rank
+        # adds its rows' share over the whole pool's live count
+        whole_batch_loss, regs = loss, []
         live = self.live
+        if cfg.opacity_reg > 0.0 or cfg.scale_reg > 0.0:
+            n_live = self._all_sum(live.sum())
         if cfg.opacity_reg > 0.0:
             op = torch.where(live, torch.sigmoid(self.params["opacities"]), 0.0)
-            loss = loss + cfg.opacity_reg * op.sum() / live.sum()
+            regs.append(cfg.opacity_reg * op.sum() / n_live)
+            loss = loss + regs[-1]
         if cfg.scale_reg > 0.0:
             sc = torch.where(live[:, None], torch.exp(self.params["scales"]), 0.0)
-            loss = loss + cfg.scale_reg * sc.sum() / (3 * live.sum())
+            regs.append(cfg.scale_reg * sc.sum() / (3 * n_live))
+            loss = loss + regs[-1]
         loss.backward()
+        if self.distributed:
+            loss = self._whole_loss(whole_batch_loss, regs)
+            self._sum_replicated_grads()
 
         visibility = (meta["radii"] > 0).any(dim=0)  # [cap]
         for opt in self.optimizers.values():
@@ -684,30 +946,73 @@ class Runner:
         for opt in self.aux_optimizers.values():
             opt.step()
             opt.zero_grad(set_to_none=True)
-        if isinstance(self.strategy, MCMCStrategy):
-            lr = cfg.means_lr * self.scene_scale * 0.01 ** (step / cfg.max_steps)
-            refined = self.strategy.step_post_backward(
-                self.params, self.live, self.optimizers, self.strategy_state, step, lr,
-                generator=self.generator,
-            )
-        else:
-            # n_cameras is the batch: the reference normalises the
-            # densification gradients per camera and multiplies by the batch
-            refined = self.strategy.step_post_backward(
-                self.params, self.live, self.optimizers, self.strategy_state, step,
-                {"radii": meta["radii"], "width": W, "height": H, "n_cameras": B},
-                carrier.grad, generator=self.generator,
-            )
+        refined = self._strategy_step(step, meta, carrier.grad, W, H, B)
         need = int(meta.get("slab_required", meta.get("n_isects", 0)))
-        grew = self._maybe_grow(need, step)
+        pack_required = int(meta.get("pack_required", 0))
+        grew = self._maybe_grow(need, step, pack_required)
         return {
             "loss": loss.detach(),
             "depth": None if depth_term is None else depth_term.detach(),
             "image_ids": [int(v["image_id"]) for v in views],
             "refined": refined,
             "slab_required": need,
+            "pack_required": pack_required,
             "pool_grew": grew,
         }
+
+    @torch.no_grad()
+    def _whole_loss(self, whole_batch_loss, regs):
+        """The step's loss over the whole pool: the whole-batch terms, which
+        every rank computed alike, plus each regulariser summed over the
+        ranks (added in the single-device order)."""
+        loss = whole_batch_loss.detach()
+        if regs:
+            for r in self._all_sum(torch.stack([r.detach() for r in regs])):
+                loss = loss + r
+        return loss
+
+    @torch.no_grad()
+    def _sum_replicated_grads(self) -> None:
+        """The gradients of the modules every rank holds a copy of. The pose
+        and appearance modules act before the exchange, on each rank's own
+        Gaussians, so a rank's gradient holds its shard's share: they are
+        summed over the ranks (the SPMD counterpart of the psums JAX's jit
+        inserts). The bilateral grid and its TV term act on the whole
+        gathered batch, so every rank already holds the whole gradient: it
+        is not summed (a sum would be W times it)."""
+        for name in ("pose", "app"):
+            if name in self.aux:
+                for p in self.aux[name].parameters():
+                    if p.grad is not None:
+                        p.grad = self._all_sum(p.grad)
+
+    def _strategy_step(self, step, meta, carrier_grad, W, H, B) -> bool:
+        """The strategy's post-backward work; returns whether it refined.
+        Distributed, the per-slot work (statistics, opacity reset, MCMC's
+        noise: the rank's rows of the whole pool's draw) stays on each
+        rank's rows and a refine runs on the whole pool (`_on_whole_pool`)."""
+        cfg = self.cfg
+        strat = self.strategy
+        kw = {}
+        if self.distributed:
+            kw["refine"] = lambda _params, _live, _opt, _state, *args: self._on_whole_pool(
+                lambda p, live, opt, state: strat.refine(p, live, opt, state, *args))
+        if isinstance(strat, MCMCStrategy):
+            lr = cfg.means_lr * self.scene_scale * 0.01 ** (step / cfg.max_steps)
+            if self.distributed:
+                kw["noise"] = lambda: self._own_rows(
+                    torch.randn((self.pool_size, 3), generator=self.generator, device=self.device))
+            return strat.step_post_backward(
+                self.params, self.live, self.optimizers, self.strategy_state, step, lr,
+                generator=self.generator, **kw,
+            )
+        # n_cameras is the batch: the reference normalises the
+        # densification gradients per camera and multiplies by the batch
+        stats = {"radii": meta["radii"], "width": W, "height": H, "n_cameras": B}
+        return strat.step_post_backward(
+            self.params, self.live, self.optimizers, self.strategy_state, step, stats, carrier_grad,
+            generator=self.generator, **kw,
+        )
 
     def train(self, log_every: int = 100) -> List[Dict]:
         """Resume from ``cfg.resume`` if set, probe the intersection budget
@@ -721,7 +1026,7 @@ class Runner:
         if not self._resumed_budget:
             self.probe_isect_capacity()
         if start_step >= cfg.max_steps:
-            print(f"resume step {start_step} >= max_steps: eval-only mode")
+            self._log(f"resume step {start_step} >= max_steps: eval-only mode")
             if cfg.render_traj:
                 self.render_traj(start_step)
             return []
@@ -730,10 +1035,10 @@ class Runner:
         for step in range(start_step, cfg.max_steps):
             outs.append(self.train_step(step))
             if step % log_every == 0:
-                n_live = int(self.live.sum())
+                n_live = self.n_live()
                 loss = float(outs[-1]["loss"])
-                print(f"step {step}: loss={loss:.4f} n_live={n_live} ({time.time() - t0:.0f}s)")
-                if self.result_dir is not None:
+                self._log(f"step {step}: loss={loss:.4f} n_live={n_live} ({time.time() - t0:.0f}s)")
+                if self._writes:
                     with open(os.path.join(self.result_dir, "stats.jsonl"), "a") as f:
                         f.write(json.dumps({"step": step, "loss": loss, "n_live": n_live,
                                             "elapsed_s": time.time() - t0}) + "\n")
@@ -744,13 +1049,14 @@ class Runner:
                     self.render_traj(step + 1)
             if step + 1 in cfg.save_steps and self.result_dir is not None:
                 self.save(step + 1)
-        print(f"training done in {(time.time() - t0) / 60:.1f} min")
+        self._log(f"training done in {(time.time() - t0) / 60:.1f} min")
         return outs
 
     @torch.no_grad()
     def render(self, camtoworlds, Ks, width, height, sh_degree=None):
         """(rgb, alphas, meta) of the cameras, the appearance module with no
-        embedding (``embed_ids=None``) where it is on."""
+        embedding (``embed_ids=None``) where it is on; distributed, every
+        rank calls it and gets the whole images."""
         sh = self.cfg.sh_degree if sh_degree is None else sh_degree
         colors, sh = self._colors(camtoworlds, None, sh)
         return self._rasterize(torch.linalg.inv(camtoworlds), Ks, width, height, colors, sh, self.isect_capacity)
@@ -776,11 +1082,11 @@ class Runner:
             "step": step,
             "psnr": float(np.mean(psnrs)) if psnrs else math.nan,
             "ssim": float(np.mean(ssims)) if ssims else math.nan,
-            "num_GS": int(self.live.sum()),
+            "num_GS": self.n_live(),
             "per_image_s": (time.time() - t0) / max(len(self.valset), 1),
         }
-        print("EVAL", json.dumps(stats))
-        if self.result_dir is not None:
+        self._log("EVAL " + json.dumps(stats))
+        if self._writes:
             with open(os.path.join(self.result_dir, f"val_step{step}.json"), "w") as f:
                 json.dump(stats, f)
         return stats
@@ -790,8 +1096,9 @@ class Runner:
         """A fly-through along a path fit to the scene's cameras (``interp``
         or ``ellipse``), at the first validation view's intrinsics and
         size: ``videos/traj_{path}_{step}.mp4`` where imageio can write an
-        mp4, else the frames as ``traj_{path}_{step}_frames.npz``. Returns
-        the path written."""
+        mp4, else the frames as ``traj_{path}_{step}_frames.npz``.
+        Distributed, every rank renders and rank 0 writes. Returns the path
+        written."""
         from .datasets.traj import generate_ellipse_path_z, generate_interpolated_path
 
         cfg = self.cfg
@@ -814,8 +1121,10 @@ class Runner:
                 rgb = rgb + (1.0 - alphas)
             frames.append((torch.clamp(rgb[0], 0, 1) * 255).to(torch.uint8).cpu().numpy())
         vdir = os.path.join(self.result_dir, "videos")
-        os.makedirs(vdir, exist_ok=True)
         out = os.path.join(vdir, f"traj_{cfg.render_traj_path}_{step}.mp4")
+        if not self._writes:
+            return out
+        os.makedirs(vdir, exist_ok=True)
         try:
             import imageio.v2 as imageio
 
@@ -834,18 +1143,23 @@ class Runner:
         viewers read), then the port's own state: ``adam/{name}/...`` (step
         count and moments), ``strategy/{key}``, ``aux/{module}/{param}``,
         ``aux_adam/{module}/{index}/{key}`` and ``pool/isect_capacity``,
-        ``pool/live_hist``. Returns the npz's path."""
+        ``pool/live_hist``, ``pool/pack_capacity``. Distributed, every rank
+        calls it: the pool's rows are gathered to rank 0, which writes the
+        single-device files. Returns the npz's path."""
         def host(x):
             return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
         path = os.path.join(self.result_dir, f"ckpt_{step}.npz")
-        blob = {"step": np.asarray(step), "live": host(self.live)}
-        blob.update({f"splat/{k}": host(v) for k, v in self.params.items()})
+        whole = self._gather_pool()
+        if not self._writes:
+            return path
+        blob = {"step": np.asarray(step), "live": host(whole["live"])}
+        blob.update({f"splat/{k}": host(whole[f"splat/{k}"]) for k in self.params})
         for k, opt in self.optimizers.items():
             for name, v in opt.state.get(self.params[k], {}).items():
-                blob[f"adam/{k}/{name}"] = host(v)
+                blob[f"adam/{k}/{name}"] = host(whole.get(f"adam/{k}/{name}", v))
         for k, v in self.strategy_state.items():
-            blob[f"strategy/{k}"] = host(v)
+            blob[f"strategy/{k}"] = host(whole.get(f"strategy/{k}", v))
         for name, m in self.aux.items():
             for pn, p in m.named_parameters():
                 blob[f"aux/{name}/{pn}"] = host(p)
@@ -854,8 +1168,10 @@ class Runner:
                     blob[f"aux_adam/{name}/{idx}/{key}"] = host(v)
         blob["pool/isect_capacity"] = np.asarray(self.isect_capacity or 0)
         blob["pool/live_hist"] = np.asarray(self._live_hist, np.int64).reshape(-1, 2)
+        blob["pool/pack_capacity"] = np.asarray(self.pack_capacity)
         np.savez(path, **blob)
-        save_ply(self.params, os.path.join(self.result_dir, f"splats_{step}.ply"), live=self.live)
+        save_ply({k: whole[f"splat/{k}"] for k in self.params}, os.path.join(self.result_dir, f"splats_{step}.ply"),
+                 live=whole["live"])
         print("saved", path)
         return path
 
@@ -865,13 +1181,19 @@ class Runner:
         A checkpoint of the JAX trainer loads its splats, live mask and aux
         parameters (``auxp/``, the JAX tree's leaf order); its optax state
         (``opt/``, ``auxs/``) and strategy state are not read, so it suits
-        the evaluation-only mode (``start_step >= max_steps``). Returns the
-        step to resume from."""
+        the evaluation-only mode (``start_step >= max_steps``). Distributed,
+        every rank reads the file and keeps its rows. Returns the step to
+        resume from."""
         ckpt = np.load(path)
         files = set(ckpt.files)
         arrays = {k[len("splat/"):]: ckpt[k] for k in files if k.startswith("splat/")}
         self.set_state(arrays, ckpt["live"])
         dev = self.device
+        whole_cap = ckpt["live"].shape[0]
+
+        def rows(v):  # the rank's rows of a per-slot array
+            t = torch.as_tensor(v, device=dev)
+            return self._own_rows(t) if t.dim() >= 1 and t.shape[0] == whole_cap else t
         own = any(k.startswith("adam/") for k in files)
         self._resumed_budget = own
         with torch.no_grad():
@@ -880,12 +1202,12 @@ class Runner:
                     if f"adam/{k}/step" in files:
                         opt.state[self.params[k]] = {
                             "step": int(ckpt[f"adam/{k}/step"]),
-                            "exp_avg": torch.as_tensor(ckpt[f"adam/{k}/exp_avg"], device=dev),
-                            "exp_avg_sq": torch.as_tensor(ckpt[f"adam/{k}/exp_avg_sq"], device=dev),
+                            "exp_avg": rows(ckpt[f"adam/{k}/exp_avg"]),
+                            "exp_avg_sq": rows(ckpt[f"adam/{k}/exp_avg_sq"]),
                         }
                 for k in sorted(f for f in files if f.startswith("strategy/")):
                     v = ckpt[k]
-                    self.strategy_state[k[len("strategy/"):]] = float(v) if v.ndim == 0 else torch.as_tensor(v, device=dev)
+                    self.strategy_state[k[len("strategy/"):]] = float(v) if v.ndim == 0 else rows(v)
                 for name, m in self.aux.items():
                     for pn, p in m.named_parameters():
                         p.copy_(torch.as_tensor(ckpt[f"aux/{name}/{pn}"]))
@@ -899,6 +1221,8 @@ class Runner:
                 cap = int(ckpt["pool/isect_capacity"])
                 self.isect_capacity = cap or None
                 self._live_hist = [tuple(int(x) for x in r) for r in ckpt["pool/live_hist"]]
+                if "pool/pack_capacity" in files:
+                    self.pack_capacity = int(ckpt["pool/pack_capacity"])
             else:
                 leaves = sorted(k for k in files if k.startswith("auxp/"))
                 names = [(m, pn) for m in sorted(self.aux) for pn, _ in sorted(self.aux[m].named_parameters())]
@@ -906,21 +1230,39 @@ class Runner:
                     raise ValueError(f"{path}: {len(leaves)} aux leaves, the runner's modules have {len(names)}")
                 for k, (m, pn) in zip(leaves, names):
                     getattr(self.aux[m], pn).copy_(torch.as_tensor(ckpt[k]))
-                print(f"{path} is a JAX trainer checkpoint: splats, live mask and aux parameters loaded; its "
-                      "optax and strategy state are not read")
+                self._log(f"{path} is a JAX trainer checkpoint: splats, live mask and aux parameters loaded; its "
+                          "optax and strategy state are not read")
         step = int(ckpt["step"]) if "step" in files else 0
-        print(f"resumed from {path} at step {step} (pool cap {self.live.shape[0]})")
+        self._log(f"resumed from {path} at step {step} (pool cap {self.pool_size})")
         return step
+
+
+def run_main(runner_cls, cfg: Config, device, finish):
+    """Train ``runner_cls`` from the COLMAP scene of ``cfg``, then
+    ``finish(runner)``. With ``cfg.distributed`` this process is one rank:
+    its device and process group from `init_distributed` (a group this
+    call made is destroyed at the end). Returns the Runner."""
+    created = False
+    if cfg.distributed:
+        device, created = init_distributed(device)
+    try:
+        runner = runner_cls.from_colmap(cfg, device=device)
+        runner.train()
+        finish(runner)
+    finally:
+        if created:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+    return runner
 
 
 def main(argv: Optional[Sequence[str]] = None, device="cuda") -> Runner:
     """The JAX trainer's ``main``: parse the command line, train from the
-    COLMAP scene, evaluate at ``max_steps``. Returns the Runner."""
+    COLMAP scene, evaluate at ``max_steps`` (with ``--distributed``, as one
+    rank of the group `init_distributed` joins). Returns the Runner."""
     cfg = parse_config(argv)
-    runner = Runner.from_colmap(cfg, device=device)
-    runner.train()
-    runner.eval(cfg.max_steps)
-    return runner
+    return run_main(Runner, cfg, device, lambda r: r.eval(cfg.max_steps))
 
 
 if __name__ == "__main__":

@@ -12,8 +12,12 @@ geometry losses added after their warm-ups. Every render of the runner
 goes through the surfel rasterizer, so the intersection-capacity probe
 sizes the budget from a surfel render: a 2DGS stream is many times longer
 than a 3DGS one of the same points (no tight cull). It trains with the
-default strategy only, as the JAX 2DGS trainer does. Multi-GPU training
-comes with the port's multi-GPU slice.
+default strategy only, as the JAX 2DGS trainer does. With
+``cfg.distributed`` the surfel render goes through
+``rasterization_2dgs(distributed=True)`` (``packed``: the packed exchange)
+and its six images are gathered into the whole batch, so the geometry
+losses read the whole normals, normals from depth and distortion, as the
+JAX trainer's do under its mesh.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ import numpy as np
 import torch
 
 from .rendering import rasterization_2dgs
-from .simple_trainer import Config, Runner, parse_config
+from .simple_trainer import Config, Runner, parse_config, run_main
 
 
 class Runner2DGS(Runner):
@@ -41,6 +45,7 @@ class Runner2DGS(Runner):
         scene_scale: float,
         val_views: Sequence[Mapping] = (),
         device="cuda",
+        group=None,
         normal_lambda: float = 5e-2,
         dist_lambda: float = 1e-2,
         normal_start: int = 7000,
@@ -54,32 +59,40 @@ class Runner2DGS(Runner):
         self.dist_start = dist_start
         # the JAX trainer caps the surfel tile at 16
         cfg = dataclasses.replace(cfg, tile_size=min(cfg.tile_size, 16))
-        super().__init__(cfg, train_views, points, points_rgb, scene_scale, val_views, device)
+        super().__init__(cfg, train_views, points, points_rgb, scene_scale, val_views, device, group)
 
     def _render_2dgs(self, viewmats, Ks, width, height, colors, sh_degree, capacity,
-                     carrier=None, distloss=False):
+                     carrier=None, distloss=False, packed=False, whole=True):
+        """`rasterization_2dgs`'s 7-tuple; distributed, its six images of the
+        whole batch on every rank (``whole=False``: the rank's block) and
+        the rank's meta."""
         cfg = self.cfg
         p = self.params
-        return rasterization_2dgs(
+        out = rasterization_2dgs(
             p["means"], p["quats"], torch.exp(p["scales"]), torch.sigmoid(p["opacities"]), colors,
             viewmats, Ks, width, height,
             sh_degree=sh_degree, near_plane=cfg.near_plane, far_plane=cfg.far_plane,
             densify_carrier=carrier, masks=self.live, tile_size=cfg.tile_size,
             backend=self.backend, isect_capacity=capacity, render_mode="RGB+ED",
-            distloss=distloss,
+            distloss=distloss, **self._dist_kwargs(packed),
         )
+        if not whole:
+            return out
+        C = viewmats.shape[0]
+        return tuple(self._whole(x, C, height) for x in out[:6]) + (out[6],)
 
     def _rasterize(self, viewmats, Ks, width, height, colors, sh_degree, capacity, carrier=None,
-                   render_mode="RGB"):
+                   render_mode="RGB", packed=False, whole=True):
         """Surfel render for the probe, `render` and `eval`: (rgb, alphas,
         meta)."""
-        out = self._render_2dgs(viewmats, Ks, width, height, colors, sh_degree, capacity, carrier)
+        out = self._render_2dgs(viewmats, Ks, width, height, colors, sh_degree, capacity, carrier, packed=packed,
+                                whole=whole)
         return out[0][..., :3], out[1], out[6]
 
     def _raster_train(self, step, viewmats, Ks, width, height, colors, sh_degree, carrier):
         render, alphas, normals, normals_depth, distort, _, meta = self._render_2dgs(
             viewmats, Ks, width, height, colors, sh_degree, self.isect_capacity, carrier,
-            distloss=step >= self.dist_start,
+            distloss=step >= self.dist_start, packed=self.cfg.packed,
         )
         geom = {"normals": normals, "normals_depth": normals_depth, "distort": distort}
         return render[..., :3], alphas, render[..., -1:], meta, geom
@@ -118,19 +131,22 @@ class Runner2DGS(Runner):
             "normal_consistency": float(np.mean(ncs)) if ncs else float("nan"),
             "distortion": float(np.mean(dists)) if dists else float("nan"),
         }
-        print("EVAL_GEOM", stats)
+        self._log(f"EVAL_GEOM {stats}")
         return stats
 
 
 def main(argv: Optional[Sequence[str]] = None, device="cuda") -> Runner2DGS:
     """The JAX 2DGS trainer's ``main``: train from the COLMAP scene, then
-    ``eval`` and ``eval_geometry`` at ``max_steps``. Returns the Runner."""
+    ``eval`` and ``eval_geometry`` at ``max_steps`` (with
+    ``--distributed``, as one rank, as `simple_trainer.main`). Returns the
+    Runner."""
     cfg = parse_config(argv)
-    runner = Runner2DGS.from_colmap(cfg, device=device)
-    runner.train()
-    runner.eval(cfg.max_steps)
-    runner.eval_geometry(cfg.max_steps)
-    return runner
+
+    def finish(runner):
+        runner.eval(cfg.max_steps)
+        runner.eval_geometry(cfg.max_steps)
+
+    return run_main(Runner2DGS, cfg, device, finish)
 
 
 if __name__ == "__main__":

@@ -9,7 +9,7 @@ gradient of ``rasterization``'s ``means2d_carrier``.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -129,10 +129,13 @@ class DefaultStrategy(Strategy):
         v_means2d: torch.Tensor,
         generator: Optional[torch.Generator] = None,
         split_noise: Optional[torch.Tensor] = None,
+        refine: Optional[Callable[..., None]] = None,
     ) -> bool:
         """Accumulate statistics every step; refine and reset the opacities
         on the schedule; nothing at or past ``refine_stop_iter``. Updates in
-        place and returns whether this step refined."""
+        place and returns whether this step refined. ``refine`` takes
+        `refine`'s arguments in its place (a distributed trainer runs it on
+        the whole pool)."""
         if step >= self.refine_stop_iter:
             return False
         self.update_state(state, meta, v_means2d)
@@ -142,7 +145,7 @@ class DefaultStrategy(Strategy):
             and step % self.reset_every >= self.pause_refine_after_reset
         )
         if refined:
-            self.refine(params, live, optimizers, state, step, generator, split_noise)
+            (refine or self.refine)(params, live, optimizers, state, step, generator, split_noise)
         if step % self.reset_every == 0:
             ops.reset_opa(params, live, 2.0 * self.prune_opa, optimizers)
         return refined

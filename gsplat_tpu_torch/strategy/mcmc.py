@@ -10,7 +10,7 @@ package's fixed-capacity pool with a ``live`` mask, updated in place.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Sequence
+from typing import Any, Callable, Dict, Optional, Sequence, Union
 
 import torch
 
@@ -78,18 +78,24 @@ class MCMCStrategy(Strategy):
         lr: float,
         generator: Optional[torch.Generator] = None,
         targets: Optional[Sequence[torch.Tensor]] = None,
-        noise: Optional[torch.Tensor] = None,
+        noise: Union[torch.Tensor, Callable[[], torch.Tensor], None] = None,
+        refine: Optional[Callable[..., None]] = None,
     ) -> bool:
         """Relocate and grow on the schedule (refine_start_iter < step <
         refine_stop_iter, step a multiple of refine_every), then inject
         position noise scaled by ``lr * noise_lr`` (``lr`` is the means'
-        current learning rate; ``noise`` [cap, 3] its standard normal draw).
-        Updates in place and returns whether this step refined."""
+        current learning rate; ``noise`` [cap, 3] its standard normal draw,
+        or a function that draws it after the refine). ``refine`` takes
+        `refine`'s arguments in its place (a distributed trainer runs it on
+        the whole pool). Updates in place and returns whether this step
+        refined."""
         refined = (
             self.refine_start_iter < step < self.refine_stop_iter
             and step % self.refine_every == 0
         )
         if refined:
-            self.refine(params, live, optimizers, state, generator, targets)
+            (refine or self.refine)(params, live, optimizers, state, generator, targets)
+        if callable(noise):
+            noise = noise()
         ops.inject_noise_to_position(params, live, lr * self.noise_lr, generator, noise)
         return refined

@@ -77,7 +77,7 @@ def test_shard_check_once_and_stats_on_device(monkeypatch):
     calls = []
     real = dist.all_reduce
     monkeypatch.setattr(dist, "all_reduce", lambda t, *a, **k: (calls.append(t.dtype), real(t, *a, **k))[1])
-    dist.init_process_group("gloo", init_method=f"tcp://localhost:{T._free_port()}", world_size=1, rank=0)
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:{T.free_port()}", world_size=1, rank=0)
     try:
         metas = [rasterization(*args, spec["W"], spec["H"], backend="binned", isect_capacity=1 << 15,
                                distributed=True)[2] for _ in range(2)]

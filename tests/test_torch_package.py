@@ -5,9 +5,9 @@
   scripts/torch_*.py imports them; the package exports the JAX package's names;
 - functions run on the device of their inputs and refuse mixed devices;
   splats_from_numpy defaults to CUDA and raises without it;
-- multi-GPU, not ported until its slice, raises without a torch.distributed
-  process group instead of falling back; the tiled backend, once such a
-  path, renders, and
+- multi-GPU rendering and training (both trainers' ``distributed``)
+  raise without a torch.distributed process group instead of falling
+  back; the tiled backend, once such a path, renders, and
   backend="auto" reaches it at scene scale without a capacity;
 - the binned backend differentiates (the training slice), 3DGS and 2DGS;
 - CPU runs take the kernels' plain versions and launch no kernel, forward
@@ -53,7 +53,7 @@ def test_import_loads_no_jax():
         "import gsplat_tpu_torch.ops.isect, gsplat_tpu_torch.ops.rasterize_tiled\n"
         "import gsplat_tpu_torch.ops.rasterize_2dgs_tiled, gsplat_tpu_torch.ops.accumulate\n"
         "import gsplat_tpu_torch.relocation, gsplat_tpu_torch.strategy.mcmc, gsplat_tpu_torch.utils\n"
-        "import gsplat_tpu_torch.distributed\n"
+        "import gsplat_tpu_torch.distributed, gsplat_tpu_torch.checkpoint, gsplat_tpu_torch.strategy.default\n"
         "import gsplat_tpu_torch.datasets.synth, gsplat_tpu_torch.bilagrid, gsplat_tpu_torch.image_fitting\n"
         "import gsplat_tpu_torch.microbench.vpu_calib, gsplat_tpu_torch.microbench.primitives\n"
         "import gsplat_tpu_torch.microbench.kernel_shapes, gsplat_tpu_torch.microbench.fwd_breakdown\n"
@@ -198,8 +198,9 @@ def test_unported_paths_raise(kw, match):
 
 
 def test_unported_entry_points_raise():
-    """rasterization_2dgs's multi-GPU path raises without a process group
-    (never rendering on one device instead). Its tiled path and the
+    """rasterization_2dgs's multi-GPU path, and both trainers' multi-GPU
+    training, raise without a process group (never rendering or training
+    on one device instead). Its tiled path and the
     tiled backend of both tile rasterizers, which raised until the tiled
     slice, render: rasterization_2dgs as its binned backend does (the same
     stream order), and on an all-culled scene the two rasterizers give the
@@ -208,6 +209,11 @@ def test_unported_entry_points_raise():
         gsplat_tpu_torch.rasterization_2dgs(*_tiny(), distributed=True)
     with pytest.raises(RuntimeError, match="init_process_group"):
         gsplat_tpu_torch.rasterization_2dgs(*_tiny(), distributed=True, packed=True, pack_capacity=64)
+    from gsplat_tpu_torch.simple_trainer import Config
+
+    for cls in (gsplat_tpu_torch.Runner, gsplat_tpu_torch.Runner2DGS):
+        with pytest.raises(RuntimeError, match="init_process_group"):
+            cls(Config(distributed=True, init_type="random", init_num_pts=64), [], None, None, 1.0, device="cpu")
     with torch.no_grad():
         tiled = gsplat_tpu_torch.rasterization_2dgs(*_tiny(), backend="tiled", isect_capacity=4096)
         binned = gsplat_tpu_torch.rasterization_2dgs(*_tiny(), backend="binned", isect_capacity=4096)

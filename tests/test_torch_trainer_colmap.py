@@ -28,7 +28,8 @@ image ids run 1-5 against 5 table rows, so id 5 reads the clamped row).
 - The command line end to end on the CPU (main), 3DGS and 2DGS, writes
   cfg.json, stats.jsonl, val_step*.json, ckpt_*.npz, splats_*.ply and the
   fly-through; a JAX trainer checkpoint loads in the eval-only mode.
-- The flags not ported yet raise NotImplementedError.
+- The flags not ported yet raise NotImplementedError; distributed (and
+  packed) without a process group raises RuntimeError.
 """
 
 import dataclasses
@@ -385,6 +386,15 @@ def test_auto_backend_resolves_by_device(tmp_path):
 @pytest.mark.parametrize("flag,value", [("distributed", True), ("packed", True), ("lpips_weights", "w.npz"),
                                         ("compression", "png")])
 def test_unported_flags_raise(tmp_path, flag, value):
+    """lpips_weights and compression are not ported and raise
+    NotImplementedError. Multi-GPU training is ported (its cases:
+    test_torch_trainer_distributed.py): ``distributed``, and ``packed``,
+    which takes effect with it, raise without a process group, naming
+    init_process_group, and never train on one device instead."""
+    if flag in ("distributed", "packed"):
+        with pytest.raises(RuntimeError, match="init_process_group"):
+            _port_runner(tmp_path, **{"distributed": True, flag: value})
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         _port_runner(tmp_path, **{flag: value})
 

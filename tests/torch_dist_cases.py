@@ -319,20 +319,24 @@ def rank_main(rank, port, out_path):
         dist.destroy_process_group()
 
 
-def _free_port():
+def free_port():
     with socket.socket() as s:
         s.bind(("127.0.0.1", 0))
         return s.getsockname()[1]
 
 
-def _spawn(out_dir):
-    port = _free_port()
+def spawn_ranks(script, argv, out_dir):
+    """Run ``python tests/<script> --rank r *argv --out <out_dir>/rank<r>.pkl``
+    in N_RANKS processes of one intra-op thread each, outside any launcher's
+    rank environment, and return each rank's pickled results in rank order,
+    or {"__error__": ...} when a rank wrote none or reported one."""
     env = dict(os.environ, OMP_NUM_THREADS="1", PYTHONPATH=_ROOT + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT"):
+        env.pop(k, None)
     paths = [os.path.join(out_dir, f"rank{r}.pkl") for r in range(N_RANKS)]
     procs = [
-        subprocess.Popen([sys.executable, os.path.join(_DIR, "torch_dist_cases.py"), "--rank", str(r), "--port",
-                          str(port), "--out", paths[r]], cwd=_ROOT, env=env, stdout=subprocess.PIPE,
-                         stderr=subprocess.STDOUT)
+        subprocess.Popen([sys.executable, os.path.join(_DIR, script), "--rank", str(r), *argv, "--out", paths[r]],
+                         cwd=_ROOT, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for r in range(N_RANKS)
     ]
     logs = []
@@ -354,22 +358,24 @@ def _spawn(out_dir):
     errors = [pr["__error__"] for pr in per_rank if "__error__" in pr]
     if errors:
         return {"__error__": "\n".join(errors)}
-    return {name: [pr[name] for pr in per_rank] for name in list(CASES) + ["world1/" + n for n in WORLD1]}
+    return per_rank
 
 
-def port_results(tmp_path_factory):
-    """{case: [rank 0's result, ...]}, from the one spawn of the session."""
+def once_per_session(tmp_path_factory, stem, make):
+    """``make(work_dir)``'s result, made once for the test session and
+    shared by pytest-xdist's workers: pickled to <stem>_results.pkl in
+    the directory they share, under an fcntl lock."""
     base = tmp_path_factory.getbasetemp()
     if os.environ.get("PYTEST_XDIST_WORKER"):
         base = base.parent  # shared by the session's workers
-    path = os.path.join(str(base), "torch_dist_results.pkl")
-    with open(os.path.join(str(base), "torch_dist_results.lock"), "w") as lock:
+    path = os.path.join(str(base), f"{stem}_results.pkl")
+    with open(os.path.join(str(base), f"{stem}_results.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         try:
             if not os.path.exists(path):
-                out_dir = os.path.join(str(base), "torch_dist_ranks")
-                os.makedirs(out_dir, exist_ok=True)
-                res = _spawn(out_dir)
+                work = os.path.join(str(base), f"{stem}_ranks")
+                os.makedirs(work, exist_ok=True)
+                res = make(work)
                 with open(path + ".tmp", "wb") as f:
                     pickle.dump(res, f)
                 os.replace(path + ".tmp", path)
@@ -377,6 +383,18 @@ def port_results(tmp_path_factory):
             fcntl.flock(lock, fcntl.LOCK_UN)
     with open(path, "rb") as f:
         return pickle.load(f)
+
+
+def _spawn(out_dir):
+    per_rank = spawn_ranks("torch_dist_cases.py", ["--port", str(free_port())], out_dir)
+    if isinstance(per_rank, dict):
+        return per_rank
+    return {name: [pr[name] for pr in per_rank] for name in list(CASES) + ["world1/" + n for n in WORLD1]}
+
+
+def port_results(tmp_path_factory):
+    """{case: [rank 0's result, ...]}, from the one spawn of the session."""
+    return once_per_session(tmp_path_factory, "torch_dist", _spawn)
 
 
 # --- the JAX side ---------------------------------------------------------
