@@ -240,7 +240,35 @@ non-zero (there is no CPU fallback):
      1e-3 of them holding another Gaussian and each parameter's sum over
      them within 1e-4 (a refine places near ties by statistics that the
      two layouts round apart); per-rank step ms printed;
- 17. the `kernels` line (the eleven path kernels, the grid's two gradient
+ 17. the apps (gsplat_tpu_torch/compression/, lpips.py, both viewers, the
+     trainer's --compression png and --lpips-weights, the profiling and
+     compress-eval scripts), with the launch counts set to 0 before 17a-d
+     and read after (emit, the gather and the binned forward launched, and
+     the training kernels in 17c): (a) PngCompression of garden grid5
+     (2,794,625 splats with seeded degree-3 SH, cropped to 1,671^2) with
+     the K-means at 65,536 clusters on the card, twice: the same arrays
+     both times, each PNG field within half its quantization step of the
+     quantized array, bytes and the compress, K-means and decompress
+     seconds; shN's round-trip MSE over one centroid's at most
+     APPS_KMEANS_LIMIT, the codebook with shuffled labels above it, and
+     the card's K-means of 4,096 rows within 1.25x of the CPU's MSE; camera 0 at 1920x1080 (binned) rendered from the original and
+     the round trip, their PSNR above APPS_PSNR_FLOOR; (b) LPIPS alex and
+     vgg at 1920x1080 from random weights written as an .npz and read back
+     by load_lpips_params: lpips(x, x) == 0, a 256x256 crop's value within
+     rtol 1e-4 of the port's CPU value, each call timed; (c)
+     simple_trainer.main on phase 13's COLMAP scene (kept for this phase)
+     from its 1,000,000 points with --compression png
+     --lpips-weights, 2 steps, one eval and save:
+     compression_2/report.json and val_step2.json with "lpips", the
+     compressed eval's launches; (d) simple_viewer (8 frames of 1920x1080 on the
+     interpolated path,
+     read back) and interactive_viewer on 127.0.0.1 in a thread (one GET a
+     mode, each decoded frame equal to Viewer.frame's, on 17c's
+     checkpoint); (e) scripts/torch_profiling.py --scene-grid 5
+     --resolutions 1080p (its auto backend launching the tiled forward) and
+     scripts/torch_compress_eval.py on 17c's checkpoint (four CSV lines),
+     each a subprocess whose nonzero exit fails the phase;
+ 18. the `kernels` line (the eleven path kernels, the grid's two gradient
      kernels and the eighteen micro-benchmark kernels; emit, the gather and the
      reduce also with their times and bounds at the 2DGS train shapes, emit
      and the gather also at the fixture surfels, the four forwards with
@@ -249,8 +277,8 @@ non-zero (there is no CPU fallback):
      their largest error against the plain version on phase 13's inputs,
      the grid's gradients their phase 13 launches and errors, the seven
      kernels of phase 15 their launches there, the training kernels their
-     launches in phase 16), the card's name and power limit, then the
-     result line.
+     launches in phase 16, every kernel its launches in phase 17), the
+     card's name and power limit, then the result line.
 """
 
 import json
@@ -3103,7 +3131,7 @@ def phase_colmap(smi, default_steady_ms):
     from gsplat_tpu_torch import simple_trainer_2dgs as st2
     from gsplat_tpu_torch.datasets import Parser, image_io, synth
 
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_colmap")
+    root = colmap_root()
     shutil.rmtree(root, ignore_errors=True)
     data, res, res2, rt_dir, res_2dgs = (os.path.join(root, d) for d in ("scene", "r", "r_resumed", "r_rt", "r_2dgs"))
     means, quats, scales, opac, colors, *_ = load_test_data(scene_grid=MAIN_GRID)
@@ -3290,7 +3318,9 @@ def phase_colmap(smi, default_steady_ms):
         raise AssertionError(f"image fitting: PSNR {fit['psnr0']:.3f} -> {fit['psnr']:.3f}")
     log(f"image fitting (256x256, 2000 points, binned): {FIT_STEPS} steps in {fit['seconds']:.2f} s, "
         f"{fit['steps_per_s']:.1f} steps/s, PSNR {fit['psnr0']:.3f} -> {fit['psnr']:.3f} (card: {smi})")
-    shutil.rmtree(root, ignore_errors=True)
+    for d in os.listdir(root):  # the scene stays for phase 17
+        if d != "scene":
+            shutil.rmtree(os.path.join(root, d), ignore_errors=True)
     return launches, launches_2dgs, errs, errs_2dgs
 
 
@@ -4403,6 +4433,379 @@ def phase_train_distributed(smi, scene, default_steady_ms):
     return launches
 
 
+# phase 17: the apps (compression, LPIPS, the trainer's --compression png and
+# --lpips-weights, both viewers, the profiling and compress-eval scripts)
+APPS_PSNR_FLOOR = 20.0  # dB, the full-count round trip's render against the original (PERF.md §6 PR 19)
+APPS_LPIPS_RTOL = 1e-4  # the card's LPIPS against the port's CPU value on a 256x256 crop
+APPS_LPIPS_CROP = 256
+# shN's K-means round-trip MSE over that of one centroid (the column
+# means): at most 1.25 x the 0.6121 of the full count on the card (PERF.md
+# §6 PR 19), where the same codebook with shuffled labels reads ~1.4
+APPS_KMEANS_LIMIT = 0.765
+APPS_KMEANS_SUB = (4096, 64)  # rows and clusters of the card's K-means against the CPU's
+APPS_KMEANS_RATIO = 1.25  # its MSE over the CPU's: the CPU test's bound against scikit-learn
+APPS_TRAIN_STEPS = 2
+APPS_VIEWER_FRAMES = 8
+APPS_KERNELS = ("emit", "emit_gather", "rasterize_fwd")  # every render of the phase
+APPS_TRAIN_KERNELS = APPS_KERNELS + ("rasterize_bwd", "gid_reduce")
+
+
+def colmap_root():
+    """Phase 13's directory; it keeps its scene (``scene/``) for phase 17,
+    which removes the directory."""
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_colmap")
+
+
+def _quantization_check(torch, prepared, back, what):
+    """Each PNG field of the round trip within half a quantization step
+    (8 bits; the means 16 bits, in the log space they are stored in) of
+    the array that was quantized, channel by channel. Returns the largest
+    error over its step, by field."""
+    from gsplat_tpu_torch.utils import log_transform
+
+    out = {}
+    for name, levels in (("means", 2**16 - 1), ("scales", 255), ("quats", 255), ("opacities", 255), ("sh0", 255)):
+        want = prepared[name].reshape(prepared[name].shape[0], -1).astype(np.float64)
+        got = back[name]
+        if name == "means":
+            got = log_transform(torch.from_numpy(got)).numpy()
+        got = got.reshape(got.shape[0], -1).astype(np.float64)
+        span = np.maximum(want.max(0) - want.min(0), 1e-12)
+        # half a step, and the float32 rounding of the quantization and of
+        # the decoded value (a few ulps of the range and of the value)
+        err = float((np.abs(got - want) / (0.5 * span / levels + 1e-6 * (span + np.abs(want)))).max())
+        out[name] = err
+        if not err <= 1.0:
+            raise AssertionError(f"{what}: {name} off by {err:.3f} x its bound (half a step) after the round trip")
+    return out
+
+
+def _kmeans_check(torch, dev, want, got, npz, kmeans):
+    """17a's gate on the K-means of the full count: shN's round-trip MSE
+    (``got`` decoded against ``want``) over one centroid's at most
+    APPS_KMEANS_LIMIT, where the control, the same codebook (``npz``) with
+    its labels shuffled, must exceed it; then ``kmeans`` on APPS_KMEANS_SUB
+    rows spread over the scene, on ``dev`` within APPS_KMEANS_RATIO of the
+    CPU's MSE. Returns the readings."""
+    def mse(a, b):
+        return float(((a - b) ** 2).mean())
+
+    x = torch.as_tensor(want.reshape(want.shape[0], -1), device=dev)
+    one = mse(x, x.mean(0, keepdim=True))
+    out = {"kmeans": mse(x, torch.as_tensor(got.reshape(got.shape[0], -1), device=dev)) / one}
+    with np.load(npz) as z:
+        c = torch.as_tensor(z["centroids"].astype(np.float32), device=dev)
+        labels = torch.as_tensor(z["labels"].astype(np.int64), device=dev)
+    perm = torch.randperm(labels.shape[0], generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    out["shuffled"] = mse(x, c[labels[perm]]) / one
+    del c, labels, perm
+    n, k = APPS_KMEANS_SUB
+    sub = x[:: x.shape[0] // n][:n]
+    for name, d in (("sub_card", dev), ("sub_cpu", torch.device("cpu"))):
+        cs, ls = kmeans(sub.to(d), k)
+        out[name] = mse(sub.to(d), cs[ls])
+    if not (out["kmeans"] <= APPS_KMEANS_LIMIT < out["shuffled"]
+            and out["sub_card"] <= APPS_KMEANS_RATIO * out["sub_cpu"]):
+        raise AssertionError(f"17a K-means: {out} (limit {APPS_KMEANS_LIMIT}, the card's subsample MSE at most "
+                             f"{APPS_KMEANS_RATIO} x the CPU's)")
+    return out
+
+
+def _psnr(torch, a, b):
+    mse = float(((a.clamp(0, 1) - b.clamp(0, 1)) ** 2).mean())
+    return 10.0 * np.log10(1.0 / max(mse, 1e-12))
+
+
+def _sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def phase_apps_compression(smi, dev, out_dir):
+    """17a: PngCompression of the garden grid5 scene at full count (K-means
+    at 65,536 clusters on the card), twice; the round trip rendered at
+    1920x1080 against the original. Returns the round trip's PSNR."""
+    import torch
+    from gsplat_tpu_torch import splats_from_numpy
+    from gsplat_tpu_torch.compression import PngCompression, png_compression
+    from gsplat_tpu_torch.simple_viewer import SplatRenderer
+
+    arrays, viewmats, Ks, W0, _ = splat_arrays(MAIN_GRID, 3, SEED)
+    Ks = Ks.copy()
+    Ks[:, :2, :] *= MAIN_W / W0
+    fields = {k[len("splat/"):]: v for k, v in arrays.items() if k.startswith("splat/")}
+    N = fields["means"].shape[0]
+    km_s = []
+    kmeans = png_compression.kmeans
+
+    def timed_kmeans(*a, **kw):
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        out = kmeans(*a, **kw)
+        _sync(torch, dev)
+        km_s.append(time.perf_counter() - t0)
+        return out
+
+    png_compression.kmeans = timed_kmeans
+    try:
+        runs = []
+        for run in range(2):
+            cdir = os.path.join(out_dir, f"compression_{run}")
+            comp = PngCompression(device=str(dev))
+            t0 = time.perf_counter()
+            prepared = comp.compress(cdir, fields)
+            t1 = time.perf_counter()
+            back = comp.decompress(cdir)
+            t2 = time.perf_counter()
+            size = sum(os.path.getsize(os.path.join(cdir, f)) for f in os.listdir(cdir))
+            runs.append((back, size, t1 - t0, t2 - t1, {f: os.path.getsize(os.path.join(cdir, f))
+                                                         for f in sorted(os.listdir(cdir))}))
+    finally:
+        png_compression.kmeans = kmeans
+    (back, size, comp_s, dec_s, files), (back2, size2, comp2_s, dec2_s, _) = runs
+    if sorted(back) != sorted(back2) or not all(np.array_equal(back[k], back2[k]) for k in back):
+        raise AssertionError("decompress(compress(x)) differs between two runs")
+    side = int(N**0.5)
+    n = side * side
+    if back["means"].shape[0] != n or back["shN"].shape != (n, 15, 3):
+        raise AssertionError(f"round trip shapes {[(k, v.shape) for k, v in back.items()]}, expected {n} splats")
+    quant = _quantization_check(torch, prepared, back, "17a")
+    shn_mse = float(((back["shN"] - prepared["shN"]) ** 2).mean())
+    km = _kmeans_check(torch, dev, prepared["shN"], back["shN"], os.path.join(out_dir, "compression_0", "shN.npz"),
+                       kmeans)
+    log(f"17a compression of {N} splats (cropped to {side}^2 = {n}): {size} bytes ({size / N:.2f} B a splat; "
+        f"{', '.join(f'{f} {b}' for f, b in files.items())}), compress {comp_s:.2f} s and {comp2_s:.2f} s "
+        f"(of it the K-means at {min(65536, n)} clusters on the card {km_s[0]:.2f} s and {km_s[1]:.2f} s), "
+        f"decompress {dec_s:.2f} s and {dec2_s:.2f} s; the two runs the same arrays ({size2} bytes); each PNG "
+        f"field within half its quantization step (largest error over it: "
+        f"{', '.join(f'{k} {v:.3f}' for k, v in quant.items())}); shN's K-means MSE {shn_mse:.4e} against its "
+        f"variance {float(prepared['shN'].var()):.4e}; over one centroid's MSE {km['kmeans']:.4f} (limit "
+        f"{APPS_KMEANS_LIMIT}; the codebook with shuffled labels {km['shuffled']:.4f}); K-means of "
+        f"{APPS_KMEANS_SUB[0]} rows at {APPS_KMEANS_SUB[1]} clusters, MSE on the card {km['sub_card']:.4e} against "
+        f"the CPU's {km['sub_cpu']:.4e} (at most {APPS_KMEANS_RATIO}x) (card: {smi})")
+
+    def render(f, live=None):
+        splats, _ = splats_from_numpy(f, device=dev)
+        return SplatRenderer(splats, live, 3)(
+            torch.as_tensor(viewmats[:1], device=dev), torch.as_tensor(Ks[:1], device=dev), MAIN_W, MAIN_H)
+
+    with torch.no_grad():
+        img0, _, meta0 = render(fields)
+        img1, _, meta1 = render(back)
+    if not (torch.isfinite(img0).all() and torch.isfinite(img1).all()):
+        raise AssertionError("17a: a render is not finite")
+    psnr = _psnr(torch, img1, img0)
+    log(f"17a camera 0 at {MAIN_W}x{MAIN_H} (binned): the round trip's render against the original's PSNR "
+        f"{psnr:.3f} dB (floor {APPS_PSNR_FLOOR}), n_isects {int(meta0['n_isects'])} and {int(meta1['n_isects'])} "
+        f"(card: {smi})")
+    if not psnr > APPS_PSNR_FLOOR:
+        raise AssertionError(f"17a: round-trip PSNR {psnr:.3f} dB under its floor {APPS_PSNR_FLOOR}")
+    return psnr
+
+
+def lpips_weights(net_type, path):
+    """Random LPIPS weights (`init_random_params`, seed SEED) written to
+    ``path`` as the .npz `load_lpips_params` reads."""
+    from gsplat_tpu_torch import lpips
+
+    p = lpips.init_random_params(net_type, SEED, device="cpu")
+    arrays = {f"conv{i}_{k}": t.numpy() for i, wb in enumerate(p["convs"]) for k, t in zip("wb", wb)}
+    arrays.update({f"lin{i}_w": w.numpy() for i, w in enumerate(p["lins"])})
+    np.savez(path, **arrays)
+    return path
+
+
+def phase_apps_lpips(smi, dev, out_dir):
+    """17b: LPIPS alex and vgg at 1920x1080 on the card from random weights
+    read back through load_lpips_params: lpips(x, x) == 0, the card's
+    value against the port's CPU value on a 256x256 crop, each call timed.
+    Returns {net: npz path}."""
+    import torch
+    from gsplat_tpu_torch import lpips
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.rand((1, MAIN_H, MAIN_W, 3), generator=gen, device=dev)
+    y = (x + 0.1 * torch.randn((1, MAIN_H, MAIN_W, 3), generator=gen, device=dev)).clamp(0, 1)
+    paths = {}
+    for net in ("alex", "vgg"):
+        paths[net] = lpips_weights(net, os.path.join(out_dir, f"lpips_{net}.npz"))
+        params = lpips.load_lpips_params(paths[net], net, device=dev)
+        norm = net == "alex"
+        same = float(lpips.lpips(params, x, x, net, norm))
+        val = float(lpips.lpips(params, x, y, net, norm))
+        ms = cuda_ms(torch, lambda: lpips.lpips(params, x, y, net, norm), 3)
+        c = APPS_LPIPS_CROP
+        crop = float(lpips.lpips(params, x[:, :c, :c], y[:, :c, :c], net, norm))
+        cpu = float(lpips.lpips(lpips.load_lpips_params(paths[net], net, device="cpu"), x[:, :c, :c].cpu(),
+                                y[:, :c, :c].cpu(), net, norm))
+        rel = abs(crop - cpu) / abs(cpu)
+        log(f"17b LPIPS {net} at {MAIN_W}x{MAIN_H}: lpips(x, x) {same}, lpips(x, y) {val:.6f}, {ms:.3f} ms a call "
+            f"(CUDA events, cuDNN TF32 off); {c}x{c} crop card {crop:.8f} against CPU {cpu:.8f} (relative "
+            f"{rel:.3e}, rtol {APPS_LPIPS_RTOL}) (card: {smi})")
+        if same != 0.0 or not np.isfinite(val) or not val > 0 or not rel <= APPS_LPIPS_RTOL:
+            raise AssertionError(f"17b LPIPS {net}: lpips(x, x) {same}, lpips(x, y) {val}, crop {crop} vs CPU {cpu}")
+    return paths
+
+
+def phase_apps_trainer(smi, dev, data, out_dir, weights):
+    """17c: simple_trainer.main on phase 13's COLMAP scene with
+    --compression png and --lpips-weights, one eval and save step; the
+    compressed eval's launches counted. Returns (its checkpoint, those
+    launches)."""
+    import torch
+    from gsplat_tpu_torch import _backend
+    from gsplat_tpu_torch import simple_trainer as st
+
+    res = os.path.join(out_dir, "r")
+    step = APPS_TRAIN_STEPS
+    seen = {}
+    run_compression = st.Runner.run_compression
+
+    def counted(self, s):
+        _sync(torch, dev)
+        before = _backend.launch_counts()
+        t0 = time.perf_counter()
+        out = run_compression(self, s)
+        _sync(torch, dev)
+        seen["s"] = time.perf_counter() - t0
+        seen["launches"] = {k: v - before[k] for k, v in _backend.launch_counts().items()}
+        return out
+
+    st.Runner.run_compression = counted
+    try:
+        t0 = time.perf_counter()
+        st.main(["default", "--data-dir", data, "--data-factor", "1", "--result-dir", res, "--max-steps", str(step),
+                 "--eval-steps", str(step), "--save-steps", str(step), "--white-bkgd", "--tile-size", str(MAIN_TILE),
+                 "--seed", str(SEED), "--compression", "png", "--lpips-weights", weights], device=dev)
+        run_s = time.perf_counter() - t0
+    finally:
+        st.Runner.run_compression = run_compression
+    report = json.load(open(os.path.join(res, f"compression_{step}", "report.json")))
+    val = json.load(open(os.path.join(res, f"val_step{step}.json")))
+    launches = seen["launches"]
+    missing = [k for k in APPS_KERNELS if launches[k] == 0]
+    if missing or "lpips" not in val or "lpips" not in report or not np.isfinite(report["psnr"]):
+        raise AssertionError(f"17c: kernels {missing} not launched by the compressed eval; report {report}; val {val}")
+    log(f"17c simple_trainer.main --compression png --lpips-weights ({step} steps, {run_s:.1f} s): "
+        f"compression_{step}/report.json {report} ({seen['s']:.2f} s: compress, round trip, eval); val_step{step}.json "
+        f"{val}; launches of the compressed eval {({k: v for k, v in launches.items() if v})} (card: {smi})")
+    return os.path.join(res, f"ckpt_{step}.npz"), launches
+
+
+def phase_apps_viewers(smi, dev, out_dir, ckpt):
+    """17d: simple_viewer (8 frames of the fixture grid5 at 1920x1080, read
+    back) and interactive_viewer (the checkpoint, served on 127.0.0.1 in a
+    thread; one GET a mode, each decoded frame equal to Viewer.frame's)."""
+    import threading
+    import urllib.request
+
+    from gsplat_tpu_torch import interactive_viewer, simple_viewer
+    from gsplat_tpu_torch.datasets.image_io import decode_png, read_png
+
+    frames_dir = os.path.join(out_dir, "frames")
+    t0 = time.perf_counter()
+    # the interpolated path through the fixture's 3 cameras: n_frames // 7
+    # poses a pair of them (the JAX viewer's), so 28 asks for 8 frames
+    simple_viewer.main(["--scene-grid", str(MAIN_GRID), "--n-frames", str(7 * APPS_VIEWER_FRAMES // 2),
+                        "--width", str(MAIN_W), "--height", str(MAIN_H), "--output-dir", frames_dir], device=dev)
+    view_s = time.perf_counter() - t0
+    names = sorted(f for f in os.listdir(frames_dir) if f.endswith(".png"))
+    imgs = [read_png(os.path.join(frames_dir, f)) for f in names]
+    if len(imgs) != APPS_VIEWER_FRAMES or any(i.shape != (MAIN_H, MAIN_W, 3) for i in imgs):
+        raise AssertionError(f"17d simple_viewer: {names}, shapes {[i.shape for i in imgs]}")
+    if not all(i.std() > 0 for i in imgs):
+        raise AssertionError("17d simple_viewer: a frame is flat")
+
+    args = interactive_viewer.parse_args(["--ckpt", ckpt, "--width", str(MAIN_W), "--height", str(MAIN_H)])
+    viewer = interactive_viewer.build_viewer(args, dev)
+    httpd = interactive_viewer.serve(viewer, 0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    got_ms = {}
+    try:
+        port = httpd.server_address[1]
+        pan = np.zeros(3)
+        for mode in interactive_viewer.MODES:
+            url = f"http://127.0.0.1:{port}/render?az=0.8&el=0.4&r={viewer.r0}&tx=0&ty=0&tz=0&mode={mode}"
+            h0 = time.perf_counter()
+            with urllib.request.urlopen(url, timeout=120) as resp:
+                body = resp.read()
+            got_ms[mode] = (time.perf_counter() - h0) * 1e3
+            img = decode_png(body)
+            want = viewer.frame(0.8, 0.4, viewer.r0, pan, mode)
+            if img.shape != (MAIN_H, MAIN_W, 3) or not np.array_equal(img, want):
+                raise AssertionError(f"17d interactive viewer: the {mode} frame served differs from Viewer.frame's")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    log(f"17d simple_viewer: {len(imgs)} frames of {MAIN_W}x{MAIN_H} in {view_s:.2f} s, read back; "
+        f"interactive viewer on 127.0.0.1 ({MAIN_W}x{MAIN_H}, the 17c checkpoint, binned budget "
+        f"{viewer.render.capacity}): each mode's GET equal to Viewer.frame's, "
+        f"{', '.join(f'{k} {v:.1f} ms' for k, v in got_ms.items())} a request (card: {smi})")
+
+
+def phase_apps_scripts(smi, dev, data, ckpt, out_dir):
+    """17e: scripts/torch_profiling.py and scripts/torch_compress_eval.py as
+    subprocesses (a nonzero exit fails the phase)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    csv_path = os.path.join(out_dir, "compression.csv")
+    cpu = ["--cpu"] if dev.type == "cpu" else []
+    cmds = {
+        "torch_profiling": ["--scene-grid", str(MAIN_GRID), "--resolutions", f"{MAIN_W}x{MAIN_H}", *cpu],
+        "torch_compress_eval": ["--ckpt", ckpt, "--data-dir", data, "--out-csv", csv_path, *cpu],
+    }
+    outs = {}
+    for name, argv in cmds.items():
+        t0 = time.perf_counter()
+        p = subprocess.run([sys.executable, os.path.join(root, "scripts", f"{name}.py"), *argv], cwd=root,
+                           capture_output=True, text=True)
+        outs[name] = p.stdout
+        if p.returncode != 0:
+            raise AssertionError(f"17e scripts/{name}.py exited {p.returncode}:\n{p.stdout[-3000:]}\n{p.stderr[-3000:]}")
+        log(f"17e scripts/{name}.py ({time.perf_counter() - t0:.1f} s): "
+            + " | ".join(line for line in p.stdout.splitlines()[-4:] if line.strip()) + f" (card: {smi})")
+    rows = [line for line in open(csv_path).read().splitlines() if line and not line.startswith("#")]
+    if len(rows) != 4 or (dev.type == "cuda" and "rasterize_tiled_fwd" not in outs["torch_profiling"]):
+        raise AssertionError(f"17e: the CSV's rows {rows}; the profiling's auto backend did not launch the tiled "
+                             "forward")
+
+
+def phase_apps(smi, data, dev=None):
+    """Phase 17: the apps on the card (17a-e; ``dev`` the CPU only to
+    rehearse it). The launch counts are set to 0 before and read after (the
+    scripts' subprocesses count their own). Returns {kernel: launches in
+    this phase}."""
+    import shutil
+
+    import torch
+    from gsplat_tpu_torch import _backend
+
+    dev = torch.device("cuda") if dev is None else dev
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_apps")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+    try:
+        _backend.reset_launch_counts()
+        phase_apps_compression(smi, dev, out_dir)
+        weights = phase_apps_lpips(smi, dev, out_dir)
+        ckpt, compressed_eval = phase_apps_trainer(smi, dev, data, out_dir, weights["alex"])
+        phase_apps_viewers(smi, dev, out_dir, ckpt)
+        _sync(torch, dev)
+        launches = _backend.launch_counts()
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()  # the scripts' processes share the card
+        phase_apps_scripts(smi, dev, data, ckpt, out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+        shutil.rmtree(colmap_root(), ignore_errors=True)
+    missing = [k for k in APPS_TRAIN_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"phase 17: kernels {missing} were not launched")
+    log(f"launches in the apps path (17a-d): {launches}; of them the compressed eval's {compressed_eval}")
+    return launches
+
+
 def main():
     smi = phase_device()
     import torch
@@ -4467,11 +4870,15 @@ def main():
         if train_dist_launches.get(k["name"], 0):
             k["launches_distributed_training"] = train_dist_launches[k["name"]]
     t12 = time.perf_counter()
+    apps_launches = phase_apps(smi, os.path.join(colmap_root(), "scene"))
+    for k in kernels:
+        k["launches_apps"] = apps_launches.get(k["name"], 0)
+    t13 = time.perf_counter()
     log(f"phase wall times: build + kernel vs plain {t1 - t0:.1f} s, serving {t2 - t1:.1f} s, "
         f"training {t3 - t2:.1f} s, 2DGS training {t4 - t3:.1f} s, 2DGS serving {t5 - t4:.1f} s, "
         f"tiled serving and training {t6 - t5:.1f} s, op API {t7 - t6:.1f} s, MCMC training {t8 - t7:.1f} s, "
         f"COLMAP trainer {t9 - t8:.1f} s, micro-benchmarks {t10 - t9:.1f} s, multi-GPU rendering {t11 - t10:.1f} s, "
-        f"multi-GPU training {t12 - t11:.1f} s")
+        f"multi-GPU training {t12 - t11:.1f} s, apps {t13 - t12:.1f} s")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {smi}")
     print(json.dumps({

@@ -40,19 +40,25 @@ math (``csrc/mb_inner_math.cu``). Slice 18 is multi-GPU training: both
 trainers with ``distributed`` (and ``packed``) over a ``torch.distributed``
 group, one process a rank, the pool sharded by rows as the JAX trainer's
 mesh shards it (``simple_trainer.py``; the collectives in
-``distributed.py``).
+``distributed.py``). Slice 19 is the apps and extras, plain PyTorch and
+numpy over the same kernels: PNG compression (``compression/``:
+``PngCompression`` with its K-means in torch, the sort), the LPIPS metric
+(``lpips.py``), the profiler (``profile.py``), the trainer's
+``compression="png"`` and ``lpips_weights``, and the viewers
+(``simple_viewer.py``, ``interactive_viewer.py``).
 
 Functions run on the device of their input tensors: CUDA tensors go
 through the kernels, CPU tensors through each kernel's plain PyTorch
 version; entry points that make tensors run on the card unless asked for
-the CPU. Not ported yet, and raising NotImplementedError: the trainer's
-LPIPS metric and PNG compression, undistortion and resizing in the
-dataset.
+the CPU. Not ported yet (ROADMAP Queue 1 item 7, the dataset extras):
+undistortion and resizing in the dataset raise NotImplementedError, and
+a JPEG without PIL raises RuntimeError.
 """
 
 from ._helper import load_test_data
 from .version import __version__
 from .checkpoint import splats_from_numpy
+from .compression import PngCompression
 from .losses import l1, psnr, ssim, train_loss
 from .ops import (
     Isect,
@@ -147,5 +153,6 @@ __all__ = [
     "Strategy",
     "DefaultStrategy",
     "MCMCStrategy",
+    "PngCompression",
     "__version__",
 ]

@@ -3,7 +3,9 @@
 
 The reader takes 8-bit, non-interlaced PNGs of grey, grey + alpha, RGB and
 RGBA pixels and returns RGB (grey repeated, alpha dropped, as PIL's
-``convert("RGB")`` does). It undoes all five row filters. Where every row
+``convert("RGB")`` does), or with ``as_stored=True`` the channels as the
+file stores them (grey [H, W], grey + alpha, RGB and RGBA [H, W, 2 | 3 |
+4], what ``np.asarray(PIL.Image.open(path))`` gives). It undoes all five row filters. Where every row
 is None, Sub (a wrapping cumulative sum along the row) or Up (one add of
 the row above), each row is a few whole-row numpy operations. Average and
 Paeth depend on the pixel to the left as reconstructed; an image with such
@@ -12,7 +14,8 @@ each (width + height - 1 steps): several times an Up-filtered decode, but
 no loop over its pixels.
 
 The writer filters every row with Up unless asked for another filter, so
-that its files decode with whole-row operations. Other formats (JPEG) go
+that its files decode with whole-row operations; `encode_png` returns the
+same file's bytes in memory. Other formats (JPEG) go
 through PIL where it can be imported; without it ``load_image`` raises a
 ``RuntimeError`` that names the missing decoder.
 """
@@ -113,10 +116,16 @@ def _unfilter_wavefront(kinds: np.ndarray, filt: np.ndarray, bpp: int) -> np.nda
     return out.reshape(height, stride)
 
 
-def read_png(path: str) -> np.ndarray:
-    """An 8-bit, non-interlaced PNG as RGB uint8 [H, W, 3]."""
+def read_png(path: str, as_stored: bool = False) -> np.ndarray:
+    """An 8-bit, non-interlaced PNG as RGB uint8 [H, W, 3]; with
+    ``as_stored`` its channels as stored: [H, W] grey, [H, W, 2 | 3 | 4]
+    grey + alpha, RGB or RGBA."""
     with open(path, "rb") as f:
-        data = f.read()
+        return decode_png(f.read(), as_stored, path)
+
+
+def decode_png(data: bytes, as_stored: bool = False, path: str = "<bytes>") -> np.ndarray:
+    """`read_png` of a PNG file's bytes (``path`` names it in errors)."""
     if not data.startswith(PNG_SIGNATURE):
         raise ValueError(f"{path} is not a PNG file")
     header, idat = None, []
@@ -140,6 +149,8 @@ def read_png(path: str) -> np.ndarray:
     if raw.size != height * (width * ch + 1):
         raise ValueError(f"{path}: {raw.size} bytes of pixel data for {width}x{height}x{ch}")
     img = _unfilter(raw, height, width * ch, ch, path).reshape(height, width, ch)
+    if as_stored:
+        return img[..., 0] if ch == 1 else img
     if ch <= 2:
         return np.repeat(img[..., :1], 3, axis=2)
     return np.ascontiguousarray(img[..., :3])
@@ -173,13 +184,13 @@ def _filter_rows(rows: np.ndarray, bpp: int, filter_type: int) -> np.ndarray:
     return ((x - pred) & 0xFF).astype(np.uint8)
 
 
-def write_png(path: str, img: np.ndarray, filter_type: int = 2) -> int:
-    """Write uint8 [H, W] grey or [H, W, 3 | 4] RGB(A) as a PNG whose rows
-    all carry `filter_type` (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth).
-    Returns the file's size in bytes."""
+def encode_png(img: np.ndarray, filter_type: int = 2) -> bytes:
+    """uint8 [H, W] grey or [H, W, 2 | 3 | 4] grey + alpha or RGB(A) as the
+    bytes of a PNG file whose rows all carry `filter_type` (0 None, 1 Sub,
+    2 Up, 3 Average, 4 Paeth)."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
-        raise ValueError(f"write_png takes uint8 pixels, got {img.dtype}")
+        raise ValueError(f"a PNG takes uint8 pixels, got {img.dtype}")
     if filter_type not in range(5):
         raise ValueError(f"filter_type must be 0-4, got {filter_type}")
     if img.ndim == 2:
@@ -196,6 +207,13 @@ def write_png(path: str, img: np.ndarray, filter_type: int = 2) -> int:
         + _chunk(b"IDAT", zlib.compress(filt.tobytes(), 6))
         + _chunk(b"IEND", b"")
     )
+    return body
+
+
+def write_png(path: str, img: np.ndarray, filter_type: int = 2) -> int:
+    """Write `encode_png(img, filter_type)` to `path`. Returns the file's
+    size in bytes."""
+    body = encode_png(img, filter_type)
     with open(path, "wb") as f:
         f.write(body)
     return len(body)

@@ -12,6 +12,11 @@ reads a COLMAP directory (``datasets.Parser`` / ``Dataset``, the split
 ``val_step{N}.json`` at ``eval_steps``, ``ckpt_{N}.npz`` and
 ``splats_{N}.ply`` at ``save_steps``, and with ``render_traj`` a
 fly-through (an mp4 where imageio can write one, else ``_frames.npz``).
+With ``compression="png"`` each save also compresses the live splats
+(`compression.PngCompression`) into ``compression_{N}/``, evaluates the
+round trip and writes ``compression_{N}/report.json``; with
+``lpips_weights`` (an ``.npz`` or a torch checkpoint, `lpips.load_lpips_params`)
+the evaluation adds ``"lpips"`` (``lpips_net`` alex or vgg).
 The `Runner` constructor itself takes in-memory views, each a dict with
 the keys ``Dataset`` items have (``image`` float [H, W, 3] in [0, 1],
 ``camtoworld`` [4, 4], ``K`` [3, 3], ``image_id``; ``points`` /
@@ -56,8 +61,6 @@ pool growth run the single-device code on the whole pool on rank 0 and
 scatter the rows back. Rank 0 alone writes the result directory, and a
 checkpoint is the single-device one (`save` gathers, `load` slices).
 
-Not ported yet, and refused with NotImplementedError: ``lpips_weights``
-and ``compression``.
 ``tb_every`` / ``tb_save_image`` are accepted and write nothing, as the
 JAX trainer does where TensorBoard cannot be imported; the port does not
 depend on it. The 2DGS trainer (simple_trainer_2dgs.py)
@@ -92,6 +95,8 @@ from .strategy.mcmc import check_pool
 from .utils import save_ply
 
 P_MAX = 4096  # a view's points read by the depth loss
+# the fields run_compression compresses, in the JAX trainer's order
+COMPRESSED_KEYS = ("means", "scales", "quats", "opacities", "sh0", "shN")
 
 
 @dataclass
@@ -124,7 +129,9 @@ class Config:
     backend: str = "auto"
     random_bkgd: bool = False
     white_bkgd: bool = False
-    lpips_weights: str = ""  # not ported yet: must stay empty
+    # an LPIPS weights file (.npz or a torch checkpoint): eval adds "lpips";
+    # a missing file is reported and eval scores without it, as in JAX
+    lpips_weights: str = ""
     lpips_net: str = "alex"
     opacity_reg: float = 0.0
     scale_reg: float = 0.0
@@ -170,7 +177,7 @@ class Config:
     resume: str = ""  # a ckpt_*.npz to resume from
     render_traj: bool = False
     render_traj_path: str = "interp"  # or "ellipse"
-    compression: str = ""  # not ported yet: must stay empty
+    compression: str = ""  # "png": compress the live splats at every save
     tb_every: int = 100  # no TensorBoard writer: inert
     tb_save_image: bool = False  # no TensorBoard writer: inert
     # pool management
@@ -196,13 +203,6 @@ class Config:
             self.reset_every = int(self.reset_every * s)
             self.refine_every = int(self.refine_every * s)
             self.sh_degree_interval = int(self.sh_degree_interval * s)
-
-
-# fields whose paths are not ported yet: a set value raises
-NOT_PORTED = {
-    "lpips_weights": "the LPIPS metric (ROADMAP Queue 1 item 6)",
-    "compression": "PNG compression (ROADMAP Queue 1 item 6)",
-}
 
 
 def parse_config(argv: Optional[Sequence[str]] = None) -> Config:
@@ -408,9 +408,6 @@ class Runner:
             raise ValueError(f"backend must be 'auto', 'binned', 'tiled' or 'oracle', got {cfg.backend!r}")
         if cfg.strategy_name not in ("default", "mcmc"):
             raise ValueError(f"strategy_name must be 'default' or 'mcmc', got {cfg.strategy_name!r}")
-        for name, what in NOT_PORTED.items():
-            if getattr(cfg, name):
-                raise NotImplementedError(f"--{name.replace('_', '-')}: {what} is not ported yet")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.group = group
@@ -480,6 +477,7 @@ class Runner:
         self._live_hist = []  # (step, n_live) whenever the count changed, for the growth projection
         self._resumed_budget = False  # True once `load` restored a checkpoint's intersection budget
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
+        self._lpips_params = None  # loaded from cfg.lpips_weights at the first eval
 
     @property
     def distributed(self) -> bool:
@@ -1029,6 +1027,8 @@ class Runner:
             self._log(f"resume step {start_step} >= max_steps: eval-only mode")
             if cfg.render_traj:
                 self.render_traj(start_step)
+            if cfg.compression:
+                self.run_compression(start_step)
             return []
         t0 = time.time()
         outs = []
@@ -1049,6 +1049,8 @@ class Runner:
                     self.render_traj(step + 1)
             if step + 1 in cfg.save_steps and self.result_dir is not None:
                 self.save(step + 1)
+                if cfg.compression:
+                    self.run_compression(step + 1)
         self._log(f"training done in {(time.time() - t0) / 60:.1f} min")
         return outs
 
@@ -1062,10 +1064,86 @@ class Runner:
         return self._rasterize(torch.linalg.inv(camtoworlds), Ks, width, height, colors, sh, self.isect_capacity)
 
     @torch.no_grad()
+    def run_compression(self, step: int) -> Dict:
+        """Compress the live splats into ``compression_{step}/``
+        (`PngCompression`, its K-means on the runner's device), evaluate
+        the round trip (`eval_round_trip`) and write the evaluation with the
+        directory's size to ``compression_{step}/report.json``, as the JAX
+        trainer's ``run_compression`` does. Distributed, every rank calls
+        it. Returns the report."""
+        from .compression import PngCompression
+
+        if self.cfg.compression != "png":
+            raise ValueError(f"compression must be 'png', got {self.cfg.compression!r}")
+        if self.result_dir is None:
+            raise ValueError("run_compression needs a result directory (Runner.from_colmap)")
+        cdir = os.path.join(self.result_dir, f"compression_{step}")
+        size, stats = self.eval_round_trip(PngCompression(device=str(self.device)), cdir, step)
+        report = {"step": step, "size_bytes": size, **stats}
+        if self._writes:
+            with open(os.path.join(cdir, "report.json"), "w") as f:
+                json.dump(report, f)
+        self._log("COMPRESSION " + json.dumps(report))
+        return report
+
+    @torch.no_grad()
+    def eval_round_trip(self, comp, cdir: str, step: int):
+        """``comp.compress`` the live splats into ``cdir``, put
+        ``comp.decompress(cdir)`` into the pool in their place (the first n
+        slots live), `eval`, and put the pool back. Distributed, every rank
+        calls it: rank 0 compresses the gathered pool and scatters the
+        round trip. Returns (the directory's bytes, rank 0's; the
+        evaluation)."""
+        keys = [k for k in COMPRESSED_KEYS if k in self.params]
+        whole = self._gather_pool()
+        saved = {k: p.detach().clone() for k, p in self.params.items()}
+        saved_live = self.live
+        size, restored = 0, {}
+        if self.rank == 0:
+            live = whole["live"]
+            comp.compress(cdir, {k: whole[f"splat/{k}"][live] for k in keys})
+            size = sum(os.path.getsize(os.path.join(cdir, f)) for f in os.listdir(cdir))
+            cap, back = live.shape[0], comp.decompress(cdir)
+            for k, v in back.items():
+                restored[k] = torch.zeros((cap,) + v.shape[1:], dtype=torch.float32, device=self.device)
+                restored[k][: v.shape[0]] = torch.as_tensor(v, device=self.device)
+            restored["live"] = torch.arange(cap, device=self.device) < back["means"].shape[0]
+        if self.distributed:
+            rows = self.live.shape[0]
+            restored = {k: scatter_rows(restored.get(k), rows, self.live if k == "live" else self.params[k].detach(),
+                                        self.group) for k in keys + ["live"]}
+        for k, v in restored.items():
+            if k == "live":
+                self.live = v
+            else:
+                self.params[k].copy_(v)
+        try:
+            stats = self.eval(step)
+        finally:
+            for k, v in saved.items():
+                self.params[k].copy_(v)
+            self.live = saved_live
+        return int(size), stats
+
+    def _lpips(self):
+        """The LPIPS weights of ``cfg.lpips_weights`` on the runner's device
+        (None without them; a missing file is reported at each eval, as the
+        JAX trainer does)."""
+        if self._lpips_params is None and self.cfg.lpips_weights:
+            from .lpips import load_lpips_params
+
+            self._lpips_params = load_lpips_params(self.cfg.lpips_weights, self.cfg.lpips_net, device=self.device)
+            if self._lpips_params is None:
+                self._log(f"[eval] LPIPS weights not found: {self.cfg.lpips_weights}")
+        return self._lpips_params
+
+    @torch.no_grad()
     def eval(self, step: int) -> Dict:
-        """PSNR and SSIM over the validation views (a view's pixel mask
-        applied to the render); written to ``val_step{step}.json``."""
-        psnrs, ssims = [], []
+        """PSNR and SSIM (and LPIPS with ``lpips_weights``) over the
+        validation views (a view's pixel mask applied to the render);
+        written to ``val_step{step}.json``."""
+        psnrs, ssims, lpipss = [], [], []
+        lpips_params = self._lpips()
         t0 = time.time()
         for view in self.valset:
             pixels, camtoworlds, Ks = self._as_batch([view])
@@ -1078,6 +1156,13 @@ class Runner:
             render = torch.clamp(render, 0.0, 1.0)
             psnrs.append(float(psnr_fn(render, pixels)))
             ssims.append(float(ssim_fn(render, pixels)))
+            if lpips_params is not None:
+                from .lpips import lpips as lpips_fn
+
+                # alex takes [0, 1] inputs (normalize=True); vgg follows the
+                # official 3DGS convention, as the JAX trainer does
+                lpipss.append(float(lpips_fn(lpips_params, render, pixels, net_type=self.cfg.lpips_net,
+                                             normalize=self.cfg.lpips_net == "alex")))
         stats = {
             "step": step,
             "psnr": float(np.mean(psnrs)) if psnrs else math.nan,
@@ -1085,6 +1170,8 @@ class Runner:
             "num_GS": self.n_live(),
             "per_image_s": (time.time() - t0) / max(len(self.valset), 1),
         }
+        if lpipss:
+            stats["lpips"] = float(np.mean(lpipss))
         self._log("EVAL " + json.dumps(stats))
         if self._writes:
             with open(os.path.join(self.result_dir, f"val_step{step}.json"), "w") as f:

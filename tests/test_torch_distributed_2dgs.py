@@ -24,10 +24,12 @@ import pytest
 import torch_dist_cases as T
 from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
+T.start_references()
+
 
 @pytest.fixture(scope="module")
-def port(tmp_path_factory):
-    res = T.port_results(tmp_path_factory)
+def port():
+    res = T.port_results()
     assert "__error__" not in res, res.get("__error__")
     return res
 

@@ -1,8 +1,9 @@
 """The port as a package: what it imports, where it runs, what it refuses.
 
-- importing gsplat_tpu_torch loads neither jax nor gsplat_tpu, and no source
-  of the package (datasets/ included), chip_smoke.py or the port's
-  scripts/torch_*.py imports them; the package exports the JAX package's names;
+- importing gsplat_tpu_torch loads neither jax nor gsplat_tpu (the apps,
+  compression/, lpips and profile included), and no source of the package
+  (datasets/ included), chip_smoke.py or the port's scripts/torch_*.py
+  imports them; the package exports the JAX package's names;
 - functions run on the device of their inputs and refuse mixed devices;
   splats_from_numpy defaults to CUDA and raises without it;
 - multi-GPU rendering and training (both trainers' ``distributed``)
@@ -57,6 +58,8 @@ def test_import_loads_no_jax():
         "import gsplat_tpu_torch.datasets.synth, gsplat_tpu_torch.bilagrid, gsplat_tpu_torch.image_fitting\n"
         "import gsplat_tpu_torch.microbench.vpu_calib, gsplat_tpu_torch.microbench.primitives\n"
         "import gsplat_tpu_torch.microbench.kernel_shapes, gsplat_tpu_torch.microbench.fwd_breakdown\n"
+        "import gsplat_tpu_torch.compression.sort, gsplat_tpu_torch.lpips, gsplat_tpu_torch.profile\n"
+        "import gsplat_tpu_torch.simple_viewer, gsplat_tpu_torch.interactive_viewer\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m == 'gsplat_tpu' or m.startswith('gsplat_tpu.'))\n"
         "assert not bad, bad\n"
@@ -96,12 +99,12 @@ def test_source_imports_no_jax(path):
 
 
 def test_exports_match_jax_names():
-    """Every name the JAX package exports, under the same name, but the PNG
-    compression (ROADMAP Queue 1 item 6); the reference's misspelled
-    `full_fused_projection_2dgs` is the same function."""
-    missing = [n for n in gsplat_tpu.__all__ if n != "PngCompression" and not hasattr(gsplat_tpu_torch, n)]
+    """Every name the JAX package exports, under the same name; the
+    reference's misspelled `full_fused_projection_2dgs` is the same
+    function."""
+    missing = [n for n in gsplat_tpu.__all__ if not hasattr(gsplat_tpu_torch, n)]
     assert not missing, missing
-    assert set(gsplat_tpu.__all__) - {"PngCompression"} <= set(gsplat_tpu_torch.__all__)
+    assert set(gsplat_tpu.__all__) <= set(gsplat_tpu_torch.__all__)
     assert gsplat_tpu_torch.full_fused_projection_2dgs is gsplat_tpu_torch.fully_fused_projection_2dgs
 
 

@@ -23,6 +23,9 @@ cotangents. Tolerances:
 - the plain versions' loop split: within f32 rounding of the default.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 
@@ -41,6 +44,7 @@ from gsplat_tpu_torch.ops import rasterize_2dgs_binned as r2
 from gsplat_tpu_torch.ops import rasterize_binned as trb
 from gsplat_tpu_torch.ops.rasterize import rasterize_to_pixels_2dgs
 from gsplat_tpu_torch.ops.rasterize_2dgs_ref import rasterize_to_pixels_2dgs_ref
+import torch_prefetch as prefetch
 from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 N, C, W, H, CAP = 300, 2, 64, 48, 16384
@@ -126,17 +130,36 @@ def _jax_oracle(scene, ts):
     return _ORACLES[ts]
 
 
+def _jax_refs():
+    """JAX's oracle at tile sizes 16 and 32 and its binned backend at both,
+    on _scene(0): {("oracle" | "binned", ts): (outputs, gradients)}."""
+    scene = _scene(0)
+    bg = jnp.asarray(scene["bg"])
+    refs = {("oracle", ts): _jax_oracle(scene, ts) for ts in (16, 32)}
+    refs.update({("binned", ts): _jax(scene, jax_binned, ts, capacity=CAP, backgrounds=bg) for ts in (16, 32)})
+    return refs
+
+
+# computed once per session in the background from collection on
+# (tests/torch_prefetch.py): the eager oracle alone takes ~1 min
+prefetch.start("rasterize_2dgs_refs", [os.path.abspath(__file__), "--refs"])
+
+
 @pytest.fixture(scope="module")
-def jax_oracle(scene):
-    return _jax_oracle(scene, 16)
+def jax_refs():
+    return prefetch.result("rasterize_2dgs_refs")
+
+
+@pytest.fixture(scope="module")
+def jax_oracle(jax_refs):
+    return jax_refs[("oracle", 16)]
 
 
 @pytest.fixture(scope="module", params=[16, 32])
-def jax_binned_ref(scene, request):
+def jax_binned_ref(jax_refs, request):
     """(ts, JAX binned, JAX oracle) at tile size ts."""
     ts = request.param
-    bg = jnp.asarray(scene["bg"])
-    return ts, _jax(scene, jax_binned, ts, capacity=CAP, backgrounds=bg), _jax_oracle(scene, ts)
+    return ts, jax_refs[("binned", ts)], jax_refs[("oracle", ts)]
 
 
 def _flip_gate(got, want, name):
@@ -352,3 +375,8 @@ def test_kernel_wrappers_refuse_cpu_tensors(scene):
         r2._fwd2_cuda(b.entries, b.offs, b.cnts, C, W, H, 16)
     with pytest.raises(ValueError, match="CUDA"):
         r2._bwd2_cuda(b.entries, b.offs, b.cnts, T_out, last, dist, feat, T_out, dist, C, W, H, 16)
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--refs"]:
+    prefetch.as_test_process()
+    prefetch.write(sys.argv[sys.argv.index("--out") + 1], _jax_refs())

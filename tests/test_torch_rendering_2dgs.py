@@ -18,6 +18,9 @@ versions). Tolerances:
 - depth_to_points / depth_to_normal: rtol 1e-5, atol 1e-5.
 """
 
+import os
+import sys
+
 import numpy as np
 import pytest
 
@@ -29,6 +32,7 @@ from gsplat_tpu.rendering import rasterization_2dgs as jax_r2
 from gsplat_tpu.utils import depth_to_normal as jax_d2n
 from gsplat_tpu.utils import depth_to_points as jax_d2p
 from gsplat_tpu_torch import depth_to_normal, depth_to_points, rasterization_2dgs
+import torch_prefetch as prefetch
 from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
 N, C, W, H, CAP = 200, 2, 48, 32, 8192
@@ -82,13 +86,26 @@ def _kw(s, kw, conv):
     return {k: conv(s[v]) if isinstance(v, str) and v in s else v for k, v in kw.items()}
 
 
-@pytest.fixture(scope="module")
-def jax_outputs(scene):
+def _jax_outputs():
+    """JAX's oracle outputs (and meta, as numpy) of every case on
+    _inputs(0)."""
+    scene = _inputs(0)
     out = {}
     for name, (colors, kw) in CASES.items():
         o = jax_r2(*_args(scene, colors, jnp.asarray), backend="oracle", **_kw(scene, kw, jnp.asarray))
-        out[name] = [None if x is None else np.asarray(x) for x in o[:6]] + [o[6]]
+        meta = {k: np.asarray(v) if hasattr(v, "shape") else v for k, v in o[6].items()}
+        out[name] = [None if x is None else np.asarray(x) for x in o[:6]] + [meta]
     return out
+
+
+# computed once per session in the background from collection on
+# (tests/torch_prefetch.py)
+prefetch.start("rendering_2dgs_outputs", [os.path.abspath(__file__), "--outputs"])
+
+
+@pytest.fixture(scope="module")
+def jax_outputs():
+    return prefetch.result("rendering_2dgs_outputs")
 
 
 def _flip_gate(got, want, name):
@@ -138,24 +155,41 @@ def _grad_close(got, want, name):
     assert d.max() <= 0.05 * s, f"{name}: max abs {d.max():.3e} against scale {s:.3e}"
 
 
+GRAD_DIFF = ("means", "quats", "scales", "opacities", "sh")
+GRAD_KW = dict(sh_degree=3, render_mode="RGB+ED", distloss=True)
+
+
+def _jax_gradients():
+    """The seeded output weights and JAX's oracle gradients (eager) of the
+    weighted outputs w.r.t. GRAD_DIFF and the densify carrier, on
+    _inputs(0)."""
+    scene = _inputs(0)
+    rng = np.random.default_rng(5)
+    ws = [rng.standard_normal(shape).astype(np.float32)
+          for shape in ((C, H, W, 4), (C, H, W, 1), (C, H, W, 3), (C, H, W, 3), (C, H, W, 1))]
+
+    def jloss(means, quats, scales, opac, sh, carrier):
+        o = jax_r2(means, quats, scales, opac, sh, jnp.asarray(scene["viewmats"]), jnp.asarray(scene["Ks"]),
+                   W, H, backend="oracle", densify_carrier=carrier, **GRAD_KW)
+        return sum(jnp.sum(x * w) for x, w in zip((o[0], o[1], o[2], o[3], o[4]), ws))
+
+    want = jax.grad(jloss, argnums=tuple(range(6)))(
+        *[jnp.asarray(scene[k]) for k in GRAD_DIFF], jnp.zeros((C, N, 2), jnp.float32)
+    )
+    return ws, [np.asarray(w) for w in want]
+
+
+# computed once per session in the background from collection on
+# (tests/torch_prefetch.py): JAX's eager gradients take ~1 min
+prefetch.start("rendering_2dgs_gradients", [os.path.abspath(__file__), "--gradients"])
+
+
 def test_rasterization_2dgs_gradients_match_jax(scene):
     """Gradients through projection, SH, the rasterizer (distortion on) and
     the world rotation of the normals, w.r.t. the splats and the densify
     carrier, on both port backends against JAX's oracle."""
-    rng = np.random.default_rng(5)
-    ws = [rng.standard_normal(shape).astype(np.float32)
-          for shape in ((C, H, W, 4), (C, H, W, 1), (C, H, W, 3), (C, H, W, 3), (C, H, W, 1))]
-    diff = ("means", "quats", "scales", "opacities", "sh")
-    kw = dict(sh_degree=3, render_mode="RGB+ED", distloss=True)
-
-    def jloss(means, quats, scales, opac, sh, carrier):
-        o = jax_r2(means, quats, scales, opac, sh, jnp.asarray(scene["viewmats"]), jnp.asarray(scene["Ks"]),
-                   W, H, backend="oracle", densify_carrier=carrier, **kw)
-        return sum(jnp.sum(x * w) for x, w in zip((o[0], o[1], o[2], o[3], o[4]), ws))
-
-    want = jax.grad(jloss, argnums=tuple(range(6)))(
-        *[jnp.asarray(scene[k]) for k in diff], jnp.zeros((C, N, 2), jnp.float32)
-    )
+    ws, want = prefetch.result("rendering_2dgs_gradients")
+    diff, kw = GRAD_DIFF, GRAD_KW
     for backend in ("oracle", "binned"):
         leaves = [torch.tensor(scene[k], requires_grad=True) for k in diff]
         carrier = torch.zeros((C, N, 2), requires_grad=True)
@@ -213,3 +247,9 @@ def test_rasterization_2dgs_options_and_refusals(scene):
         rasterization_2dgs(*args, render_mode="RGB+D", depth_mode="mean")
     with pytest.raises(ValueError, match="render_mode"):
         rasterization_2dgs(*args, render_mode="N")
+
+
+if __name__ == "__main__" and sys.argv[1:2] in (["--gradients"], ["--outputs"]):
+    prefetch.as_test_process()
+    make = _jax_gradients if sys.argv[1] == "--gradients" else _jax_outputs
+    prefetch.write(sys.argv[sys.argv.index("--out") + 1], make())

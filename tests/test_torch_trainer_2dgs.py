@@ -51,6 +51,7 @@ from gsplat_tpu_torch import rasterization, rasterization_2dgs
 from gsplat_tpu_torch import simple_trainer as st
 from gsplat_tpu_torch.simple_trainer_2dgs import Runner2DGS
 
+import torch_prefetch as prefetch
 from test_torch_trainer import _ROOT, _c2w, _jax_trainer
 from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 
@@ -185,8 +186,7 @@ def _runner(backend, views, pts, rgb):
     return runner
 
 
-@pytest.fixture(scope="module")
-def three_steps():
+def _three_steps():
     """The scene and JAX's three steps from the runners' common initial
     state (create_splats does not depend on the backend)."""
     pts, rgb, views = _scene(2)
@@ -196,6 +196,16 @@ def three_steps():
                                      torch.from_numpy(views[0]["K"])[None], W, H)
     assert float(alphas.min()) > 0  # every pixel covered (see the docstring)
     return (pts, rgb, views), _jax_steps(runner, 3)
+
+
+# computed once per session in the background from collection on
+# (tests/torch_prefetch.py): JAX's steps run op by op, ~1 min alone
+prefetch.start("three_steps_2dgs", [os.path.abspath(__file__), "--three-steps"])
+
+
+@pytest.fixture(scope="module")
+def three_steps():
+    return prefetch.result("three_steps_2dgs")
 
 
 @pytest.mark.parametrize("backend", ["oracle", "binned"])
@@ -266,3 +276,8 @@ def test_runner2dgs_needs_cuda_unless_cpu(monkeypatch):
     runner = Runner2DGS(st.Config(), views, pts, rgb, scene_scale=1.0, device="cpu")
     assert runner.params["means"].device.type == "cpu"
     assert (runner.normal_start, runner.dist_start) == (7000, 3000)
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--three-steps"]:
+    prefetch.as_test_process()
+    prefetch.write(sys.argv[sys.argv.index("--out") + 1], _three_steps())

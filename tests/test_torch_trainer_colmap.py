@@ -28,8 +28,9 @@ image ids run 1-5 against 5 table rows, so id 5 reads the clamped row).
 - The command line end to end on the CPU (main), 3DGS and 2DGS, writes
   cfg.json, stats.jsonl, val_step*.json, ckpt_*.npz, splats_*.ply and the
   fly-through; a JAX trainer checkpoint loads in the eval-only mode.
-- The flags not ported yet raise NotImplementedError; distributed (and
-  packed) without a process group raises RuntimeError.
+- distributed (and packed) without a process group raises RuntimeError;
+  a missing LPIPS weights file is reported and skipped as in JAX;
+  compression="png" runs and another value raises ValueError.
 """
 
 import dataclasses
@@ -385,18 +386,31 @@ def test_auto_backend_resolves_by_device(tmp_path):
 
 @pytest.mark.parametrize("flag,value", [("distributed", True), ("packed", True), ("lpips_weights", "w.npz"),
                                         ("compression", "png")])
-def test_unported_flags_raise(tmp_path, flag, value):
-    """lpips_weights and compression are not ported and raise
-    NotImplementedError. Multi-GPU training is ported (its cases:
-    test_torch_trainer_distributed.py): ``distributed``, and ``packed``,
-    which takes effect with it, raise without a process group, naming
-    init_process_group, and never train on one device instead."""
+def test_flags_behave_as_jax(tmp_path, capsys, flag, value):
+    """The flags that raised until their slices. Multi-GPU training (its
+    cases: test_torch_trainer_distributed.py): ``distributed``, and
+    ``packed``, which takes effect with it, raise without a process group,
+    naming init_process_group, and never train on one device instead.
+    ``lpips_weights`` naming a missing file: eval prints the JAX trainer's
+    message and scores without LPIPS, as the JAX trainer does (the metric
+    with weights: test_torch_apps.py). ``compression="png"`` compresses and
+    evaluates the round trip (compression_{step}/report.json); another
+    value raises ValueError where the JAX trainer asserts."""
     if flag in ("distributed", "packed"):
         with pytest.raises(RuntimeError, match="init_process_group"):
             _port_runner(tmp_path, **{"distributed": True, flag: value})
         return
-    with pytest.raises(NotImplementedError, match="not ported"):
-        _port_runner(tmp_path, **{flag: value})
+    if flag == "lpips_weights":
+        path = str(tmp_path / value)
+        stats = _port_runner(tmp_path, lpips_weights=path).eval(0)
+        assert f"[eval] LPIPS weights not found: {path}" in capsys.readouterr().out
+        assert "lpips" not in stats and np.isfinite(stats["psnr"])
+        return
+    report = _port_runner(tmp_path, compression=value, backend="binned").run_compression(0)
+    assert json.load(open(tmp_path / "compression_0" / "report.json")) == report
+    assert report["size_bytes"] > 0 and report["num_GS"] == 289 and np.isfinite(report["psnr"])
+    with pytest.raises(ValueError, match="compression must be 'png'"):
+        _port_runner(tmp_path, compression="zip").run_compression(0)
 
 
 def _state(runner):

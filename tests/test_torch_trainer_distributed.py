@@ -36,7 +36,14 @@ every step, so each comparison is of the whole pool:
   against one device: 0.24%, 0.70%, 1.81%), none past 2.5 x the
   learning rate, and no moment past 2%, 3% and 30% of its largest
   |value| (the port: 1.18%, 1.56%, 25.4%, the last from three surfels
-  that part at step 2, where JAX's own layouts stay within 2.6%); the
+  that part at step 2, where JAX's own layouts stay within 2.6%; its
+  oracle backend parts as far). A float64 run of the port's oracle from
+  the same state (`python tests/torch_dist_trainer_cases.py --witness
+  jax-2dgs`) puts every float32 run, JAX's two layouts included, 24-27%
+  of a moment's largest value from it at step 2: float32 rounding that
+  Adam amplifies on a few edge-on surfels, not a fault of the port
+  (ROADMAP Queue 1 item 5b); JAX's layouts agree with each other because
+  they share each term's rounding. The
   pose module's 45 values by that cap alone (22% and 36% of them past
   the tolerance at steps 1-2; JAX's own layouts 11% and 29%). The port's
   4 ranks hold its single-device runner at the strict tolerances below.
@@ -72,15 +79,18 @@ from torch_exp_warmup import one_torch_thread  # noqa: F401 (an autouse fixture)
 from torch_synth_scene import scene_dir
 
 
-def _port(tmp_path_factory):
-    res = T.port_results(tmp_path_factory)
+T.start_references()
+
+
+def _port():
+    res = T.port_results()
     assert "__error__" not in res, res.get("__error__")
     return res
 
 
 @pytest.fixture(scope="module")
-def port(tmp_path_factory):
-    return _port(tmp_path_factory)
+def port():
+    return _port()
 
 
 def _lr(lrs, key):
@@ -148,10 +158,10 @@ def compare_states(got, want, lrs, what):
 
 
 @pytest.mark.parametrize("case", ["jax-3dgs", "jax-2dgs"])
-def test_matches_jax_distributed_trainer(tmp_path_factory, case):
+def test_matches_jax_distributed_trainer(case):
     spec = T.CASES[case]
-    init, snaps = T.jax_steps(case, scene_dir())  # before the ranks' results: JAX's steps overlap their spawn
-    ranks = _port(tmp_path_factory)[case]
+    init, snaps = T.jax_results(case)
+    ranks = _port()[case]
     res = ranks[0]
     assert all(r["losses"] == res["losses"] for r in ranks)  # every rank returns the whole step's loss
     assert all(np.isfinite(res["losses"])) and res["finite"] and not any(res["refined"])

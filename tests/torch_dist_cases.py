@@ -5,10 +5,9 @@ the CPU against gsplat_tpu.distributed on a 4-device CPU mesh.
 Every case is a spec in CASES. Its inputs come from numpy with a seed, at
 tests/test_distributed.py's sizes. The port's side runs every case of both
 files in one spawn of 4 rank processes (``python tests/torch_dist_cases.py
---rank r ...``, one intra-op thread each), once per test session: the first
-test to ask takes an fcntl lock on a file in the directory that
-pytest-xdist's workers share, spawns the ranks and writes their results
-there; every other worker waits on the lock and reads them. Each rank runs
+--rank r ...``, one intra-op thread each), once per test session, started
+in the background as a test module is collected (`start_references`,
+tests/torch_prefetch.py); every test reads the one result. Each rank runs
 the case on its own shard and returns its blocks, meta and, for the
 gradient cases, its rows of the gradients of ``sum(render * wr) +
 sum(alphas)`` (2DGS: ``+ sum(normals * wn) + sum(distort)``, ``+ sum(nfd *
@@ -21,7 +20,6 @@ mode.
 from __future__ import annotations
 
 import argparse
-import fcntl
 import functools
 import os
 import pickle
@@ -33,6 +31,8 @@ import traceback
 import zlib
 
 import numpy as np
+
+import torch_prefetch as prefetch
 
 N_RANKS = 4
 SPAWN_TIMEOUT_S = 600
@@ -361,30 +361,6 @@ def spawn_ranks(script, argv, out_dir):
     return per_rank
 
 
-def once_per_session(tmp_path_factory, stem, make):
-    """``make(work_dir)``'s result, made once for the test session and
-    shared by pytest-xdist's workers: pickled to <stem>_results.pkl in
-    the directory they share, under an fcntl lock."""
-    base = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        base = base.parent  # shared by the session's workers
-    path = os.path.join(str(base), f"{stem}_results.pkl")
-    with open(os.path.join(str(base), f"{stem}_results.lock"), "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        try:
-            if not os.path.exists(path):
-                work = os.path.join(str(base), f"{stem}_ranks")
-                os.makedirs(work, exist_ok=True)
-                res = make(work)
-                with open(path + ".tmp", "wb") as f:
-                    pickle.dump(res, f)
-                os.replace(path + ".tmp", path)
-        finally:
-            fcntl.flock(lock, fcntl.LOCK_UN)
-    with open(path, "rb") as f:
-        return pickle.load(f)
-
-
 def _spawn(out_dir):
     per_rank = spawn_ranks("torch_dist_cases.py", ["--port", str(free_port())], out_dir)
     if isinstance(per_rank, dict):
@@ -392,9 +368,15 @@ def _spawn(out_dir):
     return {name: [pr[name] for pr in per_rank] for name in list(CASES) + ["world1/" + n for n in WORLD1]}
 
 
-def port_results(tmp_path_factory):
+def start_references():
+    """Start the session's 4-rank spawn in the background
+    (tests/torch_prefetch.py), when a test module is collected."""
+    prefetch.start("torch_dist", [os.path.abspath(__file__), "--session-spawn"])
+
+
+def port_results():
     """{case: [rank 0's result, ...]}, from the one spawn of the session."""
-    return once_per_session(tmp_path_factory, "torch_dist", _spawn)
+    return prefetch.result("torch_dist")
 
 
 # --- the JAX side ---------------------------------------------------------
@@ -646,7 +628,11 @@ def compare_grads(name, ranks):
             np.testing.assert_allclose(got, want, atol=GRAD_ATOL * s, rtol=GRAD_RTOL, err_msg=f"{name} grad {key}")
 
 
-if __name__ == "__main__":
+if __name__ == "__main__" and sys.argv[1:2] == ["--session-spawn"]:
+    work = os.path.join(prefetch.shared_dir(), "torch_dist_ranks")
+    os.makedirs(work, exist_ok=True)
+    prefetch.write(sys.argv[sys.argv.index("--out") + 1], _spawn(work))
+elif __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--rank", type=int, required=True)
     ap.add_argument("--port", type=int, required=True)

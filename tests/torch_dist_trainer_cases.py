@@ -7,8 +7,9 @@ Every case trains on tests/torch_synth_scene.py's scene (5 train views of
 side runs in one spawn of 4 rank processes (``python
 tests/torch_dist_trainer_cases.py --rank r ...``, one intra-op thread
 each), once per test session, through tests/torch_dist_cases.py's
-`spawn_ranks` and `once_per_session` (its fcntl lock in the directory that
-pytest-xdist's workers share). The spawn runs, in order:
+`spawn_ranks`: started in the background as the test module is collected
+(`start_references`, tests/torch_prefetch.py, with JAX's steps of both
+JAX cases). The spawn runs, in order:
 
 1. each rank's share of the single-device references and of the world-size-1
    pairs (a one-rank gloo group and the single-device runner, step by step);
@@ -36,7 +37,8 @@ import traceback
 
 import numpy as np
 
-from torch_dist_cases import N_RANKS, free_port, once_per_session, spawn_ranks
+import torch_prefetch as prefetch
+from torch_dist_cases import N_RANKS, free_port, spawn_ranks
 
 AUX_ON = dict(depth_loss=True, pose_opt=True, app_opt=True, use_bilateral_grid=True, pose_opt_lr=1e-3)
 BASE = dict(data_factor=1, tile_size=16, seed=3, eval_steps=[], save_steps=[], sh_degree=1, sh_degree_interval=1000,
@@ -402,12 +404,28 @@ def _spawn(scene, out_dir):
     return merged
 
 
-def port_results(tmp_path_factory):
+def port_results():
     """{case: [rank 0's result, ...]} and {"single/...", "world1/...": the
-    result}, from the one spawn of the session."""
-    from torch_synth_scene import scene_dir
+    result}, from the one spawn of the session (started in the background
+    by `start_references`)."""
+    return prefetch.result("torch_dist_trainer")
 
-    return once_per_session(tmp_path_factory, "torch_dist_trainer", lambda work: _spawn(scene_dir(), work))
+
+def jax_results(name):
+    """(JAX's initial state, its states after each step) of a JAX case
+    (`jax_steps`), from the session's background process that
+    `start_references` started."""
+    return prefetch.result(f"jax_steps_{name}")
+
+
+def start_references():
+    """Start the session's 4-rank spawn and JAX's steps of both JAX cases,
+    each in a background process (tests/torch_prefetch.py), when the test
+    module is collected."""
+    me = os.path.abspath(__file__)
+    prefetch.start("torch_dist_trainer", [me, "--session-spawn"])
+    for name in ("jax-3dgs", "jax-2dgs"):
+        prefetch.start(f"jax_steps_{name}", [me, "--jax-steps", name])
 
 
 # --- the JAX side -------------------------------------------------------------
@@ -540,15 +558,108 @@ def spread(name):
             print(f"{step} {what}: {reading(jv, w, lr)} | {reading(pv, w, lr)}")
 
 
-if __name__ == "__main__" and sys.argv[1:2] == ["--spread"]:
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=8"
-    import jax
+def _float64_states(name, scene, backend="oracle"):
+    """The port's single-device runner of a JAX case in float64 (from the
+    float32 initial state; the oracle's depth order the float32 depths'),
+    its states after each step."""
     import torch
 
-    jax.config.update("jax_platforms", "cpu")
-    torch.set_num_threads(1)
+    from gsplat_tpu_torch import simple_trainer as st
+    from gsplat_tpu_torch.ops import rasterize_2dgs_ref, rasterize_ref
+
+    spec = CASES[name]
+    r = prepare(make_runner(spec, scene, tempfile.mkdtemp(prefix="f64_"), backend=backend), spec,
+                port_initial_state(name, scene))
+    for p in r.params.values():
+        p.data = p.data.double()
+    for m in r.aux.values():
+        m.double()
+    order, batch = rasterize_ref.depth_rank_window, st.Runner._as_batch
+
+    def depth_rank_window(depths, start, end, *xs):
+        sel = order(depths.float(), start, end)[0]
+        return sel, [torch.gather(x, 1, sel.reshape(sel.shape + (1,) * (x.dim() - 2)).expand(sel.shape + x.shape[2:]))
+                     for x in xs]
+
+    rasterize_ref.depth_rank_window = rasterize_2dgs_ref.depth_rank_window = depth_rank_window
+    st.Runner._as_batch = lambda self, views: tuple(x.double() for x in batch(self, views))
+    dtype = torch.get_default_dtype()
+    torch.set_default_dtype(torch.float64)
+    try:
+        return run_steps(r, spec["steps"], record_every_step=True)["states"]
+    finally:
+        torch.set_default_dtype(dtype)
+        rasterize_ref.depth_rank_window = rasterize_2dgs_ref.depth_rank_window = order
+        st.Runner._as_batch = batch
+
+
+def witness(name):
+    """Prints, after each step of a JAX case, each float32 run's Adam
+    moments against the port's single-device runner in float64 (the
+    oracle, `_float64_states`): the largest error over the array's largest
+    |value|, per array and over all, for the port's single-device runner on
+    its oracle and binned backends and JAX's Runner on its mesh and on one
+    device; then each run's largest error against JAX's mesh the same
+    way. The readings behind tests/test_torch_trainer_distributed.py's
+    2DGS caps: ``python tests/torch_dist_trainer_cases.py --witness
+    jax-2dgs`` (~5 min)."""
+    from torch_synth_scene import scene_dir
+
+    scene = scene_dir()
+    spec = CASES[name]
+    sides = {"jax-mesh": jax_steps(name, scene)[1], "jax-one": jax_steps(name, scene, distributed=False)[1]}
+    for backend in ("oracle", "binned"):
+        runner = prepare(make_runner(spec, scene, tempfile.mkdtemp(prefix="f32_"), backend=backend), spec,
+                         port_initial_state(name, scene))
+        sides[f"port-{backend}"] = run_steps(runner, spec["steps"], record_every_step=True)["states"]
+    f64 = _float64_states(name, scene)
+
+    def moment(side, step, k, i):
+        states = sides[side][step]
+        return states["moments"][k][i] if side.startswith("jax") else states[f"adam/{k}/{MOMENTS[i]}"]
+
+    for step in range(spec["steps"]):
+        worst = {side: 0.0 for side in sides}
+        mesh = {side: 0.0 for side in sides if side != "jax-mesh"}
+        for k in sides["jax-mesh"][step]["params"]:
+            for i, m in enumerate(MOMENTS):
+                want = f64[step][f"adam/{k}/{m}"]
+                scale = max(float(np.abs(want).max()), 1e-30)
+                jm = moment("jax-mesh", step, k, i)
+                row = []
+                for side in sides:
+                    d = np.abs(moment(side, step, k, i) - want) / scale
+                    worst[side] = max(worst[side], float(d.max()))
+                    row.append(f"{side} {float(d.max()):.3e} (slot {int(np.argmax(d.reshape(len(d), -1).max(1)))})")
+                    if side in mesh:
+                        mesh[side] = max(mesh[side], float(np.abs(moment(side, step, k, i) - jm).max())
+                                         / max(float(np.abs(jm).max()), 1e-30))
+                print(f"step {step} {k} {m}: " + " | ".join(row))
+        print(f"step {step}, the largest from float64 over all: " + ", ".join(f"{s} {v:.4f}" for s, v in worst.items()))
+        print(f"step {step}, the largest from JAX's mesh over all: " + ", ".join(f"{s} {v:.4f}" for s, v in mesh.items()),
+              flush=True)
+
+
+MOMENTS = ("exp_avg", "exp_avg_sq")
+
+
+if __name__ == "__main__" and sys.argv[1:2] == ["--witness"]:
+    prefetch.as_test_process()
+    witness(sys.argv[2])
+elif __name__ == "__main__" and sys.argv[1:2] == ["--spread"]:
+    prefetch.as_test_process()
     spread(sys.argv[2])
+elif __name__ == "__main__" and sys.argv[1:2] == ["--jax-steps"]:
+    from torch_synth_scene import scene_dir
+
+    prefetch.as_test_process()
+    prefetch.write(sys.argv[sys.argv.index("--out") + 1], jax_steps(sys.argv[2], scene_dir()))
+elif __name__ == "__main__" and sys.argv[1:2] == ["--session-spawn"]:
+    from torch_synth_scene import scene_dir
+
+    work = os.path.join(prefetch.shared_dir(), "torch_dist_trainer_ranks")
+    os.makedirs(work, exist_ok=True)
+    prefetch.write(sys.argv[sys.argv.index("--out") + 1], _spawn(scene_dir(), work))
 elif __name__ == "__main__":
     ap = argparse.ArgumentParser()
     ap.add_argument("--rank", type=int, required=True)
