@@ -246,29 +246,54 @@ non-zero (there is no CPU fallback):
      and read after (emit, the gather and the binned forward launched, and
      the training kernels in 17c): (a) PngCompression of garden grid5
      (2,794,625 splats with seeded degree-3 SH, cropped to 1,671^2) with
-     the K-means at 65,536 clusters on the card, twice: the same arrays
-     both times, each PNG field within half its quantization step of the
-     quantized array, bytes and the compress, K-means and decompress
-     seconds; shN's round-trip MSE over one centroid's at most
-     APPS_KMEANS_LIMIT, the codebook with shuffled labels above it, and
-     the card's K-means of 4,096 rows within 1.25x of the CPU's MSE; camera 0 at 1920x1080 (binned) rendered from the original and
-     the round trip, their PSNR above APPS_PSNR_FLOOR; (b) LPIPS alex and
-     vgg at 1920x1080 from random weights written as an .npz and read back
-     by load_lpips_params: lpips(x, x) == 0, a 256x256 crop's value within
+     the K-means at 65,536 clusters on the card: each PNG field within
+     half its quantization step of the quantized array, bytes and the
+     compress, K-means and decompress seconds; shN's round-trip MSE over
+     one centroid's at most APPS_KMEANS_LIMIT, the codebook with shuffled
+     labels above it, and the card's K-means of 4,096 rows within 1.25x of
+     the CPU's MSE; the first APPS_SAME_N (262,144) splats compressed
+     twice, the same arrays and bytes both times (the determinism check);
+     camera 0 at 1920x1080 (binned) rendered from the original and the
+     round trip, their PSNR above APPS_PSNR_FLOOR; (b) LPIPS alex and vgg
+     at 1920x1080 from random weights written as an .npz and read back by
+     load_lpips_params: lpips(x, x) == 0, a 256x256 crop's value within
      rtol 1e-4 of the port's CPU value, each call timed; (c)
      simple_trainer.main on phase 13's COLMAP scene (kept for this phase)
-     from its 1,000,000 points with --compression png
-     --lpips-weights, 2 steps, one eval and save:
-     compression_2/report.json and val_step2.json with "lpips", the
-     compressed eval's launches; (d) simple_viewer (8 frames of 1920x1080 on the
-     interpolated path,
-     read back) and interactive_viewer on 127.0.0.1 in a thread (one GET a
+     from its 1,000,000 points with --compression png --lpips-weights, 2
+     steps, one eval and save: compression_2/report.json and
+     val_step2.json with "lpips", the compressed eval's launches; (d)
+     simple_viewer (8 frames of 1920x1080 on the interpolated path, read
+     back) and interactive_viewer on 127.0.0.1 in a thread (one GET a
      mode, each decoded frame equal to Viewer.frame's, on 17c's
      checkpoint); (e) scripts/torch_profiling.py --scene-grid 5
-     --resolutions 1080p (its auto backend launching the tiled forward) and
-     scripts/torch_compress_eval.py on 17c's checkpoint (four CSV lines),
-     each a subprocess whose nonzero exit fails the phase;
- 18. the `kernels` line (the eleven path kernels, the grid's two gradient
+     --resolutions 1080p (its auto backend launching the tiled forward)
+     and scripts/torch_compress_eval.py on 17c's checkpoint cut to its
+     first APPS_EVAL_N (262,144) live splats (four CSV lines), each a
+     subprocess whose nonzero exit fails the phase;
+ 18. the dataset extras, on the host (datasets/undistort.py,
+     image_io.py's resize, remap and JPEG decoder, the native COLMAP
+     reader, the trainer's TensorBoard options), the scenes under
+     build/chip_extras/: (a) synth writes phase 13's splats at 3840x2160
+     from 6 views with 1,000,000 points, its camera made OPENCV (k1 -0.05,
+     k2 0.01); the Parser at --data-factor 2 (no images_2/: each view
+     resized to 1920x1080, remapped and cropped to the roi) against the
+     phase's own float64 evaluation of K_new, the roi and the maps
+     (within EXTRAS_MAP_TOL px); a view's load on the host in its parts
+     (decode, resize, remap); simple_trainer.main 12 steps with a refine
+     at 8 and --tb-every 4 (inert where TensorBoard cannot be imported),
+     the launch counts set to 0 before and read after: every loss finite,
+     emit, the gather, the forward, the backward and the reduce launched
+     in every step, the model read by the native reader; the steady step
+     and a profiled step's idle share; (d) that scene's 1,000,000-point
+     model read by the native and the numpy reader: the same arrays, both
+     timed; (b) synth --fisheye at 1920x1080 (6 views) trained 12 steps
+     with --camera-model fisheye: the views carry "mask", the render the
+     loss sees is 0 outside it, every value finite; (c) every committed
+     JPEG fixture (tests/assets/jpeg/) decoded to its stored PIL decoding
+     bit for bit, the 1080p fixture's decode timed (median of 5) beside
+     the 48.06 ms of an Up-filtered 1080p PNG, and a 2-view scene of it
+     read through Dataset;
+ 19. the `kernels` line (the eleven path kernels, the grid's two gradient
      kernels and the eighteen micro-benchmark kernels; emit, the gather and the
      reduce also with their times and bounds at the 2DGS train shapes, emit
      and the gather also at the fixture surfels, the four forwards with
@@ -277,8 +302,9 @@ non-zero (there is no CPU fallback):
      their largest error against the plain version on phase 13's inputs,
      the grid's gradients their phase 13 launches and errors, the seven
      kernels of phase 15 their launches there, the training kernels their
-     launches in phase 16, every kernel its launches in phase 17), the
-     card's name and power limit, then the result line.
+     launches in phase 16, every kernel its launches in phase 17 and in
+     phase 18), the phases' wall times, the card's name and power limit,
+     then the result line.
 """
 
 import json
@@ -289,6 +315,8 @@ import sys
 import time
 
 import numpy as np
+
+SCRIPT_T0 = time.perf_counter()
 
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and non-tensor f32 flop/s
 PEAK_BYTES_PER_S = 3.35e12
@@ -4446,6 +4474,8 @@ APPS_KMEANS_SUB = (4096, 64)  # rows and clusters of the card's K-means against 
 APPS_KMEANS_RATIO = 1.25  # its MSE over the CPU's: the CPU test's bound against scikit-learn
 APPS_TRAIN_STEPS = 2
 APPS_VIEWER_FRAMES = 8
+APPS_SAME_N = 262_144  # 17a's determinism check: the first rows compressed twice
+APPS_EVAL_N = 262_144  # 17e's compress-eval: the 17c checkpoint cut to its first live splats
 APPS_KERNELS = ("emit", "emit_gather", "rasterize_fwd")  # every render of the phase
 APPS_TRAIN_KERNELS = APPS_KERNELS + ("rasterize_bwd", "gid_reduce")
 
@@ -4549,22 +4579,28 @@ def phase_apps_compression(smi, dev, out_dir):
     png_compression.kmeans = timed_kmeans
     try:
         runs = []
-        for run in range(2):
+        # the full count once; the determinism check on APPS_SAME_N rows
+        for run, n_rows in enumerate((N, APPS_SAME_N, APPS_SAME_N)):
             cdir = os.path.join(out_dir, f"compression_{run}")
             comp = PngCompression(device=str(dev))
+            part = fields if n_rows == N else {k: v[:n_rows] for k, v in fields.items()}
             t0 = time.perf_counter()
-            prepared = comp.compress(cdir, fields)
+            prepared_run = comp.compress(cdir, part)
             t1 = time.perf_counter()
-            back = comp.decompress(cdir)
+            back_run = comp.decompress(cdir)
             t2 = time.perf_counter()
             size = sum(os.path.getsize(os.path.join(cdir, f)) for f in os.listdir(cdir))
-            runs.append((back, size, t1 - t0, t2 - t1, {f: os.path.getsize(os.path.join(cdir, f))
-                                                         for f in sorted(os.listdir(cdir))}))
+            runs.append((back_run, size, t1 - t0, t2 - t1, {f: os.path.getsize(os.path.join(cdir, f))
+                                                             for f in sorted(os.listdir(cdir))}))
+            if run == 0:
+                prepared = prepared_run
+            del prepared_run
     finally:
         png_compression.kmeans = kmeans
-    (back, size, comp_s, dec_s, files), (back2, size2, comp2_s, dec2_s, _) = runs
-    if sorted(back) != sorted(back2) or not all(np.array_equal(back[k], back2[k]) for k in back):
-        raise AssertionError("decompress(compress(x)) differs between two runs")
+    (back, size, comp_s, dec_s, files), (same1, size1, comp1_s, _, _), (same2, size2, _, _, _) = runs
+    if sorted(same1) != sorted(same2) or not all(np.array_equal(same1[k], same2[k]) for k in same1) \
+            or size1 != size2:
+        raise AssertionError(f"decompress(compress(x)) of {APPS_SAME_N} splats differs between two runs")
     side = int(N**0.5)
     n = side * side
     if back["means"].shape[0] != n or back["shN"].shape != (n, 15, 3):
@@ -4574,9 +4610,10 @@ def phase_apps_compression(smi, dev, out_dir):
     km = _kmeans_check(torch, dev, prepared["shN"], back["shN"], os.path.join(out_dir, "compression_0", "shN.npz"),
                        kmeans)
     log(f"17a compression of {N} splats (cropped to {side}^2 = {n}): {size} bytes ({size / N:.2f} B a splat; "
-        f"{', '.join(f'{f} {b}' for f, b in files.items())}), compress {comp_s:.2f} s and {comp2_s:.2f} s "
-        f"(of it the K-means at {min(65536, n)} clusters on the card {km_s[0]:.2f} s and {km_s[1]:.2f} s), "
-        f"decompress {dec_s:.2f} s and {dec2_s:.2f} s; the two runs the same arrays ({size2} bytes); each PNG "
+        f"{', '.join(f'{f} {b}' for f, b in files.items())}), compress {comp_s:.2f} s (of it the K-means at "
+        f"{min(65536, n)} clusters on the card {km_s[0]:.2f} s), decompress {dec_s:.2f} s; the first "
+        f"{APPS_SAME_N} splats compressed twice ({comp1_s:.2f} s, K-means {km_s[1]:.2f} s): the same arrays and "
+        f"{size2} bytes both times; each PNG "
         f"field within half its quantization step (largest error over it: "
         f"{', '.join(f'{k} {v:.3f}' for k, v in quant.items())}); shN's K-means MSE {shn_mse:.4e} against its "
         f"variance {float(prepared['shN'].var()):.4e}; over one centroid's MSE {km['kmeans']:.4f} (limit "
@@ -4745,11 +4782,25 @@ def phase_apps_viewers(smi, dev, out_dir, ckpt):
         f"{', '.join(f'{k} {v:.1f} ms' for k, v in got_ms.items())} a request (card: {smi})")
 
 
+def smaller_checkpoint(ckpt, n, out):
+    """A copy of the trainer checkpoint `ckpt` at `out` whose live mask keeps
+    only its first `n` live slots (the others dead, as a pool's free
+    slots). Returns `out`."""
+    with np.load(ckpt) as z:
+        arrays = {k: z[k] for k in z.files}
+    live = arrays["live"].astype(bool)
+    arrays["live"] = live & (np.cumsum(live) <= n)
+    np.savez(out, **arrays)
+    return out
+
+
 def phase_apps_scripts(smi, dev, data, ckpt, out_dir):
-    """17e: scripts/torch_profiling.py and scripts/torch_compress_eval.py as
+    """17e: scripts/torch_profiling.py and scripts/torch_compress_eval.py
+    (on the checkpoint cut to its first APPS_EVAL_N live splats) as
     subprocesses (a nonzero exit fails the phase)."""
     root = os.path.dirname(os.path.abspath(__file__))
     csv_path = os.path.join(out_dir, "compression.csv")
+    ckpt = smaller_checkpoint(ckpt, APPS_EVAL_N, os.path.join(out_dir, "ckpt_small.npz"))
     cpu = ["--cpu"] if dev.type == "cpu" else []
     cmds = {
         "torch_profiling": ["--scene-grid", str(MAIN_GRID), "--resolutions", f"{MAIN_W}x{MAIN_H}", *cpu],
@@ -4804,6 +4855,378 @@ def phase_apps(smi, data, dev=None):
         raise AssertionError(f"phase 17: kernels {missing} were not launched")
     log(f"launches in the apps path (17a-d): {launches}; of them the compressed eval's {compressed_eval}")
     return launches
+
+
+# phase 18: the dataset extras on the host (undistortion, resize, the
+# fisheye mask, the JPEG decoder, the native COLMAP reader, TensorBoard)
+EXTRAS_VIEWS = 6
+EXTRAS_W, EXTRAS_H = 3840, 2160  # 18a's files; --data-factor 2 trains at 1920x1080 less the roi
+EXTRAS_FACTOR = 2
+EXTRAS_DIST = (-0.05, 0.01, 0.0, 0.0)  # 18a's OPENCV k1, k2, p1, p2
+EXTRAS_STEPS = 12  # with one refine, at step 8
+EXTRAS_MAP_TOL = 1e-3  # px: the Parser's K_new and maps against the phase's float64 evaluation
+EXTRAS_FISHEYE_POINTS = 100_000
+EXTRAS_JPEG_RUNS = 5
+EXTRAS_KERNELS = ("emit", "emit_gather", "rasterize_fwd", "rasterize_bwd", "gid_reduce")
+PNG_UP_1080P_MS = 48.06  # read_png of an Up-filtered 1080p frame on the H100 machine (PERF.md §5)
+JPEG_ASSETS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "assets", "jpeg")
+
+
+def extras_root():
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_extras")
+
+
+def undistortion_f64(K, dist, w, h):
+    """An OPENCV camera's K_new, roi and maps evaluated here in float64,
+    point by point: the inner rectangle of a 9 x 9 grid of the image's
+    points undistorted by 5 fixed-point iterations (cv2's
+    undistortPoints), mapped onto [0, w - 1] x [0, h - 1]; each map pixel
+    the forward model of its normalized coordinate (x - cx') / fx'."""
+    import math
+
+    fx, fy, cx, cy = (float(v) for v in (K[0, 0], K[1, 1], K[0, 2], K[1, 2]))
+    k1, k2, p1, p2 = (float(v) for v in dist)
+
+    def undist(u, v, P=None):
+        x0, y0 = (u - cx) / fx, (v - cy) / fy
+        x, y = x0, y0
+        for _ in range(5):
+            r2 = x * x + y * y
+            ic = 1.0 / (1.0 + (k2 * r2 + k1) * r2)
+            x, y = (x0 - (2 * p1 * x * y + p2 * (r2 + 2 * x * x))) * ic, (y0 - (p1 * (r2 + 2 * y * y) + 2 * p2 * x * y)) * ic
+        return (x, y) if P is None else (x * P[0] + P[2], y * P[1] + P[3])
+
+    def inner(P=None):
+        pts = [[undist(i * (w - 1) / 8, j * (h - 1) / 8, P) for i in range(9)] for j in range(9)]
+        x0 = max(pts[j][0][0] for j in range(9))
+        x1 = min(pts[j][8][0] for j in range(9))
+        y0 = max(pts[0][i][1] for i in range(9))
+        y1 = min(pts[8][i][1] for i in range(9))
+        return x0, y0, x1 - x0, y1 - y0
+
+    ix, iy, iw, ih = inner()
+    nfx, nfy = (w - 1) / iw, (h - 1) / ih
+    P = (nfx, nfy, -nfx * ix, -nfy * iy)
+    rx, ry, rw, rh = (int(round(v)) for v in inner(P))
+    x0, y0 = max(rx, 0), max(ry, 0)
+    roi = (x0, y0, min(rx + rw, w) - x0, min(ry + rh, h) - y0)
+    x = (np.arange(w, dtype=np.float64)[None, :] - P[2]) / P[0]
+    y = (np.arange(h, dtype=np.float64)[:, None] - P[3]) / P[1]
+    r2 = x * x + y * y
+    kr = 1.0 + k1 * r2 + k2 * r2 * r2
+    mapx = fx * (x * kr + 2 * p1 * x * y + p2 * (r2 + 2 * x * x)) + cx
+    mapy = fy * (y * kr + p1 * (r2 + 2 * y * y) + 2 * p2 * x * y) + cy
+    K_new = np.array([[nfx, 0.0, P[2]], [0.0, nfy, P[3]], [0.0, 0.0, 1.0]])
+    assert math.isfinite(nfx) and math.isfinite(nfy)
+    return K_new, roi, mapx, mapy
+
+
+def write_camera(data, model, w, h, params):
+    """Replace a scene's cameras.bin by one camera (id 1)."""
+    import struct
+
+    with open(os.path.join(data, "sparse", "0", "cameras.bin"), "wb") as f:
+        f.write(struct.pack("<Q", 1) + struct.pack("<iiQQ", 1, model, w, h) + struct.pack(f"<{len(params)}d", *params))
+
+
+def phase_extras_undistort(smi, root, splats):
+    """18a: a 3840x2160 scene with an OPENCV camera trained at --data-factor
+    2: resize, remap and the roi crop on every view's load. Returns (the
+    scene's directory, this run's launches)."""
+    import torch
+    from gsplat_tpu_torch import _backend
+    from gsplat_tpu_torch import simple_trainer as st
+    from gsplat_tpu_torch.datasets import Dataset, Parser, image_io, synth
+
+    data, res = os.path.join(root, "opencv"), os.path.join(root, "r_opencv")
+    info = synth.write_scene(data, splats, EXTRAS_VIEWS, EXTRAS_W, EXTRAS_H, COLMAP_POINTS, seed=SEED, device="cuda",
+                             tile_size=MAIN_TILE)
+    f = 0.85 * EXTRAS_W  # synth's focal length
+    write_camera(data, 4, EXTRAS_W, EXTRAS_H, (f, f, EXTRAS_W / 2, EXTRAS_H / 2, *EXTRAS_DIST))
+    log(f"18a scene: {len(splats['means'])} splats at {EXTRAS_W}x{EXTRAS_H} from {EXTRAS_VIEWS} views "
+        f"({info['render_s']:.2f} s), {COLMAP_POINTS} points, {info['bytes']} bytes ({info['write_s']:.2f} s); its "
+        f"camera made OPENCV with k1, k2, p1, p2 = {EXTRAS_DIST} (card: {smi})")
+
+    t0 = time.perf_counter()
+    parser = Parser(data, factor=EXTRAS_FACTOR, normalize=True, test_every=8)
+    parse_s = time.perf_counter() - t0
+    w, h = EXTRAS_W // EXTRAS_FACTOR, EXTRAS_H // EXTRAS_FACTOR
+    K = np.array([[f, 0, EXTRAS_W / 2], [0, f, EXTRAS_H / 2], [0, 0, 1]]) / np.array([[2], [2], [1]])
+    K_new, roi, mapx, mapy = undistortion_f64(K.astype(np.float32).astype(np.float64),
+                                              np.asarray(EXTRAS_DIST, np.float32), w, h)
+    got_K = parser.Ks_dict[1].astype(np.float64)
+    want_K = K_new.copy()
+    want_K[0, 2] -= roi[0]
+    want_K[1, 2] -= roi[1]
+    errs = {"K": float(np.abs(got_K - want_K).max()), "mapx": float(np.abs(parser._mapx[1] - mapx).max()),
+            "mapy": float(np.abs(parser._mapy[1] - mapy).max())}
+    if parser._roi[1] != roi or parser.imsize_dict[1] != roi[2:] or max(errs.values()) > EXTRAS_MAP_TOL:
+        raise AssertionError(f"18a undistortion: roi {parser._roi[1]} against {roi}, size {parser.imsize_dict[1]}, "
+                             f"largest differences {errs} (tolerance {EXTRAS_MAP_TOL} px)")
+    # a view's load on the host, in its parts
+    path = parser.image_paths[1]
+    t0 = time.perf_counter()
+    img = image_io.load_image(path)
+    t1 = time.perf_counter()
+    small = image_io.resize_bilinear(img, (w, h))
+    t2 = time.perf_counter()
+    image_io.remap_bilinear(small, parser._mapx[1], parser._mapy[1])
+    t3 = time.perf_counter()
+    item = Dataset(parser, "train")[0]
+    t4 = time.perf_counter()
+    if item["image"].shape != (roi[3], roi[2], 3) or "mask" in item:
+        raise AssertionError(f"18a: an item's image {item['image'].shape}, roi {roi}, keys {sorted(item)}")
+    log(f"18a Parser ({parse_s:.2f} s): K_new, roi {roi} and maps against the phase's float64 evaluation: largest "
+        f"differences K {errs['K']:.3e}, mapx {errs['mapx']:.3e}, mapy {errs['mapy']:.3e} px (tolerance "
+        f"{EXTRAS_MAP_TOL}); a view's load on the host: decode ({EXTRAS_W}x{EXTRAS_H} PNG) {(t1 - t0) * 1e3:.1f} ms, "
+        f"resize to {w}x{h} {(t2 - t1) * 1e3:.1f} ms, remap {(t3 - t2) * 1e3:.1f} ms; a Dataset item "
+        f"{(t4 - t3) * 1e3:.1f} ms (card: {smi})")
+    del parser, item, img, small
+
+    record = {"steps": [], "growths": []}
+    restore = _record_steps(torch, _backend, st.Runner, record)
+    try:
+        _backend.reset_launch_counts()
+        t0 = time.perf_counter()
+        runner = st.main(["default", "--data-dir", data, "--data-factor", str(EXTRAS_FACTOR), "--result-dir", res,
+                          "--max-steps", str(EXTRAS_STEPS), "--eval-steps", str(EXTRAS_STEPS), "--save-steps",
+                          "--refine-start-iter", "4", "--refine-every", "8", "--white-bkgd", "--tile-size",
+                          str(MAIN_TILE), "--seed", str(SEED), "--tb-every", "4"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = _backend.launch_counts()
+        host_calls = dict(_backend.HOST_CALLS)
+    finally:
+        restore()
+    steps = record["steps"]
+    for s_ in steps:
+        missing = [k for k in EXTRAS_KERNELS if s_["launches"][k] == 0]
+        if missing or not np.isfinite(s_["loss"]):
+            raise AssertionError(f"18a step {s_['step']}: kernels {missing} not launched, loss {s_['loss']}")
+    if len(steps) != EXTRAS_STEPS or sum(s_["refined"] for s_ in steps) != 1:
+        raise AssertionError(f"18a: {len(steps)} steps, refines at {[s_['step'] for s_ in steps if s_['refined']]}")
+    if host_calls["colmap_native"] == 0 or host_calls["colmap_numpy"]:
+        raise AssertionError(f"18a: the model was not read natively: {host_calls}")
+    try:
+        import torch.utils.tensorboard  # noqa: F401
+
+        tb = "TensorBoard importable: result_dir/tb " + ("written" if os.path.isdir(os.path.join(res, "tb")) else
+                                                          "MISSING")
+    except ImportError:
+        tb = "no TensorBoard here: --tb-every 4 wrote nothing and raised nothing"
+        if os.path.exists(os.path.join(res, "tb")):
+            raise AssertionError("18a: a tb directory without TensorBoard")
+    val = json.load(open(os.path.join(res, f"val_step{EXTRAS_STEPS}.json")))
+    load_ms = [timed_once(torch, lambda: runner.trainset[i])[1] for i in range(3)]
+    step_ms = cuda_ms(torch, lambda: runner.train_step(EXTRAS_STEPS), 2)
+    kern = device_time_by_kernel(torch, lambda: runner.train_step(EXTRAS_STEPS + 1))
+    steady = float(np.median([s_["ms"] for s_ in steps if not (s_["grew"] or s_["refined"] or s_["step"] == 0)]))
+    log(f"18a simple_trainer.main --data-factor {EXTRAS_FACTOR} ({EXTRAS_STEPS} steps, {run_s:.1f} s): every loss "
+        f"finite ({steps[0]['loss']:.6f} -> {steps[-1]['loss']:.6f}), {EXTRAS_KERNELS} launched in every step, refine "
+        f"at {[s_['step'] for s_ in steps if s_['refined']]}, launches {({k: v for k, v in launches.items() if v})}; "
+        f"the model read natively ({host_calls}); {tb}; val PSNR {val['psnr']:.3f} at {val['num_GS']} splats; steady "
+        f"step {steady:.3f} ms (median, CUDA events), host {np.median([s_['host_ms'] for s_ in steps[1:]]):.1f} ms; "
+        f"a train view's load {np.mean(load_ms):.1f} ms (mean of 3) (card: {smi})")
+    log_profile("18a train step (resized and undistorted views)", kern, step_ms)
+    del runner
+    return data, launches
+
+
+def phase_extras_fisheye(smi, root, splats):
+    """18b: synth --fisheye at 1920x1080 trained with --camera-model fisheye:
+    the views carry the mask and the render the loss sees is 0 outside it.
+    Returns this run's launches."""
+    import torch
+    from gsplat_tpu_torch import _backend
+    from gsplat_tpu_torch import simple_trainer as st
+    from gsplat_tpu_torch.datasets import Parser, synth
+
+    data, res = os.path.join(root, "fisheye"), os.path.join(root, "r_fisheye")
+    info = synth.write_scene(data, splats, EXTRAS_VIEWS, MAIN_W, MAIN_H, EXTRAS_FISHEYE_POINTS, seed=SEED,
+                             device="cuda", tile_size=MAIN_TILE, fisheye=True)
+    mask = Parser(data, normalize=True, test_every=8).mask_dict[1]
+    if mask is None or mask.all():
+        raise AssertionError("18b: the fisheye camera has no mask, or masks nothing")
+    outside = {}
+    train_loss = st.train_loss
+
+    def probe(render, pixels, *args, **kw):
+        m = torch.as_tensor(mask, device=render.device)
+        if tuple(render.shape[1:3]) != tuple(m.shape):
+            raise AssertionError(f"18b: the render {tuple(render.shape)} against the mask {tuple(m.shape)}")
+        outside["max"] = max(outside.get("max", 0.0), float(render.detach()[:, ~m].abs().max()))
+        outside["finite"] = outside.get("finite", True) and bool(torch.isfinite(render).all())
+        return train_loss(render, pixels, *args, **kw)
+
+    record = {"steps": [], "growths": []}
+    restore = _record_steps(torch, _backend, st.Runner, record)
+    st.train_loss = probe
+    try:
+        _backend.reset_launch_counts()
+        t0 = time.perf_counter()
+        runner = st.main(["default", "--data-dir", data, "--data-factor", "1", "--camera-model", "fisheye",
+                          "--result-dir", res, "--max-steps", str(EXTRAS_STEPS), "--eval-steps", str(EXTRAS_STEPS),
+                          "--save-steps", "--refine-start-iter", "4", "--refine-every", "8", "--tile-size",
+                          str(MAIN_TILE), "--seed", str(SEED)])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = _backend.launch_counts()
+    finally:
+        st.train_loss = train_loss
+        restore()
+    view = runner.trainset[0]
+    steps = record["steps"]
+    bad = [s_["step"] for s_ in steps if not np.isfinite(s_["loss"])
+           or any(s_["launches"][k] == 0 for k in EXTRAS_KERNELS)]
+    params_finite = all(bool(torch.isfinite(p).all()) for p in runner.params.values())
+    if "mask" not in view or bad or not params_finite or outside.get("max") != 0.0 or not outside["finite"]:
+        raise AssertionError(f"18b: mask in the views {'mask' in view}, steps without finite loss or kernels {bad}, "
+                             f"parameters finite {params_finite}, largest |render| outside the mask {outside}")
+    val = json.load(open(os.path.join(res, f"val_step{EXTRAS_STEPS}.json")))
+    steady = float(np.median([s_["ms"] for s_ in steps if not (s_["grew"] or s_["refined"] or s_["step"] == 0)]))
+    log(f"18b synth --fisheye ({len(splats['means'])} splats at {MAIN_W}x{MAIN_H}, {EXTRAS_VIEWS} views, "
+        f"{info['render_s']:.2f} s) trained with --camera-model fisheye ({EXTRAS_STEPS} steps, {run_s:.1f} s): the "
+        f"mask {mask.shape[1]}x{mask.shape[0]} keeps {mask.mean():.4f} of the pixels, the render the loss sees is 0 "
+        f"outside it, every loss and parameter finite ({steps[0]['loss']:.6f} -> {steps[-1]['loss']:.6f}), "
+        f"launches {({k: v for k, v in launches.items() if v})}; val PSNR {val['psnr']:.3f}; steady step "
+        f"{steady:.3f} ms (card: {smi})")
+    del runner
+    return launches
+
+
+def write_jpeg_scene(data, jpeg, w, h, n_points=100):
+    """A 2-view COLMAP scene (one PINHOLE camera, no observations) whose
+    images/ hold the JPEG file `jpeg` twice."""
+    import shutil
+    import struct
+
+    from gsplat_tpu_torch.datasets.colmap_io import POINT_RECORD
+
+    os.makedirs(os.path.join(data, "images"), exist_ok=True)
+    os.makedirs(os.path.join(data, "sparse", "0"), exist_ok=True)
+    names = ["view_000.jpg", "view_001.jpg"]
+    for n in names:
+        shutil.copy(jpeg, os.path.join(data, "images", n))
+    f = 0.85 * w
+    write_camera(data, 1, w, h, (f, f, w / 2, h / 2))
+    with open(os.path.join(data, "sparse", "0", "images.bin"), "wb") as fo:
+        fo.write(struct.pack("<Q", len(names)))
+        for i, n in enumerate(names):
+            fo.write(struct.pack("<i7di", i + 1, 1.0, 0.0, 0.0, 0.0, 0.2 * i, 0.0, 4.0, 1))
+            fo.write(n.encode() + b"\x00" + struct.pack("<Q", 0))
+    rec = np.zeros(n_points, POINT_RECORD)
+    rec["id"] = np.arange(1, n_points + 1)
+    rec["xyz"] = np.random.default_rng(SEED).normal(size=(n_points, 3))
+    rec["rgb"] = 128
+    with open(os.path.join(data, "sparse", "0", "points3D.bin"), "wb") as fo:
+        fo.write(struct.pack("<Q", n_points) + rec.tobytes())
+
+
+def phase_extras_jpeg(smi, root):
+    """18c: every committed JPEG fixture decoded by the port's decoder equal
+    to its PIL decoding; the 1080p fixture's decode timed (median of
+    EXTRAS_JPEG_RUNS); a 2-view scene of it read through Dataset. Returns
+    the 1080p decode's ms."""
+    from gsplat_tpu_torch import _backend
+    from gsplat_tpu_torch.datasets import Dataset, Parser, image_io
+
+    names = sorted(f[:-4] for f in os.listdir(JPEG_ASSETS) if f.endswith(".jpg"))
+    if len(names) < 7:
+        raise AssertionError(f"18c: the JPEG fixtures {names}")
+    sizes = {}
+    for name in names:
+        got = image_io.read_jpeg(os.path.join(JPEG_ASSETS, name + ".jpg"))
+        want = image_io.read_png(os.path.join(JPEG_ASSETS, name + ".png"))
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise AssertionError(f"18c: {name}.jpg decodes to other bits than PIL's ({got.shape}, {want.shape})")
+        sizes[name] = got.shape[:2]
+    big = os.path.join(JPEG_ASSETS, "garden_1080p_q85.jpg")
+    with open(big, "rb") as fi:
+        body = fi.read()
+    ms = []
+    for _ in range(EXTRAS_JPEG_RUNS):
+        t0 = time.perf_counter()
+        image_io.decode_jpeg(body)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    data = os.path.join(root, "jpeg_scene")
+    write_jpeg_scene(data, big, MAIN_W, MAIN_H)
+    before = _backend.HOST_CALLS["jpeg_decode"]
+    item = Dataset(Parser(data, test_every=8), "train")[0]
+    want = image_io.read_png(os.path.join(JPEG_ASSETS, "garden_1080p_q85.png"))
+    if not np.array_equal(item["image"], want.astype(np.float32) / 255.0) or \
+            _backend.HOST_CALLS["jpeg_decode"] != before + 1:
+        raise AssertionError("18c: the JPEG scene's item differs from the fixture's PIL decoding, or was not decoded")
+    med = float(np.median(ms))
+    log(f"18c JPEG: {len(names)} committed fixtures ({', '.join(f'{n} {s[1]}x{s[0]}' for n, s in sizes.items())}) "
+        f"decoded to PIL's bits; garden_1080p_q85.jpg ({len(body)} bytes) decodes in {med:.2f} ms on the host "
+        f"(median of {EXTRAS_JPEG_RUNS}: {', '.join(f'{v:.2f}' for v in ms)}) against {PNG_UP_1080P_MS} ms for an "
+        f"Up-filtered 1080p PNG (PERF.md §5); a 2-view scene of it read through Dataset, equal (card: {smi})")
+    return med
+
+
+def phase_extras_reader(smi, data):
+    """18d: the 1,000,000-point model of 18a's scene read by the native
+    reader and by the numpy reader: the same arrays. Returns both readers'
+    seconds."""
+    from gsplat_tpu_torch import _backend
+    from gsplat_tpu_torch.datasets import colmap_io, colmap_native
+
+    sp = os.path.join(data, "sparse", "0")
+    t0 = time.perf_counter()
+    native = colmap_native.read_model_bin(sp)
+    t1 = time.perf_counter()
+    numpy_model = colmap_io.read_model_numpy_bin(sp)
+    t2 = time.perf_counter()
+    before = _backend.HOST_CALLS["colmap_native"]
+    colmap_io.read_model(sp)
+    (nc, ni, npts), (pc, pi, ppts) = native, numpy_model
+    same = (sorted(nc) == sorted(pc) and all(
+        (nc[k].model, nc[k].width, nc[k].height) == (pc[k].model, pc[k].width, pc[k].height)
+        and np.array_equal(nc[k].params, pc[k].params) for k in pc)
+        and sorted(ni) == sorted(pi) and all(
+        ni[k].name == pi[k].name and ni[k].camera_id == pi[k].camera_id
+        and all(np.array_equal(getattr(ni[k], a), getattr(pi[k], a)) for a in ("qvec", "tvec", "xys", "point3D_ids"))
+        for k in pi)
+        and all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(npts, ppts)))
+    if not same or len(npts[0]) != COLMAP_POINTS or _backend.HOST_CALLS["colmap_native"] != before + 1:
+        raise AssertionError(f"18d: the native reader's model differs from the numpy reader's ({len(npts[0])} points), "
+                             "or read_model did not use it")
+    n_obs = sum(len(im.xys) for im in ni.values())
+    log(f"18d COLMAP model of {len(npts[0])} points and {n_obs} observations: native reader {t1 - t0:.3f} s, numpy "
+        f"reader {t2 - t1:.3f} s, the same arrays; read_model used the native reader (card: {smi})")
+    return t1 - t0, t2 - t1
+
+
+def phase_dataset_extras(smi):
+    """Phase 18: 18a-d (the scenes under build/chip_extras/, removed after).
+    The launch counts are set to 0 before 18a's and 18b's runs and read
+    after each. Returns {kernel: launches in 18a and 18b} and the phase's
+    readings."""
+    import shutil
+
+    from gsplat_tpu_torch import load_test_data
+
+    root = extras_root()
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    means, quats, scales, opac, colors, *_ = load_test_data(scene_grid=MAIN_GRID)
+    splats = {"means": means, "quats": quats, "scales": scales, "opacities": opac, "colors": colors}
+    try:
+        t0 = time.perf_counter()
+        data, launches_a = phase_extras_undistort(smi, root, splats)
+        t1 = time.perf_counter()
+        native_s, numpy_s = phase_extras_reader(smi, data)
+        t2 = time.perf_counter()
+        launches_b = phase_extras_fisheye(smi, root, splats)
+        t3 = time.perf_counter()
+        jpeg_ms = phase_extras_jpeg(smi, root)
+        t4 = time.perf_counter()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {k: launches_a[k] + launches_b[k] for k in launches_a}
+    log(f"phase 18 wall times: 18a {t1 - t0:.1f} s, 18d {t2 - t1:.1f} s, 18b {t3 - t2:.1f} s, 18c {t4 - t3:.1f} s; "
+        f"launches in 18a and 18b: {({k: v for k, v in launches.items() if v})}")
+    return launches, {"jpeg_1080p_ms": jpeg_ms, "native_s": native_s, "numpy_s": numpy_s}
 
 
 def main():
@@ -4874,11 +5297,16 @@ def main():
     for k in kernels:
         k["launches_apps"] = apps_launches.get(k["name"], 0)
     t13 = time.perf_counter()
+    extras_launches, _ = phase_dataset_extras(smi)
+    for k in kernels:
+        k["launches_dataset_extras"] = extras_launches.get(k["name"], 0)
+    t14 = time.perf_counter()
     log(f"phase wall times: build + kernel vs plain {t1 - t0:.1f} s, serving {t2 - t1:.1f} s, "
         f"training {t3 - t2:.1f} s, 2DGS training {t4 - t3:.1f} s, 2DGS serving {t5 - t4:.1f} s, "
         f"tiled serving and training {t6 - t5:.1f} s, op API {t7 - t6:.1f} s, MCMC training {t8 - t7:.1f} s, "
         f"COLMAP trainer {t9 - t8:.1f} s, micro-benchmarks {t10 - t9:.1f} s, multi-GPU rendering {t11 - t10:.1f} s, "
-        f"multi-GPU training {t12 - t11:.1f} s, apps {t13 - t12:.1f} s")
+        f"multi-GPU training {t12 - t11:.1f} s, apps {t13 - t12:.1f} s, dataset extras {t14 - t13:.1f} s; the "
+        f"script {time.perf_counter() - SCRIPT_T0:.1f} s (card: {smi})")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {smi}")
     print(json.dumps({

@@ -45,14 +45,18 @@ numpy over the same kernels: PNG compression (``compression/``:
 ``PngCompression`` with its K-means in torch, the sort), the LPIPS metric
 (``lpips.py``), the profiler (``profile.py``), the trainer's
 ``compression="png"`` and ``lpips_weights``, and the viewers
-(``simple_viewer.py``, ``interactive_viewer.py``).
+(``simple_viewer.py``, ``interactive_viewer.py``). Slice 20 is the
+dataset extras, on the host: undistortion and the fisheye mask
+(``datasets/undistort.py``), PIL's bilinear resize and cv2's bilinear remap
+(``datasets/image_io.py``), a JPEG decoder (``csrc/jpeg_decode.cpp``) and
+the native COLMAP reader (``csrc/colmap_native.cpp``,
+``datasets/colmap_native.py``), both C++ built with ``g++`` at first use,
+and the trainer's TensorBoard logging.
 
 Functions run on the device of their input tensors: CUDA tensors go
 through the kernels, CPU tensors through each kernel's plain PyTorch
 version; entry points that make tensors run on the card unless asked for
-the CPU. Not ported yet (ROADMAP Queue 1 item 7, the dataset extras):
-undistortion and resizing in the dataset raise NotImplementedError, and
-a JPEG without PIL raises RuntimeError.
+the CPU.
 """
 
 from ._helper import load_test_data

@@ -13,6 +13,12 @@ every source at once, one ``nvcc`` process per source.
 Each kernel wrapper adds one to ``LAUNCHES[name]`` where it launches its
 kernel and nowhere else, so a run can show that its path went through the
 kernels; a source of several kernels (``SOURCE_KERNELS``) counts each apart.
+
+The host's C++ sources (``csrc/*.cpp``: the JPEG decoder and the native
+COLMAP reader of the datasets) are built the same way with ``g++``
+(:func:`host_library`), and each of their calls adds one to
+``HOST_CALLS[name]``; ``HOST_CALLS["colmap_numpy"]`` counts the reads that
+the numpy COLMAP reader made instead of the native one.
 """
 
 from __future__ import annotations
@@ -96,6 +102,12 @@ LAUNCHES: Dict[str, int] = {k: 0 for name in KERNELS for k in SOURCE_KERNELS.get
 # nvcc's stderr per built source (the -Xptxas -v register/spill report)
 BUILD_LOG: Dict[str, str] = {}
 
+# the host's C++ sources (csrc/<name>.cpp), built with g++
+HOST_SOURCES = ("jpeg_decode", "colmap_native")
+_HOST_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
+HOST_CALLS: Dict[str, int] = {"jpeg_decode": 0, "colmap_native": 0, "colmap_numpy": 0}
+_HOST_LIBS: Dict[str, ctypes.CDLL] = {}
+
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # (source, symbol) -> (its library, the bound entry point, its argtypes and restype)
 _BOUND: Dict[Tuple[str, str], Tuple[ctypes.CDLL, ctypes._CFuncPtr, Sequence, type]] = {}
@@ -105,6 +117,8 @@ _LOCK = threading.Lock()
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for name in HOST_CALLS:
+        HOST_CALLS[name] = 0
 
 
 def launch_counts() -> Dict[str, int]:
@@ -305,6 +319,43 @@ def _bind(name: str, symbol: str, argtypes: Sequence, restype) -> ctypes._CFuncP
             fn.restype = restype
         _BOUND[(name, symbol)] = (lib, fn, argtypes, restype)
     return fn
+
+
+def _cxx() -> str:
+    found = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    if not found:
+        raise RuntimeError("no C++ compiler (g++) found: set CXX to build the port's host sources")
+    return found
+
+
+def host_library(name: str) -> ctypes.CDLL:
+    """csrc/<name>.cpp built with ``g++ -O3 -shared -fPIC -std=c++17`` into
+    ``build/gsplat_tpu_torch/`` (named by a hash of the source and the
+    flags, so an edited source rebuilds) and loaded, once a process. A
+    failed build raises RuntimeError with the compiler's stderr."""
+    lib = _HOST_LIBS.get(name)
+    if lib is not None:
+        return lib
+    if name not in HOST_SOURCES:
+        raise ValueError(f"{name!r} is not a host source: {HOST_SOURCES}")
+    src = os.path.join(CSRC, name + ".cpp")
+    h = hashlib.sha256()
+    with open(src, "rb") as f:
+        h.update(f.read())
+    h.update(" ".join(_HOST_FLAGS).encode())
+    out = os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
+    if not os.path.exists(out):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{out}.{os.getpid()}.{threading.get_ident()}.tmp"
+        proc = subprocess.run([_cxx()] + _HOST_FLAGS + ["-o", tmp, src], capture_output=True, text=True)
+        BUILD_LOG[name] = proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed on {src}:\n{proc.stderr}")
+        os.replace(tmp, out)
+    with _LOCK:
+        if name not in _HOST_LIBS:
+            _HOST_LIBS[name] = ctypes.CDLL(out)
+        return _HOST_LIBS[name]
 
 
 def check_launch(code: int, name: str) -> None:

@@ -1,14 +1,19 @@
 """COLMAP dataset: Parser + Dataset (port of gsplat_tpu/datasets/colmap.py).
 
 The same fields, split and items as the JAX package's, from the port's
-numpy reader (colmap_io.py) and image reader (image_io.py). Not ported
-yet, and refused with ``NotImplementedError`` rather than approximated:
-  - undistortion, and the fisheye validity mask: the JAX package builds
-    both with cv2, which the port does not depend on; a camera with non-zero
-    distortion parameters raises;
-  - resizing: the JAX package resizes with PIL's antialiased bilinear
-    filter when ``images_{factor}`` is missing; an image whose size is not
-    the camera's (over ``factor``) raises.
+reader (colmap_io.py; binary models through the native reader,
+colmap_native.py) and images (image_io.py: PNG and JPEG without PIL).
+Where the JAX package calls cv2 and PIL, the port has its own numpy
+counterparts:
+  - undistortion (undistort.py): a camera with non-zero distortion
+    parameters gets cv2's new camera matrix, roi and maps (OPENCV, RADIAL,
+    SIMPLE_RADIAL), or the JAX package's theta-polynomial maps and their
+    validity mask (the ``*FISHEYE`` models), which ``Dataset`` items carry
+    as ``"mask"``; each view is remapped (`image_io.remap_bilinear`) and
+    cropped to the roi;
+  - resizing: an image whose size is not the camera's over ``factor``
+    (``images_{factor}/`` missing) is resized as PIL's bilinear filter
+    does (`image_io.resize_bilinear`).
 """
 
 from __future__ import annotations
@@ -19,15 +24,14 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from .colmap_io import qvec_to_rotmat, read_model
-from .image_io import load_image
+from .image_io import load_image, remap_bilinear, resize_bilinear
 from .normalize import (
     align_principal_axes,
     similarity_from_cameras,
     transform_cameras,
     transform_points,
 )
-
-NOT_PORTED = "not ported yet (ROADMAP Queue 1, the dataset extras slice)"
+from .undistort import camera_maps
 
 
 class Parser:
@@ -35,7 +39,8 @@ class Parser:
     image_paths, camtoworlds [N,4,4], camera_ids, Ks_dict, params_dict,
     imsize_dict, mask_dict, points [M,3], points_rgb, points_err,
     point_indices (per image, the rows of its observed points), transform,
-    scene_scale."""
+    scene_scale; for each camera with distortion ``_mapx``, ``_mapy`` and
+    ``_roi``."""
 
     def __init__(
         self,
@@ -85,19 +90,35 @@ class Parser:
         self.params_dict: Dict[int, np.ndarray] = {}
         self.imsize_dict: Dict[int, tuple] = {}
         self.mask_dict: Dict[int, Optional[np.ndarray]] = {}
+        self._mapx: Dict[int, np.ndarray] = {}
+        self._mapy: Dict[int, np.ndarray] = {}
+        self._roi: Dict[int, tuple] = {}
         for cam_id, cam in cameras.items():
-            dist = cam.dist_params.astype(np.float32)
-            if np.any(dist != 0.0):
-                raise NotImplementedError(
-                    f"camera {cam_id} ({cam.model}) has distortion parameters {dist.tolist()}: undistortion "
-                    f"(and the fisheye mask) is {NOT_PORTED}"
-                )
             K = cam.K.copy()
             K[:2, :] /= factor
             self.Ks_dict[cam_id] = K.astype(np.float32)
-            self.params_dict[cam_id] = dist
+            self.params_dict[cam_id] = cam.dist_params.astype(np.float32)
             self.imsize_dict[cam_id] = (cam.width // factor, cam.height // factor)
             self.mask_dict[cam_id] = None
+
+        # undistortion maps: the new intrinsics less the roi offset, the
+        # roi's size
+        for cam_id, cam in cameras.items():
+            dist = self.params_dict[cam_id]
+            if not np.any(dist != 0.0):
+                continue
+            w, h = self.imsize_dict[cam_id]
+            K_new, mapx, mapy, roi, mask = camera_maps(
+                self.Ks_dict[cam_id].astype(np.float64), dist, w, h, cam.is_fisheye
+            )
+            x0, y0, ww, hh = roi
+            self.Ks_dict[cam_id] = np.asarray(K_new, np.float32)
+            self.Ks_dict[cam_id][0, 2] -= x0
+            self.Ks_dict[cam_id][1, 2] -= y0
+            self._mapx[cam_id], self._mapy[cam_id] = mapx, mapy
+            self.imsize_dict[cam_id] = (ww, hh)
+            self._roi[cam_id] = roi
+            self.mask_dict[cam_id] = mask
 
         if normalize:
             T1 = similarity_from_cameras(camtoworlds)
@@ -123,13 +144,22 @@ class Parser:
         self.scene_scale = float(np.max(dists))
 
     def load_image(self, index: int) -> np.ndarray:
+        """Image `index` as uint8 [H, W, 3] at its camera's size, as the JAX
+        Parser loads it: a camera with maps resizes the file to the maps'
+        size where it differs, remaps it and crops the roi; a camera
+        without maps is only resized to its size."""
         img = load_image(self.image_paths[index])
-        w, h = self.imsize_dict[self.camera_ids[index]]
+        cam_id = self.camera_ids[index]
+        w, h = self.imsize_dict[cam_id]
+        if cam_id in self._mapx:
+            mapx = self._mapx[cam_id]
+            if img.shape[:2] != mapx.shape:
+                img = resize_bilinear(img, mapx.shape[::-1])
+            img = remap_bilinear(img, mapx, self._mapy[cam_id])
+            x0, y0, ww, hh = self._roi[cam_id]
+            return img[y0 : y0 + hh, x0 : x0 + ww]
         if img.shape[1] != w or img.shape[0] != h:
-            raise NotImplementedError(
-                f"{self.image_paths[index]} is {img.shape[1]}x{img.shape[0]}, the camera at factor "
-                f"{self.factor} {w}x{h}: resizing is {NOT_PORTED}; write images_{self.factor}/ beside images/"
-            )
+            img = resize_bilinear(img, (w, h))
         return img
 
 
@@ -137,7 +167,8 @@ class Dataset:
     """Train/val split over a Parser: image i is a validation image when
     i % test_every == 0. Items hold ``K``, ``camtoworld``, ``image`` (f32 in
     [0, 1]) and ``image_id`` (the image's position among all images, as in
-    the JAX package), and with ``load_depths`` ``points`` (pixel
+    the JAX package), ``mask`` ([H, W] bool, False outside the fisheye
+    projection) where the camera has one, and with ``load_depths`` ``points`` (pixel
     coordinates of the image's observed points in front of it and inside
     the frame) and their ``depths``."""
 
@@ -169,6 +200,9 @@ class Dataset:
             "image": image,
             "image_id": index,
         }
+        mask = self.parser.mask_dict.get(cam_id)
+        if mask is not None:
+            data["mask"] = mask
         if self.load_depths:
             name = self.parser.image_names[index]
             rows = self.parser.point_indices.get(name, np.zeros((0,), np.int64))

@@ -13,14 +13,20 @@ Differences from the JAX package's reader:
     scene of a million points reads in about a second.
   - The point readers return the points' ids as an array, not an
     id -> row dict: ``Parser`` looks them up with ``np.searchsorted``.
-  - No native (C++) reader; the JAX package's ``colmap_native`` is not
-    ported.
+
+`read_model` reads a binary model through the native reader
+(colmap_native.py, csrc/colmap_native.cpp) as the JAX package does; where
+it cannot be built or fails on a file, it warns once, with the reason (a
+failed build's compiler output), and reads with the numpy reader here.
+``_backend.HOST_CALLS`` counts which reader read each model
+(``colmap_native`` or ``colmap_numpy``).
 """
 
 from __future__ import annotations
 
 import os
 import struct
+import warnings
 from dataclasses import dataclass, field
 from typing import Dict, Tuple
 
@@ -235,13 +241,40 @@ def read_points3d_txt(path: str):
     )
 
 
+_NATIVE_WARNED = []
+
+
+def read_model_numpy_bin(sparse_dir: str):
+    """(cameras, images, points) of a binary model directory, by this
+    module's numpy reader."""
+    return (
+        read_cameras_bin(os.path.join(sparse_dir, "cameras.bin")),
+        read_images_bin(os.path.join(sparse_dir, "images.bin")),
+        read_points3d_bin(os.path.join(sparse_dir, "points3D.bin")),
+    )
+
+
 def read_model(sparse_dir: str):
     """Read a COLMAP sparse model directory (.bin preferred, .txt
-    otherwise): (cameras, images, (xyz, rgb, err, ids))."""
+    otherwise): (cameras, images, (xyz, rgb, err, ids)). A binary model
+    goes through the native reader; where that fails, the numpy reader
+    reads it after a warning (once a process)."""
+    from .._backend import HOST_CALLS
+
     if os.path.exists(os.path.join(sparse_dir, "cameras.bin")):
-        cams = read_cameras_bin(os.path.join(sparse_dir, "cameras.bin"))
-        imgs = read_images_bin(os.path.join(sparse_dir, "images.bin"))
-        pts = read_points3d_bin(os.path.join(sparse_dir, "points3D.bin"))
+        from . import colmap_native
+
+        try:
+            model = colmap_native.read_model_bin(sparse_dir)
+            HOST_CALLS["colmap_native"] += 1
+            return model
+        except (RuntimeError, OSError) as e:
+            if not _NATIVE_WARNED:
+                _NATIVE_WARNED.append(str(e))
+                warnings.warn(f"the native COLMAP reader failed, reading {sparse_dir} with the numpy reader: {e}",
+                              RuntimeWarning, stacklevel=2)
+        HOST_CALLS["colmap_numpy"] += 1
+        return read_model_numpy_bin(sparse_dir)
     else:
         cams = read_cameras_txt(os.path.join(sparse_dir, "cameras.txt"))
         imgs = read_images_txt(os.path.join(sparse_dir, "images.txt"))

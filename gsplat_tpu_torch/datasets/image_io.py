@@ -15,13 +15,22 @@ no loop over its pixels.
 
 The writer filters every row with Up unless asked for another filter, so
 that its files decode with whole-row operations; `encode_png` returns the
-same file's bytes in memory. Other formats (JPEG) go
-through PIL where it can be imported; without it ``load_image`` raises a
-``RuntimeError`` that names the missing decoder.
+same file's bytes in memory.
+
+JPEGs are decoded by the port's own C++ decoder (`decode_jpeg`,
+``csrc/jpeg_decode.cpp``, built with g++ at first use): baseline and
+extended-sequential Huffman files give PIL's ``convert("RGB")`` bits;
+progressive, arithmetic, lossless, 12-bit and CMYK files raise
+``RuntimeError`` naming what they are. Other formats go through PIL where
+it can be imported.
+
+`resize_bilinear` is PIL's bilinear resize and `remap_bilinear` cv2's
+bilinear remap, for the datasets' resize and undistortion.
 """
 
 from __future__ import annotations
 
+import ctypes
 import os
 import struct
 import zlib
@@ -29,6 +38,7 @@ import zlib
 import numpy as np
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+JPEG_SIGNATURE = b"\xff\xd8\xff"
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}  # colour type -> samples a pixel
 
 
@@ -219,19 +229,188 @@ def write_png(path: str, img: np.ndarray, filter_type: int = 2) -> int:
     return len(body)
 
 
-def load_image(path: str) -> np.ndarray:
-    """An image file as RGB uint8 [H, W, 3]: PNGs by `read_png`, anything
-    else through PIL, which must then be importable."""
+# Pillow's fixed point for 8-bit resampling (libImaging/Resample.c)
+_RESAMPLE_BITS = 22
+
+
+def _bilinear_taps(in_size: int, out_size: int):
+    """PIL's BILINEAR coefficients along one axis
+    (``precompute_coeffs`` + ``normalize_coeffs_8bpc``): for each output
+    index its first input index [out] and its taps' int64 weights [out,
+    ksize] (0 past the output's last tap), the triangle filter over a
+    support scaled by max(scale, 1), normalised, times 2**22 and rounded
+    half away from zero."""
+    scale = float(in_size) / out_size
+    filterscale = max(scale, 1.0)
+    support = 1.0 * filterscale
+    ksize = int(np.ceil(support)) * 2 + 1
+    center = (np.arange(out_size) + 0.5) * scale
+    xmin = np.maximum(np.trunc(center - support + 0.5).astype(np.int64), 0)
+    xmax = np.minimum(np.trunc(center + support + 0.5).astype(np.int64), in_size) - xmin
+    x = np.arange(ksize)
+    w = np.maximum(1.0 - np.abs((x[None, :] + xmin[:, None] - center[:, None] + 0.5) * (1.0 / filterscale)), 0.0)
+    w = np.where(x[None, :] < xmax[:, None], w, 0.0)
+    ww = w.sum(axis=1, keepdims=True)
+    w = np.where(ww != 0.0, w / np.where(ww != 0.0, ww, 1.0), w)
+    k = np.where(w < 0, np.trunc(-0.5 + w * (1 << _RESAMPLE_BITS)), np.trunc(0.5 + w * (1 << _RESAMPLE_BITS)))
+    return xmin, k.astype(np.int64)
+
+
+def _resample_axis(img: np.ndarray, axis: int, out_size: int) -> np.ndarray:
+    """One pass of PIL's 8-bit resampling along `axis` (0 rows, 1 columns):
+    each output is the sum of its taps times their integer weights, plus
+    2**21, shifted right by 22 and clipped to uint8. The taps are gathered
+    one tap position at a time over every output (int32 suffices: the
+    weights are non-negative and sum to ~2**22)."""
+    in_size = img.shape[axis]
+    first, k = _bilinear_taps(in_size, out_size)
+    shape = [1] * img.ndim
+    shape[axis] = out_size
+    acc = np.full(img.shape[:axis] + (out_size,) + img.shape[axis + 1 :], 1 << (_RESAMPLE_BITS - 1), np.int32)
+    for t in range(k.shape[1]):
+        if not k[:, t].any():
+            continue
+        idx = np.minimum(first + t, in_size - 1)  # a 0 weight past an output's last tap
+        acc += np.take(img, idx, axis=axis) * k[:, t].astype(np.int32).reshape(shape)
+    return np.clip(acc >> _RESAMPLE_BITS, 0, 255).astype(np.uint8)
+
+
+def resize_bilinear(img: np.ndarray, size) -> np.ndarray:
+    """uint8 [H, W] or [H, W, C] resized to ``size`` = (width, height) as
+    ``PIL.Image.fromarray(img).resize(size, Resampling.BILINEAR)`` does, bit
+    for bit, downscaling (an antialiased triangle over the scale) and
+    upscaling: two passes, the horizontal one first, each in PIL's 22-bit
+    fixed point; a pass whose axis keeps its size is skipped."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3):
+        raise ValueError(f"resize_bilinear takes uint8 [H, W] or [H, W, C], got {img.dtype} {img.shape}")
+    w, h = int(size[0]), int(size[1])
+    if w <= 0 or h <= 0:
+        raise ValueError(f"resize_bilinear: size {size} must be positive")
+    out = img
+    if w != img.shape[1]:
+        out = _resample_axis(out, 1, w)
+    if h != img.shape[0]:
+        out = _resample_axis(out, 0, h)
+    return np.ascontiguousarray(out)
+
+
+def remap_bilinear(img: np.ndarray, mapx: np.ndarray, mapy: np.ndarray, border: str = "constant") -> np.ndarray:
+    """uint8 [H, W] or [H, W, C] sampled at (mapx, mapy) (float32 [h, w]
+    each, in pixels of `img`) by bilinear interpolation: the counterpart of
+    ``cv2.remap(img, mapx, mapy, cv2.INTER_LINEAR)`` with ``borderMode``
+    ``BORDER_CONSTANT`` (value 0; ``border="constant"``) or
+    ``BORDER_REPLICATE`` (``border="replicate"``). Returns uint8 [h, w(, C)].
+
+    The arithmetic, all in float32, in this order (cv2 5.0's bilinear
+    remap, which no longer quantizes the fractions to 1/32 of a pixel): x0
+    = floor(mapx), ax = mapx - x0 (likewise y0, ay); the four neighbours
+    p00 = img[y0, x0], p01 = img[y0, x0 + 1], p10 = img[y0 + 1, x0], p11 =
+    img[y0 + 1, x0 + 1], each 0 outside the image (``constant``) or at its
+    clamped position (``replicate``); top = p00 + ax * (p01 - p00), bot =
+    p10 + ax * (p11 - p10), v = top + ay * (bot - top); then v rounded to
+    the nearest integer, ties to even, and saturated to [0, 255]; a
+    non-finite coordinate gives 0. cv2 may contract a multiply and an add
+    into one rounding, so a value can lie one level from its result (a few
+    in a million on undistortion maps)."""
+    img = np.asarray(img)
+    mapx = np.asarray(mapx, np.float32)
+    mapy = np.asarray(mapy, np.float32)
+    if img.dtype != np.uint8 or img.ndim not in (2, 3):
+        raise ValueError(f"remap_bilinear takes uint8 [H, W] or [H, W, C], got {img.dtype} {img.shape}")
+    if mapx.shape != mapy.shape or mapx.ndim != 2:
+        raise ValueError(f"mapx {mapx.shape} and mapy {mapy.shape} must be one [h, w] shape")
+    if border not in ("constant", "replicate"):
+        raise ValueError(f"border must be 'constant' or 'replicate', got {border!r}")
+    H, W = img.shape[:2]
+    C = 1 if img.ndim == 2 else img.shape[2]
+    # two pixels of border (zeros, or the edge repeated) on each side: a
+    # neighbour's position clipped into [-2, W + 1] reads what it would
+    # read at its own position
+    pad = np.pad(img.reshape(H, W, C), ((2, 2), (2, 2), (0, 0)), mode="constant" if border == "constant" else "edge")
+    src = pad.reshape(-1, C).astype(np.float32)
+    # a non-finite coordinate reads 0, as in cv2 (either border)
+    finite = np.isfinite(mapx) & np.isfinite(mapy)
+    if not finite.all():
+        mapx, mapy = np.where(finite, mapx, np.float32(-1e9)), np.where(finite, mapy, np.float32(-1e9))
+    fx, fy = np.floor(mapx), np.floor(mapy)
+    ax, ay = (mapx - fx).reshape(-1, 1), (mapy - fy).reshape(-1, 1)
+    x0 = np.clip(fx, -2, W).astype(np.int64).reshape(-1) + 2
+    y0 = np.clip(fy, -2, H).astype(np.int64).reshape(-1) + 2
+    i00 = y0 * (W + 4) + x0
+    p00, p01 = np.take(src, i00, axis=0), np.take(src, i00 + 1, axis=0)
+    p10, p11 = np.take(src, i00 + (W + 4), axis=0), np.take(src, i00 + (W + 5), axis=0)
+    p01 -= p00
+    p01 *= ax
+    top = p00 + p01
+    p11 -= p10
+    p11 *= ax
+    bot = p10 + p11
+    bot -= top
+    bot *= ay
+    top += bot
+    out = np.clip(np.rint(top), 0, 255).astype(np.uint8).reshape(mapx.shape + (C,))
+    out[~finite] = 0
+    return out[..., 0] if img.ndim == 2 else out
+
+
+_JD_INFO = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int32]
+_JD_DECODE = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_void_p, ctypes.c_int64, ctypes.c_char_p, ctypes.c_int32]
+
+
+def _jpeg_lib():
+    from .._backend import host_library
+
+    lib = host_library("jpeg_decode")
+    if lib.jd_info.argtypes is None:
+        lib.jd_info.argtypes, lib.jd_info.restype = _JD_INFO, ctypes.c_int
+        lib.jd_decode.argtypes, lib.jd_decode.restype = _JD_DECODE, ctypes.c_int
+    return lib
+
+
+def decode_jpeg(data: bytes, path: str = "<bytes>") -> np.ndarray:
+    """A JPEG file's bytes as RGB uint8 [H, W, 3], the bits of
+    ``np.asarray(PIL.Image.open(path).convert("RGB"))`` for baseline and
+    extended-sequential Huffman files of 1 or 3 components. Other JPEGs
+    (progressive, arithmetic, lossless, 12-bit, CMYK) raise RuntimeError
+    naming the SOF marker or the component count (``path`` names the file).
+    Each call adds one to ``_backend.HOST_CALLS["jpeg_decode"]``."""
+    from .._backend import HOST_CALLS
+
+    lib = _jpeg_lib()
+    HOST_CALLS["jpeg_decode"] += 1
+    err = ctypes.create_string_buffer(256)
+    info = np.zeros(5, np.int32)
+    if lib.jd_info(data, len(data), info.ctypes.data, err, len(err)):
+        raise RuntimeError(f"{path}: {err.value.decode()}")
+    w, h = int(info[0]), int(info[1])
+    out = np.empty((h, w, 3), np.uint8)
+    if lib.jd_decode(data, len(data), out.ctypes.data, out.size, err, len(err)):
+        raise RuntimeError(f"{path}: {err.value.decode()}")
+    return out
+
+
+def read_jpeg(path: str) -> np.ndarray:
+    """`decode_jpeg` of a file."""
     with open(path, "rb") as f:
-        is_png = f.read(len(PNG_SIGNATURE)) == PNG_SIGNATURE
-    if is_png:
+        return decode_jpeg(f.read(), path)
+
+
+def load_image(path: str) -> np.ndarray:
+    """An image file as RGB uint8 [H, W, 3]: PNGs by `read_png`, JPEGs by
+    `read_jpeg`, anything else through PIL, which must then be importable."""
+    with open(path, "rb") as f:
+        head = f.read(len(PNG_SIGNATURE))
+    if head == PNG_SIGNATURE:
         return read_png(path)
+    if head.startswith(JPEG_SIGNATURE):
+        return read_jpeg(path)
     try:
         from PIL import Image as PILImage
     except ImportError as e:
         raise RuntimeError(
-            f"{os.path.basename(path)} is not a PNG and no decoder for it is installed: the port reads "
-            "PNGs itself and other formats (JPEG) only through PIL, which cannot be imported here"
+            f"{os.path.basename(path)} is neither a PNG nor a JPEG and no decoder for it is installed: the port "
+            "reads PNGs and JPEGs itself and other formats only through PIL, which cannot be imported here"
         ) from e
     with PILImage.open(path) as im:
         return np.asarray(im.convert("RGB"))

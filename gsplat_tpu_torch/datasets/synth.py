@@ -1,4 +1,4 @@
-"""Synthetic COLMAP scenes from splats (port of the pinhole path of
+"""Synthetic COLMAP scenes from splats (port of
 scripts/make_synth_dataset.py).
 
 `write_scene` renders ground-truth images of given splats with the port's
@@ -25,6 +25,17 @@ the cameras from those float32 points; the initial points drawn by the same
 generator after the sample, in its order. Camera poses, intrinsics, splats,
 points and colours are then the JAX script's; the images are this
 package's render of them (the JAX script's is its oracle's).
+
+``--fisheye`` writes the JAX script's OPENCV_FISHEYE scene: each view is
+rendered with ``camera_model="fisheye"`` (the ideal equidistant frame),
+then warped into the distorted capture frame, which the `Parser`'s
+theta-polynomial remap inverts back: the capture pixel at distorted
+radius rho_d samples the ideal image at the rho that solves rho (1 + k1
+rho^2 + ... + k4 rho^8) = rho_d (12 Newton steps in float64), through
+`image_io.remap_bilinear` with the edge repeated (cv2's
+``BORDER_REPLICATE`` in the JAX script). cameras.bin holds model 5 with
+k = (0.06, 0.012, 0, 0). The observations stay the pinhole projections of
+the points.
 """
 
 from __future__ import annotations
@@ -39,7 +50,27 @@ import numpy as np
 import torch
 
 from .colmap_io import POINT2D_RECORD, POINT_RECORD
-from .image_io import write_png
+from .image_io import remap_bilinear, write_png
+
+FISHEYE_K = (0.06, 0.012, 0.0, 0.0)  # the JAX script's k1..k4
+
+
+def fisheye_capture_maps(W: int, H: int, f: float, k=FISHEYE_K):
+    """(mapx, mapy) float32 [H, W]: where each pixel of the distorted
+    capture frame samples the ideal equidistant render
+    (scripts/make_synth_dataset.py:134-155)."""
+    k1, k2, k3, k4 = k
+    uu, vv = np.meshgrid(np.arange(W, dtype=np.float64), np.arange(H, dtype=np.float64), indexing="xy")
+    xd = (uu - W // 2) / f
+    yd = (vv - H // 2) / f
+    rho_d = np.sqrt(xd**2 + yd**2)
+    rho = rho_d.copy()
+    for _ in range(12):
+        poly = rho * (1 + k1 * rho**2 + k2 * rho**4 + k3 * rho**6 + k4 * rho**8)
+        dpoly = 1 + 3 * k1 * rho**2 + 5 * k2 * rho**4 + 7 * k3 * rho**6 + 9 * k4 * rho**8
+        rho = rho - (poly - rho_d) / dpoly
+    radial = np.where(rho_d > 1e-9, rho / np.clip(rho_d, 1e-9, None), 1.0)
+    return (f * xd * radial + W / 2).astype(np.float32), (f * yd * radial + H / 2).astype(np.float32)
 
 
 def look_at(eye, target, up=np.array([0.0, 0.0, 1.0])):
@@ -155,13 +186,15 @@ def write_scene(
     tile_size: int = 16,
     keep: Optional[np.ndarray] = None,
     cameras=None,
+    fisheye: bool = False,
 ) -> Dict:
     """Render `splats` (means [N,3], quats [N,4], scales [N,3] and
     opacities [N] activated, colors [N,3] in [0, 1]) from `n_views` cameras
     at width x height and write the COLMAP scene to `out`, with a seeded
     `n_points` of the means and colours as its points (or the rows `keep`,
     in that order). The cameras are `circle_cameras` of the float64 means,
-    or `cameras` = (K, world-to-camera) where given. Returns {"render_s",
+    or `cameras` = (K, world-to-camera) where given; with `fisheye` an
+    OPENCV_FISHEYE camera (the module's docstring). Returns {"render_s",
     "write_s", "bytes", "observations"}."""
     from .._backend import resolve_device
     from ..rendering import rasterization
@@ -180,17 +213,21 @@ def write_scene(
     gt = [t(splats[k]) for k in ("means", "quats", "scales", "opacities", "colors")]
     Kt = t(K)[None]
     bg = torch.ones((1, 3), device=device)
+    model = "fisheye" if fisheye else "pinhole"
     names, frames = [], []
     t0 = time.perf_counter()
     with torch.no_grad():
         for i in range(n_views):
             vm = t(w2cs[i])[None]
             need = rasterization(*gt, vm, Kt, W, H, backend="binned", isect_capacity=512,
-                                 tile_size=tile_size)[2]["slab_required"]
+                                 tile_size=tile_size, camera_model=model)[2]["slab_required"]
             img = rasterization(*gt, vm, Kt, W, H, backgrounds=bg, backend="binned",
-                                isect_capacity=int(need) + 1024, tile_size=tile_size)[0]
+                                isect_capacity=int(need) + 1024, tile_size=tile_size, camera_model=model)[0]
             frames.append((img[0].clamp(0, 1) * 255).to(torch.uint8).cpu().numpy())
             names.append(f"view_{i:03d}.png")
+    if fisheye:
+        mapx, mapy = fisheye_capture_maps(W, H, f)
+        frames = [remap_bilinear(fr, mapx, mapy, border="replicate") for fr in frames]
     render_s = time.perf_counter() - t0
 
     t0 = time.perf_counter()
@@ -211,8 +248,12 @@ def write_scene(
 
     with open(os.path.join(sp, "cameras.bin"), "wb") as fo:
         fo.write(struct.pack("<Q", 1))
-        fo.write(struct.pack("<iiQQ", 1, 1, W, H))  # PINHOLE
-        fo.write(struct.pack("<4d", f, f, W / 2, H / 2))
+        if fisheye:
+            fo.write(struct.pack("<iiQQ", 1, 5, W, H))  # OPENCV_FISHEYE
+            fo.write(struct.pack("<8d", f, f, W / 2, H / 2, *FISHEYE_K))
+        else:
+            fo.write(struct.pack("<iiQQ", 1, 1, W, H))  # PINHOLE
+            fo.write(struct.pack("<4d", f, f, W / 2, H / 2))
     with open(os.path.join(sp, "images.bin"), "wb") as fo:
         fo.write(struct.pack("<Q", n_views))
         for i in range(n_views):
@@ -250,6 +291,9 @@ def main(argv=None):
                          "with --jax-scene 120000)")
     ap.add_argument("--jax-scene", action="store_true",
                     help="the ground truth, cameras and points of scripts/make_synth_dataset.py (its pinhole path)")
+    ap.add_argument("--fisheye", action="store_true",
+                    help="an OPENCV_FISHEYE scene: the views rendered with camera_model='fisheye' and warped into "
+                         "the distorted capture frame")
     ap.add_argument("--seed", type=int, default=3)
     ap.add_argument("--device", default="cuda", help="cuda, or cpu for the kernels' plain versions")
     args = ap.parse_args(argv)
@@ -268,7 +312,7 @@ def main(argv=None):
         splats = {"means": means, "quats": quats, "scales": scales, "opacities": opac, "colors": colors}
     n = len(splats["means"])
     info = write_scene(args.out, splats, args.n_views, args.width, args.height, args.n_points,
-                       seed=args.seed, device=args.device, keep=keep, cameras=cameras)
+                       seed=args.seed, device=args.device, keep=keep, cameras=cameras, fisheye=args.fisheye)
     print(f"wrote a synthetic COLMAP scene of {n} splats to {args.out}: {args.n_views} views at "
           f"{args.width}x{args.height}, {min(args.n_points, n)} points, {info['observations']} "
           f"observations, {info['bytes']} bytes; render {info['render_s']:.2f} s, write {info['write_s']:.2f} s")

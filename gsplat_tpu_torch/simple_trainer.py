@@ -61,9 +61,14 @@ pool growth run the single-device code on the whole pool on rank 0 and
 scatter the rows back. Rank 0 alone writes the result directory, and a
 checkpoint is the single-device one (`save` gathers, `load` slices).
 
-``tb_every`` / ``tb_save_image`` are accepted and write nothing, as the
-JAX trainer does where TensorBoard cannot be imported; the port does not
-depend on it. The 2DGS trainer (simple_trainer_2dgs.py)
+Every ``tb_every`` steps (and at each evaluation) the trainer logs the
+JAX trainer's TensorBoard scalars into ``result_dir/tb`` through
+``torch.utils.tensorboard``: ``train/loss``, ``train/num_GS``,
+``train/n_isects``, ``train/mem_params_mb`` and, with ``tb_save_image``,
+``train/render`` (the step's first view beside its render); ``val/psnr``,
+``val/ssim``, ``val/lpips`` and ``val/num_GS``. Where TensorBoard cannot be
+imported the options write nothing, as in the JAX trainer; the port does
+not depend on it. The 2DGS trainer (simple_trainer_2dgs.py)
 overrides the render and geometry-loss hooks of `Runner`.
 """
 
@@ -178,8 +183,8 @@ class Config:
     render_traj: bool = False
     render_traj_path: str = "interp"  # or "ellipse"
     compression: str = ""  # "png": compress the live splats at every save
-    tb_every: int = 100  # no TensorBoard writer: inert
-    tb_save_image: bool = False  # no TensorBoard writer: inert
+    tb_every: int = 100  # TensorBoard scalars every this many steps (0: none)
+    tb_save_image: bool = False  # with them the step's first view and its render
     # pool management
     pool_headroom: float = 2.0  # initial capacity = N0 * headroom, rounded up to 4096
     pool_grow_at: float = 0.9  # grow the pool when the live share passes this
@@ -513,6 +518,54 @@ class Runner:
     def _writes(self) -> bool:
         """Whether this process writes the result directory: rank 0's."""
         return self.result_dir is not None and self.rank == 0
+
+    @property
+    def _tb(self):
+        """The TensorBoard writer into ``result_dir/tb``, made at first use
+        (the JAX trainer's ``_tb``); None with ``tb_every`` 0, in a process
+        that writes no results, or where ``torch.utils.tensorboard`` cannot
+        be imported."""
+        if not hasattr(self, "_tb_writer"):
+            self._tb_writer = None
+            if self.cfg.tb_every > 0 and self._writes:
+                try:
+                    from torch.utils.tensorboard import SummaryWriter
+
+                    self._tb_writer = SummaryWriter(log_dir=os.path.join(self.result_dir, "tb"))
+                except ImportError:
+                    pass
+        return self._tb_writer
+
+    def _tb_on(self) -> bool:
+        """Whether any rank writes TensorBoard logs: every rank then takes
+        part in the collectives that gather what rank 0 logs."""
+        if not self.distributed:
+            return self._tb is not None
+        on = torch.tensor([self._tb is not None], dtype=torch.int32, device=self.device)
+        return bool(self._all_sum(on).item())
+
+    def _log_tb(self, step: int, out: Dict) -> None:
+        """The JAX trainer's train/* scalars (and with ``tb_save_image`` the
+        step's first view beside its render after the step) at ``step``."""
+        cfg = self.cfg
+        n_live = self.n_live()
+        row_bytes = sum(p.element_size() * p[0].numel() for p in self.params.values())
+        image = None
+        if cfg.tb_save_image:
+            pixels, camtoworlds, Ks = self._as_batch([self.trainset[self.data_index(step, 0)]])
+            H, W = pixels.shape[1:3]
+            rgb, _, _ = self.render(camtoworlds[:1], Ks[:1], W, H)
+            image = torch.cat([pixels[0], rgb[0].clamp(0, 1)], dim=1).cpu().numpy()
+        tb = self._tb
+        if tb is None:
+            return
+        tb.add_scalar("train/loss", float(out["loss"]), step)
+        tb.add_scalar("train/num_GS", n_live, step)
+        tb.add_scalar("train/n_isects", int(out["slab_required"]), step)
+        tb.add_scalar("train/mem_params_mb", row_bytes * self.pool_size / 2**20, step)
+        if image is not None:
+            tb.add_image("train/render", image, step, dataformats="HWC")
+        tb.flush()
 
     @classmethod
     def from_colmap(cls, cfg: Config, device="cuda", **kwargs) -> "Runner":
@@ -1042,6 +1095,8 @@ class Runner:
                     with open(os.path.join(self.result_dir, "stats.jsonl"), "a") as f:
                         f.write(json.dumps({"step": step, "loss": loss, "n_live": n_live,
                                             "elapsed_s": time.time() - t0}) + "\n")
+            if cfg.tb_every > 0 and step % cfg.tb_every == 0 and self._tb_on():
+                self._log_tb(step, outs[-1])
             if step + 1 in cfg.eval_steps:
                 if len(self.valset):
                     self.eval(step + 1)
@@ -1176,6 +1231,11 @@ class Runner:
         if self._writes:
             with open(os.path.join(self.result_dir, f"val_step{step}.json"), "w") as f:
                 json.dump(stats, f)
+        if self._tb is not None:
+            for k in ("psnr", "ssim", "lpips", "num_GS"):
+                if k in stats:
+                    self._tb.add_scalar(f"val/{k}", stats[k], step)
+            self._tb.flush()
         return stats
 
     @torch.no_grad()

@@ -11,8 +11,10 @@
   every filter type: equal bytes; the writer's files read back equal by
   PIL and the reader.
 - The trajectories equal JAX's within rtol 1e-6.
-- A distorted camera, and an image that needs a resize, raise
-  NotImplementedError; a JPEG without PIL raises RuntimeError.
+- A distorted camera (OPENCV, OPENCV_FISHEYE, SIMPLE_RADIAL) and an image
+  that needs a resize load as the JAX package's Parser loads them (with
+  cv2 and PIL); a scene of JPEG views reads without PIL; synth --fisheye
+  writes an OPENCV_FISHEYE scene whose items carry the mask.
 """
 
 import os
@@ -212,25 +214,6 @@ def test_png_writer_reads_back(tmp_path, ch, filter_type):
         np.testing.assert_array_equal(image_io.read_png(path), rgb)
 
 
-
-def test_jpeg_needs_pil(tmp_path, monkeypatch):
-    path = str(tmp_path / "x.jpg")
-    Image.fromarray(_image(8, 8, 3, 0)).save(path)
-    assert image_io.load_image(path).shape == (8, 8, 3)
-    import builtins
-
-    real_import = builtins.__import__
-
-    def no_pil(name, *args, **kwargs):
-        if name == "PIL" or name.startswith("PIL."):
-            raise ImportError("no PIL")
-        return real_import(name, *args, **kwargs)
-
-    monkeypatch.setattr(builtins, "__import__", no_pil)
-    with pytest.raises(RuntimeError, match="PIL"):
-        image_io.load_image(path)
-
-
 def test_trajectories_match_jax():
     c2w = Parser(scene_dir(), normalize=True).camtoworlds[:, :3, :4].astype(np.float64)
     pairs = [
@@ -256,22 +239,77 @@ def _copy_scene(src, dst, cameras_bin=None, factor_dir=None):
 @pytest.mark.parametrize("model,params", [(4, (50.0, 50.0, 32.0, 24.0, 0.01, 0.0, 0.0, 0.0)),
                                           (5, (50.0, 50.0, 32.0, 24.0, 0.06, 0.012, 0.0, 0.0)),
                                           (2, (50.0, 32.0, 24.0, -0.02))])
-def test_distorted_camera_raises(tmp_path, model, params):
+def test_distorted_camera_matches_jax(tmp_path, model, params):
     """OPENCV, OPENCV_FISHEYE and SIMPLE_RADIAL with non-zero distortion:
-    undistortion needs cv2, which the port does not depend on."""
+    the port's Parser undistorts as the JAX package's does with cv2 (the
+    intrinsics within rtol 1e-5, the size, roi and fisheye mask equal; each
+    item's image within 1 level on at most 0.1% of its values)."""
     body = struct.pack("<Q", 1) + struct.pack("<iiQQ", 1, model, W, H) + struct.pack(f"<{len(params)}d", *params)
     d = _copy_scene(scene_dir(), tmp_path / "s", cameras_bin=body)
-    with pytest.raises(NotImplementedError, match="undistortion"):
-        Parser(d)
+    got, want = Parser(d), JaxParser(d)
+    np.testing.assert_allclose(got.Ks_dict[1], want.Ks_dict[1], rtol=1e-5)
+    assert got.imsize_dict == want.imsize_dict and got._roi == want._roi
+    if model == 5:
+        np.testing.assert_array_equal(got.mask_dict[1], want.mask_dict[1])
+    for g, w in zip(Dataset(got, "train"), JaxDataset(want, "train")):
+        assert sorted(g) == sorted(w) and g["image"].shape == w["image"].shape
+        diff = np.abs(np.round(g["image"] * 255) - np.round(w["image"] * 255))
+        assert diff.max() <= 1 and (diff > 0).mean() <= 1e-3
 
 
-def test_resize_raises(tmp_path):
+def test_resize_matches_jax(tmp_path):
     """factor 2 without images_2/: the JAX Parser resizes with PIL, the port
-    refuses."""
-    p = Parser(_copy_scene(scene_dir(), tmp_path / "s"), factor=2)
+    with its own bilinear resize: the same bits."""
+    d = _copy_scene(scene_dir(), tmp_path / "s")
+    p, jp = Parser(d, factor=2), JaxParser(d, factor=2)
     assert p.imsize_dict[1] == (W // 2, H // 2)
-    with pytest.raises(NotImplementedError, match="resiz"):
-        Dataset(p, "train")[0]
+    for g, w in zip(Dataset(p, "train"), JaxDataset(jp, "train")):
+        assert g["image"].shape == (H // 2, W // 2, 3)
+        np.testing.assert_array_equal(g["image"], w["image"])
+
+
+def test_jpeg_scene_without_pil(tmp_path, monkeypatch):
+    """The scene with its views stored as JPEGs (named .jpg in images.bin):
+    the port's Dataset reads them with PIL's import blocked, each item the
+    JAX Dataset's (which decodes with PIL) bit for bit."""
+    import builtins
+
+    d = _copy_scene(scene_dir(), tmp_path / "s")
+    img_dir = os.path.join(d, "images")
+    for name in sorted(os.listdir(img_dir)):
+        arr = image_io.read_png(os.path.join(img_dir, name))
+        os.remove(os.path.join(img_dir, name))
+        Image.fromarray(arr).save(os.path.join(img_dir, name[:-4] + ".jpg"), quality=90)
+    images_bin = os.path.join(d, "sparse", "0", "images.bin")
+    with open(images_bin, "rb") as f:
+        body = f.read()
+    with open(images_bin, "wb") as f:
+        f.write(body.replace(b".png\x00", b".jpg\x00"))
+    want = [item["image"] for item in JaxDataset(JaxParser(d), "train")]
+    real_import = builtins.__import__
+
+    def no_pil(name, *args, **kwargs):
+        if name == "PIL" or name.startswith("PIL."):
+            raise ImportError("no PIL")
+        return real_import(name, *args, **kwargs)
+
+    monkeypatch.setattr(builtins, "__import__", no_pil)
+    got = Dataset(Parser(d), "train")
+    assert len(got) == len(want) and got.parser.image_paths[1].endswith(".jpg")
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g["image"], w)
+
+
+def test_synth_fisheye_command_line(tmp_path):
+    """synth --fisheye: an OPENCV_FISHEYE camera with the JAX script's k,
+    whose Parser carries the fisheye mask into every item."""
+    synth.main(["--out", str(tmp_path / "f"), "--n-views", "2", "--width", "40", "--height", "30",
+                "--n-points", "50", "--gt-splats", "500", "--device", "cpu", "--fisheye"])
+    cams = colmap_io.read_cameras_bin(str(tmp_path / "f" / "sparse" / "0" / "cameras.bin"))
+    assert cams[1].model == "OPENCV_FISHEYE" and list(cams[1].params[4:]) == list(synth.FISHEYE_K)
+    p = Parser(str(tmp_path / "f"))
+    item = Dataset(p, "val")[0]
+    assert item["mask"].shape == item["image"].shape[:2] == p.imsize_dict[1][::-1]
 
 
 def test_synth_command_line(tmp_path):

@@ -14,6 +14,10 @@ ground-truth splats, 3 views of 48x32, 100 points):
   off by more than 8 levels: the JAX script renders with its oracle, the
   port with the binned backend's plain version, and a value on a level's
   edge truncates to either side (at this size every level is equal).
+- With ``--fisheye`` on both sides: the OPENCV_FISHEYE camera (model 5, k
+  = (0.06, 0.012, 0, 0)) equal, and the warped views by the same bounds
+  (the JAX script warps with cv2.remap, the port with remap_bilinear, both
+  repeating the edge).
 """
 
 import importlib.util
@@ -33,9 +37,9 @@ ARGS = ["--width", "48", "--height", "32", "--gt-splats", "300", "--n-points", "
 N_VIEWS = 3
 
 
-def _run_jax_script(out, monkeypatch):
-    """scripts/make_synth_dataset.py --cpu in this process; returns the
-    splats it handed to gsplat_tpu.rasterization."""
+def _run_jax_script(out, monkeypatch, extra=()):
+    """scripts/make_synth_dataset.py --cpu (and `extra`) in this process;
+    returns the splats it handed to gsplat_tpu.rasterization."""
     spec = importlib.util.spec_from_file_location("make_synth_dataset", os.path.join(ROOT, "scripts",
                                                                                       "make_synth_dataset.py"))
     mod = importlib.util.module_from_spec(spec)
@@ -53,7 +57,7 @@ def _run_jax_script(out, monkeypatch):
 
     monkeypatch.setattr(gsplat_tpu, "rasterization", hook)
     monkeypatch.setattr(sys, "argv", ["make_synth_dataset.py", "--cpu", "--out", out, "--n-cams", str(N_VIEWS)]
-                        + ARGS)
+                        + ARGS + list(extra))
     mod.main()
     return seen
 
@@ -85,6 +89,24 @@ def test_jax_scene_matches_the_jax_script(tmp_path, monkeypatch):
         assert a.shape == b.shape and np.array_equal(a, b)
     np.testing.assert_array_equal(tpts[0], want["means"][info["keep"]].astype(np.float64))
 
+    for i in range(N_VIEWS):
+        name = f"view_{i:03d}.png"
+        a, b = (image_io.read_png(os.path.join(d, "images", name)).astype(np.int32) for d in (jdir, tdir))
+        assert a.shape == b.shape == (32, 48, 3)
+        diff = np.abs(a - b)
+        assert (diff > 1).mean() <= 5e-3 and diff.max() <= 8, (name, (diff > 1).mean(), diff.max())
+
+
+def test_fisheye_scene_matches_the_jax_script(tmp_path, monkeypatch):
+    jdir, tdir = str(tmp_path / "jax"), str(tmp_path / "port")
+    want = _run_jax_script(jdir, monkeypatch, ["--fisheye"])
+    info = synth.main(["--jax-scene", "--fisheye", "--out", tdir, "--n-views", str(N_VIEWS), "--device", "cpu"] + ARGS)
+    for k in want:
+        assert np.array_equal(info["splats"][k], want[k]), k
+    jcams, tcams = (colmap_io.read_cameras_bin(os.path.join(d, "sparse", "0", "cameras.bin")) for d in (jdir, tdir))
+    a, b = jcams[1], tcams[1]
+    assert a.model == b.model == "OPENCV_FISHEYE" and (a.width, a.height) == (b.width, b.height)
+    assert np.array_equal(a.params, b.params) and list(a.params[4:]) == list(synth.FISHEYE_K)
     for i in range(N_VIEWS):
         name = f"view_{i:03d}.png"
         a, b = (image_io.read_png(os.path.join(d, "images", name)).astype(np.int32) for d in (jdir, tdir))
