@@ -290,10 +290,19 @@ non-zero (there is no CPU fallback):
      with --camera-model fisheye: the views carry "mask", the render the
      loss sees is 0 outside it, every value finite; (c) every committed
      JPEG fixture (tests/assets/jpeg/) decoded to its stored PIL decoding
-     bit for bit, the 1080p fixture's decode timed (median of 5) beside
-     the 48.06 ms of an Up-filtered 1080p PNG, and a 2-view scene of it
-     read through Dataset;
- 19. the `kernels` line (the eleven path kernels, the grid's two gradient
+     bit for bit, the three progressive (SOF2) ones among them, the
+     progressive 1080p frame to the baseline frame's PNG; both 1080p
+     frames' decodes timed (medians of 5, alternated) beside the 48.06 ms
+     of an Up-filtered 1080p PNG, and a 2-view scene of the baseline
+     frame read through Dataset;
+ 19. the quality matrix's driver (scripts/torch_quality.py) as a user
+     runs it, cut to 16 views of 648x420 and 300 default steps with
+     evaluations at 100 and 300 (no save, no compress-eval), under
+     build/chip_quality/, the launch counts set to 0 before and read
+     after: the evidence files persisted and no checkpoint among them,
+     every training kernel launched, the val PSNR at 300 above that at
+     100;
+ 20. the `kernels` line (the eleven path kernels, the grid's two gradient
      kernels and the eighteen micro-benchmark kernels; emit, the gather and the
      reduce also with their times and bounds at the 2DGS train shapes, emit
      and the gather also at the fixture surfels, the four forwards with
@@ -302,8 +311,8 @@ non-zero (there is no CPU fallback):
      their largest error against the plain version on phase 13's inputs,
      the grid's gradients their phase 13 launches and errors, the seven
      kernels of phase 15 their launches there, the training kernels their
-     launches in phase 16, every kernel its launches in phase 17 and in
-     phase 18), the phases' wall times, the card's name and power limit,
+     launches in phase 16, every kernel its launches in phases 17, 18
+     and 19), the phases' wall times, the card's name and power limit,
      then the result line.
 """
 
@@ -5122,32 +5131,50 @@ def write_jpeg_scene(data, jpeg, w, h, n_points=100):
         fo.write(struct.pack("<Q", n_points) + rec.tobytes())
 
 
+def jpeg_fixture_png(name):
+    """The PNG a JPEG fixture is held to: its own, or the one the fixtures'
+    same_png.json names (the progressive 1080p frame: the baseline frame's,
+    which is its PIL decoding too)."""
+    with open(os.path.join(JPEG_ASSETS, "same_png.json")) as f:
+        return os.path.join(JPEG_ASSETS, json.load(f).get(name, name) + ".png")
+
+
 def phase_extras_jpeg(smi, root):
     """18c: every committed JPEG fixture decoded by the port's decoder equal
-    to its PIL decoding; the 1080p fixture's decode timed (median of
-    EXTRAS_JPEG_RUNS); a 2-view scene of it read through Dataset. Returns
-    the 1080p decode's ms."""
+    to its PIL decoding (the progressive ones among them: SOF2 decoded to
+    its PNG's bits, the progressive 1080p frame to the baseline frame's);
+    both 1080p frames' decodes timed (median of EXTRAS_JPEG_RUNS, alternated);
+    a 2-view scene of the baseline frame read through Dataset. Returns both
+    1080p decodes' ms (baseline, progressive)."""
     from gsplat_tpu_torch import _backend
     from gsplat_tpu_torch.datasets import Dataset, Parser, image_io
 
     names = sorted(f[:-4] for f in os.listdir(JPEG_ASSETS) if f.endswith(".jpg"))
-    if len(names) < 7:
+    progressive = ("prog_q80_420_restart_97x61", "prog_grey_q75_45x31", "garden_1080p_q85_progressive")
+    if len(names) < 10 or not set(progressive) <= set(names):
         raise AssertionError(f"18c: the JPEG fixtures {names}")
     sizes = {}
     for name in names:
+        with open(os.path.join(JPEG_ASSETS, name + ".jpg"), "rb") as fi:
+            sof2 = b"\xff\xc2" in fi.read()
         got = image_io.read_jpeg(os.path.join(JPEG_ASSETS, name + ".jpg"))
-        want = image_io.read_png(os.path.join(JPEG_ASSETS, name + ".png"))
-        if got.shape != want.shape or not np.array_equal(got, want):
-            raise AssertionError(f"18c: {name}.jpg decodes to other bits than PIL's ({got.shape}, {want.shape})")
+        want = image_io.read_png(jpeg_fixture_png(name))
+        if got.shape != want.shape or not np.array_equal(got, want) or sof2 != (name in progressive):
+            raise AssertionError(f"18c: {name}.jpg decodes to other bits than PIL's ({got.shape}, {want.shape}), or "
+                                 f"is{' ' if sof2 else ' not '}SOF2")
         sizes[name] = got.shape[:2]
     big = os.path.join(JPEG_ASSETS, "garden_1080p_q85.jpg")
-    with open(big, "rb") as fi:
-        body = fi.read()
-    ms = []
+    bodies = []
+    for path in (big, os.path.join(JPEG_ASSETS, "garden_1080p_q85_progressive.jpg")):
+        with open(path, "rb") as fi:
+            bodies.append(fi.read())
+    body = bodies[0]
+    ms, ms_prog = [], []
     for _ in range(EXTRAS_JPEG_RUNS):
-        t0 = time.perf_counter()
-        image_io.decode_jpeg(body)
-        ms.append((time.perf_counter() - t0) * 1e3)
+        for data_, out in zip(bodies, (ms, ms_prog)):
+            t0 = time.perf_counter()
+            image_io.decode_jpeg(data_)
+            out.append((time.perf_counter() - t0) * 1e3)
     data = os.path.join(root, "jpeg_scene")
     write_jpeg_scene(data, big, MAIN_W, MAIN_H)
     before = _backend.HOST_CALLS["jpeg_decode"]
@@ -5156,12 +5183,14 @@ def phase_extras_jpeg(smi, root):
     if not np.array_equal(item["image"], want.astype(np.float32) / 255.0) or \
             _backend.HOST_CALLS["jpeg_decode"] != before + 1:
         raise AssertionError("18c: the JPEG scene's item differs from the fixture's PIL decoding, or was not decoded")
-    med = float(np.median(ms))
+    med, med_prog = float(np.median(ms)), float(np.median(ms_prog))
     log(f"18c JPEG: {len(names)} committed fixtures ({', '.join(f'{n} {s[1]}x{s[0]}' for n, s in sizes.items())}) "
-        f"decoded to PIL's bits; garden_1080p_q85.jpg ({len(body)} bytes) decodes in {med:.2f} ms on the host "
-        f"(median of {EXTRAS_JPEG_RUNS}: {', '.join(f'{v:.2f}' for v in ms)}) against {PNG_UP_1080P_MS} ms for an "
-        f"Up-filtered 1080p PNG (PERF.md §5); a 2-view scene of it read through Dataset, equal (card: {smi})")
-    return med
+        f"decoded to PIL's bits, the progressive 1080p frame to the baseline frame's; 1080p q85 decode on the host, "
+        f"baseline ({len(body)} bytes) {med:.2f} ms against progressive ({len(bodies[1])} bytes) {med_prog:.2f} ms "
+        f"(medians of {EXTRAS_JPEG_RUNS}, alternated: {', '.join(f'{v:.2f}' for v in ms)}; "
+        f"{', '.join(f'{v:.2f}' for v in ms_prog)}), an Up-filtered 1080p PNG {PNG_UP_1080P_MS} ms (PERF.md §5); a "
+        f"2-view scene of the baseline frame read through Dataset, equal (card: {smi})")
+    return med, med_prog
 
 
 def phase_extras_reader(smi, data):
@@ -5226,7 +5255,72 @@ def phase_dataset_extras(smi):
     launches = {k: launches_a[k] + launches_b[k] for k in launches_a}
     log(f"phase 18 wall times: 18a {t1 - t0:.1f} s, 18d {t2 - t1:.1f} s, 18b {t3 - t2:.1f} s, 18c {t4 - t3:.1f} s; "
         f"launches in 18a and 18b: {({k: v for k, v in launches.items() if v})}")
-    return launches, {"jpeg_1080p_ms": jpeg_ms, "native_s": native_s, "numpy_s": numpy_s}
+    return launches, {"jpeg_1080p_ms": jpeg_ms[0], "jpeg_1080p_progressive_ms": jpeg_ms[1], "native_s": native_s,
+                      "numpy_s": numpy_s}
+
+
+QUALITY_VIEWS = 16  # phase 19: the driver's scene at 648x420 cut to 16 views
+QUALITY_STEPS = 300
+QUALITY_EVALS = (100, 300)
+QUALITY_KERNELS = ("emit", "emit_gather", "rasterize_fwd", "rasterize_bwd", "gid_reduce")
+
+
+def quality_root():
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "chip_quality")
+
+
+def phase_quality(smi):
+    """Phase 19: scripts/torch_quality.py, the quality matrix's driver, as
+    a user calls it (its scene cut to QUALITY_VIEWS views, the default run
+    to QUALITY_STEPS steps with evaluations at QUALITY_EVALS, no save and
+    no compress-eval), under build/chip_quality/ (removed after). The
+    launch counts are set to 0 just before and read just after. Gates: the
+    evidence files persisted, no checkpoint among them, every training
+    kernel launched, and the val PSNR rising from the first evaluation to
+    the last. Returns the run's launches."""
+    import importlib.util
+    import shutil
+
+    import torch
+    from gsplat_tpu_torch import _backend
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    spec = importlib.util.spec_from_file_location("torch_quality", os.path.join(here, "scripts", "torch_quality.py"))
+    tq = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tq)
+    root = quality_root()
+    shutil.rmtree(root, ignore_errors=True)
+    res = os.path.join(root, "results")
+    try:
+        _backend.reset_launch_counts()
+        t0 = time.perf_counter()
+        tq.main(["--data", os.path.join(root, "data"), "--out", os.path.join(root, "out"), "--results", res,
+                 "--runs", "default7k", "--n-views", str(QUALITY_VIEWS), "--default-steps", str(QUALITY_STEPS),
+                 "--default-eval-steps", *map(str, QUALITY_EVALS), "--default-save-steps", "--no-compress-eval"])
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = _backend.launch_counts()
+        run = os.path.join(res, "default7k")
+        kept = sorted(os.listdir(run))
+        want = ["cfg.json", "stats.jsonl", "train.log"] + [f"val_step{s_}.json" for s_ in QUALITY_EVALS]
+        vals = [json.load(open(os.path.join(run, f"val_step{s_}.json"))) for s_ in QUALITY_EVALS
+                if os.path.exists(os.path.join(run, f"val_step{s_}.json"))]
+        stats = [json.loads(line) for line in open(os.path.join(run, "stats.jsonl"))] \
+            if os.path.exists(os.path.join(run, "stats.jsonl")) else []
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    missing = [k for k in QUALITY_KERNELS if not launches.get(k)]
+    if not set(want) <= set(kept) or any(k.endswith((".npz", ".ply")) for k in kept) or missing \
+            or len(vals) != len(QUALITY_EVALS) or not all(np.isfinite(v["psnr"]) for v in vals) \
+            or not vals[-1]["psnr"] > vals[0]["psnr"] or not stats:
+        raise AssertionError(f"19: files kept {kept} (want {want}, no checkpoint), kernels never launched {missing}, "
+                             f"evaluations {vals}")
+    psnrs = ", ".join("%d: %.3f" % (v["step"], v["psnr"]) for v in vals)
+    log(f"19 quality driver (scripts/torch_quality.py, {QUALITY_VIEWS} views of 648x420, default to "
+        f"{QUALITY_STEPS} steps): {run_s:.1f} s with the scene's write; val PSNR {psnrs}, SSIM {vals[-1]['ssim']:.4f}, num_GS "
+        f"{vals[-1]['num_GS']}; loss {stats[0]['loss']:.4f} at step 0; files {kept}; launches "
+        f"{({k: v for k, v in launches.items() if v})} (card: {smi})")
+    return launches
 
 
 def main():
@@ -5301,11 +5395,16 @@ def main():
     for k in kernels:
         k["launches_dataset_extras"] = extras_launches.get(k["name"], 0)
     t14 = time.perf_counter()
+    quality_launches = phase_quality(smi)
+    for k in kernels:
+        k["launches_quality"] = quality_launches.get(k["name"], 0)
+    t15 = time.perf_counter()
     log(f"phase wall times: build + kernel vs plain {t1 - t0:.1f} s, serving {t2 - t1:.1f} s, "
         f"training {t3 - t2:.1f} s, 2DGS training {t4 - t3:.1f} s, 2DGS serving {t5 - t4:.1f} s, "
         f"tiled serving and training {t6 - t5:.1f} s, op API {t7 - t6:.1f} s, MCMC training {t8 - t7:.1f} s, "
         f"COLMAP trainer {t9 - t8:.1f} s, micro-benchmarks {t10 - t9:.1f} s, multi-GPU rendering {t11 - t10:.1f} s, "
-        f"multi-GPU training {t12 - t11:.1f} s, apps {t13 - t12:.1f} s, dataset extras {t14 - t13:.1f} s; the "
+        f"multi-GPU training {t12 - t11:.1f} s, apps {t13 - t12:.1f} s, dataset extras {t14 - t13:.1f} s, "
+        f"quality driver {t15 - t14:.1f} s; the "
         f"script {time.perf_counter() - SCRIPT_T0:.1f} s (card: {smi})")
     log(json.dumps({"kernels": kernels}))
     log(f"card: {smi}")

@@ -1,13 +1,25 @@
-// Baseline and extended-sequential JPEG decoder on the host, to RGB.
+// Baseline, extended-sequential and progressive JPEG decoder on the host,
+// to RGB.
 //
 // The port's datasets read photographs without PIL (datasets/image_io.py
 // ::decode_jpeg binds this file through ctypes; it is built with g++ at
 // first use). Its result is the bits of
 // np.asarray(PIL.Image.open(path).convert("RGB")), that is libjpeg-turbo's
 // defaults as Pillow calls them:
-//   - Huffman decoding of SOF0 / SOF1 scans, 8-bit samples, 1 or 3
+//   - Huffman decoding of SOF0 / SOF1 / SOF2 scans, 8-bit samples, 1 or 3
 //     components, restart intervals, several DHT / DQT segments (8- and
 //     16-bit quantization tables), interleaved and single-component scans;
+//   - a sequential scan's block goes through the IDCT as it is decoded; a
+//     progressive file's scans decode into one coefficient buffer per
+//     component (int16 [blocks_h][blocks_w][64], natural order): DC first
+//     and refinement scans, AC first scans with their EOB runs and AC
+//     refinement scans follow jdphuff.c (decode_mcu_DC_first, _DC_refine,
+//     _AC_first, _AC_refine); a component's quantization table is latched
+//     at its first scan, as libjpeg latches it;
+//   - after a progressive file's EOI the buffer goes through the IDCT; one
+//     whose scans leave some component's coefficient 1-9 unrefined (Al >
+//     0, or never sent) is refused, since libjpeg would then smooth the
+//     blocks (jdcoefct.c smoothing_ok / decompress_smooth_data);
 //   - jpeg_idct_islow (CONST_BITS 13, PASS1_BITS 2, the post-IDCT range
 //     limit table that wraps around 128);
 //   - fancy upsampling: h2v1_fancy_upsample and h2v2_fancy_upsample where
@@ -18,9 +30,10 @@
 //     transform 0 or the component ids 'R', 'G', 'B' mean RGB as stored;
 //   - grey repeated to RGB; EXIF orientation ignored (convert("RGB")
 //     ignores it).
-// Progressive, arithmetic, lossless, hierarchical and 12-bit files and
-// 2- or 4-component files are refused with a message naming the marker or
-// the component count.
+// Arithmetic, lossless, hierarchical and 12-bit files, 2- or 4-component
+// files and progressive files with unrefined bits are refused with a
+// message naming the marker, the component count or the bits. A file cut
+// short (no EOI) is refused too.
 //
 // C interface: jd_info(data, n, info[5], err, errlen) reads the headers
 // (width, height, components, SOF marker, precision); jd_decode(data, n,
@@ -95,10 +108,18 @@ struct Huff {
 struct Component {
   int id = 0, h = 1, v = 1, tq = 0;
   int td = 0, ta = 0;
-  int dw = 0, dh = 0;         // downsampled width and height
-  int bw = 0, bh = 0;         // blocks of the plane
+  int dw = 0, dh = 0;          // downsampled width and height
+  int bw = 0, bh = 0;          // blocks of the plane (the MCU-padded grid)
+  std::vector<int16_t> coef;   // progressive: bw x bh blocks of 64 coefficients, natural order
   std::vector<uint8_t> plane;  // bw*8 x bh*8 samples
   int dc = 0;
+  bool q_latched = false;
+  uint16_t q[64];
+  // the bit each coefficient was last refined to (libjpeg's coef_bits):
+  // -1 before any scan sent it
+  int coef_bits[64];
+
+  int16_t *block(int bx, int by) { return &coef[(static_cast<size_t>(by) * bw + bx) * 64]; }
 };
 
 struct Decoder {
@@ -111,6 +132,8 @@ struct Decoder {
   bool qt_defined[4] = {false, false, false, false};
   Huff dc_tab[4], ac_tab[4];
   int restart = 0;
+  bool progressive = false;
+  int eobrun = 0;
   bool jfif = false, adobe = false;
   int adobe_transform = -1;
   bool frame_done = false;
@@ -173,8 +196,10 @@ struct Decoder {
     width = word();
     ncomp = byte();
     sof = m;
-    if (m != 0xC0 && m != 0xC1)
-      throw Error{sof_name(m) + " is not decoded: only baseline and extended-sequential Huffman JPEGs (SOF0, SOF1)"};
+    if (m != 0xC0 && m != 0xC1 && m != 0xC2)
+      throw Error{sof_name(m) + " is not decoded: only baseline, extended-sequential and progressive Huffman "
+                  "JPEGs (SOF0, SOF1, SOF2)"};
+    progressive = m == 0xC2;
     if (precision != 8)
       throw Error{"a " + std::to_string(precision) + "-bit JPEG is not decoded: only 8-bit samples"};
     if (ncomp != 1 && ncomp != 3)
@@ -205,7 +230,9 @@ struct Decoder {
       k.dh = (height * k.v + vmax - 1) / vmax;
       k.bw = mcux * k.h;
       k.bh = mcuy * k.v;
+      if (progressive) k.coef.assign(static_cast<size_t>(k.bw) * k.bh * 64, 0);
       k.plane.assign(static_cast<size_t>(k.bw) * 8 * k.bh * 8, 0);
+      for (int i = 0; i < 64; ++i) k.coef_bits[i] = -1;
     }
     frame_done = true;
   }
@@ -335,6 +362,7 @@ struct Decoder {
   }
 
   // ------------------------------------------------------------- one block
+  // a sequential scan's block: every coefficient at once, then the IDCT
   void decode_block(Component &k, int bx, int by) {
     int16_t coef[64];
     std::memset(coef, 0, sizeof(coef));
@@ -355,7 +383,84 @@ struct Decoder {
         i += 15;
       }
     }
-    idct_islow(coef, qt[k.tq], &k.plane[(static_cast<size_t>(by) * 8 * k.bw + bx) * 8], k.bw * 8);
+    idct_islow(coef, k.q, &k.plane[(static_cast<size_t>(by) * 8 * k.bw + bx) * 8], k.bw * 8);
+  }
+
+  // progressive scans (jdphuff.c): the DC band's first scan and refinements
+  void dc_first(Component &k, int bx, int by, int al) {
+    int s = decode(dc_tab[k.td]);
+    k.dc += s ? extend(bits(s), s) : 0;
+    k.block(bx, by)[0] = static_cast<int16_t>(k.dc * (1 << al));
+  }
+  void dc_refine(Component &k, int bx, int by, int al) {
+    if (bits(1)) k.block(bx, by)[0] |= static_cast<int16_t>(1 << al);
+  }
+
+  // an AC band's first scan: coefficients ss..se, or a block of an EOB run
+  void ac_first(Component &k, int bx, int by, int ss, int se, int al) {
+    if (eobrun > 0) {
+      --eobrun;
+      return;
+    }
+    int16_t *coef = k.block(bx, by);
+    const Huff &act = ac_tab[k.ta];
+    for (int i = ss; i <= se; ++i) {
+      int rs = decode(act);
+      int r = rs >> 4, s = rs & 15;
+      if (s) {
+        i += r;
+        coef[kNatural[i]] = static_cast<int16_t>(extend(bits(s), s) * (1 << al));
+      } else if (r == 15) {
+        i += 15;
+      } else {
+        eobrun = (1 << r) - 1;
+        if (r) eobrun += bits(r);
+        break;
+      }
+    }
+  }
+
+  // an AC band's refinement (decode_mcu_AC_refine): a new coefficient is
+  // +-1 at bit al; each already-nonzero coefficient passed over takes a
+  // correction bit that moves it away from zero
+  void ac_refine(Component &k, int bx, int by, int ss, int se, int al) {
+    int16_t *coef = k.block(bx, by);
+    const int p1 = 1 << al, m1 = -(1 << al);
+    auto correct = [&](int16_t &c) {
+      if (bits(1) && (c & p1) == 0) c = static_cast<int16_t>(c + (c >= 0 ? p1 : m1));
+    };
+    int i = ss;
+    if (eobrun == 0) {
+      for (; i <= se; ++i) {
+        int rs = decode(ac_tab[k.ta]);
+        int r = rs >> 4, s = rs & 15;
+        if (s) {
+          s = bits(1) ? p1 : m1;  // s != 1 is corrupt data; libjpeg warns and goes on
+        } else if (r != 15) {
+          eobrun = 1 << r;
+          if (r) eobrun += bits(r);
+          break;
+        }
+        // pass over r zero coefficients, correcting the nonzero ones
+        do {
+          int16_t &c = coef[kNatural[i]];
+          if (c != 0) {
+            correct(c);
+          } else if (--r < 0) {
+            break;
+          }
+          ++i;
+        } while (i <= se);
+        if (s) coef[kNatural[i]] = static_cast<int16_t>(s);
+      }
+    }
+    if (eobrun > 0) {
+      for (; i <= se; ++i) {
+        int16_t &c = coef[kNatural[i]];
+        if (c != 0) correct(c);
+      }
+      --eobrun;
+    }
   }
 
   // IDCT_range_limit: x -> x + 128 clamped, indexed by x & 1023
@@ -495,14 +600,43 @@ struct Decoder {
       if (!sc[i]) throw Error{"SOS names an unknown component"};
       sc[i]->td = t >> 4;
       sc[i]->ta = t & 15;
-      if (sc[i]->td > 3 || sc[i]->ta > 3 || !dc_tab[sc[i]->td].defined || !ac_tab[sc[i]->ta].defined)
-        throw Error{"SOS names an undefined Huffman table"};
-      if (!qt_defined[sc[i]->tq]) throw Error{"a component's quantization table is undefined"};
     }
     int ss = byte(), se = byte(), ahal = byte();
+    int ah = ahal >> 4, al = ahal & 15;
     if (pos != end) throw Error{"bad SOS length"};
-    if (ss != 0 || se != 63 || ahal != 0) throw Error{"a sequential scan must cover coefficients 0-63"};
+    if (!progressive && (ss != 0 || se != 63 || ahal != 0))
+      throw Error{"a sequential scan must cover coefficients 0-63"};
+    // start_pass_phuff_decoder's checks
+    if (progressive && ((ss == 0 ? se != 0 : (ss > se || se > 63 || ns != 1)) || (ah != 0 && al != ah - 1) ||
+                        al > 13))
+      throw Error{"bad progressive scan: Ss " + std::to_string(ss) + ", Se " + std::to_string(se) + ", Ah " +
+                  std::to_string(ah) + ", Al " + std::to_string(al) + ", " + std::to_string(ns) + " components"};
+    // the tables the scan reads: a DC refinement reads none, an AC scan no DC table
+    const bool need_dc = !progressive || (ss == 0 && ah == 0), need_ac = !progressive || ss > 0;
+    for (int i = 0; i < ns; ++i) {
+      Component &k = *sc[i];
+      if ((need_dc && (k.td > 3 || !dc_tab[k.td].defined)) || (need_ac && (k.ta > 3 || !ac_tab[k.ta].defined)))
+        throw Error{"SOS names an undefined Huffman table"};
+      if (!k.q_latched) {
+        if (!qt_defined[k.tq]) throw Error{"a component's quantization table is undefined"};
+        std::memcpy(k.q, qt[k.tq], sizeof(k.q));
+        k.q_latched = true;
+      }
+      if (progressive) {
+        if (ss > 0 && k.coef_bits[0] < 0)
+          throw Error{"bad progression: an AC scan before the component's first DC scan"};
+        for (int c = ss; c <= se; ++c) {
+          if (ah != (k.coef_bits[c] < 0 ? 0 : k.coef_bits[c]))
+            throw Error{"bad progression: coefficient " + std::to_string(c) + " refined from bit " +
+                        std::to_string(ah) + " where it is at " + std::to_string(k.coef_bits[c])};
+          k.coef_bits[c] = al;
+        }
+      } else {
+        for (int c = 0; c < 64; ++c) k.coef_bits[c] = 0;
+      }
+    }
     for (int i = 0; i < ns; ++i) sc[i]->dc = 0;
+    eobrun = 0;
     reset_bits();
     at_marker = false;
     int mcux, mcuy;
@@ -518,19 +652,29 @@ struct Decoder {
       for (int mx = 0; mx < mcux; ++mx) {
         if (restart) {
           if (left == 0) {
+            // the DC predictors and the EOB run end at RSTn
             restart_marker();
             for (int i = 0; i < ns; ++i) sc[i]->dc = 0;
+            eobrun = 0;
             left = restart;
           }
           --left;
         }
+        auto one = [&](Component &k, int bx, int by) {
+          if (!progressive)
+            decode_block(k, bx, by);
+          else if (ss == 0)
+            ah == 0 ? dc_first(k, bx, by, al) : dc_refine(k, bx, by, al);
+          else
+            ah == 0 ? ac_first(k, bx, by, ss, se, al) : ac_refine(k, bx, by, ss, se, al);
+        };
         if (ns == 1) {
-          decode_block(*sc[0], mx, my);
+          one(*sc[0], mx, my);
         } else {
           for (int i = 0; i < ns; ++i) {
             Component &k = *sc[i];
             for (int v = 0; v < k.v; ++v)
-              for (int h = 0; h < k.h; ++h) decode_block(k, mx * k.h + h, my * k.v + v);
+              for (int h = 0; h < k.h; ++h) one(k, mx * k.h + h, my * k.v + v);
           }
         }
       }
@@ -562,6 +706,7 @@ struct Decoder {
         read_sos();
       } else if (m == 0xD9) {
         if (!frame_done) throw Error{"EOI before SOF"};
+        finish();
         return;
       } else if (m >= 0xE0 && m <= 0xEF) {
         read_app(m);
@@ -572,6 +717,46 @@ struct Decoder {
       } else {
         skip_segment();
       }
+    }
+  }
+
+  // ----------------------------------------------------- the coefficients
+  // After EOI: every component was sent; a progressive file's blocks that
+  // a row of the plane reads go through the IDCT, unless libjpeg would
+  // smooth them.
+  void finish() {
+    for (int c = 0; c < ncomp; ++c)
+      if (!comp[c].q_latched) throw Error{"no scan sent component " + std::to_string(c)};
+    if (!progressive) return;
+    // smoothing_ok (jdcoefct.c): every component's DC partly known, its
+    // quantizers of coefficients 0-9 nonzero, and some coefficient 1-9 not
+    // refined to bit 0
+    static const int kSmoothPos[10] = {0, 1, 8, 16, 9, 2, 3, 10, 17, 24};
+    bool ok = true, useful = false;
+    int which = -1, coefi = -1;
+    for (int c = 0; c < ncomp; ++c) {
+      const Component &k = comp[c];
+      if (k.coef_bits[0] < 0) ok = false;
+      for (int i = 0; i < 10 && ok; ++i)
+        if (k.q[kSmoothPos[i]] == 0) ok = false;
+      for (int i = 1; i < 10; ++i) {
+        if (k.coef_bits[i] != 0 && !useful) {
+          useful = true;
+          which = c;
+          coefi = i;
+        }
+      }
+    }
+    if (ok && useful)
+      throw Error{"coefficient bits left unrefined: libjpeg would smooth these blocks (component " +
+                  std::to_string(which) + "'s coefficient " + std::to_string(coefi) + " ends at bit " +
+                  std::to_string(comp[which].coef_bits[coefi]) + "; -1: never sent)"};
+    for (int c = 0; c < ncomp; ++c) {
+      Component &k = comp[c];
+      const int nbx = (k.dw + 7) / 8, nby = (k.dh + 7) / 8;
+      for (int by = 0; by < nby; ++by)
+        for (int bx = 0; bx < nbx; ++bx)
+          idct_islow(k.block(bx, by), k.q, &k.plane[(static_cast<size_t>(by) * 8 * k.bw + bx) * 8], k.bw * 8);
     }
   }
 

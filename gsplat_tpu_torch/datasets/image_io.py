@@ -18,11 +18,13 @@ that its files decode with whole-row operations; `encode_png` returns the
 same file's bytes in memory.
 
 JPEGs are decoded by the port's own C++ decoder (`decode_jpeg`,
-``csrc/jpeg_decode.cpp``, built with g++ at first use): baseline and
-extended-sequential Huffman files give PIL's ``convert("RGB")`` bits;
-progressive, arithmetic, lossless, 12-bit and CMYK files raise
-``RuntimeError`` naming what they are. Other formats go through PIL where
-it can be imported.
+``csrc/jpeg_decode.cpp``, built with g++ at first use): baseline,
+extended-sequential and progressive Huffman files give PIL's
+``convert("RGB")`` bits; arithmetic, lossless, 12-bit and CMYK files, a
+progressive file whose scans leave coefficient bits unrefined (libjpeg
+would smooth its blocks) and a file cut short raise ``RuntimeError``
+naming what they are. No JPEG goes to PIL. Other formats go through PIL
+where it can be imported.
 
 `resize_bilinear` is PIL's bilinear resize and `remap_bilinear` cv2's
 bilinear remap, for the datasets' resize and undistortion.
@@ -370,10 +372,12 @@ def _jpeg_lib():
 
 def decode_jpeg(data: bytes, path: str = "<bytes>") -> np.ndarray:
     """A JPEG file's bytes as RGB uint8 [H, W, 3], the bits of
-    ``np.asarray(PIL.Image.open(path).convert("RGB"))`` for baseline and
-    extended-sequential Huffman files of 1 or 3 components. Other JPEGs
-    (progressive, arithmetic, lossless, 12-bit, CMYK) raise RuntimeError
-    naming the SOF marker or the component count (``path`` names the file).
+    ``np.asarray(PIL.Image.open(path).convert("RGB"))`` for baseline,
+    extended-sequential and progressive Huffman files of 1 or 3
+    components. Other JPEGs (arithmetic, lossless, 12-bit, CMYK) raise
+    RuntimeError naming the SOF marker or the component count, a
+    progressive file with unrefined coefficient bits naming them, a file
+    cut short saying so (``path`` names the file).
     Each call adds one to ``_backend.HOST_CALLS["jpeg_decode"]``."""
     from .._backend import HOST_CALLS
 

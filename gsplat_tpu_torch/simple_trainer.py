@@ -747,6 +747,7 @@ class Runner:
             self.isect_capacity = _round_up(
                 max(int(need * self.cfg.isect_headroom * 1.5), 65536), 4096
             )
+            self._log(f"[isect] probed slab_required={need} -> capacity {self.isect_capacity}")
 
     def _grow_isect(self, need: int) -> None:
         """Grow the intersection budget when a step's ``slab_required`` (on
@@ -758,6 +759,7 @@ class Runner:
         if need > cap:
             self._log(f"[isect] need {need} exceeded capacity {cap}; this step was truncated")
         self.isect_capacity = _round_up(max(int(need * self.cfg.isect_headroom), 2 * cap), 4096)
+        self._log(f"[isect] n_isects={need} -> capacity {self.isect_capacity}")
 
     def _projected_final_live(self, step: Optional[int], n_live: int) -> Optional[float]:
         """The live count at densification stop, extrapolated log-linearly
